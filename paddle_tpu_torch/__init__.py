@@ -1,0 +1,12 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
+
+Module names mirror the JAX package (paddle_tpu/) so each port module's
+counterpart is easy to find.  The port imports torch and never jax, nor
+anything of paddle_tpu.  Its entry points run on the CUDA card unless the
+caller passes device="cpu" (device.py).  This first slice serves the
+decoder-only transformer LM through a continuous-batching engine with
+paged KV, reading attention through a hand-written CUDA kernel
+(csrc/paged_attention.cu).
+"""
+
+from paddle_tpu_torch.device import resolve_device  # noqa: F401

@@ -1,0 +1,45 @@
+"""Layer registry: LayerConfig.type string -> implementation function.
+
+A layer implementation is a function (ctx, cfg) -> Argument on tensors,
+as in paddle_tpu/graph/registry.py.  The serving slice implements the
+layers the transformer LM runs at inference; the cost and validation
+types are known by name so that the engine can tell the model's output
+layer from its training head.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+LayerFn = Callable[..., "Argument"]  # noqa: F821
+
+layer_registry: dict[str, LayerFn] = {}
+
+# the JAX package's cost and validation layer types; their implementations
+# come with the training slice of the port
+cost_layer_types = frozenset({
+    "multi-class-cross-entropy", "multi_class_cross_entropy_with_selfnorm",
+    "soft_binary_class_cross_entropy", "multi_binary_label_cross_entropy",
+    "square_error", "rank-cost", "huber_classification", "huber",
+    "sum_cost", "lambda_cost", "crf", "ctc", "nce", "hsigmoid"})
+validation_layer_types = frozenset({"auc-validation", "pnpair-validation"})
+
+
+def register_layer(*type_names: str):
+    def deco(fn: LayerFn) -> LayerFn:
+        for name in type_names:
+            if name in layer_registry:
+                raise ValueError(f"duplicate layer type {name!r}")
+            layer_registry[name] = fn
+        return fn
+    return deco
+
+
+def get_layer_fn(type_name: str) -> LayerFn:
+    try:
+        return layer_registry[type_name]
+    except KeyError:
+        raise NotImplementedError(
+            f"layer type {type_name!r} is not ported yet (ROADMAP.md, "
+            f"PyTorch/CUDA port queue); ported: "
+            f"{sorted(layer_registry)}") from None

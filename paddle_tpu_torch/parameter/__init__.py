@@ -1,0 +1,5 @@
+from paddle_tpu_torch.parameter.argument import Argument  # noqa: F401
+from paddle_tpu_torch.parameter.init import (  # noqa: F401
+    init_params,
+    params_from_jax,
+)
