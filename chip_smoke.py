@@ -4,15 +4,15 @@
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — compile every CUDA kernel of the serving path from the
-               sources in this checkout (nvcc, sm_90a), one nvcc per source
-               started together;
+  2. build   — compile every CUDA kernel of the serving and training paths
+               from the sources in this checkout (nvcc, sm_90a), one nvcc
+               per source started together;
   3. kernel  — the ragged paged-attention kernel against its plain PyTorch
                version at decode and mixed-step shapes (GQA, page sizes 16
                and 8, lengths 1..768), float32 (atol 2e-5) and bfloat16
                (against the plain version in float32 on the same bfloat16
                inputs, atol 2e-2);
-  4. serve   — the main path: the transformer LM at full width (vocab
+  4. serve   — the serving path: the transformer LM at full width (vocab
                32000, dim 512, 8 layers, 8 heads, bfloat16, random weights
                from seed 1) serving 32 requests through ServingEngine; the
                kernel must launch once per attention layer per step and the
@@ -23,10 +23,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
   5. routes  — float32, 2 layers at full width: the engine reading through
                the kernel against the engine reading through the page-table
                gather (attn_impl='dense'), lm_head rows at the first mixed
-               and first decode step within atol 1e-5.
-The line before the last is a JSON object with each kernel's numbers; the
-last line is {"ok": true, "device": {...}}.  Exits non-zero without a
-result when CUDA is not available.
+               and first decode step within atol 1e-5;
+  6. flash   — the three flash-attention kernels (forward, backward dQ,
+               backward dK/dV) against their plain versions at B=2,
+               T=2048, H=8 (H_kv 8 and 2), D=64: causal and not, a ragged
+               key mask with Tq != Tk, window 256, nonzero offsets; float32
+               (o, lse within 2e-5, gradients within 2e-5 of their max) and
+               bfloat16 (against the plain version in float32 on the same
+               inputs: o per element within 2^-7 |ref| + 1e-3, lse within
+               2e-5, gradients within 1e-2 of their max);
+  7. train   — the training path: Trainer on the transformer LM at full
+               width in bfloat16 (seed 1), batches [8, 2048] of a
+               repeated-motif token stream, warm-up steps then timed steps;
+               every loss finite, the last 3 below the first 3, each flash
+               kernel launched once per layer per step and the plain
+               versions never; a save() -> fresh Trainer.load() round trip
+               exact; tokens/s, ms/step, a torch.profiler pass over two
+               steps; then the flash kernels at the run's shape [8, 2048,
+               8, 64] bf16 causal against their plain versions (the bf16
+               limits above; their errors are the kernels line's), the o
+               limit rejecting the kernel's o with one key tile dropped,
+               and each kernel's time per launch beside its bound, its
+               plain version's time and scaled_dot_product_attention's (a
+               yardstick, never called by the port);
+  8. train-routes — float32, 2 layers at full width, B=2, T=2048: one
+               training step's loss and gradients through the flash kernels
+               against the same step through dense attention
+               (attn_impl='dense'): loss within 1e-5 relative, every
+               gradient within 1e-4 of its max.
+The last three lines of the output are a JSON object with each kernel's
+numbers, the card's name and power limit as nvidia-smi gives them, and
+{"ok": true, "device": {...}}.  Exits non-zero without a result when CUDA
+is not available.
 """
 
 from __future__ import annotations
@@ -63,9 +91,10 @@ def phase_device() -> str:
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    kernels = {"paged_attention": pa.kernel}
+    kernels = {"paged_attention": pa.kernel, "flash_attention": fa.kernel}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         built = dict(zip(kernels, pool.map(lambda k: k.library(),
@@ -283,7 +312,14 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
             f"launches for {steps} steps x {layers} layers, {plain_calls} "
             f"plain calls")
 
-    profile_serving(eng, reqs, smi)
+    def serve_eight():
+        # the first 8 requests (all 32 make the profiler's post-processing
+        # take minutes)
+        steps0 = eng.n_decode_steps
+        eng.run(reqs[:8])
+        return eng.n_decode_steps - steps0
+
+    profile_run(serve_eight, "8 requests", smi)
     kern_ms = time_launches(pa.paged_attention, recorded)
     plain_ms = time_launches(pa.paged_attention_plain, recorded)
     bound = [launch_bytes_flops(a, 2) for a in recorded]
@@ -308,21 +344,20 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
             "library_ms": None}
 
 
-def profile_serving(eng, reqs, smi: str) -> None:
-    """The first 8 requests of the workload once more under torch.profiler
-    (all 32 make the profiler's post-processing take minutes): the
-    device's busy share of the wall time and the kernels that take it."""
+def profile_run(run, what: str, smi: str) -> None:
+    """run() once more under torch.profiler (it returns the number of steps
+    it made): the device's busy share of the wall time and the kernels that
+    take it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    steps0 = eng.n_decode_steps
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(reqs[:8])
+        steps = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    steps = eng.n_decode_steps - steps0
 
     def dev_us(e):
         return float(getattr(e, "self_device_time_total", 0.0)
@@ -330,16 +365,16 @@ def profile_serving(eng, reqs, smi: str) -> None:
 
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not kernels:
+        log(f"[profile] {what}: wall {wall_ms:.1f} ms (profiler on); device "
+            f"time not measured: the profiler saw no CUDA events")
+        return
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
-    if not kernels:
-        log(f"[profile] wall {wall_ms:.1f} ms (profiler on); device time "
-            f"not measured: the profiler saw no CUDA events")
-        return
-    log(f"[profile] 8 requests: wall {wall_ms:.1f} ms over {steps} steps "
-        f"(profiler on); device busy {busy_ms:.1f} ms = {busy_ms / wall_ms:.1%}, idle "
-        f"{1 - busy_ms / wall_ms:.1%}; {n_launch} kernel launches = "
-        f"{n_launch / steps:.0f}/step [{smi}]")
+    log(f"[profile] {what}: wall {wall_ms:.1f} ms over {steps} steps "
+        f"(profiler on); device busy {busy_ms:.1f} ms = "
+        f"{busy_ms / wall_ms:.1%}, idle {1 - busy_ms / wall_ms:.1%}; "
+        f"{n_launch} kernel launches = {n_launch / steps:.0f}/step [{smi}]")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"[profile]   {dev_us(e) / 1e3:8.2f} ms {e.count:6d}x "
             f"{dev_us(e) / busy_ms / 10:5.1f}%  {e.key[:90]}")
@@ -391,6 +426,345 @@ def phase_routes() -> None:
     log(f"[routes] token agreement kernel vs gather: {np.mean(same):.4f} "
         f"(random weights give near-ties; not a gate)")
 
+# (name, Tq, Tk, H_kv, causal, window, q_offset, k_offset, ragged keys)
+FLASH_CASES = [("causal", 2048, 2048, 8, True, None, 0, 0, False),
+               ("causal-gqa", 2048, 2048, 2, True, None, 0, 0, False),
+               ("full", 2048, 2048, 8, False, None, 0, 0, False),
+               ("full-gqa", 2048, 2048, 2, False, None, 0, 0, False),
+               ("ragged", 1536, 2048, 2, False, None, 0, 0, True),
+               ("window", 2048, 2048, 8, True, 256, 0, 0, False),
+               ("offsets", 2048, 2048, 2, True, None, 1000, 300, True)]
+# o: per element |err| <= rtol * |ref| + atol.  The bfloat16 kernels compute
+# in float32 and round o to bfloat16, at most 2^-8 of |ref|; at 2048 keys a
+# typical |o| is a few hundredths, so an absolute limit would be as large as
+# the value.  Gradients: within GRAD_TOL of their max.  lse: within 2e-5.
+O_LIMIT = {torch.float32: (0.0, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-3)}
+GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def o_limit_share(got, want, dtype) -> float:
+    """The largest |got - want| as a share of its per-element limit
+    rtol * |want| + atol (at most 1 passes)."""
+    rtol, atol = O_LIMIT[dtype]
+    return float(((got.float() - want).abs()
+                  / (rtol * want.abs() + atol)).max())
+
+
+def flash_errors(q, k, v, kvm, do, dlse, **mask):
+    """The three flash kernels on these inputs against their plain versions
+    in float32 on the same inputs.  The backward is compared from the
+    kernel's own o and lse, so each check isolates one kernel.  Returns the
+    errors (with "ok"), the kernel's (o, lse) and the plain version's o."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    o, lse = fa.flash_attention_fwd(q, k, v, kvm, **mask)
+    got = fa.flash_attention_bwd(q, k, v, kvm, o, lse, do, dlse, **mask)
+    torch.cuda.synchronize()
+    f = [x.float() for x in (q, k, v)]
+    want_o, want_lse = fa.flash_attention_plain(*f, kvm, **mask)
+    want = fa.flash_attention_bwd_plain(*f, kvm, o.float(), lse, do.float(),
+                                        dlse, **mask)
+    fin = torch.isfinite(want_lse)
+    e = {"o": float((o.float() - want_o).abs().max()),
+         "o_share": o_limit_share(o, want_o, q.dtype),
+         "lse": float((lse[fin] - want_lse[fin]).abs().max())}
+    for n, a, b in zip(("dq", "dk", "dv"), got, want):
+        e[n] = float((a.float() - b).abs().max())
+        e[n + "_rel"] = e[n] / float(b.abs().max())
+    e["ok"] = (e["o_share"] <= 1 and e["lse"] <= 2e-5
+               and max(e["dq_rel"], e["dk_rel"], e["dv_rel"])
+               <= GRAD_TOL[q.dtype]
+               and torch.equal(torch.isfinite(lse), fin)
+               and all(bool(torch.isfinite(t).all()) for t in (o, *got)))
+    return e, (o, lse), want_o
+
+
+def flash_line(e: dict, dtype) -> str:
+    rtol, atol = O_LIMIT[dtype]
+    return (f"o {e['o']:.2e} = {e['o_share']:.3f} of its limit ({rtol:g}"
+            f"|ref| + {atol:g}) lse {e['lse']:.2e} (2e-05) dq/dk/dv "
+            f"{e['dq_rel']:.2e}/{e['dk_rel']:.2e}/{e['dv_rel']:.2e} of max "
+            f"(tol {GRAD_TOL[dtype]:g}) {'ok' if e['ok'] else 'FAIL'}")
+
+
+def phase_flash() -> None:
+    """The three flash kernels against their plain versions at B=2 over the
+    mask cases, with a random lse cotangent."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    B, H, D = 2, 8, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, Tq, Tk, h_kv, causal, window, qo, ko, ragged in \
+                FLASH_CASES:
+            q, do = (torch.randn(B, Tq, H, D, generator=g,
+                                 device="cuda").to(dtype) for _ in range(2))
+            k, v = (torch.randn(B, Tk, h_kv, D, generator=g,
+                                device="cuda").to(dtype) for _ in range(2))
+            kvm = torch.ones(B, Tk, dtype=torch.bool, device="cuda")
+            if ragged:
+                kvm[0, :100] = False
+                kvm[1, Tk // 2:] = False
+            dlse = 0.1 * torch.randn(B, H, Tq, generator=g, device="cuda")
+            e, _, _ = flash_errors(q, k, v, kvm, do, dlse, causal=causal,
+                                   q_offset=qo, k_offset=ko, window=window)
+            log(f"[flash] {str(dtype)[6:]:8s} {name:10s} Tq={Tq} Tk={Tk} "
+                f"H={H} H_kv={h_kv} {flash_line(e, dtype)}")
+            if not e["ok"]:
+                raise AssertionError(f"flash kernels disagree with their "
+                                     f"plain versions ({dtype}, {name})")
+
+
+def lm_batches(n: int, B: int, T: int, vocab: int, seed: int,
+               motifs: int = 8, short_last: int = 0):
+    """Batches of the repeated-motif token language of
+    demo/model_zoo/lm_provider.py (_synthetic: `motifs` motifs of 3..7
+    tokens, sequences of T + 1 tokens starting at BOS = 1), as numpy; the
+    last row of each batch is `short_last` tokens shorter."""
+    from paddle_tpu_torch.parameter import Argument
+    motif_rng = np.random.default_rng(7)
+    table = [motif_rng.integers(2, vocab, motif_rng.integers(3, 8))
+             for _ in range(motifs)]
+    rng = np.random.default_rng(seed)
+    lens = np.full(B, T, np.int32)
+    lens[-1] = T - short_last
+    out = []
+    for _ in range(n):
+        ids = np.empty((B, T + 1), np.int32)
+        for r in range(B):
+            seq = [1]
+            while len(seq) < T + 1:
+                seq.extend(table[int(rng.integers(0, motifs))].tolist())
+            ids[r] = seq[:T + 1]
+        out.append({"tokens": Argument(ids=ids[:, :-1], lengths=lens),
+                    "next_tokens": Argument(ids=ids[:, 1:], lengths=lens)})
+    return out
+
+
+def time_call(fn, n: int) -> float:
+    """Mean ms of fn() over n calls, CUDA events around the run, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def phase_train(smi: str) -> list:
+    import tempfile
+
+    from paddle_tpu_torch.models import transformer_lm_trainer_config
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.trainer import Trainer
+
+    vocab, layers, B, T = 32000, 8, 8, 2048
+    warm, timed = 3, 8
+    cfg = transformer_lm_trainer_config(vocab=vocab, dim=512, layers=layers,
+                                        heads=8, batch_size=B,
+                                        compute_dtype="bfloat16")
+    tr = Trainer(cfg, seed=1)
+    batches = lm_batches(warm + timed + 2, B, T, vocab, seed=1)
+    # warm-up pass (allocator, library handles); its cost is the mean loss
+    # of the first `warm` steps
+    first = tr.train_one_pass(batches[:warm])["cost"]
+    torch.cuda.synchronize()
+    per_step, losses = [], []
+    fa.counts.reset()
+    t0 = time.perf_counter()
+    for b in batches[warm:warm + timed]:
+        c0 = (fa.counts.fwd, fa.counts.bwd_dq, fa.counts.bwd_dkv,
+              fa.counts.plain)
+        losses.append(tr.train_one_batch(b))
+        per_step.append(tuple(x - y for x, y in zip(
+            (fa.counts.fwd, fa.counts.bwd_dq, fa.counts.bwd_dkv,
+             fa.counts.plain), c0)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.counts.fwd, "flash_bwd_dq": fa.counts.bwd_dq,
+                "flash_bwd_dkv": fa.counts.bwd_dkv}
+    plain_calls = fa.counts.plain
+    losses = [float(x) for x in losses]
+    tokens = timed * B * T
+    log(f"[train] {timed} steps of [{B}, {T}] in {wall:.3f}s = "
+        f"{tokens / wall:.1f} tokens/s, {wall / timed * 1e3:.2f} ms/step; "
+        f"mean loss of the first {warm} (warm-up) steps {first:.4f}, "
+        f"losses {' '.join(f'{x:.4f}' for x in losses)}; kernel launches "
+        f"{launches}, plain calls {plain_calls} [{smi}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not np.mean(losses[-3:]) < first:
+        raise AssertionError(f"loss did not fall: first {warm} mean "
+                             f"{first}, last 3 {losses[-3:]}")
+    if any(c != (layers, layers, layers, 0) for c in per_step):
+        raise AssertionError(f"main path did not run through the flash "
+                             f"kernels once per layer per step: {per_step}")
+
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        tr.save(d)
+        fresh = Trainer(cfg, seed=1)
+        fresh.load(d)
+        same = all(torch.equal(fresh.params[n], p)
+                   for n, p in tr.params.items())
+        same &= all(torch.equal(fresh.opt_state["slots"][n][k], v)
+                    for n, sl in tr.opt_state["slots"].items()
+                    for k, v in sl.items())
+        same &= all(fresh.opt_state[k] == tr.opt_state[k]
+                    for k in ("num_samples", "num_updates", "pass_id"))
+        log(f"[train] checkpoint save -> fresh Trainer.load in "
+            f"{time.perf_counter() - t1:.1f}s: parameters, Adam slots and "
+            f"counters {'identical' if same else 'DIFFER'}")
+        del fresh
+    if not same:
+        raise AssertionError("checkpoint round trip changed the state")
+
+    def train_two():
+        for b in batches[warm + timed:]:
+            tr.train_one_batch(b)
+        return 2
+
+    profile_run(train_two, "2 training steps", smi)
+    del tr
+    torch.cuda.empty_cache()
+    return flash_records(launches, B, T, smi)
+
+
+def flash_records(launches: dict, B: int, T: int, smi: str) -> list:
+    """Each flash kernel at the training run's shapes (bf16, causal, all
+    keys valid, no lse cotangent): checked against its plain version in
+    float32 on the same inputs, then timed beside its bound, its plain
+    version and the library call: scaled_dot_product_attention's forward
+    for the forward kernel, its backward for the two backward kernels
+    together.  Also shows that the o limit rejects a faulty forward: the
+    kernel's o with one key tile (keys 1024..1087) masked out."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+    H, D = 8, 64
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g, device="cuda")
+                   .bfloat16() for _ in range(4))
+    kvm = torch.ones(B, T, dtype=torch.uint8, device="cuda")
+    scale = D ** -0.5
+    e, (o, lse), want_o = flash_errors(q, k, v, kvm, do, None, causal=True)
+    log(f"[train] flash kernels vs plain at [{B}, {T}, {H}, {D}] bf16 "
+        f"causal: {flash_line(e, bf16)}")
+    if not e["ok"]:
+        raise AssertionError("flash kernels disagree with their plain "
+                             "versions at the training run's shape")
+    dropped = kvm.clone()
+    dropped[:, 1024:1088] = 0
+    bad, _ = fa.flash_attention_fwd(q, k, v, dropped, True)
+    bad_share = o_limit_share(bad, want_o, bf16)
+    bad_abs = float((bad.float() - want_o).abs().max())
+    log(f"[train] faulty forward (key tile 1024..1087 dropped): o "
+        f"{bad_abs:.2e} = {bad_share:.3f} of its limit: "
+        f"{'rejected' if bad_share > 1 else 'NOT rejected'}")
+    if not bad_share > 1:
+        raise AssertionError("the o limit does not reject a dropped key tile")
+    del bad, dropped, want_o
+    err = {"flash_fwd": max(e["o"], e["lse"]), "flash_bwd_dq": e["dq"],
+           "flash_bwd_dkv": max(e["dk"], e["dv"])}
+    delta = fa.backward_delta(o, do, None)
+    bwd = (q, k, v, kvm, do, lse, delta, True, scale, 0, 0, None)
+    ms = {"flash_fwd": time_call(
+              lambda: fa.flash_attention_fwd(q, k, v, kvm, True), 10),
+          "flash_bwd_dq": time_call(lambda: fa.bwd_dq_kernel(*bwd), 10),
+          "flash_bwd_dkv": time_call(lambda: fa.bwd_dkv_kernel(*bwd), 10)}
+    plain_fwd = time_call(lambda: fa.flash_attention_plain(q, k, v, kvm,
+                                                           True), 3)
+    plain_bwd = time_call(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, kvm, o, lse, do, None, True), 3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        lib_fwd = time_call(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 10)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_bwd = time_call(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    # the work this run's inputs need: unmasked (q, k) pairs of the causal
+    # mask; per pair 2 D flops per product: forward QK^T and PV (2), dQ
+    # recomputes S and dP and forms dQ (3), dK/dV recompute S and dP and
+    # form dV and dK (4)
+    pairs = B * H * T * (T + 1) / 2
+    bthd, bht = B * T * H * D * 2, B * H * T * 4
+    work = {"flash_fwd": (4 * bthd + B * T + bht, 4 * D * pairs),
+            "flash_bwd_dq": (5 * bthd + B * T + 2 * bht, 6 * D * pairs),
+            "flash_bwd_dkv": (6 * bthd + B * T + 2 * bht, 8 * D * pairs)}
+    records = []
+    for name, src_line in (("flash_fwd", 113), ("flash_bwd_dq", 239),
+                           ("flash_bwd_dkv", 278)):
+        nbytes, flops = work[name]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        plain_ms = plain_fwd if name == "flash_fwd" else plain_bwd
+        lib_ms = lib_fwd if name == "flash_fwd" else lib_bwd
+        log(f"[train] {name} at [{B}, {T}, {H}, {D}] bf16 causal: "
+            f"{ms[name] * 1e3:.1f} us/launch; bound {bound_ms * 1e3:.1f} us "
+            f"({'operations' if flops_ms >= bytes_ms else 'bytes'}; "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) = "
+            f"{bound_ms / ms[name]:.1%} of the bound; plain version "
+            f"{plain_ms * 1e3:.1f} us{'' if name == 'flash_fwd' else ' (whole backward)'}; "
+            f"scaled_dot_product_attention {'forward' if name == 'flash_fwd' else 'backward'} "
+            f"{lib_ms * 1e3:.1f} us [{smi}]")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"paddle_tpu/ops/pallas_attention.py:{src_line}",
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": ms[name], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms})
+    return records
+
+
+def phase_train_routes() -> None:
+    from paddle_tpu_torch.models import transformer_lm_trainer_config
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parameter import init_params
+    from paddle_tpu_torch.trainer import Trainer
+
+    vocab = 32000
+    batch = lm_batches(1, 2, 2048, vocab, seed=3)[0]
+    params = None
+    got = {}
+    for impl in ("auto", "dense"):
+        cfg = transformer_lm_trainer_config(vocab=vocab, dim=512, layers=2,
+                                            heads=8, batch_size=2,
+                                            attn_impl=impl)
+        if params is None:
+            params = init_params(cfg.model_config, seed=1)
+        tr = Trainer(cfg, params=params)
+        fa.counts.reset()
+        loss, grads, _ = tr.compute_gradients(tr.prepare_batch(batch))
+        torch.cuda.synchronize()
+        got[impl] = (float(loss), grads, (fa.counts.fwd, fa.counts.bwd_dq,
+                                          fa.counts.bwd_dkv, fa.counts.plain))
+    (la, ga, ca), (ld, gd, cd) = got["auto"], got["dense"]
+    rel_loss = abs(la - ld) / abs(ld)
+    worst, worst_name = 0.0, ""
+    for n, g in gd.items():
+        e = float((ga[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        if e > worst:
+            worst, worst_name = e, n
+    log(f"[train-routes] fp32, 2 layers, [2, 2048]: loss flash {la:.6f} vs "
+        f"dense {ld:.6f} (rel {rel_loss:.2e}, tol 1e-5); worst gradient "
+        f"{worst:.2e} of its max ({worst_name}; tol 1e-4); flash launches "
+        f"{ca}, dense {cd}")
+    if ca != (2, 2, 2, 0) or cd != (0, 0, 0, 0):
+        raise AssertionError(f"routes did not take their paths: {ca}, {cd}")
+    if not (rel_loss <= 1e-5 and worst <= 1e-4 and set(ga) == set(gd)):
+        raise AssertionError("flash and dense training routes disagree")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -404,8 +778,11 @@ def main() -> int:
     err = phase_kernel()
     record = phase_serve(smi, err)
     phase_routes()
+    phase_flash()
+    flash = phase_train(smi)
+    phase_train_routes()
     log(f"[done] {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record] + flash}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

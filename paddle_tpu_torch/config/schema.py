@@ -333,7 +333,8 @@ class ModelConfig(_Serializable):
 @_schema
 @dataclass
 class OptimizationConfig(_Serializable):
-    """Optimizer settings; the serving slice reads only `compute_dtype`."""
+    """Optimizer settings (optim/updater.py reads them; serving reads only
+    `compute_dtype`)."""
 
     batch_size: int = 1
     algorithm: str = "sgd"

@@ -1,10 +1,12 @@
 """GraphExecutor — runs a ModelConfig's layer graph on tensors.
 
 The port's counterpart of paddle_tpu/graph/builder.py (`__init__`,
-`prepare`, `forward`) for inference: layers run eagerly in config order
-(the config lists them topologically), each a function of the context.
-Models with recurrent sub-models raise; their scan executor is queued in
-ROADMAP.md.
+`prepare`, `forward`, `loss`): layers run eagerly in config order (the
+config lists them topologically), each a function of the context.  A TEST
+forward runs under `torch.no_grad` (the serving engine builds no autograd
+graph); a TRAIN forward records one, and autograd of `loss` replaces the
+JAX side's `jax.value_and_grad`.  Models with recurrent sub-models raise;
+their scan executor is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -14,12 +16,14 @@ from typing import Any, Optional
 import torch
 
 # importing the layer modules registers their layer types
-from paddle_tpu_torch.graph import layers_attn, layers_core, layers_misc  # noqa: F401
+from paddle_tpu_torch.graph import (layers_attn, layers_core,  # noqa: F401
+                                    layers_cost, layers_misc)
 from paddle_tpu_torch.config.schema import LayerConfig, ModelConfig
-from paddle_tpu_torch.graph.context import TEST, ForwardContext
+from paddle_tpu_torch.graph.context import TEST, TRAIN, ForwardContext
 from paddle_tpu_torch.graph.registry import get_layer_fn
 from paddle_tpu_torch.parameter.argument import Argument
 from paddle_tpu_torch.parameter.init import torch_dtype
+from paddle_tpu_torch.utils.dtypes import promote_compute
 
 
 class GraphExecutor:
@@ -42,10 +46,21 @@ class GraphExecutor:
                                                   for l in model.layers}
         self._plan = [l for l in model.layers if l.type != "data"]
 
+    @property
+    def static_param_names(self) -> set[str]:
+        return {p.name for p in self.model.parameters if p.is_static}
+
     def prepare(self, params: dict[str, torch.Tensor],
                 feed: dict[str, Argument]):
-        """The mixed-precision cast of floating params and inputs (a
-        no-op for tensors already in the compute dtype)."""
+        """Static parameters detached (no gradient flows into them), then
+        the mixed-precision cast of floating params and inputs (a no-op for
+        tensors already in the compute dtype).  The cast is part of the
+        differentiated forward, so float32 master parameters get float32
+        gradients."""
+        static = self.static_param_names
+        if static:
+            params = {k: (v.detach() if k in static else v)
+                      for k, v in params.items()}
         if not self.compute_dtype:
             return params, feed
         dt = torch_dtype(self.compute_dtype)
@@ -57,26 +72,40 @@ class GraphExecutor:
                 for name, arg in feed.items()}
         return params, feed
 
-    @torch.no_grad()
     def forward(self, params: dict[str, torch.Tensor],
                 feed: dict[str, Argument],
                 state: Optional[dict[str, Any]] = None,
                 mode: str = TEST):
-        """Run the graph.  Returns (layer outputs, per-sample costs, new
-        state); costs stay empty in TEST mode.  Layers whose inputs were
-        not fed (the training head, for a feed without labels) are
-        skipped."""
-        if mode != TEST:
-            raise NotImplementedError(
-                f"mode {mode!r}: the port runs inference only so far "
-                f"(ROADMAP.md: training path)")
-        params, feed = self.prepare(params, feed)
-        ctx = ForwardContext(model=self.model, params=params, mode=mode,
-                             state_in=state or {})
-        ctx.outputs.update(feed)
-        for cfg in self._plan:
-            if any(inp.input_layer_name not in ctx.outputs
-                   for inp in cfg.inputs):
-                continue
-            ctx.outputs[cfg.name] = get_layer_fn(cfg.type)(ctx, cfg)
-        return ctx.outputs, {}, ctx.state_out
+        """Run the graph.  Returns (layer outputs, per-sample costs by cost
+        layer, new state).  Layers whose inputs were not fed (the training
+        head, for a feed without labels) are skipped.  TEST runs without
+        autograd; TRAIN records the graph for `loss(...).backward()`."""
+        if mode not in (TRAIN, TEST):
+            raise ValueError(f"mode {mode!r}: expected {TRAIN!r} or {TEST!r}")
+        with torch.set_grad_enabled(mode == TRAIN and
+                                    torch.is_grad_enabled()):
+            params, feed = self.prepare(params, feed)
+            ctx = ForwardContext(model=self.model, params=params, mode=mode,
+                                 state_in=state or {})
+            ctx.outputs.update(feed)
+            for cfg in self._plan:
+                if any(inp.input_layer_name not in ctx.outputs
+                       for inp in cfg.inputs):
+                    continue
+                ctx.outputs[cfg.name] = get_layer_fn(cfg.type)(ctx, cfg)
+        return ctx.outputs, ctx.costs, ctx.state_out
+
+    def loss(self, params: dict[str, torch.Tensor],
+             feed: dict[str, Argument],
+             state: Optional[dict[str, Any]] = None, mode: str = TRAIN):
+        """The sum over cost layers of each cost's batch mean, in at least
+        float32, and the forward's (outputs, costs, state)."""
+        outputs, costs, new_state = self.forward(params, feed, state, mode)
+        if not costs:
+            raise ValueError("model has no cost layers (or their inputs "
+                             "were not fed)")
+        total = None
+        for c in costs.values():
+            m = torch.mean(promote_compute(c))
+            total = m if total is None else total + m
+        return total, (outputs, costs, new_state)

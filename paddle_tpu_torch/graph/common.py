@@ -17,10 +17,16 @@ def finish_layer(ctx: ForwardContext, cfg: LayerConfig, value: torch.Tensor,
                  lengths: Optional[torch.Tensor] = None) -> Argument:
     """Apply the activation and package the output Argument, inheriting
     sequence lengths from `like`.  Dropout at test time scales by
-    (1 - drop_rate), as the JAX package's classic dropout does."""
+    (1 - drop_rate), as the JAX package's classic dropout does; its
+    training-time Bernoulli mask needs the JAX random stream, not ported
+    yet (ROADMAP.md), so a TRAIN forward of such a layer raises."""
     if lengths is None and like is not None and value.dim() >= 3:
         lengths = like.lengths
     out = activation(cfg.active_type, value)
     if cfg.drop_rate > 0.0:
+        if ctx.is_training:
+            raise NotImplementedError(
+                f"layer {cfg.name!r}: training-time dropout needs the JAX "
+                f"random stream, not ported yet (ROADMAP.md)")
         out = out * (1.0 - cfg.drop_rate)
     return Argument(value=out, lengths=lengths)

@@ -1,9 +1,11 @@
 """ForwardContext — per-forward state threaded through layer functions.
 
-The port's counterpart of paddle_tpu/graph/context.py for inference
-(TEST mode): the parameter map, already-computed layer outputs, and the
-incoming/outgoing layer state (the serving engine's paged KV pools).
-Training mode comes with the training slice.
+The port's counterpart of paddle_tpu/graph/context.py: the mode (TRAIN or
+TEST), the parameter map, already-computed layer outputs, the
+incoming/outgoing layer state (the serving engine's paged KV pools), and
+the per-sample cost vectors the cost layers record by layer name.  The
+per-layer random stream of the JAX side (dropout, sampling layers) is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from paddle_tpu_torch.config.schema import LayerConfig, ModelConfig
 from paddle_tpu_torch.parameter.argument import Argument
 
+TRAIN = "train"
 TEST = "test"
 
 
@@ -29,6 +32,12 @@ class ForwardContext:
     # layer name -> incoming state, and the updated state layers emit
     state_in: dict[str, Any] = field(default_factory=dict)
     state_out: dict[str, Any] = field(default_factory=dict)
+    # accumulated per-sample costs from cost layers: name -> [B]
+    costs: dict[str, torch.Tensor] = field(default_factory=dict)
+
+    @property
+    def is_training(self) -> bool:
+        return self.mode == TRAIN
 
     def get_input(self, cfg: LayerConfig, i: int) -> Argument:
         name = cfg.inputs[i].input_layer_name

@@ -1,11 +1,12 @@
 """Multi-head attention layer — the counterpart of
-paddle_tpu/graph/layers_attn.py for the serving slice.
+paddle_tpu/graph/layers_attn.py for the serving and training slices.
 
 Three cases:
-  * full sequence (no paged state): dense attention.  `attn_impl` 'auto'
-    stays dense below `block_k_min` (default 2048) keys; the flash kernel
-    (ROADMAP K4) and the blockwise/ring/ulysses paths are not ported yet
-    and raise;
+  * full sequence (no paged state): `attn_impl` 'auto' runs dense attention
+    below `block_k_min` (default 2048) keys and the flash-attention kernels
+    (ops/flash_attention.py, K4) at or above it, as does a layer pinned to
+    'flash'; 'dense' pins dense attention.  The blockwise, ring and ulysses
+    paths are not ported yet and raise (ROADMAP.md);
   * `_paged_step`: one decode token per slot against the serving engine's
     paged KV pool;
   * `_paged_ragged_step`: the mixed prefill/decode step, packed query rows
@@ -29,6 +30,7 @@ from paddle_tpu_torch.ops.attention import (
     ragged_paged_attention_step,
     rope,
 )
+from paddle_tpu_torch.ops.flash_attention import flash_attention
 from paddle_tpu_torch.parameter.argument import Argument
 
 # the JAX package's dense -> flash/blockwise crossover in key positions
@@ -84,11 +86,14 @@ def multi_head_attention_layer(ctx: ForwardContext,
         long_keys = k_arg.max_len >= int(cfg.attrs.get("block_k_min",
                                                        _BLOCKWISE_MIN_KEYS))
         impl = "flash" if long_keys else "dense"
-    if impl != "dense":
+    if impl not in ("dense", "flash"):
         raise NotImplementedError(
-            f"layer {cfg.name!r}: attn_impl {impl!r} needs the flash "
-            f"attention kernel (ROADMAP K4) or the context-parallel paths, "
-            f"not ported yet")
+            f"layer {cfg.name!r}: attn_impl {impl!r} (blockwise attention "
+            f"and the context-parallel paths) is not ported yet (ROADMAP.md)")
+    # the block_q/block_k attrs (and PADDLE_TPU_FLASH_BLOCK_Q/K) tune the
+    # TPU kernel's tiles; the CUDA kernels have fixed 64 x 64 tiles and
+    # ignore them, and no result depends on them
+    attn_fn = flash_attention if impl == "flash" else dot_product_attention
 
     B, Tq, _ = q_arg.value.shape
     Tk = k_arg.value.shape[1]
@@ -102,9 +107,9 @@ def multi_head_attention_layer(ctx: ForwardContext,
         theta = float(cfg.attrs.get("rope_theta", 10000.0))
         q = rope(q, torch.arange(Tq, device=q.device), theta)
         k = rope(k, torch.arange(Tk, device=k.device), theta)
-    o = dot_product_attention(q, k, v, q_valid=q_arg.mask(),
-                              k_valid=k_arg.mask(), causal=causal,
-                              window=_window(cfg))
+    o = attn_fn(q.contiguous(), k.contiguous(), v.contiguous(),
+                q_valid=q_arg.mask(), k_valid=k_arg.mask(), causal=causal,
+                window=_window(cfg))
     return _out_proj(ctx, cfg, o.reshape(B, Tq, model_dim), w_o, q_arg)
 
 

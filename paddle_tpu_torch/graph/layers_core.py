@@ -1,4 +1,4 @@
-"""Core layers of the serving slice: data, fc, mixed (table projection),
+"""Core layers of the transformer LM: data, fc, mixed (table projection),
 addto — the counterparts of paddle_tpu/graph/layers_core.py."""
 
 from __future__ import annotations

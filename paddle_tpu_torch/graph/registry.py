@@ -1,10 +1,10 @@
 """Layer registry: LayerConfig.type string -> implementation function.
 
 A layer implementation is a function (ctx, cfg) -> Argument on tensors,
-as in paddle_tpu/graph/registry.py.  The serving slice implements the
-layers the transformer LM runs at inference; the cost and validation
-types are known by name so that the engine can tell the model's output
-layer from its training head.
+as in paddle_tpu/graph/registry.py.  The port implements the layers the
+transformer LM runs, its cost layer included; all the JAX package's cost
+and validation types are known by name so that the serving engine can
+tell the model's output layer from its training head.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ LayerFn = Callable[..., "Argument"]  # noqa: F821
 
 layer_registry: dict[str, LayerFn] = {}
 
-# the JAX package's cost and validation layer types; their implementations
-# come with the training slice of the port
+# the JAX package's cost and validation layer types; the port implements
+# multi-class-cross-entropy (layers_cost.py), the rest are queued in
+# ROADMAP.md
 cost_layer_types = frozenset({
     "multi-class-cross-entropy", "multi_class_cross_entropy_with_selfnorm",
     "soft_binary_class_cross_entropy", "multi_binary_label_cross_entropy",

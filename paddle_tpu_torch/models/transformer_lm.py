@@ -6,7 +6,10 @@ produces on the JAX side: the same layer names, types, attrs, parameter
 names, dims and init attrs, in the same order.  Pre-norm blocks:
 h = h + MHA(LN(h)) with rotary positions, then h = h + W2 gelu(W1 LN(h));
 a final layer norm feeds a softmax `lm_head`.  The compute dtype is not
-part of the model: pass it to `GraphExecutor(model, compute_dtype=...)`.
+part of the model: pass it to `GraphExecutor(model, compute_dtype=...)`,
+or take `transformer_lm_trainer_config`, whose optimization settings are
+the demo config's `settings(...)` (Adam, learning rate 3e-4, elementwise
+gradient clipping at 1.0).
 """
 
 from __future__ import annotations
@@ -16,8 +19,10 @@ from paddle_tpu_torch.config.schema import (
     LayerConfig,
     LayerInput,
     ModelConfig,
+    OptimizationConfig,
     ParameterConfig,
     ProjectionConfig,
+    TrainerConfig,
 )
 
 
@@ -107,3 +112,22 @@ def transformer_lm_config(vocab: int, dim: int, layers: int, heads: int,
         name=f"{cost}.classification_error",
         input_layer_names=[logits, labels])]
     return model
+
+
+def transformer_lm_trainer_config(vocab: int, dim: int, layers: int,
+                                  heads: int, batch_size: int = 16,
+                                  compute_dtype: str = "",
+                                  **model_kw) -> TrainerConfig:
+    """The `TrainerConfig` of demo/model_zoo/transformer_lm.py: the model of
+    `transformer_lm_config` (its keyword options pass through) and the
+    `OptimizationConfig` that `parse_config` makes of the demo's
+    `settings(...)`.  The data provider is not ported, so the config names
+    no data source: batches go to `Trainer.train_one_pass(batches=...)`."""
+    opt = OptimizationConfig(
+        batch_size=batch_size, learning_method="adam", learning_rate=3e-4,
+        learning_rate_schedule="poly", gradient_clipping_threshold=1.0,
+        compute_dtype=compute_dtype)
+    return TrainerConfig(
+        model_config=transformer_lm_config(vocab, dim, layers, heads,
+                                           **model_kw),
+        opt_config=opt)

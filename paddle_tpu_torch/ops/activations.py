@@ -1,4 +1,4 @@
-"""Activation registry (the serving slice's subset).
+"""Activation registry (a subset).
 
 Counterparts of paddle_tpu/ops/activations.py for the activations the
 transformer LM uses: identity, tanh-approximated GELU, and softmax (in

@@ -1,4 +1,4 @@
-"""Attention ops of the serving slice — counterparts of
+"""Attention ops of the transformer LM — counterparts of
 paddle_tpu/ops/attention.py.
 
 Layouts are the JAX package's: q/k/v [..., T, H, D] (heads before the head

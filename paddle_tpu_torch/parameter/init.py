@@ -4,13 +4,15 @@
 init.py): normal(mean, std) by default, std = 1/sqrt(fan_in) for "smart"
 parameters, uniform(mean - std, mean + std) and zeros where configured.
 The draws come from a `torch.Generator`, so they differ from JAX's; to
-run the same weights on both sides, carry them with `params_from_jax`.
+run the same weights on both sides, carry them with `params_from_jax`, and
+an optimizer state (Adam or momentum slots and the update counters) with
+`opt_state_from_jax`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -84,4 +86,21 @@ def params_from_jax(np_params: Mapping[str, np.ndarray],
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         out[name] = t.to(dev)
+    return out
+
+
+def opt_state_from_jax(np_opt_state: Mapping[str, Any],
+                       device: DeviceLike = None) -> dict[str, Any]:
+    """Carry a JAX `ParameterUpdater` state (`Trainer.opt_state` with its
+    leaves converted by np.asarray) into the port's form: the per-parameter
+    slots as tensors (Adam's m/v, momentum, ...) and `num_samples`,
+    `num_updates`, `pass_id` as Python ints."""
+    dev = resolve_device(device)
+    slots = {name: {k: torch.from_numpy(np.array(v, dtype=np.float32)
+                                        ).to(dev)
+                    for k, v in per.items()}
+             for name, per in np_opt_state["slots"].items()}
+    out: dict[str, Any] = {"slots": slots}
+    for k in ("num_samples", "num_updates", "pass_id"):
+        out[k] = int(np.asarray(np_opt_state[k]))
     return out

@@ -1,5 +1,7 @@
-"""PyTorch port on the card: the CUDA paged-attention kernel against its
-plain version, and the engine on CUDA against the engine on the CPU.
+"""PyTorch port on the card: the CUDA paged-attention and flash-attention
+kernels against their plain versions, the engine on CUDA against the
+engine on the CPU, and training steps on CUDA against the same steps on
+the CPU.
 
 These need an NVIDIA GPU and nvcc, and import nothing of JAX, so they run
 on a machine without it:
@@ -12,11 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import GRAD_TOL, lm_batches, o_limit_share
 from paddle_tpu_torch.graph import GraphExecutor
-from paddle_tpu_torch.models import transformer_lm_config
+from paddle_tpu_torch.models import (transformer_lm_config,
+                                     transformer_lm_trainer_config)
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.parameter import init_params
 from paddle_tpu_torch.serving import Request, ServingEngine
+from paddle_tpu_torch.trainer import Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -26,6 +32,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -87,3 +94,99 @@ def test_engine_on_cuda_matches_cpu(cuda):
         pa.counts.plain == 0
     for i, _, _ in reqs:
         np.testing.assert_array_equal(out["cuda"][i], out["cpu"][i])
+
+
+# (B, Tq, Tk, H, H_kv, D, causal, window, q_offset, k_offset, ragged keys)
+FLASH_CASES = [(2, 300, 300, 8, 8, 64, True, None, 0, 0, False),
+               (2, 200, 333, 8, 2, 64, False, None, 0, 0, True),
+               (2, 130, 190, 6, 3, 40, True, 50, 60, 17, True),
+               (1, 100, 120, 4, 1, 128, True, None, 0, 0, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=["causal", "gqa-ragged", "d40-window-offsets",
+                              "d128-mqa"])
+def test_flash_kernels_match_plain_versions(cuda, dtype, case):
+    """The forward (o, lse) and the two backward kernels (dq, dk, dv, with
+    an lse cotangent) against the plain versions in float32 on the same
+    inputs, at chip_smoke's limits: o per element within rtol * |ref| +
+    atol (float32 2e-5 absolute; bfloat16 2^-7 |ref| + 1e-3, the kernels
+    rounding o to bfloat16), lse within 2e-5, gradients within GRAD_TOL
+    (float32 2e-5, bfloat16 1e-2) times their max."""
+    B, Tq, Tk, H, h_kv, D, causal, window, q_off, k_off, ragged = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, do = (torch.randn(B, Tq, H, D, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Tk, h_kv, D, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kvm = torch.ones(B, Tk, dtype=torch.bool, device=cuda)
+    if ragged:
+        kvm[0, :5] = False
+        kvm[B - 1, Tk // 2:] = False
+    dlse = 0.1 * torch.randn(B, H, Tq, generator=g, device=cuda)
+    mask = dict(causal=causal, q_offset=q_off, k_offset=k_off,
+                window=window)
+    fa.counts.reset()
+    o, lse = fa.flash_attention_fwd(q, k, v, kvm, **mask)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, kvm, o, lse, do, dlse,
+                                        **mask)
+    torch.cuda.synchronize()
+    assert (fa.counts.fwd, fa.counts.bwd_dq, fa.counts.bwd_dkv,
+            fa.counts.plain) == (1, 1, 1, 0)
+    f = [x.float() for x in (q, k, v)]
+    want_o, want_lse = fa.flash_attention_plain(*f, kvm, **mask)
+    assert o.dtype == dtype
+    assert o_limit_share(o, want_o, dtype) <= 1
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert float((lse[fin] - want_lse[fin]).abs().max()) <= 2e-5
+    want = fa.flash_attention_bwd_plain(*f, kvm, o.float(), lse, do.float(),
+                                        dlse, **mask)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        err = float((got.float() - ref).abs().max())
+        assert err <= GRAD_TOL[dtype] * float(ref.abs().max()), err
+
+
+def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 160, device=cuda)
+    kvm = torch.ones(1, 8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_fwd(q, q, q, kvm)
+    h = torch.zeros(1, 8, 2, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        fa.flash_attention_fwd(h, h, h, kvm)
+    t = torch.zeros(1, 2, 8, 16, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd(t, t, t, kvm)
+
+
+def test_training_steps_on_cuda_match_cpu(cuda):
+    """Two fp32 Adam steps of the Trainer on the card (flash kernels) give
+    the CPU's (plain versions') losses within rtol 1e-5 and, after the
+    first step, parameters within 2e-6 (Adam's first update is +-lr per
+    entry, so only the sign of each gradient entry matters); every step
+    launches each flash kernel once per layer and the plain versions
+    never."""
+    cfg = transformer_lm_trainer_config(97, 64, 2, 4, batch_size=3,
+                                        kv_heads=2, block_k_min=16)
+    params = init_params(cfg.model_config, seed=0, device="cpu")
+    batches = lm_batches(2, 3, 40, 97, seed=0, motifs=6,
+                         short_last=5)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, device=dev, params=params)
+        losses, after1 = [], None
+        for b in batches:
+            fa.counts.reset()
+            losses.append(float(tr.train_one_batch(b)))
+            if dev == "cuda":
+                assert (fa.counts.fwd, fa.counts.bwd_dq, fa.counts.bwd_dkv,
+                        fa.counts.plain) == (2, 2, 2, 0)
+            if after1 is None:
+                after1 = {n: p.cpu() for n, p in tr.params.items()}
+        runs[dev] = losses, after1
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5)
+    for n, p in runs["cpu"][1].items():
+        assert float((runs["cuda"][1][n] - p).abs().max()) <= 2e-6, n

@@ -1,0 +1,191 @@
+"""PyTorch port: flash attention (K4).  On the CPU its wrapper runs the
+plain versions of the three CUDA kernels; they are held here against the
+JAX package's dense `dot_product_attention` and its gradients,
+`blockwise_attention`, and the Pallas `flash_attention` kernel itself in
+interpret mode (with offsets and an lse cotangent), in float32.  Tolerance
+2e-5 absolute on o, lse and the gradients: the same arithmetic summed in
+another order over at most 40 keys."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import attention as jattn
+from paddle_tpu.ops import pallas_attention
+from paddle_tpu_torch.ops import attention as tattn
+from paddle_tpu_torch.ops import flash_attention as fa
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+def _case(seed, B=2, Tq=24, Tk=24, H=4, Hkv=2, D=8, ragged=True):
+    """Random q/k/v, key and query validity; with `ragged`, batch row 1 is
+    shorter and its first keys invalid, so that with causal masking its
+    first query rows see no valid key at all."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Tq, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, Tk, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Tk, Hkv, D)).astype(np.float32)
+    kval = np.ones((B, Tk), bool)
+    qval = np.ones((B, Tq), bool)
+    if ragged:
+        kval[1, Tk - 7:] = False
+        kval[1, :3] = False
+        qval[1, Tq - 5:] = False
+    do = rng.normal(size=(B, Tq, H, D)).astype(np.float32)
+    return q, k, v, kval, qval, do
+
+
+def _jax_lse(q, k, kval, causal, window, q_off=0, k_off=0):
+    """log-sum-exp of the masked scores, -inf for rows without a key."""
+    kk = jnp.repeat(jnp.asarray(k), q.shape[2] // k.shape[2], axis=2)
+    s = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), kk) * q.shape[-1] ** -0.5
+    mask = jattn._score_mask(q_off + jnp.arange(q.shape[1]),
+                             k_off + jnp.arange(k.shape[1]), None,
+                             jnp.asarray(kval), causal, window)
+    s = jnp.where(mask, s, -jnp.inf)
+    return jax.nn.logsumexp(s, axis=-1)
+
+
+GRID = [(causal, window, hkv) for causal in (False, True)
+        for window in (None, 5) for hkv in (4, 2, 1)]
+
+
+@pytest.mark.parametrize("causal,window,hkv", GRID,
+                         ids=[f"c{int(c)}-w{w}-kv{h}" for c, w, h in GRID])
+def test_plain_forward_and_backward_match_dense_jax(causal, window, hkv):
+    """o against dot_product_attention and blockwise_attention, lse against
+    the masked log-sum-exp, and (dq, dk, dv) of the plain backward against
+    jax.grad of sum(attention * do) through both; ragged key masks, GQA,
+    fully masked rows."""
+    q, k, v, kval, _, do = _case(1, Hkv=hkv)
+    tk = _t(kval)
+    o, lse = fa.flash_attention_plain(_t(q), _t(k), _t(v), tk, causal,
+                                      window=window)
+    jq, jk, jv, jkv = map(jnp.asarray, (q, k, v, kval))
+    want = jattn.dot_product_attention(jq, jk, jv, k_valid=jkv,
+                                       causal=causal, window=window)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want), **TOL)
+    blk = jattn.blockwise_attention(jq, jk, jv, k_valid=jkv, causal=causal,
+                                    block_k=8, window=window)
+    np.testing.assert_allclose(o.numpy(), np.asarray(blk), **TOL)
+    want_lse = np.asarray(_jax_lse(q, k, kval, causal, window))
+    assert np.array_equal(np.isinf(lse.numpy()), np.isinf(want_lse))
+    if causal:
+        assert np.isinf(want_lse).any()          # fully masked rows exist
+    np.testing.assert_allclose(lse.numpy(), want_lse, **TOL)
+
+    grads = fa.flash_attention_bwd_plain(_t(q), _t(k), _t(v), tk, o, lse,
+                                         _t(do), None, causal, window=window)
+    for attn in (jattn.dot_product_attention,
+                 functools.partial(jattn.blockwise_attention, block_k=8)):
+        def f(q_, k_, v_, attn=attn):
+            return jnp.sum(attn(q_, k_, v_, k_valid=jkv, causal=causal,
+                                window=window) * do)
+        jg = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+        for got, w in zip(grads, jg):
+            np.testing.assert_allclose(got.numpy(), np.asarray(w), **TOL)
+
+
+def test_autograd_function_matches_torch_autograd_through_dense():
+    """flash_attention's autograd.Function on CPU tensors (query validity
+    applied outside) gives the gradients torch.autograd takes through the
+    port's plain dense attention."""
+    q, k, v, kval, qval, do = _case(2, Tq=20, Tk=28, D=16)
+    for causal in (False, True):
+        a = [_t(x).requires_grad_(True) for x in (q, k, v)]
+        b = [_t(x).requires_grad_(True) for x in (q, k, v)]
+        fa.counts.reset()
+        o = fa.flash_attention(*a, q_valid=_t(qval), k_valid=_t(kval),
+                               causal=causal)
+        (o * _t(do)).sum().backward()
+        assert fa.counts.plain == 2 and fa.counts.fwd == 0
+        want = tattn.dot_product_attention(*b, q_valid=_t(qval),
+                                           k_valid=_t(kval), causal=causal)
+        (want * _t(do)).sum().backward()
+        np.testing.assert_allclose(o.detach().numpy(),
+                                   want.detach().numpy(), **TOL)
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("causal,window,q_off,k_off",
+                         [(True, None, 16, 0), (True, 6, 3, 11),
+                          (False, 6, 0, 9)],
+                         ids=["causal-off16", "causal-w6-off", "w6-koff"])
+def test_matches_the_pallas_kernel_in_interpret_mode(monkeypatch, causal,
+                                                     window, q_off, k_off):
+    """Against paddle_tpu's Pallas flash_attention (interpret mode, 8 x 8
+    tiles): o and lse with query/key validity, global-position offsets,
+    GQA; and the gradients of sum(o * do) + sum(lse * dlse) over the rows
+    with a finite lse — the lse cotangent folds into delta."""
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    q, k, v, kval, qval, do = _case(3, Tq=16, Tk=20)
+    dlse = np.random.default_rng(4).normal(size=(2, 4, 16)).astype(np.float32)
+    jargs = list(map(jnp.asarray, (q, k, v)))
+
+    def jf(q_, k_, v_):
+        o, lse = pallas_attention.flash_attention(
+            q_, k_, v_, q_valid=jnp.asarray(qval), k_valid=jnp.asarray(kval),
+            causal=causal, block_q=8, block_k=8, q_offset=q_off,
+            k_offset=k_off, return_lse=True, window=window)
+        fin = jnp.isfinite(lse)
+        return (jnp.sum(o * do) + jnp.sum(jnp.where(fin, lse, 0.0) * dlse),
+                (o, lse))
+    (_, (jo, jlse)), jg = jax.value_and_grad(jf, argnums=(0, 1, 2),
+                                             has_aux=True)(*jargs)
+    targs = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    o, lse = fa.flash_attention(*targs, q_valid=_t(qval), k_valid=_t(kval),
+                                causal=causal, q_offset=q_off,
+                                k_offset=k_off, return_lse=True,
+                                window=window)
+    fin = torch.isfinite(lse)
+    loss = (o * _t(do)).sum() + (torch.where(fin, lse, 0.0)
+                                 * _t(dlse)).sum()
+    loss.backward()
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo), **TOL)
+    assert np.array_equal(fin.numpy(), np.isfinite(np.asarray(jlse)))
+    np.testing.assert_allclose(lse.detach().numpy()[fin.numpy()],
+                               np.asarray(jlse)[fin.numpy()], **TOL)
+    for x, w in zip(targs, jg):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(w), **TOL)
+
+
+def test_fully_masked_rows_give_zero_and_minus_inf():
+    q, k, v, _, _, do = _case(5, B=1, Tq=6, Tk=6, ragged=False)
+    kval = np.zeros((1, 6), bool)
+    o, lse = fa.flash_attention_fwd(_t(q), _t(k), _t(v), _t(kval), True)
+    assert torch.equal(o, torch.zeros_like(o))
+    assert torch.isneginf(lse).all()
+    dq, dk, dv = fa.flash_attention_bwd(_t(q), _t(k), _t(v), _t(kval), o, lse,
+                                        _t(do))
+    for g in (dq, dk, dv):
+        assert torch.equal(g, torch.zeros_like(g))
+
+
+def test_wrapper_rejects_bad_inputs():
+    q, k, v, kval, _, _ = (_t(x) for x in _case(6))
+    with pytest.raises(ValueError, match=r"\[B,Tq,H,D\]"):
+        fa.flash_attention_fwd(q[0], k, v, kval)
+    with pytest.raises(ValueError, match="disagree"):
+        fa.flash_attention_fwd(q, k[..., :4], v[..., :4], kval)
+    with pytest.raises(ValueError, match="disagree"):
+        fa.flash_attention_fwd(q[:, :, :3], k, v, kval)
+    with pytest.raises(ValueError, match="key mask"):
+        fa.flash_attention_fwd(q, k, v, kval[:, :5])
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention_fwd(q, k.double(), v, kval)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention_fwd(q.long(), k.long(), v.long(), kval)
+    with pytest.raises(ValueError, match="do must match"):
+        fa.flash_attention_bwd(q, k, v, kval, q, q[..., 0, 0], q[:, :3])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fa._check_cuda("flash_attention", q=q.to("meta"))

@@ -137,24 +137,32 @@ def test_dense_attention_matches_jax(window):
 
 
 def test_unported_paths_raise():
-    """The flash path (auto at >= block_k_min keys, or pinned), training
-    mode and recurrent sub-models are queued in ROADMAP.md: they raise."""
-    model = transformer_lm_config(61, 32, 1, 4, block_k_min=8)
-    ex = GraphExecutor(model)
+    """Blockwise attention, the context-parallel paths (ring, ulysses), the
+    dense per-request KV cache of lm_generate and recurrent sub-models are
+    queued in ROADMAP.md: they raise.  The flash route (auto at >=
+    block_k_min keys, or pinned) and TRAIN mode run (tests/
+    test_torch_train.py holds them against the JAX package)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.parameter import init_params
+    model = transformer_lm_config(61, 32, 1, 4, block_k_min=8)
     params = init_params(model, seed=0, device="cpu")
     ids = torch.zeros(1, 8, dtype=torch.long)
     feed = {"tokens": Argument(ids=ids, lengths=torch.tensor([8]))}
-    with pytest.raises(NotImplementedError, match="K4"):
-        ex.forward(params, feed)
-    ok = {"tokens": Argument(ids=ids[:, :7], lengths=torch.tensor([7]))}
-    assert ex.forward(params, ok)[0]["lm_head"].value.shape == (1, 7, 61)
-    flash = GraphExecutor(transformer_lm_config(61, 32, 1, 4,
-                                                attn_impl="flash"))
-    with pytest.raises(NotImplementedError, match="K4"):
-        flash.forward(params, ok)
-    with pytest.raises(NotImplementedError):
-        ex.forward(params, ok, mode="train")
+    fa.counts.reset()
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    out, _, _ = GraphExecutor(model).forward(leaves, feed, mode="train")
+    assert out["lm_head"].value.shape == (1, 8, 61)
+    assert out["lm_head"].value.requires_grad and fa.counts.plain == 1
+    for impl in ("blockwise", "ring", "ulysses"):
+        ex = GraphExecutor(transformer_lm_config(61, 32, 1, 4,
+                                                 attn_impl=impl))
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ex.forward(params, feed)
+    with pytest.raises(NotImplementedError, match="lm_generate"):
+        GraphExecutor(model).forward(params, feed, state={
+            "blk0_attn": {"k": torch.zeros(1, 8, 4, 8),
+                          "v": torch.zeros(1, 8, 4, 8),
+                          "pos": torch.zeros(1, dtype=torch.int32)}})
     rnn = transformer_lm_config(61, 32, 1, 4)
     rnn.sub_models.append(SubModelConfig(name="g",
                                          is_recurrent_layer_group=True))
