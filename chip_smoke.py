@@ -5,8 +5,9 @@
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — compile every CUDA kernel of the serving and training paths
-               from the sources in this checkout (nvcc, sm_90a), one nvcc
-               per source started together;
+               (paged attention, flash attention, the fused LSTM) from the
+               sources in this checkout (nvcc, sm_90a), one nvcc per source
+               started together;
   3. kernel  — the ragged paged-attention kernel against its plain PyTorch
                version at decode and mixed-step shapes (GQA, page sizes 16
                and 8, lengths 1..768), float32 (atol 2e-5) and bfloat16
@@ -50,7 +51,39 @@ Phases, in order; any failure raises and the exit code is non-zero:
                training step's loss and gradients through the flash kernels
                against the same step through dense attention
                (attn_impl='dense'): loss within 1e-5 relative, every
-               gradient within 1e-4 of its max.
+               gradient within 1e-4 of its max;
+  9. lstm    — the two fused-LSTM kernels (forward; backward) against their
+               plain version in float32: forward/reverse x with/without
+               peepholes x ragged (a length-0 row, a full row) / full
+               lengths x tanh / relu cells, at B=128, T=100, D=128 and at
+               B=5, T=7, D=32: hs, h_last, c_last, dx4, dW, dpeep, dh0, dc0
+               each within 1e-5 of its max (relu cases first move their
+               inputs off relu's kink, where the derivative has two
+               values); and the limit rejecting a result with the freeze
+               dropped for one row;
+ 10. sentiment — the recurrent training path: Trainer on the stacked IMDB
+               sentiment LSTM net at full width (vocabulary 30000, embedding
+               128, three fc(512) + lstmemory(128, relu, peepholes,
+               drop_rate 0.5) pairs, float32, seed 1), batches [128, 100]
+               of a two-class word language, full lengths then ragged
+               (10..100): warm-up steps then timed steps; every loss
+               finite, the last 3 below the first 3, each LSTM kernel
+               launched 3 times per step (once per lstmemory) and the plain
+               version never; Trainer.test and the is_predict forward give
+               finite probabilities that sum to 1; a save() -> fresh
+               Trainer.load() round trip exact (dropout generator
+               included); samples/s, ms/step, a torch.profiler pass over
+               two steps; a few steps of the bidirectional net (2 launches
+               of each kernel per step); then each kernel's time per launch
+               at the run's shape beside its bound, its plain version's
+               time and a cuDNN LSTM's (torch.nn.LSTM: no peepholes, no
+               length freeze, its own input projection; a yardstick, never
+               called by the port);
+ 11. sentiment-routes — float32 at full width, dropout masks fed as ones:
+               one training step's loss and gradients through the LSTM
+               kernels against the same step through their plain version:
+               loss within 1e-5 relative, every gradient within 1e-4 of its
+               max.
 The last three lines of the output are a JSON object with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.  Exits non-zero without a result when CUDA
@@ -92,9 +125,11 @@ def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import lstm_fused as lf
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    kernels = {"paged_attention": pa.kernel, "flash_attention": fa.kernel}
+    kernels = {"paged_attention": pa.kernel, "flash_attention": fa.kernel,
+               "lstm": lf.kernel}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         built = dict(zip(kernels, pool.map(lambda k: k.library(),
@@ -766,6 +801,424 @@ def phase_train_routes() -> None:
         raise AssertionError("flash and dense training routes disagree")
 
 
+# -- the fused LSTM (K3) and the sentiment path --------------------------------
+
+LSTM_TOL = 1e-5                    # float32: share of each tensor's max
+LSTM_NAMES = ("hs", "h_last", "c_last", "dx4", "dw", "dpeep", "dh0", "dc0")
+RELU_KINK_MARGIN = 1e-4
+
+
+def lstm_inputs(g, B: int, T: int, D: int, peep: bool, ragged: bool):
+    """Random float32 inputs of the LSTM op on the card: (x4, lengths, w,
+    peeps, h0, c0) and cotangents for (hs, h_last, c_last).  Ragged lengths
+    hold a length-0 row and a full row."""
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    x4, w = r(B, T, 4 * D), r(D, 4 * D) * D ** -0.5
+    peeps = r(3, D) * 0.2 if peep else torch.zeros(3, D, device="cuda")
+    h0, c0 = r(B, D) * 0.5, r(B, D) * 0.5
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    if ragged:
+        lens = torch.randint(max(1, T // 10), T + 1, (B,), generator=g,
+                             device="cuda").to(torch.int32)
+        lens[0], lens[-1] = 0, T
+    return (x4, lens, w, peeps, h0, c0), (r(B, T, D), r(B, D), r(B, D))
+
+
+def move_off_relu_kink(inputs, reverse: bool, **acts):
+    """relu'(0) has two values, and the kernel and the plain version sum
+    h.W in different orders, so a cell pre-activation within rounding of 0
+    may fall on either side and change a whole row's gradient.  Nudge x4
+    until no cell pre-activation of a valid step lies within
+    RELU_KINK_MARGIN of 0 (the plain version says where they are)."""
+    from paddle_tpu_torch.ops import lstm_fused as lf
+    x4, lens, w, peeps, h0, c0 = inputs
+    B, T, D4 = x4.shape
+    D = D4 // 4
+    x4 = x4.clone()
+    valid = torch.arange(T, device="cuda")[None, :] < lens[:, None]
+    for _ in range(20):
+        hs, _, _ = lf.lstm_fused_plain(x4, lens, w, peeps, h0, c0,
+                                       reverse=reverse, **acts)
+        h_prev = (torch.cat([hs[:, 1:], h0[:, None]], dim=1) if reverse
+                  else torch.cat([h0[:, None], hs[:, :-1]], dim=1))
+        ga = x4[..., :D] + h_prev @ w[:, :D]
+        near = (ga.abs() < RELU_KINK_MARGIN) & valid[..., None]
+        if not bool(near.any()):
+            return (x4, lens, w, peeps, h0, c0)
+        x4[..., :D] += near * (4 * RELU_KINK_MARGIN)
+    raise AssertionError("could not move the LSTM inputs off relu's kink")
+
+
+def lstm_compare(inputs, cot, reverse: bool, kernel_lens=None, **acts):
+    """Forward and backward of the LSTM kernels against autograd of the
+    plain version on the same inputs: {name: (max abs err, err / max|ref|)}
+    over LSTM_NAMES.  `kernel_lens` hands the kernels other lengths than
+    the plain version (to show that the limit rejects a fault)."""
+    from paddle_tpu_torch.ops import lstm_fused as lf
+    x4, lens, w, peeps, h0, c0 = inputs
+
+    def run(fn, lengths):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (x4, w, peeps, h0, c0)]
+        out = fn(leaves[0], lengths, *leaves[1:], reverse=reverse, **acts)
+        grads = torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(out, cot)), leaves)
+        return [o.detach() for o in out] + list(grads)
+
+    got = run(lf.lstm_fused, lens if kernel_lens is None else kernel_lens)
+    torch.cuda.synchronize()
+    want = run(lf.lstm_fused_plain, lens)
+    errs = {}
+    for name, a, b in zip(LSTM_NAMES, got, want):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"lstm kernels: non-finite {name}")
+        e = float((a - b).abs().max())
+        errs[name] = (e, e / max(float(b.abs().max()), 1e-30))
+    return errs
+
+
+def phase_lstm() -> None:
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    gates = dict(gate_active_type="sigmoid", state_active_type="tanh")
+    worst = 0.0
+    for B, T, D in ((128, 100, 128), (5, 7, 32)):
+        for reverse in (False, True):
+            for peep in (False, True):
+                for ragged in (False, True):
+                    for act in ("tanh", "relu"):
+                        acts = dict(active_type=act, **gates)
+                        inputs, cot = lstm_inputs(g, B, T, D, peep, ragged)
+                        if act == "relu":
+                            inputs = move_off_relu_kink(inputs, reverse,
+                                                        **acts)
+                        errs = lstm_compare(inputs, cot, reverse, **acts)
+                        rel = max(r for _, r in errs.values())
+                        worst = max(worst, rel)
+                        ok = rel <= LSTM_TOL
+                        log(f"[lstm] B={B} T={T} D={D} "
+                            f"{'rev' if reverse else 'fwd'} "
+                            f"{'peep' if peep else 'nopeep':6s} "
+                            f"{'ragged' if ragged else 'full':6s} {act:4s} "
+                            f"worst {rel:.2e} of max "
+                            f"({max(errs, key=lambda n: errs[n][1])}; tol "
+                            f"{LSTM_TOL:g}) {'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise AssertionError(
+                                f"lstm kernels disagree with their plain "
+                                f"version: {errs}")
+    # a faulty result: the freeze dropped for one row (the kernels are told
+    # the row is full)
+    inputs, cot = lstm_inputs(g, 128, 100, 128, True, True)
+    bad_lens = inputs[1].clone()
+    bad_lens[1] = 100
+    acts = dict(active_type="tanh", **gates)
+    errs = lstm_compare(inputs, cot, False, kernel_lens=bad_lens, **acts)
+    over = {n: r / LSTM_TOL for n, (_, r) in errs.items()}
+    log(f"[lstm] faulty result (row 1 of length {int(inputs[1][1])} run "
+        f"unfrozen): hs {over['hs']:.3g}x, dx4 {over['dx4']:.3g}x, dw "
+        f"{over['dw']:.3g}x the limit: "
+        f"{'rejected' if min(over['hs'], over['dx4']) > 1 else 'NOT rejected'}"
+        f"; worst passing case {worst:.2e} of max")
+    if not min(over["hs"], over["dx4"]) > 1:
+        raise AssertionError("the lstm limit does not reject a dropped "
+                             "freeze")
+
+
+def sentiment_batches(n: int, B: int, T: int, vocab: int, seed: int,
+                      ragged: bool = False):
+    """Batches in the shape of bench.py's bench_sentiment (ids [B, T] +
+    lengths, a label per row), with the two-class word language of
+    demo/sentiment/sentiment_provider.py (_synthetic: class 0 draws its
+    words from the lower 60% of the vocabulary, class 1 from the upper 60%)
+    so that the loss can fall; `ragged` draws lengths from 10..T."""
+    from paddle_tpu_torch.parameter import Argument
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        label = rng.integers(0, 2, B).astype(np.int32)
+        lo = np.where(label == 0, 0, int(0.4 * vocab))[:, None]
+        ids = (lo + rng.integers(0, int(0.6 * vocab), (B, T))).astype(
+            np.int32)
+        lens = (rng.integers(10, T + 1, B).astype(np.int32) if ragged
+                else np.full(B, T, np.int32))
+        out.append({"word": Argument(ids=ids, lengths=lens),
+                    "label": Argument(ids=label)})
+    return out
+
+
+def phase_sentiment(smi: str) -> list:
+    import tempfile
+
+    from paddle_tpu_torch.graph import TEST, GraphExecutor
+    from paddle_tpu_torch.models import (bidirectional_lstm_net_config,
+                                         stacked_lstm_net_config)
+    from paddle_tpu_torch.ops import lstm_fused as lf
+    from paddle_tpu_torch.trainer import Trainer
+
+    vocab, B, T, n_lstm = 30000, 128, 100, 3
+    warm, timed = 3, 12
+    cfg = stacked_lstm_net_config(vocab, batch_size=B)
+    tr = Trainer(cfg, seed=1)
+    full = sentiment_batches(warm + timed + 2, B, T, vocab, seed=0)
+    ragged = sentiment_batches(timed, B, T, vocab, seed=1, ragged=True)
+    first = tr.train_one_pass(full[:warm])["cost"]
+    torch.cuda.synchronize()
+
+    def timed_steps(batches):
+        per_step, losses = [], []
+        t0 = time.perf_counter()
+        for b in batches:
+            c0 = (lf.counts.fwd, lf.counts.bwd, lf.counts.plain)
+            losses.append(tr.train_one_batch(b))
+            per_step.append((lf.counts.fwd - c0[0], lf.counts.bwd - c0[1],
+                             lf.counts.plain - c0[2]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return wall, [float(x) for x in losses], per_step
+
+    lf.counts.reset()
+    wall_f, loss_f, steps_f = timed_steps(full[warm:warm + timed])
+    wall_r, loss_r, steps_r = timed_steps(ragged)
+    launches = {"lstm_fwd": lf.counts.fwd, "lstm_bwd": lf.counts.bwd}
+    plain_calls = lf.counts.plain
+    for what, wall, losses in (("full lengths", wall_f, loss_f),
+                               ("lengths 10..100", wall_r, loss_r)):
+        log(f"[sentiment] {timed} steps of [{B}, {T}] ({what}) in "
+            f"{wall:.3f}s = {timed * B / wall:.1f} samples/s, "
+            f"{wall / timed * 1e3:.2f} ms/step; losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)} [{smi}]")
+    log(f"[sentiment] mean loss of the first {warm} (warm-up) steps "
+        f"{first:.4f}; kernel launches {launches} (= {n_lstm} x "
+        f"{2 * timed} steps), plain calls {plain_calls}")
+    losses = loss_f + loss_r
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not np.mean(losses[-3:]) < first:
+        raise AssertionError(f"loss did not fall: first {warm} mean {first}, "
+                             f"last 3 {losses[-3:]}")
+    if any(c != (n_lstm, n_lstm, 0) for c in steps_f + steps_r):
+        raise AssertionError(f"main path did not run through the LSTM "
+                             f"kernels once per lstmemory per step: "
+                             f"{steps_f + steps_r}")
+
+    # forward-only: Trainer.test, and the is_predict config's forward
+    held_out = sentiment_batches(2, B, T, vocab, seed=2, ragged=True)
+    stats = tr.test(held_out)
+    predict = GraphExecutor(stacked_lstm_net_config(
+        vocab, is_predict=True).model_config)
+    feed = tr.prepare_batch(held_out[0])
+    feed.pop("label")
+    out, _, _ = predict.forward(tr.params, feed, mode=TEST)
+    probs = out[predict.model.output_layer_names[0]].value
+    sums_to_1 = float((probs.sum(-1) - 1).abs().max())
+    log(f"[sentiment] test(): cost {stats['cost']:.4f}, classification "
+        f"error {stats['classification_error']:.4f} on 2 held-out ragged "
+        f"batches; is_predict forward: probabilities {tuple(probs.shape)}, "
+        f"|sum - 1| <= {sums_to_1:.1e}")
+    if not (np.isfinite(stats["cost"]) and probs.shape == (B, 2)
+            and bool(torch.isfinite(probs).all()) and sums_to_1 <= 1e-5
+            and lf.counts.plain == 0):
+        raise AssertionError("the forward-only paths failed")
+
+    with tempfile.TemporaryDirectory() as d:
+        tr.save(d)
+        fresh = Trainer(cfg, seed=2)
+        fresh.load(d)
+        same = all(torch.equal(fresh.params[n], p)
+                   for n, p in tr.params.items())
+        same &= all(torch.equal(fresh.opt_state["slots"][n][k], v)
+                    for n, sl in tr.opt_state["slots"].items()
+                    for k, v in sl.items())
+        same &= all(fresh.opt_state[k] == tr.opt_state[k]
+                    for k in ("num_samples", "num_updates", "pass_id"))
+        same &= torch.equal(fresh.dropout_rng.get_state(),
+                            tr.dropout_rng.get_state())
+        log(f"[sentiment] checkpoint save -> fresh Trainer.load: "
+            f"parameters, Adam slots, counters and the dropout generator "
+            f"{'identical' if same else 'DIFFER'}")
+        del fresh
+    if not same:
+        raise AssertionError("checkpoint round trip changed the state")
+
+    def train_two():
+        for b in full[warm + timed:]:
+            tr.train_one_batch(b)
+        return 2
+
+    profile_run(train_two, "2 sentiment training steps", smi)
+    del tr
+
+    # the bidirectional net: a forward and a reversed lstmemory per step
+    bi = Trainer(bidirectional_lstm_net_config(vocab, batch_size=B), seed=1)
+    lf.counts.reset()
+    bi_losses = [float(bi.train_one_batch(b)) for b in ragged[:4]]
+    bi_counts = (lf.counts.fwd, lf.counts.bwd, lf.counts.plain)
+    torch.cuda.synchronize()
+    log(f"[sentiment] bidirectional net, 4 ragged steps: losses "
+        f"{' '.join(f'{x:.4f}' for x in bi_losses)}; launches (fwd, bwd, "
+        f"plain) {bi_counts}")
+    if bi_counts != (8, 8, 0) or not all(np.isfinite(bi_losses)):
+        raise AssertionError("the bidirectional net did not run 2 launches "
+                             "of each LSTM kernel per step")
+    del bi
+    torch.cuda.empty_cache()
+    return lstm_records(launches, B, T, smi)
+
+
+def lstm_records(launches: dict, B: int, T: int, smi: str) -> list:
+    """Each LSTM kernel at the sentiment run's shape (B x T x 128, relu
+    cell, peepholes, full lengths): checked against the plain version, then
+    timed beside its bound, the plain version's time and a cuDNN LSTM of the
+    same sizes (torch.nn.LSTM fed x4: it has no peepholes and no length
+    freeze and adds its own [4D, 4D] input projection) — and the time of a
+    single-row launch, the floor that the T dependent steps set for this
+    design."""
+    from paddle_tpu_torch.ops import lstm_fused as lf
+    D = 128
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    names = ("relu", "sigmoid", "tanh")
+    acts = dict(active_type="relu", gate_active_type="sigmoid",
+                state_active_type="tanh")
+    inputs, cot = lstm_inputs(g, B, T, D, True, False)
+    inputs = move_off_relu_kink(inputs, False, **acts)
+    errs = lstm_compare(inputs, cot, False, **acts)
+    rel = max(r for _, r in errs.values())
+    log(f"[sentiment] lstm kernels vs plain at [{B}, {T}, {D}] relu, "
+        f"peepholes: worst {rel:.2e} of max (tol {LSTM_TOL:g})")
+    if not rel <= LSTM_TOL:
+        raise AssertionError(f"lstm kernels disagree with their plain "
+                             f"version at the run's shape: {errs}")
+    err = {"lstm_fwd": max(errs[n][0] for n in LSTM_NAMES[:3]),
+           "lstm_bwd": max(errs[n][0] for n in LSTM_NAMES[3:])}
+    x4, lens, w, peeps, h0, c0 = inputs
+    hs, cs = lf.lstm_fwd_kernel(x4, lens, w, peeps, h0, c0, names, False)
+    ms = {"lstm_fwd": time_call(lambda: lf.lstm_fwd_kernel(
+              x4, lens, w, peeps, h0, c0, names, False), 10),
+          "lstm_bwd": time_call(lambda: lf.lstm_bwd_kernel(
+              x4, lens, w, peeps, h0, c0, hs, cs, *cot, names, False), 10)}
+    one_row = time_call(lambda: lf.lstm_fwd_kernel(
+        x4[:1], lens[:1], w, peeps, h0[:1], c0[:1], names, False), 10)
+    leaves = [t.clone().requires_grad_(True) for t in (x4, w, peeps, h0, c0)]
+
+    def plain_fwd():
+        return lf.lstm_fused_plain(leaves[0], lens, *leaves[1:], **acts)
+
+    plain = {"lstm_fwd": time_call(plain_fwd, 3)}
+    out = plain_fwd()
+    loss = sum((o * c).sum() for o, c in zip(out, cot))
+    plain["lstm_bwd"] = time_call(lambda: torch.autograd.grad(
+        loss, leaves, retain_graph=True), 3)
+    del out, loss
+    cudnn = torch.nn.LSTM(4 * D, D, batch_first=True).cuda()
+    xin = x4.clone().requires_grad_(True)
+    with torch.no_grad():
+        lib = {"lstm_fwd": time_call(lambda: cudnn(xin), 10)}
+    y, _ = cudnn(xin)
+    lib["lstm_bwd"] = time_call(lambda: torch.autograd.grad(
+        y, [xin, *cudnn.parameters()], cot[0], retain_graph=True), 10)
+    del y
+    # the work this run's inputs need: every valid step is one [D] x [D, 4D]
+    # product per row in the forward and three in the backward (the gates
+    # recomputed, dx4 W^T, h_prev^T dx4); bytes: x4 of the valid steps and
+    # the small operands read, hs and cs written for every step (forward);
+    # x4, hs, cs of the valid steps and the cotangents read, dx4 and the
+    # small gradients written (backward)
+    valid = float(lens.sum())
+    step, small = 4.0 * D * 4, 4.0 * (D * 4 * D + 3 * D + 2 * B * D + B)
+    work = {"lstm_fwd": (valid * step + small + 2 * B * T * D * 4,
+                         2.0 * valid * D * 4 * D),
+            "lstm_bwd": (valid * (step + 2 * D * 4) + B * T * D * 4
+                         + B * T * step + 2 * small,
+                         6.0 * valid * D * 4 * D)}
+    log(f"[sentiment] a single-row launch of the forward kernel (the T = "
+        f"{T} dependent steps alone, no other CTA on the L2): "
+        f"{one_row * 1e3:.1f} us = {one_row * 1e3 / T:.2f} us/step [{smi}]")
+    records = []
+    for name, src_line in (("lstm_fwd", 66), ("lstm_bwd", 99)):
+        nbytes, flops = work[name]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        log(f"[sentiment] {name} at [{B}, {T}, {D}] float32: "
+            f"{ms[name] * 1e3:.1f} us/launch = {ms[name] * 1e3 / T:.2f} "
+            f"us/step; bound {bound_ms * 1e3:.1f} us "
+            f"({'operations' if flops_ms >= bytes_ms else 'bytes'}; "
+            f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s float32, "
+            f"{nbytes / 1e6:.1f} MB) = {bound_ms / ms[name]:.1%} of the "
+            f"bound; plain version {plain[name] * 1e3:.1f} us; cuDNN LSTM "
+            f"{'forward' if name == 'lstm_fwd' else 'backward'} "
+            f"{lib[name] * 1e3:.1f} us [{smi}]")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/lstm.cu",
+            "replaces": f"paddle_tpu/ops/pallas_rnn.py:{src_line}",
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": ms[name], "plain_ms": plain[name], "bound_ms": bound_ms,
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "library_ms": lib[name]})
+    return records
+
+
+def phase_sentiment_routes() -> None:
+    from paddle_tpu_torch.models import stacked_lstm_net_config
+    from paddle_tpu_torch.ops import lstm_fused as lf
+    from paddle_tpu_torch.parameter import init_params
+    from paddle_tpu_torch.trainer import Trainer
+
+    vocab, B, T = 30000, 128, 100
+    cfg = stacked_lstm_net_config(vocab, batch_size=B)
+    params = init_params(cfg.model_config, seed=1)
+    # the demo starts the lstm -> fc edges and the biases at zero; wake them
+    # so that every gradient path carries signal
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    for name, p in params.items():
+        if not bool(p.any()):
+            params[name] = 0.05 * torch.randn(p.shape, generator=g,
+                                              device="cuda")
+    batch = sentiment_batches(1, B, T, vocab, seed=5, ragged=True)[0]
+    ones = {l.name: torch.ones(B, T, l.size, device="cuda")
+            for l in cfg.model_config.layers if l.drop_rate > 0}
+    got = {}
+    kernel_route = lf.lstm_fused
+    for route in ("kernel", "plain"):
+        tr = Trainer(cfg, params=params)
+        lf.counts.reset()
+        # the layer reaches the op through the module attribute: hand it
+        # the plain version for the comparison run
+        lf.lstm_fused = (lf.lstm_fused_plain if route == "plain"
+                         else kernel_route)
+        try:
+            loss, grads, _ = tr.compute_gradients(tr.prepare_batch(batch),
+                                                  dropout_masks=ones)
+        finally:
+            lf.lstm_fused = kernel_route
+        torch.cuda.synchronize()
+        got[route] = (float(loss), grads,
+                      (lf.counts.fwd, lf.counts.bwd, lf.counts.plain))
+    (lk, gk, ck), (lp, gp, cp) = got["kernel"], got["plain"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    worst, worst_name = 0.0, ""
+    for n, ref in gp.items():
+        e = float((gk[n] - ref).abs().max()) / max(float(ref.abs().max()),
+                                                   1e-30)
+        if e > worst:
+            worst, worst_name = e, n
+    log(f"[sentiment-routes] fp32, full width, [{B}, {T}] ragged, dropout "
+        f"masks of ones: loss kernel {lk:.6f} vs plain {lp:.6f} (rel "
+        f"{rel_loss:.2e}, tol 1e-5); worst gradient {worst:.2e} of its max "
+        f"({worst_name}; tol 1e-4); launches (fwd, bwd, plain) kernel "
+        f"{ck}, plain {cp}")
+    if ck != (3, 3, 0) or cp != (0, 0, 3):
+        raise AssertionError(f"routes did not take their paths: {ck}, {cp}")
+    if not (rel_loss <= 1e-5 and worst <= 1e-4 and set(gk) == set(gp)):
+        raise AssertionError("the LSTM kernel and plain training routes "
+                             "disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -781,8 +1234,11 @@ def main() -> int:
     phase_flash()
     flash = phase_train(smi)
     phase_train_routes()
+    phase_lstm()
+    lstm = phase_sentiment(smi)
+    phase_sentiment_routes()
     log(f"[done] {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [record] + flash}))
+    print(json.dumps({"kernels": [record] + flash + lstm}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ transformer LM through a continuous-batching engine with paged KV, reading
 attention through a hand-written CUDA kernel (csrc/paged_attention.cu);
 slice 2 trains it (trainer.Trainer, optim/), long-context attention going
 through hand-written flash-attention kernels, forward and backward
-(csrc/flash_attention.cu).
+(csrc/flash_attention.cu); slice 3 trains and runs the IMDB sentiment LSTM
+nets (models/sentiment.py), the recurrence going through hand-written
+fused-LSTM kernels, forward and backward (csrc/lstm.cu).
 """
 
 from paddle_tpu_torch.device import resolve_device  # noqa: F401

@@ -17,7 +17,7 @@ import torch
 
 # importing the layer modules registers their layer types
 from paddle_tpu_torch.graph import (layers_attn, layers_core,  # noqa: F401
-                                    layers_cost, layers_misc)
+                                    layers_cost, layers_misc, layers_seq)
 from paddle_tpu_torch.config.schema import LayerConfig, ModelConfig
 from paddle_tpu_torch.graph.context import TEST, TRAIN, ForwardContext
 from paddle_tpu_torch.graph.registry import get_layer_fn
@@ -75,18 +75,22 @@ class GraphExecutor:
     def forward(self, params: dict[str, torch.Tensor],
                 feed: dict[str, Argument],
                 state: Optional[dict[str, Any]] = None,
-                mode: str = TEST):
+                mode: str = TEST, rng: Optional[torch.Generator] = None,
+                dropout_masks: Optional[dict[str, torch.Tensor]] = None):
         """Run the graph.  Returns (layer outputs, per-sample costs by cost
         layer, new state).  Layers whose inputs were not fed (the training
         head, for a feed without labels) are skipped.  TEST runs without
-        autograd; TRAIN records the graph for `loss(...).backward()`."""
+        autograd; TRAIN records the graph for `loss(...).backward()`.  A
+        TRAIN forward of a model with dropout draws its masks from `rng`,
+        except for the layers whose keep-mask `dropout_masks` supplies."""
         if mode not in (TRAIN, TEST):
             raise ValueError(f"mode {mode!r}: expected {TRAIN!r} or {TEST!r}")
         with torch.set_grad_enabled(mode == TRAIN and
                                     torch.is_grad_enabled()):
             params, feed = self.prepare(params, feed)
             ctx = ForwardContext(model=self.model, params=params, mode=mode,
-                                 state_in=state or {})
+                                 state_in=state or {}, rng=rng,
+                                 dropout_masks=dropout_masks or {})
             ctx.outputs.update(feed)
             for cfg in self._plan:
                 if any(inp.input_layer_name not in ctx.outputs
@@ -97,10 +101,13 @@ class GraphExecutor:
 
     def loss(self, params: dict[str, torch.Tensor],
              feed: dict[str, Argument],
-             state: Optional[dict[str, Any]] = None, mode: str = TRAIN):
+             state: Optional[dict[str, Any]] = None, mode: str = TRAIN,
+             rng: Optional[torch.Generator] = None,
+             dropout_masks: Optional[dict[str, torch.Tensor]] = None):
         """The sum over cost layers of each cost's batch mean, in at least
         float32, and the forward's (outputs, costs, state)."""
-        outputs, costs, new_state = self.forward(params, feed, state, mode)
+        outputs, costs, new_state = self.forward(params, feed, state, mode,
+                                                 rng, dropout_masks)
         if not costs:
             raise ValueError("model has no cost layers (or their inputs "
                              "were not fed)")

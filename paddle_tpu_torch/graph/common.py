@@ -12,21 +12,34 @@ from paddle_tpu_torch.ops.activations import activation
 from paddle_tpu_torch.parameter.argument import Argument
 
 
+def apply_dropout(ctx: ForwardContext, cfg: LayerConfig,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Classic (non-inverted) dropout, as the JAX package's: multiply by a
+    Bernoulli(1 - drop_rate) keep-mask at train time and by (1 - drop_rate)
+    at test time.  The mask is `ctx.dropout_masks[cfg.name]` when the
+    caller supplied one, else a draw from the context's generator."""
+    p = cfg.drop_rate
+    if p <= 0.0:
+        return x
+    if not ctx.is_training:
+        return x * (1.0 - p)
+    keep = ctx.dropout_masks.get(cfg.name)
+    if keep is None:
+        keep = torch.rand(x.shape, generator=ctx.next_rng(),
+                          device=x.device) < (1.0 - p)
+    elif keep.shape != x.shape:
+        raise ValueError(f"layer {cfg.name!r}: dropout mask "
+                         f"{tuple(keep.shape)} for an output "
+                         f"{tuple(x.shape)}")
+    return x * keep.to(device=x.device, dtype=x.dtype)
+
+
 def finish_layer(ctx: ForwardContext, cfg: LayerConfig, value: torch.Tensor,
                  like: Optional[Argument] = None,
                  lengths: Optional[torch.Tensor] = None) -> Argument:
-    """Apply the activation and package the output Argument, inheriting
-    sequence lengths from `like`.  Dropout at test time scales by
-    (1 - drop_rate), as the JAX package's classic dropout does; its
-    training-time Bernoulli mask needs the JAX random stream, not ported
-    yet (ROADMAP.md), so a TRAIN forward of such a layer raises."""
+    """Apply the activation and dropout and package the output Argument,
+    inheriting sequence lengths from `like`."""
     if lengths is None and like is not None and value.dim() >= 3:
         lengths = like.lengths
-    out = activation(cfg.active_type, value)
-    if cfg.drop_rate > 0.0:
-        if ctx.is_training:
-            raise NotImplementedError(
-                f"layer {cfg.name!r}: training-time dropout needs the JAX "
-                f"random stream, not ported yet (ROADMAP.md)")
-        out = out * (1.0 - cfg.drop_rate)
+    out = apply_dropout(ctx, cfg, activation(cfg.active_type, value))
     return Argument(value=out, lengths=lengths)

@@ -3,9 +3,12 @@
 The port's counterpart of paddle_tpu/graph/context.py: the mode (TRAIN or
 TEST), the parameter map, already-computed layer outputs, the
 incoming/outgoing layer state (the serving engine's paged KV pools), and
-the per-sample cost vectors the cost layers record by layer name.  The
-per-layer random stream of the JAX side (dropout, sampling layers) is not
-ported yet (ROADMAP.md).
+the per-sample cost vectors the cost layers record by layer name, and the
+random stream of stochastic layers (training-time dropout): a
+`torch.Generator` on the tensors' device that its owner (the Trainer) seeds.
+Its draws are not those of `jax.random`, so `dropout_masks` lets a caller
+supply a layer's keep-mask instead of drawing it (the tests feed the masks
+JAX drew).
 """
 
 from __future__ import annotations
@@ -34,10 +37,22 @@ class ForwardContext:
     state_out: dict[str, Any] = field(default_factory=dict)
     # accumulated per-sample costs from cost layers: name -> [B]
     costs: dict[str, torch.Tensor] = field(default_factory=dict)
+    # the random stream of stochastic layers, and keep-masks by layer name
+    # that replace a draw from it
+    rng: Optional[torch.Generator] = None
+    dropout_masks: dict[str, torch.Tensor] = field(default_factory=dict)
 
     @property
     def is_training(self) -> bool:
         return self.mode == TRAIN
+
+    def next_rng(self) -> torch.Generator:
+        """The generator the next stochastic draw comes from (each draw
+        advances it, as the JAX side folds a counter into its key)."""
+        if self.rng is None:
+            raise ValueError("forward() needs an rng for stochastic layers "
+                             "(training-time dropout)")
+        return self.rng
 
     def get_input(self, cfg: LayerConfig, i: int) -> Argument:
         name = cfg.inputs[i].input_layer_name

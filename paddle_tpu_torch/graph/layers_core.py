@@ -1,5 +1,6 @@
-"""Core layers of the transformer LM: data, fc, mixed (table projection),
-addto — the counterparts of paddle_tpu/graph/layers_core.py."""
+"""Core layers: data, fc, mixed (table, full-matrix and identity
+projections), addto, concat — the counterparts of
+paddle_tpu/graph/layers_core.py."""
 
 from __future__ import annotations
 
@@ -34,9 +35,10 @@ def fc_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
 
 @register_layer("mixed")
 def mixed_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
-    """Sum of per-input projections plus bias.  The slice ports the
-    `table` projection (embedding lookup); other projections and mixed
-    operators are queued in ROADMAP.md."""
+    """Sum of per-input projections plus bias.  Ported projections:
+    `table` (embedding lookup), `fc` / `full_matrix` (x @ W) and
+    `identity`; the others and the mixed operators are queued in
+    ROADMAP.md."""
     if cfg.operators:
         raise NotImplementedError(
             f"layer {cfg.name!r}: mixed-layer operators are not ported yet "
@@ -47,11 +49,16 @@ def mixed_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     for i, (inp, arg) in enumerate(zip(cfg.inputs, inputs)):
         if inp.proj is None:
             continue
-        if inp.proj.type != "table":
+        if inp.proj.type == "table":
+            y = ctx.param_of(cfg, i)[arg.ids]
+        elif inp.proj.type in ("fc", "full_matrix"):
+            y = torch.matmul(arg.value, ctx.param_of(cfg, i))
+        elif inp.proj.type == "identity":
+            y = arg.data
+        else:
             raise NotImplementedError(
                 f"layer {cfg.name!r}: projection {inp.proj.type!r} is not "
                 f"ported yet (ROADMAP.md)")
-        y = ctx.param_of(cfg, i)[arg.ids]
         if arg.is_sequence and (like is None or not like.is_sequence):
             like = arg
         acc = y if acc is None else acc + y
@@ -72,4 +79,12 @@ def addto_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     b = ctx.bias_of(cfg)
     if b is not None:
         acc = acc + b
+    return finish_layer(ctx, cfg, acc, like=inputs[0])
+
+
+@register_layer("concat")
+def concat_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """Feature-dim concatenation of the inputs."""
+    inputs = ctx.get_inputs(cfg)
+    acc = torch.cat([a.value for a in inputs], dim=-1)
     return finish_layer(ctx, cfg, acc, like=inputs[0])

@@ -2,9 +2,10 @@
 
 A layer implementation is a function (ctx, cfg) -> Argument on tensors,
 as in paddle_tpu/graph/registry.py.  The port implements the layers the
-transformer LM runs, its cost layer included; all the JAX package's cost
-and validation types are known by name so that the serving engine can
-tell the model's output layer from its training head.
+transformer LM and the sentiment LSTM nets run, their cost layer included;
+all the JAX package's cost and validation types are known by name so that
+the serving engine can tell the model's output layer from its training
+head.
 """
 
 from __future__ import annotations

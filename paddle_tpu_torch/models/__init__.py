@@ -2,3 +2,7 @@ from paddle_tpu_torch.models.transformer_lm import (  # noqa: F401
     transformer_lm_config,
     transformer_lm_trainer_config,
 )
+from paddle_tpu_torch.models.sentiment import (  # noqa: F401
+    bidirectional_lstm_net_config,
+    stacked_lstm_net_config,
+)

@@ -1,0 +1,50 @@
+"""Variable-length sequence pooling on padded [B, T, D] tensors plus a [B]
+lengths vector — the counterparts of paddle_tpu/ops/sequence.py
+(`seq_pool_max`, `seq_pool_avg`, `seq_pool_first`, `seq_pool_last`): each
+is a masked dense reduction over the time axis.  The nested (sub-sequence)
+forms and the other sequence ops of that module are queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def length_mask(lengths: torch.Tensor, max_len: int,
+                dtype=torch.bool) -> torch.Tensor:
+    """[B] lengths -> [B, T] validity mask."""
+    t = torch.arange(max_len, device=lengths.device)
+    return (t[None, :] < lengths[:, None]).to(dtype)
+
+
+def seq_pool_max(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Max over the valid timesteps: [B, T, D], [B] -> [B, D]; padded steps
+    count as the dtype's lowest value (a length-0 row gives that value)."""
+    mask = length_mask(lengths, x.shape[1])[..., None]
+    return x.masked_fill(~mask, torch.finfo(x.dtype).min).amax(dim=1)
+
+
+def seq_pool_avg(x: torch.Tensor, lengths: torch.Tensor,
+                 strategy: str = "average") -> torch.Tensor:
+    """Mean ('average'), sum ('sum') or sum / sqrt(n) ('squarerootn') over
+    the valid timesteps, n = max(length, 1)."""
+    if strategy not in ("average", "sum", "squarerootn"):
+        raise ValueError(f"average_strategy {strategy!r}: expected average, "
+                         f"sum or squarerootn")
+    mask = length_mask(lengths, x.shape[1], x.dtype)[..., None]
+    total = torch.sum(x * mask, dim=1)
+    if strategy == "sum":
+        return total
+    n = lengths.to(x.dtype).clamp(min=1.0)[:, None]
+    return total / (torch.sqrt(n) if strategy == "squarerootn" else n)
+
+
+def seq_pool_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """The last valid timestep (step 0 of a length-0 row)."""
+    idx = (lengths.long() - 1).clamp(min=0)
+    return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+def seq_pool_first(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """The first timestep."""
+    return x[:, 0]

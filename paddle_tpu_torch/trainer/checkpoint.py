@@ -7,7 +7,9 @@ completed) holds `model.npz` and `trainer_config.json`.  The npz keys are
 the nested state trees flattened with `|` and sorted dict keys:
 `params|<name>`, `opt|slots|<name>|<slot>`, `opt|num_samples`,
 `opt|num_updates`, `opt|pass_id` (0-d int32, as JAX writes them),
-`net|...`, and `rng` when one was loaded from a JAX checkpoint.  The write
+`net|...`, `rng` when one was loaded from a JAX checkpoint, and
+`dropout_rng` (the state bytes of the port's dropout generator, which the
+JAX loader ignores as the port ignores the meaning of `rng`).  The write
 is staged under `<dir>.tmp` and committed with one rename; an existing pass
 is moved aside first and dropped only after the commit.
 """
@@ -88,7 +90,8 @@ def save_checkpoint(save_dir: str, pass_id: int, params: dict,
                     opt_state: Optional[dict] = None,
                     net_state: Optional[dict] = None,
                     config_json: Optional[str] = None, keep_last: int = 0,
-                    rng: Optional[np.ndarray] = None) -> str:
+                    rng: Optional[np.ndarray] = None,
+                    dropout_rng: Optional[torch.Tensor] = None) -> str:
     """Write pass-%05d/{model.npz, trainer_config.json} atomically; returns
     the pass directory."""
     d = pass_dir(save_dir, pass_id)
@@ -103,6 +106,8 @@ def save_checkpoint(save_dir: str, pass_id: int, params: dict,
         flat.update(_flatten(net_state, "net"))
     if rng is not None:
         flat["rng"] = np.asarray(rng)
+    if dropout_rng is not None:
+        flat["dropout_rng"] = _to_numpy(dropout_rng)
     tmp_npz = os.path.join(tmp_d, "model.npz.part")
     with open(tmp_npz, "wb") as f:
         np.savez(f, **flat)
@@ -154,8 +159,8 @@ def latest_pass(save_dir: str) -> int:
 def load_checkpoint(path: str) -> dict[str, Any]:
     """Load a pass directory, its model.npz, or a save_dir (its newest
     committed pass, else pass-init).  Returns {'params', 'opt', 'net'} as
-    nested dicts of numpy arrays, plus 'rng', 'pass_id' and 'config_json'
-    where present."""
+    nested dicts of numpy arrays, plus 'rng', 'dropout_rng', 'pass_id' and
+    'config_json' where present."""
     if path.endswith(".npz"):
         npz = path
     else:
@@ -176,8 +181,9 @@ def load_checkpoint(path: str) -> dict[str, Any]:
         sub = {k[len(prefix) + 1:]: v for k, v in flat.items()
                if k.startswith(prefix + SEP)}
         out[prefix] = _unflatten_dicts(sub)
-    if "rng" in flat:
-        out["rng"] = flat["rng"]
+    for key in ("rng", "dropout_rng"):
+        if key in flat:
+            out[key] = flat[key]
     base = os.path.basename(os.path.dirname(os.path.abspath(npz)))
     m = re.match(r"pass-(\d{5})$", base)
     if m:

@@ -78,9 +78,13 @@ class Trainer:
                        for n in (p.name for p in self.model.parameters)}
         self.opt_state = self.updater.init_state(self.params)
         self.net_state: dict[str, Any] = {}
-        # a JAX PRNG key carried through a loaded checkpoint; the port
-        # draws no random numbers in training and invents none
+        # a JAX PRNG key carried through a loaded checkpoint, unused here:
+        # the port's own random stream (training-time dropout) is this
+        # generator, saved with a checkpoint and restored on the same kind
+        # of device
         self.rng: Optional[np.ndarray] = None
+        self.dropout_rng = torch.Generator(device=self.device)
+        self.dropout_rng.manual_seed(int(seed))
         self.pass_id = 0
         self._static = self.executor.static_param_names
         self._data_layers = {l.name: l for l in self.model.layers
@@ -127,14 +131,18 @@ class Trainer:
             raise ValueError(f"feeds disagree on batch size: {sorted(sizes)}")
         return out
 
-    def compute_gradients(self, batch: Batch):
+    def compute_gradients(self, batch: Batch,
+                          dropout_masks: Optional[dict] = None):
         """The TRAIN loss of a prepared batch and d loss / d param for every
-        trainable parameter: (loss, grads, outputs)."""
+        trainable parameter: (loss, grads, outputs).  Dropout masks come
+        from the trainer's generator unless `dropout_masks` gives a layer's
+        keep-mask."""
         leaves = {n: (p.detach() if n in self._static
                       else p.detach().requires_grad_(True))
                   for n, p in self.params.items()}
         loss, (outputs, _, new_net) = self.executor.loss(
-            leaves, batch, self.net_state, TRAIN)
+            leaves, batch, self.net_state, TRAIN, self.dropout_rng,
+            dropout_masks)
         names = [n for n in leaves if n not in self._static]
         grads = torch.autograd.grad(loss, [leaves[n] for n in names],
                                     allow_unused=True)
@@ -143,12 +151,14 @@ class Trainer:
             self.net_state = new_net
         return loss.detach(), grads, outputs
 
-    def train_one_batch(self, batch: Batch) -> torch.Tensor:
+    def train_one_batch(self, batch: Batch,
+                        dropout_masks: Optional[dict] = None
+                        ) -> torch.Tensor:
         """One optimizer step on one batch.  Returns the loss as a device
         scalar (no host read); non-finite losses raise at the next bulk
         check."""
         batch = self.prepare_batch(batch)
-        loss, grads, outputs = self.compute_gradients(batch)
+        loss, grads, outputs = self.compute_gradients(batch, dropout_masks)
         self.params, self.opt_state = self.updater.step(
             self.params, grads, self.opt_state, _batch_size(batch))
         with torch.no_grad():
@@ -233,7 +243,8 @@ class Trainer:
         return ckpt.save_checkpoint(
             save_dir, self.pass_id - 1, self.params, self.opt_state,
             self.net_state, config_json=self.config.to_json(),
-            keep_last=keep_last, rng=self.rng)
+            keep_last=keep_last, rng=self.rng,
+            dropout_rng=self.dropout_rng.get_state())
 
     def load(self, path: str) -> None:
         """Load parameters, optimizer state and pass numbering from a
@@ -254,6 +265,12 @@ class Trainer:
             self.net_state = data["net"]
         if data.get("rng") is not None:
             self.rng = data["rng"]
+        state = data.get("dropout_rng")
+        if state is not None and (
+                state.size == self.dropout_rng.get_state().numel()):
+            # a generator's state is its device kind's own: a checkpoint
+            # from the other kind keeps this trainer's seeded stream
+            self.dropout_rng.set_state(torch.from_numpy(state.copy()))
         if "pass_id" in data:
             self.pass_id = data["pass_id"] + 1
 

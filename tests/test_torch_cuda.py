@@ -1,6 +1,6 @@
-"""PyTorch port on the card: the CUDA paged-attention and flash-attention
-kernels against their plain versions, the engine on CUDA against the
-engine on the CPU, and training steps on CUDA against the same steps on
+"""PyTorch port on the card: the CUDA paged-attention, flash-attention and
+fused-LSTM kernels against their plain versions, the engine on CUDA against
+the engine on the CPU, and training steps on CUDA against the same steps on
 the CPU.
 
 These need an NVIDIA GPU and nvcc, and import nothing of JAX, so they run
@@ -14,12 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import GRAD_TOL, lm_batches, o_limit_share
+from chip_smoke import (GRAD_TOL, LSTM_TOL, lm_batches, lstm_compare,
+                        lstm_inputs, move_off_relu_kink, o_limit_share,
+                        sentiment_batches)
 from paddle_tpu_torch.graph import GraphExecutor
-from paddle_tpu_torch.models import (transformer_lm_config,
+from paddle_tpu_torch.models import (stacked_lstm_net_config,
+                                     transformer_lm_config,
                                      transformer_lm_trainer_config)
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import lstm_fused as lf
 from paddle_tpu_torch.ops import paged_attention as pa
+from paddle_tpu_torch.ops import rnn as rnnops
 from paddle_tpu_torch.parameter import init_params
 from paddle_tpu_torch.serving import Request, ServingEngine
 from paddle_tpu_torch.trainer import Trainer
@@ -190,3 +195,86 @@ def test_training_steps_on_cuda_match_cpu(cuda):
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5)
     for n, p in runs["cpu"][1].items():
         assert float((runs["cuda"][1][n] - p).abs().max()) <= 2e-6, n
+
+
+# (B, T, D, reverse, peepholes, ragged, cell activation)
+LSTM_CASES = [(5, 7, 32, False, True, True, "tanh"),
+              (133, 20, 64, True, True, True, "relu"),
+              (300, 9, 512, False, False, True, "relu"),
+              (3, 1, 96, True, True, False, "tanh"),
+              (64, 50, 128, True, False, False, "linear")]
+
+
+@pytest.mark.parametrize("case", LSTM_CASES,
+                         ids=["odd", "two-row-tiles", "d512-four-row-tiles",
+                              "one-step", "linear-cell"])
+def test_lstm_kernels_match_plain_version(cuda, case):
+    """The forward kernel (hs, h_last, c_last) and the backward kernel
+    (dx4, dW, dpeep, dh0, dc0) against autograd of the plain version, each
+    within chip_smoke's LSTM_TOL of its max; one launch of each."""
+    B, T, D, reverse, peep, ragged, act = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    acts = dict(active_type=act, gate_active_type="sigmoid",
+                state_active_type="tanh")
+    inputs, cot = lstm_inputs(g, B, T, D, peep, ragged)
+    if act == "relu":
+        inputs = move_off_relu_kink(inputs, reverse, **acts)
+    lf.counts.reset()
+    errs = lstm_compare(inputs, cot, reverse, **acts)
+    assert (lf.counts.fwd, lf.counts.bwd) == (1, 1)
+    for name, (_, rel) in errs.items():
+        assert rel <= LSTM_TOL, (name, rel)
+
+
+def test_lstm_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    """On CUDA tensors a hidden size or an activation the kernels do not
+    take raises (no silent plain version); impl='plain' asks for the plain
+    version explicitly."""
+    x4 = torch.randn(2, 3, 32, device=cuda)
+    lens = torch.tensor([3, 2], device=cuda)
+    w = torch.randn(8, 32, device=cuda)
+    with pytest.raises(ValueError, match="hidden size 8"):
+        rnnops.lstm_scan(x4, lens, w, None)
+    lf.counts.reset()
+    hs, _, _ = rnnops.lstm_scan(x4, lens, w, None, impl="plain")
+    assert hs.shape == (2, 3, 8) and (lf.counts.plain, lf.counts.fwd) == (1, 0)
+    x4 = torch.randn(2, 3, 128, device=cuda)
+    w = torch.randn(32, 128, device=cuda)
+    with pytest.raises(ValueError, match="softmax"):
+        rnnops.lstm_scan(x4, lens, w, None, active_type="softmax")
+    with pytest.raises(ValueError, match="16-byte"):
+        lf.lstm_fused(x4, lens, torch.randn(32 * 128 + 1, device=cuda)[1:]
+                      .view(32, 128), torch.zeros(3, 32, device=cuda),
+                      torch.zeros(2, 32, device=cuda),
+                      torch.zeros(2, 32, device=cuda))
+
+
+def test_sentiment_step_on_cuda_matches_cpu(cuda):
+    """One fp32 training step of the stacked sentiment net (hid_dim 128:
+    lstm hidden 32) on the card launches each LSTM kernel once per
+    lstmemory and the plain version never, and gives the CPU step's loss
+    (rtol 1e-5) and gradients (1e-4 of their max) with the same dropout
+    masks."""
+    cfg = stacked_lstm_net_config(97, batch_size=6, hid_dim=128)
+    params = init_params(cfg.model_config, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for n, p in params.items():                  # wake the zero lstm edges
+        if not p.any():
+            params[n] = 0.05 * torch.randn(p.shape, generator=gen)
+    batch = sentiment_batches(1, 6, 11, 97, seed=0, ragged=True)[0]
+    masks = {l.name: torch.rand(6, 11, l.size, generator=gen) < 0.5
+             for l in cfg.model_config.layers if l.drop_rate > 0}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, device=dev, params=params)
+        lf.counts.reset()
+        loss, grads, _ = tr.compute_gradients(tr.prepare_batch(batch),
+                                              dropout_masks=masks)
+        if dev == "cuda":
+            assert (lf.counts.fwd, lf.counts.bwd, lf.counts.plain) == (3, 3,
+                                                                       0)
+        runs[dev] = float(loss), {n: g.cpu() for n, g in grads.items()}
+    assert runs["cuda"][0] == pytest.approx(runs["cpu"][0], rel=1e-5)
+    for n, ref in runs["cpu"][1].items():
+        err = float((runs["cuda"][1][n] - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()) + 1e-9, n

@@ -186,3 +186,201 @@ def test_bfloat16_compute_dtype_casts_params_and_keeps_norms_fp32():
     want = GraphExecutor(model).forward(params, feed)[0]["lm_head"].value
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=2e-3)
+
+
+# -- sequence pooling, mixed projections, concat, dropout ---------------------
+
+def _seq(seed=0, B=4, T=6, D=5):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    lens = np.array([T, 1, 3, 0], np.int32)[:B]
+    return x, lens
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("seq_pool_max", {}), ("seq_pool_avg", {"strategy": "average"}),
+    ("seq_pool_avg", {"strategy": "sum"}),
+    ("seq_pool_avg", {"strategy": "squarerootn"}),
+    ("seq_pool_first", {}), ("seq_pool_last", {})],
+    ids=["max", "average", "sum", "squarerootn", "first", "last"])
+def test_sequence_pools_match_jax(name, kw):
+    """ops/sequence.py pools on a ragged batch (a full row, a single-step
+    row, a length-0 row) against paddle_tpu.ops.sequence; exact for the
+    selections, 1e-6 for the sums."""
+    from paddle_tpu.ops import sequence as jseq
+    from paddle_tpu_torch.ops import sequence as tseq
+    x, lens = _seq()
+    got = getattr(tseq, name)(_t(x), _t(lens), **kw)
+    want = getattr(jseq, name)(jnp.asarray(x), jnp.asarray(lens), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_sequence_pool_rejects_unknown_strategy():
+    from paddle_tpu_torch.ops import sequence as tseq
+    x, lens = _seq()
+    with pytest.raises(ValueError, match="average_strategy"):
+        tseq.seq_pool_avg(_t(x), _t(lens), "median")
+
+
+def _both_contexts(mode, **outputs):
+    """The same named outputs (numpy value, lengths) in a JAX and a port
+    ForwardContext."""
+    from paddle_tpu.graph.context import ForwardContext as JContext
+    jctx = JContext(model=None, params={}, mode=mode)
+    ctx = ForwardContext(model=None, params={}, mode=mode)
+    for name, (value, lens) in outputs.items():
+        jctx.outputs[name] = JArgument(
+            value=jnp.asarray(value),
+            lengths=None if lens is None else jnp.asarray(lens))
+        ctx.outputs[name] = Argument(
+            value=_t(value), lengths=None if lens is None else _t(lens))
+    return jctx, ctx
+
+
+@pytest.mark.parametrize("type_,fields", [
+    ("max", {}), ("average", {"average_strategy": "sum"}),
+    ("seqlastins", {}), ("seqlastins", {"select_first": True})],
+    ids=["max", "average-sum", "last", "first"])
+def test_pooling_layers_match_jax(type_, fields):
+    """The max / average / seqlastins layers on a ragged sequence equal the
+    JAX layers and give a non-sequence [B, D] output."""
+    from paddle_tpu.config.schema import LayerConfig as JLayer
+    from paddle_tpu.config.schema import LayerInput as JInput
+    from paddle_tpu.graph.registry import get_layer_fn as jget
+    from paddle_tpu_torch.graph.registry import get_layer_fn
+    x, lens = _seq(1)
+    jctx, ctx = _both_contexts("test", x=(x, lens))
+    spec = dict(name="p", type=type_, size=5, **fields)
+    want = jget(type_)(jctx, JLayer(inputs=[JInput("x")], **spec))
+    got = get_layer_fn(type_)(ctx, LayerConfig(inputs=[LayerInput("x")],
+                                               **spec))
+    np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
+                               rtol=1e-6, atol=1e-6)
+    assert got.lengths is None and want.lengths is None
+
+
+def test_pooling_layers_refuse_what_is_not_ported():
+    from paddle_tpu_torch.graph.registry import get_layer_fn
+    x, lens = _seq(1)
+    _, ctx = _both_contexts("test", x=(x, lens), flat=(x[:, 0], None))
+    with pytest.raises(NotImplementedError, match="nested"):
+        get_layer_fn("max")(ctx, LayerConfig(
+            name="p", type="max", trans_type="seq",
+            inputs=[LayerInput("x")]))
+    with pytest.raises(ValueError, match="sequence input"):
+        get_layer_fn("average")(ctx, LayerConfig(
+            name="p", type="average", inputs=[LayerInput("flat")]))
+
+
+def test_mixed_projections_and_concat_match_jax():
+    """mixed with a full-matrix ('fc') and an identity projection plus a
+    bias, and concat, against the JAX layers (1e-6: one float32 matmul)."""
+    from paddle_tpu.config.schema import LayerConfig as JLayer
+    from paddle_tpu.config.schema import LayerInput as JInput
+    from paddle_tpu.config.schema import ProjectionConfig as JProj
+    from paddle_tpu.graph.registry import get_layer_fn as jget
+    from paddle_tpu_torch.config.schema import ProjectionConfig
+    from paddle_tpu_torch.graph.registry import get_layer_fn
+    rng = np.random.default_rng(2)
+    x, lens = _seq(2)
+    y = rng.standard_normal((4, 6, 7)).astype(np.float32)
+    w = rng.standard_normal((5, 7)).astype(np.float32)
+    b = rng.standard_normal((1, 7)).astype(np.float32)
+    jctx, ctx = _both_contexts("test", x=(x, lens), y=(y, lens))
+    jctx.params.update(w=jnp.asarray(w), b=jnp.asarray(b))
+    ctx.params.update(w=_t(w), b=_t(b))
+    spec = dict(name="m", type="mixed", size=7, bias_parameter_name="b",
+                active_type="tanh")
+    want = jget("mixed")(jctx, JLayer(inputs=[
+        JInput("x", "w", JProj(type="fc", input_size=5, output_size=7)),
+        JInput("y", "", JProj(type="identity", input_size=7,
+                              output_size=7))], **spec))
+    got = get_layer_fn("mixed")(ctx, LayerConfig(inputs=[
+        LayerInput("x", "w", ProjectionConfig(type="fc", input_size=5,
+                                              output_size=7)),
+        LayerInput("y", "", ProjectionConfig(type="identity", input_size=7,
+                                             output_size=7))], **spec))
+    np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
+                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(got.lengths, _t(lens))
+    with pytest.raises(NotImplementedError, match="dot_mul"):
+        get_layer_fn("mixed")(ctx, LayerConfig(inputs=[LayerInput(
+            "x", "w", ProjectionConfig(type="dot_mul"))], **spec))
+    cspec = dict(name="c", type="concat", size=12)
+    cwant = jget("concat")(jctx, JLayer(inputs=[JInput("x"), JInput("y")],
+                                        **cspec))
+    cgot = get_layer_fn("concat")(ctx, LayerConfig(
+        inputs=[LayerInput("x"), LayerInput("y")], **cspec))
+    np.testing.assert_array_equal(cgot.value.numpy(), np.asarray(cwant.value))
+    assert torch.equal(cgot.lengths, _t(lens))
+
+
+def _dropout_layer(p=0.5):
+    return LayerConfig(name="d", type="addto", size=64, drop_rate=p,
+                       inputs=[LayerInput("x")])
+
+
+def _dropout_ctx(mode, seed=None, masks=None, shape=(64, 64)):
+    ctx = ForwardContext(model=None, params={}, mode=mode,
+                         dropout_masks=masks or {})
+    if seed is not None:
+        ctx.rng = torch.Generator().manual_seed(seed)
+    ctx.outputs["x"] = Argument(value=torch.ones(shape))
+    return ctx
+
+
+def test_dropout_test_mode_scales_by_the_keep_rate():
+    """Classic (non-inverted) dropout: TEST multiplies by 1 - p and draws
+    nothing, as the JAX layer does."""
+    from paddle_tpu.config.schema import LayerConfig as JLayer
+    from paddle_tpu.config.schema import LayerInput as JInput
+    from paddle_tpu.graph.registry import get_layer_fn as jget
+    from paddle_tpu_torch.graph.registry import get_layer_fn
+    out = get_layer_fn("addto")(_dropout_ctx("test"), _dropout_layer(0.3))
+    jctx, _ = _both_contexts("test", x=(np.ones((64, 64), np.float32), None))
+    want = jget("addto")(jctx, JLayer(name="d", type="addto", size=64,
+                                      drop_rate=0.3, inputs=[JInput("x")]))
+    np.testing.assert_allclose(out.value.numpy(), np.asarray(want.value),
+                               rtol=1e-7)
+    assert float(out.value[0, 0]) == pytest.approx(0.7)
+
+
+@pytest.mark.parametrize("p", [0.5, 0.2], ids=["p0.5", "p0.2"])
+def test_dropout_train_mask_statistics_and_seed(p):
+    """TRAIN multiplies by a 0/1 keep-mask (no rescaling) whose keep rate
+    is within 3 sigma of 1 - p; the same generator seed gives the same
+    mask, another seed another; successive layers draw different masks."""
+    from paddle_tpu_torch.graph.registry import get_layer_fn
+    addto = get_layer_fn("addto")
+    a = addto(_dropout_ctx("train", seed=5), _dropout_layer(p)).value
+    assert set(a.unique().tolist()) == {0.0, 1.0}
+    n = a.numel()
+    sigma = (p * (1 - p) / n) ** 0.5
+    assert abs(float(a.mean()) - (1 - p)) < 3 * sigma
+    again = addto(_dropout_ctx("train", seed=5), _dropout_layer(p)).value
+    other = addto(_dropout_ctx("train", seed=6), _dropout_layer(p)).value
+    assert torch.equal(a, again) and not torch.equal(a, other)
+    ctx = _dropout_ctx("train", seed=5)
+    first = addto(ctx, _dropout_layer(p)).value
+    second = addto(ctx, _dropout_layer(p)).value
+    assert torch.equal(first, a) and not torch.equal(second, first)
+
+
+def test_dropout_mask_injection_and_its_errors():
+    """A mask in dropout_masks replaces the draw (no generator needed);
+    without either a TRAIN forward raises, and a mask of the wrong shape
+    raises."""
+    from paddle_tpu_torch.graph.registry import get_layer_fn
+    addto = get_layer_fn("addto")
+    mask = torch.zeros(64, 64, dtype=torch.bool)
+    mask[::2] = True
+    out = addto(_dropout_ctx("train", masks={"d": mask}), _dropout_layer())
+    assert torch.equal(out.value, mask.float())
+    with pytest.raises(ValueError, match="needs an rng"):
+        addto(_dropout_ctx("train"), _dropout_layer())
+    with pytest.raises(ValueError, match="dropout mask"):
+        addto(_dropout_ctx("train", masks={"d": mask[:3]}), _dropout_layer())
+    # a layer without dropout needs neither
+    plain = addto(_dropout_ctx("train"), _dropout_layer(0.0))
+    assert torch.equal(plain.value, torch.ones(64, 64))
