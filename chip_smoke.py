@@ -5,9 +5,10 @@
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — compile every CUDA kernel of the serving and training paths
-               (paged attention, flash attention, the fused LSTM) from the
-               sources in this checkout (nvcc, sm_90a), one nvcc per source
-               started together;
+               (paged attention, flash attention, the fused LSTM, the fused
+               GRU, the additive attention) from the sources in this
+               checkout (nvcc, sm_90a), one nvcc per source started
+               together;
   3. kernel  — the ragged paged-attention kernel against its plain PyTorch
                version at decode and mixed-step shapes (GQA, page sizes 16
                and 8, lengths 1..768), float32 (atol 2e-5) and bfloat16
@@ -83,7 +84,43 @@ Phases, in order; any failure raises and the exit code is non-zero:
                one training step's loss and gradients through the LSTM
                kernels against the same step through their plain version:
                loss within 1e-5 relative, every gradient within 1e-4 of its
-               max.
+               max;
+ 12. gru     — the two fused-GRU kernels (forward; backward) against their
+               plain version in float32, fed the column slices of one
+               [D, 3D] weight: forward/reverse x ragged (a length-0 row, a
+               full row) / full lengths x tanh / relu candidates, at B=64,
+               T=30, D=512 and at B=5, T=7, D=32: hs, h_last, dx3, dWg, dWc,
+               dh0 each within 1e-5 of its max (relu cases moved off the
+               kink first); and the limit rejecting a result with one row's
+               freeze dropped;
+ 13. additive — the additive-attention kernel against its plain version at
+               [B, T, D, Dv] = [64, 30, 512, 1024], [192, 30, 512, 1024],
+               T = 1 and T = 300, full and ragged lengths (with a length-0
+               row): float32 within 2e-5; bfloat16 against the plain
+               version in float32 on the same inputs, per element within
+               2^-7 |ref| + 1e-3;
+ 14. seq2seq — the attention seq2seq (demo/seqToseq/seqToseq_net.py) at
+               full width: Trainer on vocabulary 30000, hidden 512, batch
+               64, float32, seed 1, batches of the sequence-reversal
+               language (30 source words, 31 decoder steps), warm-up steps
+               then 12 timed steps at full and 12 at ragged (10..30) source
+               lengths; every loss finite, the last 3 below the first 3,
+               each step 2 GRU forward, 2 GRU backward and 31
+               additive-attention launches and no plain version;
+               Trainer.test, a save() -> fresh Trainer.load() round trip
+               exact; samples/s, ms/step, a torch.profiler pass over two
+               steps; then beam-search generation (beam 3, max_length 30)
+               of 64 ragged sources on the trained parameters: ids in the
+               vocabulary, beams best-first, 2 GRU forward and 30
+               additive-attention launches per call, beam-decode tokens/s;
+               then each kernel's time per launch at the run's shapes beside
+               its bound, its plain version's time and, for the GRU, a cuDNN
+               GRU's (torch.nn.GRU: r applied after the product; a
+               yardstick, never called by the port);
+ 15. seq2seq-routes — float32 at full width, batch 16: one training step's
+               loss and gradients through the GRU and additive kernels
+               against the same step through their plain versions: loss
+               within 1e-5 relative, every gradient within 1e-4 of its max.
 The last three lines of the output are a JSON object with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.  Exits non-zero without a result when CUDA
@@ -124,12 +161,15 @@ def phase_device() -> str:
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
+    from paddle_tpu_torch.ops import additive_attention as aa
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import gru_fused as gf
     from paddle_tpu_torch.ops import lstm_fused as lf
     from paddle_tpu_torch.ops import paged_attention as pa
 
     kernels = {"paged_attention": pa.kernel, "flash_attention": fa.kernel,
-               "lstm": lf.kernel}
+               "lstm": lf.kernel, "gru": gf.kernel,
+               "additive_attention": aa.kernel}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         built = dict(zip(kernels, pool.map(lambda k: k.library(),
@@ -233,14 +273,22 @@ def launch_bytes_flops(args, elem: int) -> tuple[float, float]:
     return nbytes, flops
 
 
+# ~50 ms of GPU clock cycles: the timed calls queue behind a sleep kernel
+# this long, so the CUDA events around them read the device's time
+SLEEP_CYCLES = 100_000_000
+
+
 def time_launches(fn, launches) -> float:
     """Mean ms of fn over the recorded launches, each timed with CUDA
     events after a write of more than the L2 cache, as a launch in the
     layer loop finds it (the other layers' pools pass through L2 between
-    two launches on one layer's pools)."""
+    two launches on one layer's pools).  Queued behind the same sleep as
+    `time_call`."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for q, k, v, table, lengths, row_slot in launches[:4]:      # warm-up
         fn(q, k, v, table, lengths, row_slot=row_slot)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     pairs = []
     for q, k, v, table, lengths, row_slot in launches:
         flush.zero_()
@@ -575,12 +623,16 @@ def lm_batches(n: int, B: int, T: int, vocab: int, seed: int,
 
 
 def time_call(fn, n: int) -> float:
-    """Mean ms of fn() over n calls, CUDA events around the run, after one
-    warm-up call."""
+    """Mean ms of fn() over n back-to-back calls, after one warm-up call.
+    The calls are queued behind a ~50 ms sleep kernel, so the CUDA events
+    around them time the device's work wherever the host keeps ahead of the
+    card (a short kernel's wrapper takes longer on the host than the kernel
+    on the card), and the host's time only where it cannot."""
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     e0.record()
     for _ in range(n):
         fn()
@@ -1219,6 +1271,578 @@ def phase_sentiment_routes() -> None:
                              "disagree")
 
 
+# -- the fused GRU (K1), the additive attention (K2) and the seq2seq path ----
+
+GRU_TOL = 1e-5                     # float32: share of each tensor's max
+GRU_NAMES = ("hs", "h_last", "dx3", "dwg", "dwc", "dh0")
+
+
+def gru_inputs(g, B: int, T: int, D: int, ragged: bool):
+    """Random float32 inputs of the GRU op on the card: (x3, lengths, w
+    [D, 3D] — the layer's one parameter, sliced into the gate and candidate
+    weights as the layer does —, h0) and cotangents for (hs, h_last).
+    Ragged lengths hold a length-0 row and a full row."""
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    x3, w, h0 = r(B, T, 3 * D), r(D, 3 * D) * D ** -0.5, r(B, D) * 0.5
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    if ragged:
+        lens = torch.randint(max(1, T // 10), T + 1, (B,), generator=g,
+                             device="cuda").to(torch.int32)
+        lens[0], lens[-1] = 0, T
+    return (x3, lens, w, h0), (r(B, T, D), r(B, D))
+
+
+def gru_move_off_relu_kink(inputs, reverse: bool, **acts):
+    """The GRU's relu candidate: nudge x3's candidate columns until no
+    candidate pre-activation of a valid step lies within RELU_KINK_MARGIN
+    of 0 (see move_off_relu_kink)."""
+    from paddle_tpu_torch.ops import gru_fused as gf
+    x3, lens, w, h0 = inputs
+    B, T, D3 = x3.shape
+    D = D3 // 3
+    x3 = x3.clone()
+    valid = torch.arange(T, device="cuda")[None, :] < lens[:, None]
+    for _ in range(20):
+        hs, _ = gf.gru_fused_plain(x3, lens, w[:, :2 * D], w[:, 2 * D:], h0,
+                                   reverse=reverse, **acts)
+        h_prev = (torch.cat([hs[:, 1:], h0[:, None]], dim=1) if reverse
+                  else torch.cat([h0[:, None], hs[:, :-1]], dim=1))
+        r = torch.sigmoid(x3[..., D:2 * D] + h_prev @ w[:, D:2 * D])
+        zc = x3[..., 2 * D:] + (r * h_prev) @ w[:, 2 * D:]
+        near = (zc.abs() < RELU_KINK_MARGIN) & valid[..., None]
+        if not bool(near.any()):
+            return (x3, lens, w, h0)
+        x3[..., 2 * D:] += near * (4 * RELU_KINK_MARGIN)
+    raise AssertionError("could not move the GRU inputs off relu's kink")
+
+
+def gru_compare(inputs, cot, reverse: bool, kernel_lens=None, **acts):
+    """Forward and backward of the GRU kernels against autograd of the
+    plain version on the same inputs: {name: (max abs err, err / max|ref|)}
+    over GRU_NAMES.  `kernel_lens` hands the kernels other lengths than the
+    plain version (to show that the limit rejects a fault)."""
+    from paddle_tpu_torch.ops import gru_fused as gf
+    x3, lens, w, h0 = inputs
+    D = w.shape[0]
+
+    def run(fn, lengths):
+        leaves = [t.clone().requires_grad_(True) for t in (x3, w, h0)]
+        xl, wl, hl = leaves
+        out = fn(xl, lengths, wl[:, :2 * D], wl[:, 2 * D:], hl,
+                 reverse=reverse, **acts)
+        dx, dw, dh0 = torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(out, cot)), leaves)
+        return [o.detach() for o in out] + [dx, dw[:, :2 * D], dw[:, 2 * D:],
+                                            dh0]
+
+    got = run(gf.gru_fused, lens if kernel_lens is None else kernel_lens)
+    torch.cuda.synchronize()
+    want = run(gf.gru_fused_plain, lens)
+    errs = {}
+    for name, a, b in zip(GRU_NAMES, got, want):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"gru kernels: non-finite {name}")
+        e = float((a - b).abs().max())
+        errs[name] = (e, e / max(float(b.abs().max()), 1e-30))
+    return errs
+
+
+def phase_gru() -> None:
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    worst = 0.0
+    for B, T, D in ((64, 30, 512), (5, 7, 32)):
+        for reverse in (False, True):
+            for ragged in (False, True):
+                for act in ("tanh", "relu"):
+                    acts = dict(active_type=act, gate_active_type="sigmoid")
+                    inputs, cot = gru_inputs(g, B, T, D, ragged)
+                    if act == "relu":
+                        inputs = gru_move_off_relu_kink(inputs, reverse,
+                                                        **acts)
+                    errs = gru_compare(inputs, cot, reverse, **acts)
+                    rel = max(r for _, r in errs.values())
+                    worst = max(worst, rel)
+                    ok = rel <= GRU_TOL
+                    log(f"[gru] B={B} T={T} D={D} "
+                        f"{'rev' if reverse else 'fwd'} "
+                        f"{'ragged' if ragged else 'full':6s} {act:4s} "
+                        f"worst {rel:.2e} of max "
+                        f"({max(errs, key=lambda n: errs[n][1])}; tol "
+                        f"{GRU_TOL:g}) {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"gru kernels disagree with "
+                                             f"their plain version: {errs}")
+    # a faulty result: the freeze dropped for one row (the kernels are told
+    # the row is full)
+    inputs, cot = gru_inputs(g, 64, 30, 512, True)
+    bad_lens = inputs[1].clone()
+    bad_lens[0] = 30
+    errs = gru_compare(inputs, cot, False, kernel_lens=bad_lens,
+                       active_type="tanh", gate_active_type="sigmoid")
+    over = {n: r / GRU_TOL for n, (_, r) in errs.items()}
+    log(f"[gru] faulty result (row 0 of length {int(inputs[1][0])} run "
+        f"unfrozen): hs {over['hs']:.3g}x, dx3 {over['dx3']:.3g}x, dwg "
+        f"{over['dwg']:.3g}x the limit: "
+        f"{'rejected' if min(over['hs'], over['dx3']) > 1 else 'NOT rejected'}"
+        f"; worst passing case {worst:.2e} of max")
+    if not min(over["hs"], over["dx3"]) > 1:
+        raise AssertionError("the gru limit does not reject a dropped freeze")
+
+
+# K2: float32 within ADD_TOL_F32; bfloat16 inputs against the plain version
+# in float32 on the same inputs, per element within 2^-7 |ref| + 1e-3 (the
+# context is rounded to bfloat16 once, at most 2^-8 of its value)
+ADD_TOL_F32 = 2e-5
+ADD_LIMIT_BF16 = (2.0 ** -7, 1e-3)
+
+
+def additive_inputs(g, B: int, T: int, D: int, Dv: int, ragged: bool,
+                    dtype=torch.float32):
+    """u [B, D], v [D] float32, enc_proj [B, T, D] and enc_seq [B, T, Dv]
+    in `dtype`, lengths int32 (ragged: random, with a length-0 row and a
+    full row)."""
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    if ragged:
+        lens = torch.randint(1, T + 1, (B,), generator=g,
+                             device="cuda").to(torch.int32)
+        lens[0], lens[-1] = 0, T
+    return (r(B, D), r(D) * D ** -0.5, r(B, T, D).to(dtype),
+            r(B, T, Dv).to(dtype), lens)
+
+
+def additive_error(args) -> tuple[float, float]:
+    """The kernel against the plain version in float32 on the same inputs:
+    (max abs err, the largest share of the bfloat16 per-element limit)."""
+    from paddle_tpu_torch.ops import additive_attention as aa
+    u, v, proj, seq, lens = args
+    got = aa.additive_attention_kernel(u, v, proj, seq, lens)
+    torch.cuda.synchronize()
+    want = aa.additive_attention_plain(u, v, proj.float(), seq.float(), lens)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("additive attention kernel: non-finite output")
+    diff = (got.float() - want).abs()
+    rtol, atol = ADD_LIMIT_BF16
+    return float(diff.max()), float((diff / (rtol * want.abs() + atol)).max())
+
+
+def phase_additive() -> None:
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    for B, T, ragged in ((64, 30, False), (64, 30, True), (192, 30, False),
+                         (192, 30, True), (64, 1, False), (8, 300, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = additive_inputs(g, B, T, 512, 1024, ragged, dtype)
+            err, share = additive_error(args)
+            if dtype == torch.float32:
+                ok = err <= ADD_TOL_F32
+                limit = f"atol {ADD_TOL_F32:g}"
+            else:
+                ok = share <= 1
+                limit = f"{share:.3f} of 2^-7|ref| + 1e-3"
+            lens = args[4]
+            log(f"[additive] {str(dtype)[6:]:8s} B={B} T={T} D=512 Dv=1024 "
+                f"len={int(lens.min())}..{int(lens.max())} max_abs_err "
+                f"{err:.3e} ({limit}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"additive attention kernel disagrees "
+                                     f"with its plain version ({dtype}, "
+                                     f"B={B}, T={T})")
+
+
+S2S_VOCAB, S2S_HIDDEN, S2S_BATCH, S2S_SRC = 30000, 512, 64, 30
+# nats per token that the last 3 training steps must lie below the warm-up:
+# a model whose parameters never move stays at ln V
+LOSS_DROP = 1.0
+
+
+def seq2seq_batches(n: int, B: int, T: int, seed: int, ragged: bool = False):
+    """Batches of the sequence-reversal language of
+    demo/seqToseq/seq_provider.py (`_synthetic`) at its real width: source
+    words from ids 3..1002, the target [BOS] + the reversed source, the
+    next words the reversed source + [EOS]; T source words (the decoder
+    runs T + 1 steps), lengths 10..T when `ragged`.  As numpy."""
+    from paddle_tpu_torch.parameter import Argument
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        src = rng.integers(3, 1003, (B, T)).astype(np.int32)
+        lens = (rng.integers(10, T + 1, B).astype(np.int32) if ragged
+                else np.full(B, T, np.int32))
+        trg = np.zeros((B, T + 1), np.int32)
+        nxt = np.ones((B, T + 1), np.int32)
+        for b in range(B):
+            rev = src[b, :lens[b]][::-1]
+            trg[b, 1:lens[b] + 1] = rev
+            nxt[b, :lens[b]] = rev
+        out.append({"source_language_word": Argument(ids=src, lengths=lens),
+                    "target_language_word": Argument(ids=trg,
+                                                     lengths=lens + 1),
+                    "target_language_next_word": Argument(ids=nxt,
+                                                          lengths=lens + 1)})
+    return out
+
+
+def seq2seq_counts():
+    from paddle_tpu_torch.ops import additive_attention as aa
+    from paddle_tpu_torch.ops import gru_fused as gf
+    return (gf.counts.fwd, gf.counts.bwd, gf.counts.plain, aa.counts.kernel,
+            aa.counts.plain, aa.counts.recompute)
+
+
+def phase_seq2seq(smi: str) -> list:
+    import tempfile
+
+    from paddle_tpu_torch.graph import GraphExecutor
+    from paddle_tpu_torch.graph.generator import generate
+    from paddle_tpu_torch.models import seq2seq_trainer_config
+    from paddle_tpu_torch.ops import additive_attention as aa
+    from paddle_tpu_torch.ops import gru_fused as gf
+    from paddle_tpu_torch.parameter import Argument
+    from paddle_tpu_torch.trainer import Trainer
+
+    V, H, B, T = S2S_VOCAB, S2S_HIDDEN, S2S_BATCH, S2S_SRC
+    warm, timed = 3, 12
+    cfg = seq2seq_trainer_config(V, H, B)
+    tr = Trainer(cfg, seed=1)
+    full = seq2seq_batches(warm + timed + 2, B, T, seed=0)
+    ragged = seq2seq_batches(timed, B, T, seed=1, ragged=True)
+    first = tr.train_one_pass(full[:warm])["cost"]
+    torch.cuda.synchronize()
+
+    def per_token(loss, batch):
+        # the cost sums -log p over a sequence's tokens and the loss is its
+        # batch mean: per token, an untrained model reads ln V at any length
+        lens = batch["target_language_next_word"].lengths
+        return float(loss) * len(lens) / float(lens.sum())
+
+    def timed_steps(batches):
+        per_step, losses = [], []
+        t0 = time.perf_counter()
+        for b in batches:
+            c0 = seq2seq_counts()
+            losses.append(tr.train_one_batch(b))
+            per_step.append(tuple(x - y for x, y in zip(seq2seq_counts(),
+                                                        c0)))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0,
+                [per_token(x, b) for x, b in zip(losses, batches)], per_step)
+
+    gf.counts.reset()
+    aa.counts.reset()
+    wall_f, loss_f, steps_f = timed_steps(full[warm:warm + timed])
+    wall_r, loss_r, steps_r = timed_steps(ragged)
+    launches = {"gru_fwd": gf.counts.fwd, "gru_bwd": gf.counts.bwd,
+                "additive_attention": aa.counts.kernel}
+    for what, wall, losses in (("full lengths", wall_f, loss_f),
+                               ("source lengths 10..30", wall_r, loss_r)):
+        log(f"[seq2seq] {timed} steps of [{B}, {T}] -> [{B}, {T + 1}] "
+            f"({what}) in {wall:.3f}s = {timed * B / wall:.1f} samples/s, "
+            f"{wall / timed * 1e3:.2f} ms/step; losses per token "
+            f"{' '.join(f'{x:.4f}' for x in losses)} [{smi}]")
+    first /= T + 1          # the warm-up batches are full length
+    log(f"[seq2seq] mean loss per token of the first {warm} (warm-up) steps "
+        f"{first:.4f} (untrained: ln {V} = {np.log(V):.4f}); launches "
+        f"{launches} over {2 * timed} steps; per step "
+        f"(gru fwd, gru bwd, gru plain, additive kernel, additive plain, "
+        f"additive backward recompute) {sorted(set(steps_f + steps_r))}")
+    losses = loss_f + loss_r
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not np.mean(losses[-3:]) < first - LOSS_DROP:
+        raise AssertionError(f"loss per token did not fall by {LOSS_DROP}: "
+                             f"first {warm} mean {first}, last 3 "
+                             f"{losses[-3:]}")
+    if any(c != (2, 2, 0, T + 1, 0, T + 1) for c in steps_f + steps_r):
+        raise AssertionError(f"main path did not run 2 + 2 GRU launches and "
+                             f"one additive-attention launch per decoder "
+                             f"step: {steps_f + steps_r}")
+
+    held_out = seq2seq_batches(2, B, T, seed=2, ragged=True)
+    c0 = seq2seq_counts()
+    stats = tr.test(held_out)
+    test_counts = tuple(x - y for x, y in zip(seq2seq_counts(), c0))
+    log(f"[seq2seq] test(): cost {stats['cost']:.4f}, classification error "
+        f"{stats['classification_error']:.4f} on 2 held-out ragged batches; "
+        f"launches {test_counts}")
+    if not (np.isfinite(stats["cost"])
+            and test_counts == (4, 0, 0, 2 * (T + 1), 0, 0)):
+        raise AssertionError("Trainer.test failed on the seq2seq")
+
+    with tempfile.TemporaryDirectory() as d:
+        tr.save(d)
+        fresh = Trainer(cfg, seed=2)
+        fresh.load(d)
+        same = all(torch.equal(fresh.params[n], p)
+                   for n, p in tr.params.items())
+        same &= all(torch.equal(fresh.opt_state["slots"][n][k], v)
+                    for n, sl in tr.opt_state["slots"].items()
+                    for k, v in sl.items())
+        same &= all(fresh.opt_state[k] == tr.opt_state[k]
+                    for k in ("num_samples", "num_updates", "pass_id"))
+        log(f"[seq2seq] checkpoint save -> fresh Trainer.load: parameters, "
+            f"Adam slots and counters {'identical' if same else 'DIFFER'}")
+        del fresh
+    if not same:
+        raise AssertionError("checkpoint round trip changed the state")
+
+    def train_two():
+        for b in full[warm + timed:]:
+            tr.train_one_batch(b)
+        return 2
+
+    profile_run(train_two, "2 seq2seq training steps", smi)
+
+    # beam-search generation on the trained parameters
+    K, L = 3, 30
+    gex = GraphExecutor(seq2seq_trainer_config(
+        V, H, is_generating=True, beam_size=K, max_length=L).model_config)
+    src = seq2seq_batches(1, B, T, seed=3, ragged=True)[0][
+        "source_language_word"]
+    feed = {"source_language_word": Argument(
+        ids=torch.as_tensor(src.ids, device="cuda").long(),
+        lengths=torch.as_tensor(src.lengths, device="cuda"))}
+    c0 = seq2seq_counts()
+    ids, scores = generate(gex, tr.params, feed)
+    torch.cuda.synchronize()
+    gen_counts = tuple(x - y for x, y in zip(seq2seq_counts(), c0))
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        ids, scores = generate(gex, tr.params, feed)
+        ids.cpu()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    sorted_ok = bool((scores[:, :-1] >= scores[:, 1:]).all())
+    in_vocab = bool(((ids >= 0) & (ids < V)).all())
+    reversed_ok = float(np.mean([
+        np.array_equal(ids[b, 0, :int(src.lengths[b])].cpu().numpy(),
+                       src.ids[b, :src.lengths[b]][::-1])
+        for b in range(B)]))
+    log(f"[seq2seq] generate: {B} sources of lengths "
+        f"{int(src.lengths.min())}..{int(src.lengths.max())}, beam {K}, "
+        f"max_length {L}: ids {tuple(ids.shape)} in the vocabulary "
+        f"{in_vocab}, beams best-first {sorted_ok}; launches (gru fwd, gru "
+        f"bwd, gru plain, additive kernel, additive plain, recompute) "
+        f"{gen_counts}; median of 10 calls {med * 1e3:.2f} ms = "
+        f"{B * L / med:.1f} beam-decode tokens/s (bench.py's count: B x "
+        f"max_length); best beam = reversed source for {reversed_ok:.2%} of "
+        f"the rows (not a gate) [{smi}]")
+    if not (in_vocab and sorted_ok and tuple(ids.shape) == (B, K, L)
+            and bool(torch.isfinite(scores).all())
+            and gen_counts == (2, 0, 0, L, 0, 0)):
+        raise AssertionError("beam-search generation failed")
+    del tr
+    torch.cuda.empty_cache()
+    return gru_records(launches, smi) + additive_records(launches, smi)
+
+
+def gru_records(launches: dict, smi: str) -> list:
+    """Each GRU kernel at the seq2seq encoder's shape [64, 30, 512] (tanh
+    candidate, full lengths, the weight slices of one [512, 1536]
+    parameter): checked against the plain version, then timed beside its
+    bound, the plain version's time and a cuDNN GRU's (torch.nn.GRU fed
+    x3: it applies r after the product, r (h W_hn), and adds its own
+    [1536, 1536] input projection — the same work, not the same function;
+    a yardstick, never called by the port) — and the time of a single-row
+    launch, the floor that the T dependent steps set for this design."""
+    from paddle_tpu_torch.ops import gru_fused as gf
+    B, T, D = S2S_BATCH, S2S_SRC, S2S_HIDDEN
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    acts = dict(active_type="tanh", gate_active_type="sigmoid")
+    names = ("tanh", "sigmoid")
+    inputs, cot = gru_inputs(g, B, T, D, False)
+    errs = gru_compare(inputs, cot, False, **acts)
+    rel = max(r for _, r in errs.values())
+    log(f"[seq2seq] gru kernels vs plain at [{B}, {T}, {D}] tanh: worst "
+        f"{rel:.2e} of max (tol {GRU_TOL:g})")
+    if not rel <= GRU_TOL:
+        raise AssertionError(f"gru kernels disagree with their plain version "
+                             f"at the run's shape: {errs}")
+    err = {"gru_fwd": max(errs[n][0] for n in GRU_NAMES[:2]),
+           "gru_bwd": max(errs[n][0] for n in GRU_NAMES[2:])}
+    x3, lens, w, h0 = inputs
+    wg, wc = w[:, :2 * D], w[:, 2 * D:]
+    hs = gf.gru_fwd_kernel(x3, lens, wg, wc, h0, names, False)
+    ms = {"gru_fwd": time_call(lambda: gf.gru_fwd_kernel(
+              x3, lens, wg, wc, h0, names, False), 10),
+          "gru_bwd": time_call(lambda: gf.gru_bwd_kernel(
+              x3, lens, wg, wc, h0, hs, *cot, names, False), 10)}
+    one_row = time_call(lambda: gf.gru_fwd_kernel(
+        x3[:1], lens[:1], wg, wc, h0[:1], names, False), 10)
+    leaves = [t.clone().requires_grad_(True) for t in (x3, w, h0)]
+
+    def plain_fwd():
+        xl, wl, hl = leaves
+        return gf.gru_fused_plain(xl, lens, wl[:, :2 * D], wl[:, 2 * D:], hl,
+                                  **acts)
+
+    plain = {"gru_fwd": time_call(plain_fwd, 3)}
+    out = plain_fwd()
+    loss = sum((o * c).sum() for o, c in zip(out, cot))
+    plain["gru_bwd"] = time_call(lambda: torch.autograd.grad(
+        loss, leaves, retain_graph=True), 3)
+    del out, loss
+    cudnn = torch.nn.GRU(3 * D, D, batch_first=True).cuda()
+    xin = x3.clone().requires_grad_(True)
+    with torch.no_grad():
+        lib = {"gru_fwd": time_call(lambda: cudnn(xin), 10)}
+    y, _ = cudnn(xin)
+    lib["gru_bwd"] = time_call(lambda: torch.autograd.grad(
+        y, [xin, *cudnn.parameters()], cot[0], retain_graph=True), 10)
+    del y
+    # the work this run's inputs need: every valid step is one [D] x [D, 3D]
+    # product per row in the forward (h Wg, then (r h) Wc) and three in the
+    # backward (the gates recomputed, dx3's products with W^T, the weight
+    # gradients); bytes: x3 of the valid steps and the weights read, hs
+    # written for every step (forward); x3, hs, the cotangents read, dx3
+    # and the gradients written (backward)
+    valid = float(lens.sum())
+    step, small = 3.0 * D * 4, 4.0 * (3 * D * D + 2 * B * D + B)
+    work = {"gru_fwd": (valid * step + small + B * T * D * 4,
+                        2.0 * valid * D * 3 * D),
+            "gru_bwd": (valid * (2 * step + 2 * D * 4) + B * T * D * 4
+                        + 2 * small, 6.0 * valid * D * 3 * D)}
+    log(f"[seq2seq] a single-row launch of the gru forward kernel (the "
+        f"T = {T} dependent steps alone, no other CTA on the L2): "
+        f"{one_row * 1e3:.1f} us = {one_row * 1e3 / T:.2f} us/step [{smi}]")
+    records = []
+    for name, src_line in (("gru_fwd", 300), ("gru_bwd", 326)):
+        nbytes, flops = work[name]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        log(f"[seq2seq] {name} at [{B}, {T}, {D}] float32: "
+            f"{ms[name] * 1e3:.1f} us/launch = {ms[name] * 1e3 / T:.2f} "
+            f"us/step; bound {bound_ms * 1e3:.1f} us "
+            f"({'operations' if flops_ms >= bytes_ms else 'bytes'}; "
+            f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s float32, "
+            f"{nbytes / 1e6:.1f} MB) = {bound_ms / ms[name]:.1%} of the "
+            f"bound; plain version {plain[name] * 1e3:.1f} us; cuDNN GRU "
+            f"{'forward' if name == 'gru_fwd' else 'backward'} "
+            f"{lib[name] * 1e3:.1f} us [{smi}]")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/gru.cu",
+            "replaces": f"paddle_tpu/ops/pallas_rnn.py:{src_line}",
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": ms[name], "plain_ms": plain[name], "bound_ms": bound_ms,
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "library_ms": lib[name]})
+    return records
+
+
+def additive_bound_ms(B: int, T: int, D: int, Dv: int) -> tuple[float, str]:
+    """The least time for one step at full lengths: u, v, enc_proj and
+    enc_seq read once, the context written (float32), against ~(4 D + 2 Dv)
+    flops per key."""
+    nbytes = 4.0 * (B * D + D + B * T * (D + Dv) + B + B * Dv)
+    flops = float(B * T * (4 * D + 2 * Dv))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def additive_records(launches: dict, smi: str) -> list:
+    """The additive-attention kernel at the decoder's training shape
+    [64, 30, 512, 1024] and the beam search's [192, 30, 512, 1024], float32,
+    full lengths: checked against its plain version, then timed on the
+    device beside its bound and the plain version's time (no single PyTorch
+    call computes the step, so no library time).  The record is the
+    training shape's."""
+    from paddle_tpu_torch.ops import additive_attention as aa
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    rec = None
+    for B in (S2S_BATCH, 3 * S2S_BATCH):
+        args = additive_inputs(g, B, S2S_SRC, S2S_HIDDEN, 2 * S2S_HIDDEN,
+                               False)
+        err, _ = additive_error(args)
+        if not err <= ADD_TOL_F32:
+            raise AssertionError(f"additive attention kernel disagrees with "
+                                 f"its plain version at B={B}: {err}")
+        ms = time_call(lambda: aa.additive_attention_kernel(*args), 20)
+        plain_ms = time_call(lambda: aa.additive_attention_plain(*args), 10)
+        bound_ms, bound_by = additive_bound_ms(B, S2S_SRC, S2S_HIDDEN,
+                                               2 * S2S_HIDDEN)
+        log(f"[seq2seq] additive_attention at [{B}, {S2S_SRC}, {S2S_HIDDEN}, "
+            f"{2 * S2S_HIDDEN}] float32: {ms * 1e3:.2f} us/launch; bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by}) = {bound_ms / ms:.1%} of "
+            f"the bound; plain version {plain_ms * 1e3:.1f} us; max_abs_err "
+            f"{err:.2e}; no single PyTorch call computes the step [{smi}]")
+        if rec is None:
+            rec = {"name": "additive_attention", "route": "cuda",
+                   "source": "paddle_tpu_torch/csrc/additive_attention.cu",
+                   "replaces": "paddle_tpu/ops/pallas_additive.py:68",
+                   "launches": launches["additive_attention"],
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+    return [rec]
+
+
+def phase_seq2seq_routes() -> None:
+    """fp32 at full width, batch 16: one training step through K1 and K2
+    against the same step through their plain versions (the op modules'
+    attributes swapped for the comparison run)."""
+    from paddle_tpu_torch.models import seq2seq_trainer_config
+    from paddle_tpu_torch.ops import additive_attention as aa
+    from paddle_tpu_torch.ops import gru_fused as gf
+    from paddle_tpu_torch.parameter import init_params
+    from paddle_tpu_torch.trainer import Trainer
+
+    B, T = 16, S2S_SRC
+    cfg = seq2seq_trainer_config(S2S_VOCAB, S2S_HIDDEN, B)
+    params = init_params(cfg.model_config, seed=1)
+    # the demo starts the biases at zero; wake them so that every gradient
+    # path carries signal
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    for name, p in params.items():
+        if not bool(p.any()):
+            params[name] = 0.05 * torch.randn(p.shape, generator=g,
+                                              device="cuda")
+    batch = seq2seq_batches(1, B, T, seed=6, ragged=True)[0]
+    got = {}
+    kernels = (gf.gru_fused, aa.additive_attention_kernel)
+    for route in ("kernel", "plain"):
+        tr = Trainer(cfg, params=params)
+        gf.counts.reset()
+        aa.counts.reset()
+        if route == "plain":
+            gf.gru_fused = gf.gru_fused_plain
+            aa.additive_attention_kernel = aa.additive_attention_plain
+        try:
+            loss, grads, _ = tr.compute_gradients(tr.prepare_batch(batch))
+        finally:
+            gf.gru_fused, aa.additive_attention_kernel = kernels
+        torch.cuda.synchronize()
+        got[route] = (float(loss), grads, seq2seq_counts()[:5])
+    (lk, gk, ck), (lp, gp, cp) = got["kernel"], got["plain"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    worst, worst_name = 0.0, ""
+    for n, ref in gp.items():
+        e = float((gk[n] - ref).abs().max()) / max(float(ref.abs().max()),
+                                                   1e-30)
+        if e > worst:
+            worst, worst_name = e, n
+    log(f"[seq2seq-routes] fp32, full width, [{B}, {T}] ragged: loss kernel "
+        f"{lk:.6f} vs plain {lp:.6f} (rel {rel_loss:.2e}, tol 1e-5); worst "
+        f"gradient {worst:.2e} of its max ({worst_name}; tol 1e-4); launches "
+        f"(gru fwd, gru bwd, gru plain, additive kernel, additive plain) "
+        f"kernel {ck}, plain {cp}")
+    if ck != (2, 2, 0, T + 1, 0) or cp != (0, 0, 2, 0, T + 1):
+        raise AssertionError(f"routes did not take their paths: {ck}, {cp}")
+    if not (rel_loss <= 1e-5 and worst <= 1e-4 and set(gk) == set(gp)):
+        raise AssertionError("the GRU/additive kernel and plain training "
+                             "routes disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1237,8 +1861,12 @@ def main() -> int:
     phase_lstm()
     lstm = phase_sentiment(smi)
     phase_sentiment_routes()
+    phase_gru()
+    phase_additive()
+    seq2seq = phase_seq2seq(smi)
+    phase_seq2seq_routes()
     log(f"[done] {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [record] + flash + lstm}))
+    print(json.dumps({"kernels": [record] + flash + lstm + seq2seq}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

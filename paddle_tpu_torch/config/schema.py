@@ -266,7 +266,8 @@ class GeneratorConfig(_Serializable):
 @_schema
 @dataclass
 class SubModelConfig(_Serializable):
-    """A recurrent layer group (the port does not run these yet)."""
+    """A recurrent layer group (graph/builder.py runs the flat ones;
+    groups nested in a group are not ported)."""
 
     name: str = ""
     layer_names: list[str] = field(default_factory=list)

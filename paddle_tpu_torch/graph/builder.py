@@ -1,12 +1,20 @@
 """GraphExecutor — runs a ModelConfig's layer graph on tensors.
 
-The port's counterpart of paddle_tpu/graph/builder.py (`__init__`,
-`prepare`, `forward`, `loss`): layers run eagerly in config order (the
-config lists them topologically), each a function of the context.  A TEST
-forward runs under `torch.no_grad` (the serving engine builds no autograd
-graph); a TRAIN forward records one, and autograd of `loss` replaces the
-JAX side's `jax.value_and_grad`.  Models with recurrent sub-models raise;
-their scan executor is queued in ROADMAP.md.
+The port's counterpart of paddle_tpu/graph/builder.py: layers run eagerly in
+config order (the config lists them topologically), each a function of the
+context.  A TEST forward runs under `torch.no_grad` (the serving engine
+builds no autograd graph); a TRAIN forward records one, and autograd of
+`loss` replaces the JAX side's `jax.value_and_grad`.
+
+A recurrent layer group (a SubModelConfig) runs as a Python loop over its
+time steps where the JAX side runs a `lax.scan`: its in-links are sliced per
+step and fed through their agent layers, its static links are fed whole,
+its memories carry the linked layers' outputs from step to step (frozen
+where t >= length), and its out-links are published as [B, T, .] sequences.
+Layers outside the carry's closure (a decoder's vocabulary softmax) run
+once over the stacked sequence after the loop (`_split_deferred`).  Groups
+nested in a group, and nested (SubsequenceInput) or sparse in-links, are
+not ported and raise (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,12 +26,38 @@ import torch
 # importing the layer modules registers their layer types
 from paddle_tpu_torch.graph import (layers_attn, layers_core,  # noqa: F401
                                     layers_cost, layers_misc, layers_seq)
-from paddle_tpu_torch.config.schema import LayerConfig, ModelConfig
+from paddle_tpu_torch.config.schema import (LayerConfig, ModelConfig,
+                                            SubModelConfig)
 from paddle_tpu_torch.graph.context import TEST, TRAIN, ForwardContext
-from paddle_tpu_torch.graph.registry import get_layer_fn
+from paddle_tpu_torch.graph.registry import get_layer_fn, register_layer
+from paddle_tpu_torch.ops.sequence import seq_reverse
 from paddle_tpu_torch.parameter.argument import Argument
 from paddle_tpu_torch.parameter.init import torch_dtype
 from paddle_tpu_torch.utils.dtypes import promote_compute
+
+
+# Agent layers are placeholders the executor feeds (the in-links, static
+# links and memories of a recurrent group).
+@register_layer("agent", "sequence_agent", "scatter_agent",
+                "sequence_scatter_agent", "gather_agent",
+                "sequence_gather_agent")
+def _agent_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    raise AssertionError(f"agent layer {cfg.name!r} must be fed by the "
+                         f"executor")
+
+
+@register_layer("get_output")
+def _get_output_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """A group's out-link, published by the time the root walk reaches it."""
+    return ctx.get_input(cfg, 0)
+
+
+def _arg(x: torch.Tensor, lengths: Optional[torch.Tensor] = None
+         ) -> Argument:
+    """An Argument holding x as ids (integer x) or as values."""
+    if x.is_floating_point():
+        return Argument(value=x, lengths=lengths)
+    return Argument(ids=x, lengths=lengths)
 
 
 class GraphExecutor:
@@ -33,18 +67,48 @@ class GraphExecutor:
     floating parameters and inputs to bfloat16 while softmax, layer-norm
     statistics and attention scores stay float32."""
 
+    # projection types of a mixed layer that may run deferred
+    _DEFER_PROJS = {"fc", "full_matrix", "trans_full_matrix", "table",
+                    "identity", "dot_mul", "scaling"}
+
     def __init__(self, model: ModelConfig, compute_dtype: str = ""):
-        recurrent = [sm.name for sm in model.sub_models
-                     if sm.is_recurrent_layer_group]
-        if recurrent:
+        nested = [sm.name for sm in model.sub_models
+                  if sm.is_recurrent_layer_group and sm.parent]
+        if nested:
             raise NotImplementedError(
-                f"recurrent sub-models {recurrent} need the scan executor, "
-                f"not ported yet (ROADMAP.md: training path)")
+                f"recurrent groups {nested} are nested in other groups; "
+                f"nested groups are not ported yet (ROADMAP.md Queue 1)")
         self.model = model
         self.compute_dtype = compute_dtype
         self.layer_map: dict[str, LayerConfig] = {l.name: l
                                                   for l in model.layers}
-        self._plan = [l for l in model.layers if l.type != "data"]
+        # the layers of a recurrent group run inside its step loop
+        self._sub_of: dict[str, SubModelConfig] = {}
+        for sm in model.sub_models:
+            if sm.is_recurrent_layer_group:
+                for ln in sm.layer_names:
+                    self._sub_of[ln] = sm
+        self._sub_plan: dict[str, list[LayerConfig]] = {}
+        self._plan = self._build_plan()
+        self._defer_cache: dict[str, Optional[dict]] = {}
+
+    # -- planning ---------------------------------------------------------
+    def _build_plan(self) -> list[tuple[str, Any]]:
+        """('layer', cfg) and ('scan', sub_model) items in config order, a
+        group at its first layer; each group's own layers in
+        self._sub_plan."""
+        plan: list[tuple[str, Any]] = []
+        for l in self.model.layers:
+            sm = self._sub_of.get(l.name)
+            if sm is None:
+                if l.type != "data":
+                    plan.append(("layer", l))
+                continue
+            if sm.name not in self._sub_plan:
+                self._sub_plan[sm.name] = []
+                plan.append(("scan", sm))
+            self._sub_plan[sm.name].append(l)
+        return plan
 
     @property
     def static_param_names(self) -> set[str]:
@@ -72,19 +136,36 @@ class GraphExecutor:
                 for name, arg in feed.items()}
         return params, feed
 
+    def run_layers(self, ctx: ForwardContext, skip_sub=None) -> None:
+        """The root walk: every layer whose inputs are there, every group
+        whose in-links and static links are (`skip_sub` and generation-only
+        groups excepted; generate() runs those)."""
+        for kind, item in self._plan:
+            if kind == "layer":
+                if all(inp.input_layer_name in ctx.outputs
+                       for inp in item.inputs):
+                    ctx.outputs[item.name] = get_layer_fn(item.type)(ctx,
+                                                                     item)
+            elif item is not skip_sub and item.in_links and all(
+                    n in ctx.outputs
+                    for n in item.in_links + item.static_links):
+                self._run_scan(ctx, item)
+
     def forward(self, params: dict[str, torch.Tensor],
                 feed: dict[str, Argument],
                 state: Optional[dict[str, Any]] = None,
                 mode: str = TEST, rng: Optional[torch.Generator] = None,
                 dropout_masks: Optional[dict[str, torch.Tensor]] = None):
         """Run the graph.  Returns (layer outputs, per-sample costs by cost
-        layer, new state).  Layers whose inputs were not fed (the training
-        head, for a feed without labels) are skipped.  TEST runs without
-        autograd; TRAIN records the graph for `loss(...).backward()`.  A
-        TRAIN forward of a model with dropout draws its masks from `rng`,
-        except for the layers whose keep-mask `dropout_masks` supplies."""
+        layer, new state).  Layers and groups whose inputs were not fed
+        (the training head, for a feed without labels) are skipped.  TEST
+        runs without autograd; TRAIN records the graph for
+        `loss(...).backward()`.  A TRAIN forward of a model with dropout
+        draws its masks from `rng`, except for the layers whose keep-mask
+        `dropout_masks` supplies."""
         if mode not in (TRAIN, TEST):
-            raise ValueError(f"mode {mode!r}: expected {TRAIN!r} or {TEST!r}")
+            raise ValueError(f"mode {mode!r}: expected {TRAIN!r} or {TEST!r}"
+                             f" (generation: graph/generator.py)")
         with torch.set_grad_enabled(mode == TRAIN and
                                     torch.is_grad_enabled()):
             params, feed = self.prepare(params, feed)
@@ -92,11 +173,7 @@ class GraphExecutor:
                                  state_in=state or {}, rng=rng,
                                  dropout_masks=dropout_masks or {})
             ctx.outputs.update(feed)
-            for cfg in self._plan:
-                if any(inp.input_layer_name not in ctx.outputs
-                       for inp in cfg.inputs):
-                    continue
-                ctx.outputs[cfg.name] = get_layer_fn(cfg.type)(ctx, cfg)
+            self.run_layers(ctx)
         return ctx.outputs, ctx.costs, ctx.state_out
 
     def loss(self, params: dict[str, torch.Tensor],
@@ -116,3 +193,184 @@ class GraphExecutor:
             m = torch.mean(promote_compute(c))
             total = m if total is None else total + m
         return total, (outputs, costs, new_state)
+
+    # -- recurrent groups -------------------------------------------------
+    def run_group_layers(self, sm: SubModelConfig, sub: ForwardContext,
+                         skip: Optional[set] = None) -> None:
+        """One step of a group's layers; the agent layers must already be
+        fed into sub.outputs.  `skip` holds the layers deferred to after
+        the loop."""
+        for cfg in self._sub_plan.get(sm.name, []):
+            if cfg.name in sub.outputs or (skip and cfg.name in skip):
+                continue
+            sub.outputs[cfg.name] = get_layer_fn(cfg.type)(sub, cfg)
+
+    def _split_deferred(self, sm: SubModelConfig) -> Optional[dict]:
+        """The group's layers outside the carry-dependency closure: they
+        need not run inside the step loop and run once on the stacked
+        [B, T, ...] sequence afterwards — one large product instead of T
+        small ones (the classic case: a decoder's vocabulary softmax, which
+        feeds only the cost).  Returns {deferred, cfgs, emit} or None.  Only
+        last-dim layer types are eligible; a deferred layer may read values
+        of the step (emitted per step) or in-link aliases (fed as whole
+        sequences) but not static links."""
+        plan = self._sub_plan.get(sm.name, [])
+        if sm.generator is not None:
+            return None
+        layer_cfgs = {cfg.name: cfg for cfg in plan}
+        alias = set(sm.in_link_layers)
+        statics = set(sm.static_link_layers)
+        agents = {m.layer_name for m in sm.memories}
+
+        # carry closure: memory-linked layers and their transitive inputs
+        needed: set = set()
+        stack = [m.link_name for m in sm.memories]
+        while stack:
+            n = stack.pop()
+            if n in needed or n not in layer_cfgs:
+                continue
+            needed.add(n)
+            stack.extend(inp.input_layer_name
+                         for inp in layer_cfgs[n].inputs)
+
+        def safe(cfg: LayerConfig) -> bool:
+            if any(i.input_layer_name in statics for i in cfg.inputs):
+                return False
+            if cfg.type in ("fc", "addto"):
+                return True
+            if cfg.type == "mixed":
+                return (all(i.proj is None or i.proj.type in self._DEFER_PROJS
+                            for i in cfg.inputs)
+                        and all(op.type == "dot_mul" for op in cfg.operators))
+            return False
+
+        deferred = {cfg.name for cfg in plan
+                    if cfg.name not in needed and cfg.name not in alias
+                    and cfg.name not in agents and safe(cfg)}
+        # fixpoint: a layer inside the loop that reads a deferred output
+        # pulls its producer back inside
+        changed = True
+        while changed:
+            changed = False
+            for cfg in plan:
+                if cfg.name in deferred:
+                    continue
+                for inp in cfg.inputs:
+                    if inp.input_layer_name in deferred:
+                        deferred.discard(inp.input_layer_name)
+                        changed = True
+        if not deferred:
+            return None
+        cfgs = [cfg for cfg in plan if cfg.name in deferred]
+        emit = {inp.input_layer_name for cfg in cfgs for inp in cfg.inputs
+                if inp.input_layer_name not in deferred
+                and inp.input_layer_name not in alias
+                and (inp.input_layer_name in layer_cfgs
+                     or inp.input_layer_name in agents)}
+        return {"deferred": deferred, "cfgs": cfgs, "emit": emit}
+
+    def _in_links(self, ctx: ForwardContext, sm: SubModelConfig):
+        """The group's in-link sequences in loop order (each row's valid
+        prefix reversed for a reversed group), their lengths (the longest
+        over the links) and T."""
+        xs, lengths, T = {}, None, 0
+        for outer in sm.in_links:
+            arg = ctx.outputs[outer]
+            if not arg.is_sequence:
+                raise ValueError(f"recurrent group {sm.name!r}: in-link "
+                                 f"{outer!r} is not a sequence")
+            seq = arg.data
+            if seq.dim() != (2 if arg.value is None else 3):
+                raise NotImplementedError(
+                    f"recurrent group {sm.name!r}: in-link {outer!r} of "
+                    f"shape {tuple(seq.shape)} is a nested (SubsequenceInput)"
+                    f" or sparse sequence; only flat [B, T] id and "
+                    f"[B, T, D] value sequences are ported (ROADMAP.md "
+                    f"Queue 1)")
+            if sm.reversed:
+                seq = seq_reverse(seq, arg.lengths)
+            xs[outer] = seq
+            lengths = (arg.lengths if lengths is None
+                       else torch.maximum(lengths, arg.lengths))
+            T = max(T, seq.shape[1])
+        if lengths is None:
+            raise ValueError(f"recurrent group {sm.name!r} has no in-links")
+        return xs, lengths, T
+
+    def _run_scan(self, ctx: ForwardContext, sm: SubModelConfig) -> None:
+        """Run a recurrent group over its in-links' time axis (the JAX
+        side's `lax.scan`; ref: RecurrentGradientMachine forward).  The
+        JAX side wraps the step in `jax.checkpoint` for training, to
+        recompute its internals in the backward instead of storing them;
+        that is a memory device of XLA's, and here autograd stores what the
+        step's operations save."""
+        in_link_alias = dict(zip(sm.in_links, sm.in_link_layers))
+        static_alias = dict(zip(sm.static_links, sm.static_link_layers))
+        xs, lengths, T = self._in_links(ctx, sm)
+        B = lengths.shape[0]
+        dev = lengths.device
+
+        # memories: a boot layer's output, a constant id, or zeros
+        carry: dict[str, torch.Tensor] = {}
+        for mem in sm.memories:
+            if mem.boot_layer_name:
+                boot = ctx.outputs[mem.boot_layer_name].data
+            elif mem.boot_with_const_id is not None:
+                boot = torch.full((B,), mem.boot_with_const_id,
+                                  dtype=torch.long, device=dev)
+            else:
+                boot = torch.zeros(B, mem.size, device=dev)
+            carry[mem.link_name] = boot
+
+        if sm.name not in self._defer_cache:
+            self._defer_cache[sm.name] = self._split_deferred(sm)
+        spec = self._defer_cache[sm.name]
+        deferred = spec["deferred"] if spec else set()
+        emit_names = (sorted((set(sm.output_layer_names) - deferred)
+                             | spec["emit"]) if spec
+                      else list(sm.output_layer_names))
+
+        stacked: dict[str, list] = {name: [] for name in emit_names}
+        for t in range(T):
+            sub = ctx.sub_context()
+            for outer, inner in in_link_alias.items():
+                sub.outputs[inner] = _arg(xs[outer][:, t])
+            for outer, inner in static_alias.items():
+                sub.outputs[inner] = ctx.outputs[outer]
+            for mem in sm.memories:
+                sub.outputs[mem.layer_name] = _arg(carry[mem.link_name])
+            self.run_group_layers(sm, sub, skip=deferred)
+            valid = t < lengths
+            for mem in sm.memories:
+                prev = carry[mem.link_name]
+                out = sub.outputs[mem.link_name].data
+                v = valid.reshape((B,) + (1,) * (out.dim() - 1))
+                # the carry keeps its dtype across steps
+                carry[mem.link_name] = torch.where(v, out, prev).to(
+                    prev.dtype)
+            for name in emit_names:
+                stacked[name].append(sub.outputs[name].data)
+
+        def publish(name: str, seq: torch.Tensor) -> None:
+            if sm.reversed:
+                seq = seq_reverse(seq, lengths)
+            ctx.outputs[name] = Argument(value=seq, lengths=lengths)
+
+        for name in sm.output_layer_names:
+            if name not in deferred:
+                publish(name, torch.stack(stacked[name], dim=1))
+        if not spec:
+            return
+        # the deferred suffix, once over the stacked sequences (in loop
+        # order, so that a reversed group publishes it like the others)
+        dctx = ctx.sub_context()
+        for outer, inner in in_link_alias.items():
+            dctx.outputs[inner] = _arg(xs[outer], lengths)
+        for name in spec["emit"]:
+            dctx.outputs[name] = _arg(torch.stack(stacked[name], dim=1),
+                                      lengths)
+        for cfg in spec["cfgs"]:
+            dctx.outputs[cfg.name] = get_layer_fn(cfg.type)(dctx, cfg)
+        for name in sm.output_layer_names:
+            if name in deferred:
+                publish(name, dctx.outputs[name].data)

@@ -1,10 +1,10 @@
 """ForwardContext — per-forward state threaded through layer functions.
 
-The port's counterpart of paddle_tpu/graph/context.py: the mode (TRAIN or
-TEST), the parameter map, already-computed layer outputs, the
-incoming/outgoing layer state (the serving engine's paged KV pools), and
-the per-sample cost vectors the cost layers record by layer name, and the
-random stream of stochastic layers (training-time dropout): a
+The port's counterpart of paddle_tpu/graph/context.py: the mode (TRAIN,
+TEST, or GEN for the beam search's steps), the parameter map,
+already-computed layer outputs, the incoming/outgoing layer state (the
+serving engine's paged KV pools), and the per-sample cost vectors the cost
+layers record by layer name, and the random stream of stochastic layers (training-time dropout): a
 `torch.Generator` on the tensors' device that its owner (the Trainer) seeds.
 Its draws are not those of `jax.random`, so `dropout_masks` lets a caller
 supply a layer's keep-mask instead of drawing it (the tests feed the masks
@@ -23,6 +23,7 @@ from paddle_tpu_torch.parameter.argument import Argument
 
 TRAIN = "train"
 TEST = "test"
+GEN = "gen"
 
 
 @dataclass
@@ -45,6 +46,14 @@ class ForwardContext:
     @property
     def is_training(self) -> bool:
         return self.mode == TRAIN
+
+    def sub_context(self) -> "ForwardContext":
+        """A fresh context for one step of a recurrent group (or its deferred
+        suffix): the same model, parameters, mode, random stream and
+        supplied masks, its own outputs; its costs and state stay its own."""
+        return ForwardContext(model=self.model, params=self.params,
+                              mode=self.mode, rng=self.rng,
+                              dropout_masks=self.dropout_masks)
 
     def next_rng(self) -> torch.Generator:
         """The generator the next stochastic draw comes from (each draw

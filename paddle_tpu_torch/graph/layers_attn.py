@@ -1,5 +1,6 @@
-"""Multi-head attention layer — the counterpart of
-paddle_tpu/graph/layers_attn.py for the serving and training slices.
+"""Attention layers — the counterparts of paddle_tpu/graph/layers_attn.py
+for the serving and training slices (`multi_head_attention`) and the
+seq2seq decoder (`additive_attention_step`).
 
 Three cases:
   * full sequence (no paged state): `attn_impl` 'auto' runs dense attention
@@ -24,7 +25,9 @@ from paddle_tpu_torch.config.schema import LayerConfig
 from paddle_tpu_torch.graph.common import finish_layer
 from paddle_tpu_torch.graph.context import ForwardContext
 from paddle_tpu_torch.graph.registry import register_layer
+from paddle_tpu_torch.ops import additive_attention as additive_ops
 from paddle_tpu_torch.ops.attention import (
+    additive_attention_step,
     dot_product_attention,
     paged_attention_step,
     ragged_paged_attention_step,
@@ -183,3 +186,29 @@ def _paged_ragged_step(ctx: ForwardContext, cfg: LayerConfig,
                                "row_slot": cache["row_slot"],
                                "row_pos": row_pos}
     return _out_proj(ctx, cfg, out.reshape(1, T, model_dim), w_o, x_arg)
+
+
+@register_layer("additive_attention_step")
+def additive_attention_step_layer(ctx: ForwardContext,
+                                  cfg: LayerConfig) -> Argument:
+    """One Bahdanau attention step inside a decoder group.  inputs:
+    [decoder state [B, Ds] (carries W [Ds, D]), encoded_proj [B, T, D]
+    (carries v [D, 1]), encoded_sequence [B, T, Dv]]; output: context
+    [B, Dv].  The keys' lengths come from encoded_proj, else from
+    encoded_sequence (all keys when neither is a sequence)."""
+    dec, proj, seq = (ctx.get_input(cfg, i) for i in range(3))
+    w = ctx.param_of(cfg, 0)
+    v = ctx.param_of(cfg, 1).reshape(-1)
+    keys = proj if proj.lengths is not None else seq
+    if str(cfg.attrs.get("attn_impl", "auto")) == "dense":
+        out = additive_attention_step(dec.value, w, v, proj.value, seq.value,
+                                      keys.mask())
+    else:
+        lengths = keys.lengths
+        if lengths is None:
+            B, T = proj.value.shape[:2]
+            lengths = torch.full((B,), T, dtype=torch.int32,
+                                 device=proj.value.device)
+        out = additive_ops.additive_attention(dec.value, w, v, proj.value,
+                                              seq.value, lengths)
+    return finish_layer(ctx, cfg, out, like=dec)

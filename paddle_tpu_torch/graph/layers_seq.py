@@ -1,9 +1,10 @@
 """Sequence and recurrent layers — the counterparts of
-paddle_tpu/graph/layers_seq.py for `lstmemory` and the pooling layers over
-time (`max`, `average`, `seqlastins`) on the padded [B, T, D] + lengths
-representation.  Nested (sub-sequence) inputs, the truncated-BPTT carry-over
-of the final state into the next batch (--prev_batch_state), and the other
-layers of that module are queued in ROADMAP.md.
+paddle_tpu/graph/layers_seq.py for `lstmemory`, `gated_recurrent`,
+`gru_step` and the pooling layers over time (`max`, `average`,
+`seqlastins`) on the padded [B, T, D] + lengths representation.  Nested
+(sub-sequence) inputs, the truncated-BPTT carry-over of the final state
+into the next batch (--prev_batch_state), and the other layers of that
+module are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from paddle_tpu_torch.graph.context import ForwardContext
 from paddle_tpu_torch.graph.registry import register_layer
 from paddle_tpu_torch.ops import rnn as rnnops
 from paddle_tpu_torch.ops import sequence as seqops
+from paddle_tpu_torch.ops.activations import activation_registry
 from paddle_tpu_torch.parameter.argument import Argument
 
 
@@ -59,10 +61,7 @@ def lstmemory_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     or [7D] with peepholes).  The cell applies the activations, so the
     output is finished without one (dropout still applies)."""
     x = _sequence_input(ctx, cfg)
-    if f"{cfg.name}:h" in ctx.state_in or f"{cfg.name}:c" in ctx.state_in:
-        raise NotImplementedError(
-            f"layer {cfg.name!r}: booting from the previous batch's final "
-            f"state (--prev_batch_state) is not ported yet (ROADMAP.md)")
+    _refuse_prev_state(ctx, cfg, ("h", "c"))
     hs, _, _ = rnnops.lstm_scan(
         x.value, x.lengths, ctx.param_of(cfg, 0), ctx.bias_of(cfg),
         active_type=cfg.active_type or "tanh",
@@ -71,3 +70,52 @@ def lstmemory_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
         reverse=cfg.reversed)
     out_cfg = dataclasses.replace(cfg, active_type="")
     return finish_layer(ctx, out_cfg, hs, like=x, lengths=x.lengths)
+
+
+@register_layer("gated_recurrent")
+def gated_recurrent_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """GRU over a pre-projected [B, T, 3D] input; one recurrent parameter
+    [D, 3D] split into the gate part [D, 2D] and the candidate part [D, D]
+    (column slices: the kernels read them in place, and their gradients
+    land in the one parameter).  Finished without an activation, as
+    lstmemory."""
+    x = _sequence_input(ctx, cfg)
+    _refuse_prev_state(ctx, cfg, ("h",))
+    w = ctx.param_of(cfg, 0)
+    D = cfg.size
+    hs, _ = rnnops.gru_scan(
+        x.value, x.lengths, w[:, :2 * D], w[:, 2 * D:], ctx.bias_of(cfg),
+        active_type=cfg.active_type or "tanh",
+        gate_active_type=cfg.attrs.get("active_gate_type", "sigmoid"),
+        reverse=cfg.reversed)
+    out_cfg = dataclasses.replace(cfg, active_type="")
+    return finish_layer(ctx, out_cfg, hs, like=x, lengths=x.lengths)
+
+
+@register_layer("gru_step")
+def gru_step_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """One GRU step on a [B, 3D] pre-projected input and the [B, D]
+    previous hidden, with its own recurrent weight [D, 3D] — plain tensor
+    ops, as on the JAX side, which has no kernel for it."""
+    x3 = ctx.get_input(cfg, 0).value
+    h_prev = ctx.get_input(cfg, 1).value
+    w = ctx.param_of(cfg, 0)
+    b = ctx.bias_of(cfg)
+    D = cfg.size
+    act = activation_registry[cfg.active_type or "tanh"]
+    gate = activation_registry[cfg.attrs.get("active_gate_type", "sigmoid")]
+    if b is not None:
+        x3 = x3 + b.reshape(-1)
+    zg = x3[:, :2 * D] + h_prev @ w[:, :2 * D]
+    u = gate(zg[:, :D])
+    r = gate(zg[:, D:])
+    c = act(x3[:, 2 * D:] + (r * h_prev) @ w[:, 2 * D:])
+    return Argument(value=u * h_prev + (1.0 - u) * c)
+
+
+def _refuse_prev_state(ctx: ForwardContext, cfg: LayerConfig,
+                       names: tuple[str, ...]) -> None:
+    if any(f"{cfg.name}:{n}" in ctx.state_in for n in names):
+        raise NotImplementedError(
+            f"layer {cfg.name!r}: booting from the previous batch's final "
+            f"state (--prev_batch_state) is not ported yet (ROADMAP.md)")

@@ -6,3 +6,6 @@ from paddle_tpu_torch.models.sentiment import (  # noqa: F401
     bidirectional_lstm_net_config,
     stacked_lstm_net_config,
 )
+from paddle_tpu_torch.models.seq2seq import (  # noqa: F401
+    seq2seq_trainer_config,
+)

@@ -23,74 +23,30 @@ one's first step concatenated, dropout 0.5, fc(2, softmax).
 from __future__ import annotations
 
 from paddle_tpu_torch.config.schema import (
-    EvaluatorConfig,
-    LayerConfig,
     LayerInput,
     ModelConfig,
     OptimizationConfig,
-    ParameterConfig,
     ProjectionConfig,
     TrainerConfig,
 )
+from paddle_tpu_torch.models.net import Net
 
 EMB_DIM = 128
 CLASS_DIM = 2
 
 
-class _Net:
-    """A ModelConfig under construction, with the DSL's auto-naming."""
-
-    def __init__(self):
-        self.model = ModelConfig()
-        self._n: dict[str, int] = {}
-
-    def auto_name(self, kind: str) -> str:
-        i = self._n.get(kind, 0)
-        self._n[kind] = i + 1
-        return f"__{kind}_{i}__"
-
-    def param(self, name: str, dims: list[int], **attrs) -> str:
-        self.model.parameters.append(ParameterConfig(
-            name=name, size=dims[0] * dims[1], dims=list(dims), **attrs))
-        return name
-
-    def layer(self, name: str, type_: str, size: int,
-              inputs: list[LayerInput], bias: str = "", act: str = "",
-              **fields) -> str:
-        self.model.layers.append(LayerConfig(
-            name=name, type=type_, size=size, active_type=act, inputs=inputs,
-            bias_parameter_name=bias, **fields))
-        return name
-
-    def size(self, name: str) -> int:
-        return self.model.layer(name).size
-
-    def embedding(self, data: str, size: int) -> str:
-        name = self.auto_name("mixed")
-        vocab = self.size(data)
-        w = self.param(f"_{name}.w0", [vocab, size], initial_smart=True)
-        return self.layer(name, "mixed", size, [LayerInput(
-            data, w, ProjectionConfig(type="table", input_size=vocab,
-                                      output_size=size))])
-
-    def finish(self, output: str, is_predict: bool) -> ModelConfig:
-        """The training head (label, classification cost and its error
-        evaluator), or for prediction the probabilities as the output."""
-        m = self.model
-        if is_predict:
-            m.input_layer_names = ["word"]
-            m.output_layer_names = [output]
-            return m
-        label = self.layer("label", "data", CLASS_DIM, [])
-        cost = self.layer(self.auto_name("classification_cost"),
-                          "multi-class-cross-entropy", 1,
-                          [LayerInput(output), LayerInput(label)])
-        m.input_layer_names = ["word", label]
-        m.output_layer_names = [cost]
-        m.evaluators = [EvaluatorConfig(
-            name=f"{cost}.classification_error",
-            input_layer_names=[output, label])]
+def _finish(net: Net, output: str, is_predict: bool) -> ModelConfig:
+    """The training head (label, classification cost and its error
+    evaluator), or for prediction the probabilities as the output."""
+    m = net.model
+    if is_predict:
+        m.input_layer_names = ["word"]
+        m.output_layer_names = [output]
         return m
+    label = net.layer("label", "data", CLASS_DIM, [])
+    m.input_layer_names = ["word", label]
+    m.output_layer_names = [net.classification_cost(output, label)]
+    return m
 
 
 def stacked_lstm_net(dict_dim: int, hid_dim: int = 512, stacked_num: int = 3,
@@ -101,7 +57,7 @@ def stacked_lstm_net(dict_dim: int, hid_dim: int = 512, stacked_num: int = 3,
     if hid_dim % 4:
         raise ValueError(f"hid_dim {hid_dim} must be 4 x the lstm hidden "
                          f"size")
-    net = _Net()
+    net = Net()
     lstm_dim = hid_dim // 4
     zero_bias = dict(initial_std=0.0, initial_strategy="zero", decay_rate=0.0)
 
@@ -144,13 +100,13 @@ def stacked_lstm_net(dict_dim: int, hid_dim: int = 512, stacked_num: int = 3,
         pools.append(net.layer(net.auto_name("pool"), "max", net.size(x),
                                [LayerInput(x)]))
     output = fc(pools, CLASS_DIM, "softmax")
-    return net.finish(output, is_predict)
+    return _finish(net, output, is_predict)
 
 
 def bidirectional_lstm_net(dict_dim: int, lstm_dim: int = 128,
                            is_predict: bool = False) -> ModelConfig:
     """The bidirectional net's graph."""
-    net = _Net()
+    net = Net()
     data = net.layer("word", "data", dict_dim, [])
     emb = net.embedding(data, EMB_DIM)
     group = net.auto_name("bidirectional_lstm")
@@ -184,7 +140,7 @@ def bidirectional_lstm_net(dict_dim: int, lstm_dim: int = 128,
     b = net.param(f"_{name}.wbias", [1, CLASS_DIM], initial_strategy="zero")
     output = net.layer(name, "fc", CLASS_DIM, [LayerInput(dropped, w)],
                        bias=b, act="softmax")
-    return net.finish(output, is_predict)
+    return _finish(net, output, is_predict)
 
 
 def _trainer_config(model: ModelConfig, batch_size: int,

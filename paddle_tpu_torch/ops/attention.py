@@ -1,5 +1,5 @@
-"""Attention ops of the transformer LM — counterparts of
-paddle_tpu/ops/attention.py.
+"""Attention ops — counterparts of paddle_tpu/ops/attention.py: those of
+the transformer LM, and the seq2seq decoder's dense additive-attention step.
 
 Layouts are the JAX package's: q/k/v [..., T, H, D] (heads before the head
 dim), page pools [P, page_size, H_kv, D], page tables
@@ -90,8 +90,7 @@ def dot_product_attention(q, k, v, q_valid=None, k_valid=None,
                        torch.arange(k.shape[1], device=dev),
                        q_valid, k_valid, causal, window)
     if mask is not None:
-        s = torch.where(mask, s, torch.tensor(_NEG_INF, dtype=s.dtype,
-                                              device=dev))
+        s = torch.where(mask, s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     if mask is not None:
         p = torch.where(mask.any(dim=-1, keepdim=True), p,
@@ -117,8 +116,7 @@ def _gather_read(q, ck, cv, rows_table, row_pos, scale: float,
     s = torch.einsum("qhd,qkhd->qhk", q, k_full) * scale
     if s.dtype in (torch.bfloat16, torch.float16):
         s = s.float()
-    s = torch.where(mask[:, None, :], s,
-                    torch.tensor(_NEG_INF, dtype=s.dtype, device=q.device))
+    s = torch.where(mask[:, None, :], s, _NEG_INF)
     p = torch.softmax(s, dim=-1).to(v_full.dtype)
     return torch.einsum("qhk,qkhd->qhd", p, v_full)
 
@@ -199,3 +197,25 @@ def ragged_paged_attention_step(q_new, k_new, v_new, k_pages, v_pages,
     out = _gather_read(q_new, k_pages, v_pages, page_table[rs], rp, scale,
                        window)
     return out, k_pages, v_pages
+
+
+def additive_attention_step(dec_state: torch.Tensor, w: torch.Tensor,
+                            v: torch.Tensor, enc_proj: torch.Tensor,
+                            enc_seq: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """One Bahdanau additive-attention step as a dense formula: dec_state
+    [B, Ds], w [Ds, D], v [D], enc_proj [B, T, D], enc_seq [B, T, Dv], mask
+    [B, T] -> context [B, Dv].  Scores v . tanh(enc_proj + dec_state w),
+    softmax in at least float32 over the valid keys (a row without one
+    averages all keys), the weights cast to enc_seq's dtype for the sum.
+    The additive-attention kernel's backward recomputes through it
+    (ops/additive_attention.py)."""
+    s = torch.einsum("btd,d->bt",
+                     torch.tanh(enc_proj + (dec_state @ w)[:, None, :]), v)
+    if s.dtype in (torch.bfloat16, torch.float16):
+        s = s.float()
+    if mask is not None:
+        s = torch.where(mask, s, _NEG_INF)
+    alpha = torch.softmax(s, dim=-1)
+    return torch.einsum("bt,btd->bd", alpha.to(enc_seq.dtype), enc_seq)

@@ -114,7 +114,7 @@ def _plain_probs(q, k, kv_mask, causal, scale, q_offset, k_offset, window,
     s = torch.matmul(qh, _expand(k, H).transpose(-1, -2)) * scale
     mask = _score_mask(kv_mask, q.shape[1], causal, q_offset, k_offset,
                        window)
-    s = torch.where(mask, s, torch.tensor(_NEG_INF, device=s.device))
+    s = torch.where(mask, s, _NEG_INF)
     if lse is None:
         return s, mask, None
     p = torch.where(mask, torch.exp(s - lse[..., None]),
@@ -142,7 +142,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.matmul(p, _expand(v, q.shape[2]))                # [B, H, Tq, D]
     o = torch.where(live[..., None], o, torch.zeros((), device=o.device))
     lse = torch.where(live, m[..., 0] + torch.log(l.clamp_min(1e-30)),
-                      torch.tensor(float("-inf"), device=s.device))
+                      float("-inf"))
     lse = lse.expand(q.shape[0], q.shape[2], q.shape[1])
     return o.permute(0, 2, 1, 3).to(q.dtype), lse.contiguous()
 
@@ -394,6 +394,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not return_lse:
         return o
     if q_valid is not None:
-        lse = torch.where(q_valid[:, None, :].bool(), lse,
-                          torch.tensor(float("-inf"), device=lse.device))
+        lse = torch.where(q_valid[:, None, :].bool(), lse, float("-inf"))
     return o, lse

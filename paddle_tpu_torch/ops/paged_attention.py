@@ -97,8 +97,7 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     s = torch.einsum("rhd,rthd->rht", q.float(), kc) * scale
     valid = (torch.arange(T_ctx, device=q.device)[None, :]
              < lengths.long()[:, None])
-    s = torch.where(valid[:, None, :], s,
-                    torch.tensor(_NEG_INF, device=q.device))
+    s = torch.where(valid[:, None, :], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("rht,rthd->rhd", p, vc).to(q.dtype)
 

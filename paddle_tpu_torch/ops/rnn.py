@@ -1,21 +1,25 @@
 """Recurrent cell scans — the counterpart of paddle_tpu/ops/rnn.py for the
-LSTM (`lstm_scan`); the GRU and the plain recurrent scan are queued in
-ROADMAP.md.
+LSTM (`lstm_scan`) and the GRU (`gru_scan`); the plain recurrent scan
+(`simple_rnn_scan`) is queued in ROADMAP.md.
 
 Gate math (the reference's cell, hl_lstm_ops.cuh):
     a = act(xa + h.Wa)        i = gate(xi + h.Wi [+ c_prev*peep_i])
     f = gate(xf + h.Wf [+ c_prev*peep_f])
     c = a*i + f*c_prev        o = gate(xo + h.Wo [+ c*peep_o])
     h = o * state_act(c)
+GRU (the reference's GatedRecurrentLayer):
+    u = gate(xu + h.Wu)    r = gate(xr + h.Wr)
+    c = act(xc + (r*h).Wc)    h = u*h + (1-u)*c
 Variable lengths freeze the carried state once t >= length.
 
-`lstm_scan` prepares what the JAX function prepares (the bias split into
-its gate part and the peepholes, zero initial state) and hands the
-recurrence to `ops.lstm_fused`: the CUDA kernels for CUDA tensors, the plain
-per-step loop for CPU tensors.  The JAX side's `lax.scan` route for hidden
-sizes its kernel does not take is its plain version; here a CUDA call with a
-hidden size or an activation the kernels do not take raises, and only an
-explicit `impl="plain"` (the tests' comparison) runs the loop on the card.
+`lstm_scan` and `gru_scan` prepare what the JAX functions prepare (the bias
+added, for the LSTM split into its gate part and the peepholes; zero
+initial state) and hand the recurrence to `ops.lstm_fused` /
+`ops.gru_fused`: the CUDA kernels for CUDA tensors, the plain per-step loop
+for CPU tensors.  The JAX side's `lax.scan` route for hidden sizes its
+kernel does not take is its plain version; here a CUDA call with a hidden
+size or an activation the kernels do not take raises, and only an explicit
+`impl="plain"` (the tests' comparison) runs the loop on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.ops import gru_fused
 from paddle_tpu_torch.ops import lstm_fused as fused
 
 
@@ -43,9 +48,7 @@ def lstm_scan(
     """Returns (hiddens [B, T, D], last_h [B, D], last_c [B, D]) in x4's
     dtype; the recurrence itself runs in float32.  `impl`: 'auto' (kernels
     on CUDA, the plain loop on the CPU) or 'plain'."""
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"lstm_scan: impl {impl!r}: expected 'auto' or "
-                         f"'plain'")
+    _check_impl("lstm_scan", impl)
     B, T, D4 = x4.shape
     D = D4 // 4
     peeps = None
@@ -72,3 +75,38 @@ def lstm_scan(
         state_active_type=state_active_type, reverse=reverse)
     dt = x4.dtype
     return hs.to(dt), h_last.to(dt), c_last.to(dt)
+
+
+def gru_scan(
+    x3: torch.Tensor,                    # [B, T, 3D] pre-projected (u,r,c)
+    lengths: torch.Tensor,               # [B]
+    w_gate: torch.Tensor,                # [D, 2D] update/reset weights
+    w_cand: torch.Tensor,                # [D, D] candidate weights
+    bias: Optional[torch.Tensor],        # [3D] or None
+    h0: Optional[torch.Tensor] = None,   # [B, D] initial hidden
+    active_type: str = "tanh",
+    gate_active_type: str = "sigmoid",
+    reverse: bool = False,
+    impl: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (hiddens [B, T, D], last_h [B, D]) in x3's dtype; the
+    recurrence itself runs in float32.  `impl`: 'auto' (kernels on CUDA,
+    the plain loop on the CPU) or 'plain'."""
+    _check_impl("gru_scan", impl)
+    B, T, D3 = x3.shape
+    if bias is not None:
+        x3 = x3 + bias.reshape(-1)       # configs create [1, 3D]
+    if h0 is None:
+        h0 = torch.zeros(B, D3 // 3, dtype=x3.dtype, device=x3.device)
+    run = (gru_fused.gru_fused_plain if impl == "plain"
+           else gru_fused.gru_fused)
+    hs, h_last = run(x3, lengths, w_gate, w_cand, h0,
+                     active_type=active_type,
+                     gate_active_type=gate_active_type, reverse=reverse)
+    return hs.to(x3.dtype), h_last.to(x3.dtype)
+
+
+def _check_impl(what: str, impl: str) -> None:
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"{what}: impl {impl!r}: expected 'auto' or "
+                         f"'plain'")

@@ -1,8 +1,9 @@
-"""Variable-length sequence pooling on padded [B, T, D] tensors plus a [B]
+"""Variable-length sequence ops on padded [B, T, D] tensors plus a [B]
 lengths vector — the counterparts of paddle_tpu/ops/sequence.py
-(`seq_pool_max`, `seq_pool_avg`, `seq_pool_first`, `seq_pool_last`): each
-is a masked dense reduction over the time axis.  The nested (sub-sequence)
-forms and the other sequence ops of that module are queued in ROADMAP.md.
+(`seq_pool_max`, `seq_pool_avg`, `seq_pool_first`, `seq_pool_last`, each a
+masked dense reduction over the time axis, and `seq_reverse`, which
+reversed recurrent groups need).  The nested (sub-sequence) forms and the
+other sequence ops of that module are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -48,3 +49,14 @@ def seq_pool_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 def seq_pool_first(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """The first timestep."""
     return x[:, 0]
+
+
+def seq_reverse(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse each row's valid prefix, the padding left in place:
+    [B, T, ...] -> [B, T, ...]."""
+    B, T = x.shape[0], x.shape[1]
+    t = torch.arange(T, device=x.device)[None, :]
+    src = lengths.long()[:, None] - 1 - t
+    idx = torch.where(src >= 0, src, t.expand(B, T))
+    idx = idx.reshape(B, T, *([1] * (x.dim() - 2))).expand(x.shape)
+    return torch.gather(x, 1, idx)

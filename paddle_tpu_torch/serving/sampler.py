@@ -44,7 +44,7 @@ def pick_next_per_slot(last: torch.Tensor, noise: Optional[torch.Tensor],
         return greedy
     if noise is None:
         raise ValueError("sampling slots need Gumbel noise")
-    neg_inf = torch.tensor(float("-inf"), device=last.device)
+    neg_inf = float("-inf")
     t_safe = torch.where(sampling, temperature, torch.ones_like(temperature))
     scaled = last / t_safe[:, None].float()
 

@@ -36,7 +36,7 @@ def _cls_err_batch(cfg: EvaluatorConfig, outputs: dict[str, Argument],
         mask = out.mask(torch.float32)
         return {"err": torch.sum(err * mask), "n": torch.sum(mask)}
     return {"err": torch.sum(err),
-            "n": torch.tensor(float(err.numel()), device=err.device)}
+            "n": torch.full((), float(err.numel()), device=err.device)}
 
 
 def _cls_err_final(cfg: EvaluatorConfig, acc: dict) -> dict:

@@ -1,7 +1,7 @@
-"""PyTorch port on the card: the CUDA paged-attention, flash-attention and
-fused-LSTM kernels against their plain versions, the engine on CUDA against
-the engine on the CPU, and training steps on CUDA against the same steps on
-the CPU.
+"""PyTorch port on the card: the CUDA paged-attention, flash-attention,
+fused-LSTM, fused-GRU and additive-attention kernels against their plain
+versions, the engine on CUDA against the engine on the CPU, and training
+steps and the beam search on CUDA against the same on the CPU.
 
 These need an NVIDIA GPU and nvcc, and import nothing of JAX, so they run
 on a machine without it:
@@ -14,18 +14,25 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (GRAD_TOL, LSTM_TOL, lm_batches, lstm_compare,
-                        lstm_inputs, move_off_relu_kink, o_limit_share,
-                        sentiment_batches)
+from chip_smoke import (ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL, GRU_TOL,
+                        LSTM_TOL, additive_error, additive_inputs,
+                        gru_compare, gru_inputs, gru_move_off_relu_kink,
+                        lm_batches, lstm_compare, lstm_inputs,
+                        move_off_relu_kink, o_limit_share, sentiment_batches,
+                        seq2seq_batches)
 from paddle_tpu_torch.graph import GraphExecutor
-from paddle_tpu_torch.models import (stacked_lstm_net_config,
+from paddle_tpu_torch.graph.generator import generate
+from paddle_tpu_torch.models import (seq2seq_trainer_config,
+                                     stacked_lstm_net_config,
                                      transformer_lm_config,
                                      transformer_lm_trainer_config)
+from paddle_tpu_torch.ops import additive_attention as aa
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import gru_fused as gf
 from paddle_tpu_torch.ops import lstm_fused as lf
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import rnn as rnnops
-from paddle_tpu_torch.parameter import init_params
+from paddle_tpu_torch.parameter import Argument, init_params
 from paddle_tpu_torch.serving import Request, ServingEngine
 from paddle_tpu_torch.trainer import Trainer
 
@@ -278,3 +285,114 @@ def test_sentiment_step_on_cuda_matches_cpu(cuda):
     for n, ref in runs["cpu"][1].items():
         err = float((runs["cuda"][1][n] - ref).abs().max())
         assert err <= 1e-4 * float(ref.abs().max()) + 1e-9, n
+
+
+# (B, T, D, reverse, ragged, candidate activation)
+GRU_CASES = [(5, 7, 32, False, True, "tanh"),
+             (133, 20, 64, True, True, "relu"),
+             (64, 30, 512, True, True, "tanh"),
+             (3, 1, 96, False, False, "linear"),
+             (16, 12, 128, False, True, "sigmoid")]
+
+
+@pytest.mark.parametrize("case", GRU_CASES,
+                         ids=["odd", "relu-many-rows", "d512-seq2seq",
+                              "one-step", "sigmoid-candidate"])
+def test_gru_kernels_match_plain_version(cuda, case):
+    """The GRU forward kernel (hs, h_last) and backward kernel (dx3, dWg,
+    dWc, dh0), fed the column slices of one [D, 3D] weight, against
+    autograd of the plain version, each within chip_smoke's GRU_TOL of its
+    max; one launch of each."""
+    B, T, D, reverse, ragged, act = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    acts = dict(active_type=act, gate_active_type="sigmoid")
+    inputs, cot = gru_inputs(g, B, T, D, ragged)
+    if act == "relu":
+        inputs = gru_move_off_relu_kink(inputs, reverse, **acts)
+    gf.counts.reset()
+    errs = gru_compare(inputs, cot, reverse, **acts)
+    assert (gf.counts.fwd, gf.counts.bwd) == (1, 1)
+    for name, (_, rel) in errs.items():
+        assert rel <= GRU_TOL, (name, rel)
+
+
+def test_gru_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    """On CUDA tensors a hidden size or an activation the kernels do not
+    take raises (no silent plain version); impl='plain' asks for the plain
+    version explicitly."""
+    x3 = torch.randn(2, 3, 24, device=cuda)
+    lens = torch.tensor([3, 2], device=cuda)
+    w = torch.randn(8, 24, device=cuda)
+    with pytest.raises(ValueError, match="hidden size 8"):
+        rnnops.gru_scan(x3, lens, w[:, :16], w[:, 16:], None)
+    gf.counts.reset()
+    hs, _ = rnnops.gru_scan(x3, lens, w[:, :16], w[:, 16:], None,
+                            impl="plain")
+    assert hs.shape == (2, 3, 8) and (gf.counts.plain, gf.counts.fwd) == (1, 0)
+    x3 = torch.randn(2, 3, 96, device=cuda)
+    w = torch.randn(32, 96, device=cuda)
+    with pytest.raises(ValueError, match="softmax"):
+        rnnops.gru_scan(x3, lens, w[:, :64], w[:, 64:], None,
+                        active_type="softmax")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D,Dv,ragged", [
+    (64, 30, 512, 1024, True), (192, 30, 512, 1024, False),
+    (3, 1, 40, 24, False), (5, 300, 512, 1024, True), (7, 65, 33, 2048, True)],
+    ids=["seq2seq-train", "seq2seq-beam", "one-key", "long", "odd-widths"])
+def test_additive_kernel_matches_plain_version(cuda, dtype, B, T, D, Dv,
+                                               ragged):
+    """The additive-attention kernel against its plain version in float32
+    on the same inputs (a length-0 row among the ragged ones): float32
+    within ADD_TOL_F32, bfloat16 within 2^-7 |ref| + 1e-3 per element."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    args = additive_inputs(g, B, T, D, Dv, ragged, dtype)
+    aa.counts.reset()
+    err, share = additive_error(args)
+    assert aa.counts.kernel == 1
+    if dtype == torch.float32:
+        assert err <= ADD_TOL_F32
+    else:
+        assert share <= 1, (err, ADD_LIMIT_BF16)
+    if ragged:
+        out = aa.additive_attention_kernel(*args)
+        assert not bool(out[0].any())               # the length-0 row
+
+
+def test_seq2seq_step_and_generate_on_cuda_match_cpu(cuda):
+    """One fp32 training step of the seq2seq (hidden 64) on the card
+    launches 2 + 2 GRU kernels and one additive kernel per decoder step and
+    no plain version, and gives the CPU step's loss (rtol 1e-5) and
+    gradients (1e-4 of their max); the beam search on the card gives the
+    CPU's ids."""
+    V, H, B, T = 1100, 64, 6, 14          # chip_smoke's words are 3..1002
+    cfg = seq2seq_trainer_config(V, H, B)
+    params = init_params(cfg.model_config, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for n, p in params.items():                  # wake the zero biases
+        if not p.any():
+            params[n] = 0.05 * torch.randn(p.shape, generator=gen)
+    batch = seq2seq_batches(1, B, T, seed=0, ragged=True)[0]
+    gcfg = seq2seq_trainer_config(V, H, is_generating=True, beam_size=3,
+                                  max_length=8)
+    feed = {"source_language_word": batch["source_language_word"]}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, device=dev, params=params)
+        gf.counts.reset()
+        aa.counts.reset()
+        loss, grads, _ = tr.compute_gradients(tr.prepare_batch(batch))
+        if dev == "cuda":
+            assert (gf.counts.fwd, gf.counts.bwd, gf.counts.plain,
+                    aa.counts.kernel, aa.counts.plain) == (2, 2, 0, T + 1, 0)
+        ids, _ = generate(GraphExecutor(gcfg.model_config), tr.params,
+                          {n: Argument(ids=a.ids, lengths=a.lengths)
+                           for n, a in feed.items()})
+        runs[dev] = (float(loss), {n: g.cpu() for n, g in grads.items()},
+                     ids.cpu())
+    assert runs["cuda"][0] == pytest.approx(runs["cpu"][0], rel=1e-5)
+    for n, ref in runs["cpu"][1].items():
+        err = float((runs["cuda"][1][n] - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()) + 1e-9, n
+    assert torch.equal(runs["cuda"][2], runs["cpu"][2])

@@ -138,9 +138,9 @@ def test_dense_attention_matches_jax(window):
 
 def test_unported_paths_raise():
     """Blockwise attention, the context-parallel paths (ring, ulysses), the
-    dense per-request KV cache of lm_generate and recurrent sub-models are
-    queued in ROADMAP.md: they raise.  The flash route (auto at >=
-    block_k_min keys, or pinned) and TRAIN mode run (tests/
+    dense per-request KV cache of lm_generate and recurrent groups nested
+    in a group are queued in ROADMAP.md: they raise.  The flash route
+    (auto at >= block_k_min keys, or pinned) and TRAIN mode run (tests/
     test_torch_train.py holds them against the JAX package)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.parameter import init_params
@@ -165,8 +165,9 @@ def test_unported_paths_raise():
                           "pos": torch.zeros(1, dtype=torch.int32)}})
     rnn = transformer_lm_config(61, 32, 1, 4)
     rnn.sub_models.append(SubModelConfig(name="g",
-                                         is_recurrent_layer_group=True))
-    with pytest.raises(NotImplementedError):
+                                         is_recurrent_layer_group=True,
+                                         parent="outer"))
+    with pytest.raises(NotImplementedError, match="nested"):
         GraphExecutor(rnn)
 
 
@@ -384,3 +385,126 @@ def test_dropout_mask_injection_and_its_errors():
     # a layer without dropout needs neither
     plain = addto(_dropout_ctx("train"), _dropout_layer(0.0))
     assert torch.equal(plain.value, torch.ones(64, 64))
+
+
+# -- the seq2seq's layers: gated_recurrent, gru_step, additive_attention_step
+
+def _layer_pair(type_, inputs, **spec):
+    """The same layer config for the JAX registry and the port's: inputs
+    are (layer name, parameter name) pairs."""
+    from paddle_tpu.config.schema import LayerConfig as JLayer
+    from paddle_tpu.config.schema import LayerInput as JInput
+    from paddle_tpu.graph.registry import get_layer_fn as jget
+    from paddle_tpu_torch.graph.registry import get_layer_fn
+    jcfg = JLayer(type=type_, inputs=[JInput(*i) for i in inputs], **spec)
+    cfg = LayerConfig(type=type_, inputs=[LayerInput(*i) for i in inputs],
+                      **spec)
+    return (lambda ctx: jget(type_)(ctx, jcfg),
+            lambda ctx: get_layer_fn(type_)(ctx, cfg))
+
+
+def _add_params(jctx, ctx, **params):
+    for name, a in params.items():
+        jctx.params[name] = jnp.asarray(a)
+        ctx.params[name] = _t(a)
+
+
+@pytest.mark.parametrize("reverse,act,bias", [
+    (False, "tanh", True), (True, "tanh", True), (False, "relu", False),
+    (True, "sigmoid", True)], ids=["fwd-tanh", "rev-tanh", "fwd-relu-nobias",
+                                   "rev-sigmoid"])
+def test_gated_recurrent_layer_matches_jax(reverse, act, bias):
+    """gated_recurrent on a ragged [B, T, 3D] input (a full row, a length-1
+    row, a length-0 row): the one [D, 3D] weight split into its gate and
+    candidate columns, the bias added, the direction; the hidden sequence
+    within 1e-5 of the JAX layer's, with the input's lengths."""
+    rng = np.random.default_rng(7)
+    D = 6
+    x = rng.standard_normal((4, 5, 3 * D)).astype(np.float32)
+    lens = np.array([5, 1, 3, 0], np.int32)
+    jctx, ctx = _both_contexts("test", x=(x, lens))
+    _add_params(jctx, ctx,
+                w=(rng.standard_normal((D, 3 * D)) * 0.5).astype(np.float32),
+                b=(rng.standard_normal((1, 3 * D)) * 0.3).astype(np.float32))
+    jrun, run = _layer_pair("gated_recurrent", [("x", "w")], name="g",
+                            size=D, active_type=act, reversed=reverse,
+                            bias_parameter_name="b" if bias else "",
+                            attrs={"active_gate_type": "sigmoid"})
+    want, got = jrun(jctx), run(ctx)
+    np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
+                               **TOL)
+    assert torch.equal(got.lengths, _t(lens))
+    assert got.value.shape == (4, 5, D)
+
+
+def test_gated_recurrent_refuses_prev_batch_state():
+    """Booting from the previous batch's final state (--prev_batch_state)
+    is not ported: handed such state, the layer raises."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 3, 12)).astype(np.float32)
+    _, ctx = _both_contexts("test", x=(x, np.array([3, 2], np.int32)))
+    ctx.params["w"] = torch.zeros(4, 12)
+    ctx.state_in["g:h"] = torch.zeros(2, 4)
+    _, run = _layer_pair("gated_recurrent", [("x", "w")], name="g", size=4)
+    with pytest.raises(NotImplementedError, match="prev_batch_state"):
+        run(ctx)
+
+
+@pytest.mark.parametrize("act,bias", [("tanh", True), ("relu", False)],
+                         ids=["tanh-bias", "relu-nobias"])
+def test_gru_step_layer_matches_jax(act, bias):
+    """gru_step: one step on [B, 3D] and the previous hidden [B, D] with
+    its own [D, 3D] weight, within 1e-5 of the JAX layer."""
+    rng = np.random.default_rng(9)
+    D = 5
+    jctx, ctx = _both_contexts(
+        "test", x=(rng.standard_normal((3, 3 * D)).astype(np.float32), None),
+        h=(rng.standard_normal((3, D)).astype(np.float32), None))
+    _add_params(jctx, ctx,
+                w=(rng.standard_normal((D, 3 * D)) * 0.5).astype(np.float32),
+                b=(rng.standard_normal((1, 3 * D)) * 0.3).astype(np.float32))
+    jrun, run = _layer_pair("gru_step", [("x", "w"), ("h", "")], name="s",
+                            size=D, active_type=act,
+                            bias_parameter_name="b" if bias else "",
+                            attrs={"active_gate_type": "sigmoid"})
+    np.testing.assert_allclose(run(ctx).value.numpy(),
+                               np.asarray(jrun(jctx).value), **TOL)
+
+
+@pytest.mark.parametrize("impl,keys", [
+    ("auto", "proj"), ("auto", "seq"), ("dense", "proj"), ("dense", "seq"),
+    ("auto", "none")], ids=["kernel-proj-lengths", "kernel-seq-lengths",
+                            "dense-proj-lengths", "dense-seq-lengths",
+                            "kernel-no-lengths"])
+def test_additive_attention_layer_matches_jax(impl, keys, monkeypatch):
+    """additive_attention_step with the keys' lengths taken from
+    encoded_proj, else from encoded_sequence (all keys when neither is a
+    sequence).  'auto' is the kernel route (its plain version here; the
+    JAX layer's Pallas kernel in interpret mode), a length-0 row giving a
+    zero context; attn_impl='dense' is the dense formula on both sides,
+    that row averaging all keys.  Within 1e-5."""
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(10)
+    B, T, Ds, D, Dv = 4, 6, 5, 7, 9
+    lens = np.array([6, 2, 0, 4], np.int32) if keys != "none" else None
+    proj = rng.standard_normal((B, T, D)).astype(np.float32)
+    seq = rng.standard_normal((B, T, Dv)).astype(np.float32)
+    jctx, ctx = _both_contexts(
+        "test", dec=(rng.standard_normal((B, Ds)).astype(np.float32), None),
+        proj=(proj, lens if keys == "proj" else None),
+        seq=(seq, lens if keys == "seq" else None))
+    _add_params(jctx, ctx,
+                w=(rng.standard_normal((Ds, D)) * 0.4).astype(np.float32),
+                v=rng.standard_normal((D, 1)).astype(np.float32))
+    jrun, run = _layer_pair("additive_attention_step",
+                            [("dec", "w"), ("proj", "v"), ("seq", "")],
+                            name="attention", size=Dv,
+                            attrs={"attn_impl": impl})
+    got, want = run(ctx).value.numpy(), np.asarray(jrun(jctx).value)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert got.shape == (B, Dv)
+    if keys != "none":
+        if impl == "auto":
+            assert not got[2].any()
+        else:
+            np.testing.assert_allclose(got[2], seq[2].mean(0), **TOL)
