@@ -5,10 +5,13 @@
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — compile every CUDA kernel of the serving and training paths
-               (paged attention, flash attention, the fused LSTM, the fused
-               GRU, the additive attention) from the sources in this
-               checkout (nvcc, sm_90a), one nvcc per source started
-               together;
+               (paged attention, flash attention on CUDA cores (fp32) and
+               on tensor cores (bf16), the fused LSTM, the fused GRU, the
+               additive attention) from the sources in this checkout (nvcc,
+               sm_90a), one nvcc per source started together; each
+               tensor-core flash kernel's registers, dynamic shared memory
+               and local memory (cudaFuncGetAttributes, so also when the
+               library was already built), none with local memory (spills);
   3. kernel  — the ragged paged-attention kernel against its plain PyTorch
                version at decode and mixed-step shapes (GQA, page sizes 16
                and 8, lengths 1..768), float32 (atol 2e-5) and bfloat16
@@ -28,18 +31,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
                and first decode step within atol 1e-5;
   6. flash   — the three flash-attention kernels (forward, backward dQ,
                backward dK/dV) against their plain versions at B=2,
-               T=2048, H=8 (H_kv 8 and 2), D=64: causal and not, a ragged
-               key mask with Tq != Tk, window 256, nonzero offsets; float32
-               (o, lse within 2e-5, gradients within 2e-5 of their max) and
-               bfloat16 (against the plain version in float32 on the same
-               inputs: o per element within 2^-7 |ref| + 1e-3, lse within
-               2e-5, gradients within 1e-2 of their max);
+               T=2048, H=8 (H_kv 8 and 2): causal and not, a ragged key
+               mask with Tq != Tk, window 256, nonzero offsets; float32 at
+               D=64 on the CUDA-core kernels (o, lse within 2e-5, gradients
+               within 2e-5 of their max) and bfloat16 at D=64 and D=128 on
+               the tensor-core kernels (against the plain version in
+               float32 on the same inputs: o per element within
+               2^-7 |ref| + 1e-3, lse within 2e-5, gradients within 1e-2 of
+               their max); each case launches its dtype's three kernels
+               once and nothing else;
   7. train   — the training path: Trainer on the transformer LM at full
                width in bfloat16 (seed 1), batches [8, 2048] of a
                repeated-motif token stream, warm-up steps then timed steps;
-               every loss finite, the last 3 below the first 3, each flash
-               kernel launched once per layer per step and the plain
-               versions never; a save() -> fresh Trainer.load() round trip
+               every loss finite, the last 3 below the first 3, each
+               tensor-core flash kernel launched once per layer per step
+               and the CUDA-core kernels and plain versions never; a
+               save() -> fresh Trainer.load() round trip
                exact; tokens/s, ms/step, a torch.profiler pass over two
                steps; then the flash kernels at the run's shape [8, 2048,
                8, 64] bf16 causal against their plain versions (the bf16
@@ -47,12 +54,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
                limit rejecting the kernel's o with one key tile dropped,
                and each kernel's time per launch beside its bound, its
                plain version's time and scaled_dot_product_attention's (a
-               yardstick, never called by the port);
+               yardstick, never called by the port); and, as a measurement
+               only, the forward with p as one bf16 term in P V (the TPU
+               kernel's rounding): its time and its o error as a share of
+               the limit;
   8. train-routes — float32, 2 layers at full width, B=2, T=2048: one
-               training step's loss and gradients through the flash kernels
-               against the same step through dense attention
-               (attn_impl='dense'): loss within 1e-5 relative, every
-               gradient within 1e-4 of its max;
+               training step's loss and gradients through the CUDA-core
+               flash kernels (once per layer each) against the same step
+               through dense attention (attn_impl='dense'): loss within
+               1e-5 relative, every gradient within 1e-4 of its max; then
+               those kernels at [2, 2048, 8, 64] fp32 causal against their
+               plain versions and timed, as in phase 7;
   9. lstm    — the two fused-LSTM kernels (forward; backward) against their
                plain version in float32: forward/reverse x with/without
                peepholes x ragged (a length-0 row, a full row) / full
@@ -129,6 +141,7 @@ is not available.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -168,8 +181,8 @@ def phase_build() -> None:
     from paddle_tpu_torch.ops import paged_attention as pa
 
     kernels = {"paged_attention": pa.kernel, "flash_attention": fa.kernel,
-               "lstm": lf.kernel, "gru": gf.kernel,
-               "additive_attention": aa.kernel}
+               "flash_attention_tc": fa.kernel_tc, "lstm": lf.kernel,
+               "gru": gf.kernel, "additive_attention": aa.kernel}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         built = dict(zip(kernels, pool.map(lambda k: k.library(),
@@ -177,10 +190,34 @@ def phase_build() -> None:
     for name, lib in built.items():
         regs = [ln.strip() for ln in lib.build_log.splitlines()
                 if "registers" in ln]
-        log(f"[build] {name}: nvcc {lib.build_seconds:.2f}s -> {lib.path.name}"
-            f"; {len(regs)} instances, ptxas: "
-            f"{'; '.join(sorted(set(regs))[:3])}")
+        how = (f"nvcc {lib.build_seconds:.2f}s; {len(regs)} instances, "
+               f"ptxas: {'; '.join(sorted(set(regs))[:3])}"
+               if lib.build_seconds else "already built")
+        log(f"[build] {name}: {lib.path.name}, {how}")
     log(f"[build] all kernels {time.perf_counter() - t0:.2f}s")
+    # the runtime's own account of each tensor-core instance, whether or
+    # not this run compiled the library
+    tc = built["flash_attention_tc"].lib
+    tc.flash_kernel_attributes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int)]
+    tc.flash_kernel_attributes.restype = ctypes.c_int
+    local = []
+    for which, kname in enumerate(("flash_fwd_tc_kernel",
+                                   "flash_bwd_dq_tc_kernel",
+                                   "flash_bwd_dkv_tc_kernel")):
+        for dm in (64, 128):
+            out = (ctypes.c_int * 3)()
+            rc = tc.flash_kernel_attributes(which, dm, out)
+            if rc:
+                raise RuntimeError(f"cudaFuncGetAttributes({kname}<{dm}>) "
+                                   f"failed: CUDA error {rc}")
+            log(f"[build] {kname}<{dm}>: {out[0]} registers, {out[2]} bytes "
+                f"of dynamic shared memory, {out[1]} bytes of local memory "
+                f"per thread")
+            local.append(out[1])
+    if any(local):
+        raise AssertionError(f"the tensor-core flash kernels must run "
+                             f"without local memory (spills): {local}")
 
 
 def make_case(rng, *, rows: str, H: int, h_kv: int, D: int, ps: int,
@@ -533,15 +570,32 @@ def o_limit_share(got, want, dtype) -> float:
                   / (rtol * want.abs() + atol)).max())
 
 
+FLASH_COUNTS = ("fwd_tc", "bwd_dq_tc", "bwd_dkv_tc", "fwd", "bwd_dq",
+                "bwd_dkv", "plain")
+
+
+def flash_counts() -> tuple:
+    """The flash launch counts in FLASH_COUNTS order: the tensor-core
+    (bf16) kernels, the CUDA-core (fp32) ones, the plain versions."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return tuple(getattr(fa.counts, n) for n in FLASH_COUNTS)
+
+
 def flash_errors(q, k, v, kvm, do, dlse, **mask):
     """The three flash kernels on these inputs against their plain versions
     in float32 on the same inputs.  The backward is compared from the
     kernel's own o and lse, so each check isolates one kernel.  Returns the
-    errors (with "ok"), the kernel's (o, lse) and the plain version's o."""
+    errors (with "ok"), the kernel's (o, lse) and the plain version's o.
+    "ok" also needs one launch of each kernel of q's dtype's route
+    (tensor cores for bf16, CUDA cores for fp32) and none of the other."""
     from paddle_tpu_torch.ops import flash_attention as fa
+    c0 = flash_counts()
     o, lse = fa.flash_attention_fwd(q, k, v, kvm, **mask)
     got = fa.flash_attention_bwd(q, k, v, kvm, o, lse, do, dlse, **mask)
     torch.cuda.synchronize()
+    ran = tuple(b - a for a, b in zip(c0, flash_counts()))
+    route = ((1, 1, 1, 0, 0, 0, 0) if q.dtype == torch.bfloat16
+             else (0, 0, 0, 1, 1, 1, 0))
     f = [x.float() for x in (q, k, v)]
     want_o, want_lse = fa.flash_attention_plain(*f, kvm, **mask)
     want = fa.flash_attention_bwd_plain(*f, kvm, o.float(), lse, do.float(),
@@ -553,7 +607,7 @@ def flash_errors(q, k, v, kvm, do, dlse, **mask):
     for n, a, b in zip(("dq", "dk", "dv"), got, want):
         e[n] = float((a.float() - b).abs().max())
         e[n + "_rel"] = e[n] / float(b.abs().max())
-    e["ok"] = (e["o_share"] <= 1 and e["lse"] <= 2e-5
+    e["ok"] = (ran == route and e["o_share"] <= 1 and e["lse"] <= 2e-5
                and max(e["dq_rel"], e["dk_rel"], e["dv_rel"])
                <= GRAD_TOL[q.dtype]
                and torch.equal(torch.isfinite(lse), fin)
@@ -571,11 +625,13 @@ def flash_line(e: dict, dtype) -> str:
 
 def phase_flash() -> None:
     """The three flash kernels against their plain versions at B=2 over the
-    mask cases, with a random lse cotangent."""
+    mask cases, with a random lse cotangent: float32 (CUDA-core kernels) at
+    D=64, bfloat16 (tensor-core kernels) at D=64 and D=128."""
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    B, H, D = 2, 8, 64
-    for dtype in (torch.float32, torch.bfloat16):
+    B, H = 2, 8
+    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 64),
+                     (torch.bfloat16, 128)):
         for name, Tq, Tk, h_kv, causal, window, qo, ko, ragged in \
                 FLASH_CASES:
             q, do = (torch.randn(B, Tq, H, D, generator=g,
@@ -589,11 +645,12 @@ def phase_flash() -> None:
             dlse = 0.1 * torch.randn(B, H, Tq, generator=g, device="cuda")
             e, _, _ = flash_errors(q, k, v, kvm, do, dlse, causal=causal,
                                    q_offset=qo, k_offset=ko, window=window)
-            log(f"[flash] {str(dtype)[6:]:8s} {name:10s} Tq={Tq} Tk={Tk} "
-                f"H={H} H_kv={h_kv} {flash_line(e, dtype)}")
+            log(f"[flash] {str(dtype)[6:]:8s} D={D:<3d} {name:10s} Tq={Tq} "
+                f"Tk={Tk} H={H} H_kv={h_kv} {flash_line(e, dtype)}")
             if not e["ok"]:
                 raise AssertionError(f"flash kernels disagree with their "
-                                     f"plain versions ({dtype}, {name})")
+                                     f"plain versions or took another "
+                                     f"route ({dtype}, D={D}, {name})")
 
 
 def lm_batches(n: int, B: int, T: int, vocab: int, seed: int,
@@ -663,32 +720,32 @@ def phase_train(smi: str) -> list:
     fa.counts.reset()
     t0 = time.perf_counter()
     for b in batches[warm:warm + timed]:
-        c0 = (fa.counts.fwd, fa.counts.bwd_dq, fa.counts.bwd_dkv,
-              fa.counts.plain)
+        c0 = flash_counts()
         losses.append(tr.train_one_batch(b))
-        per_step.append(tuple(x - y for x, y in zip(
-            (fa.counts.fwd, fa.counts.bwd_dq, fa.counts.bwd_dkv,
-             fa.counts.plain), c0)))
+        per_step.append(tuple(x - y for x, y in zip(flash_counts(), c0)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": fa.counts.fwd, "flash_bwd_dq": fa.counts.bwd_dq,
-                "flash_bwd_dkv": fa.counts.bwd_dkv}
-    plain_calls = fa.counts.plain
+    launches = {"flash_fwd_tc": fa.counts.fwd_tc,
+                "flash_bwd_dq_tc": fa.counts.bwd_dq_tc,
+                "flash_bwd_dkv_tc": fa.counts.bwd_dkv_tc}
+    others = {n: getattr(fa.counts, n) for n in ("fwd", "bwd_dq", "bwd_dkv",
+                                                   "plain")}
     losses = [float(x) for x in losses]
     tokens = timed * B * T
     log(f"[train] {timed} steps of [{B}, {T}] in {wall:.3f}s = "
         f"{tokens / wall:.1f} tokens/s, {wall / timed * 1e3:.2f} ms/step; "
         f"mean loss of the first {warm} (warm-up) steps {first:.4f}, "
         f"losses {' '.join(f'{x:.4f}' for x in losses)}; kernel launches "
-        f"{launches}, plain calls {plain_calls} [{smi}]")
+        f"{launches}, CUDA-core kernels and plain calls {others} [{smi}]")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not np.mean(losses[-3:]) < first:
         raise AssertionError(f"loss did not fall: first {warm} mean "
                              f"{first}, last 3 {losses[-3:]}")
-    if any(c != (layers, layers, layers, 0) for c in per_step):
-        raise AssertionError(f"main path did not run through the flash "
-                             f"kernels once per layer per step: {per_step}")
+    if any(c != (layers,) * 3 + (0,) * 4 for c in per_step):
+        raise AssertionError(f"main path did not run through the "
+                             f"tensor-core flash kernels once per layer per "
+                             f"step, and nothing else: {per_step}")
 
     with tempfile.TemporaryDirectory() as d:
         t1 = time.perf_counter()
@@ -717,53 +774,74 @@ def phase_train(smi: str) -> list:
     profile_run(train_two, "2 training steps", smi)
     del tr
     torch.cuda.empty_cache()
-    return flash_records(launches, B, T, smi)
+    return flash_records(launches, B, T, torch.bfloat16, smi)
 
 
-def flash_records(launches: dict, B: int, T: int, smi: str) -> list:
-    """Each flash kernel at the training run's shapes (bf16, causal, all
-    keys valid, no lse cotangent): checked against its plain version in
-    float32 on the same inputs, then timed beside its bound, its plain
-    version and the library call: scaled_dot_product_attention's forward
-    for the forward kernel, its backward for the two backward kernels
-    together.  Also shows that the o limit rejects a faulty forward: the
-    kernel's o with one key tile (keys 1024..1087) masked out."""
+def flash_records(launches: dict, B: int, T: int, dtype, smi: str) -> list:
+    """Each flash kernel of dtype's route at a training run's shapes
+    ([B, T, 8, 64], causal, all keys valid, no lse cotangent): checked
+    against its plain version in float32 on the same inputs, then timed
+    beside its bound, its plain version and the library call:
+    scaled_dot_product_attention's forward for the forward kernel, its
+    backward for the two backward kernels together.  For bf16 (the
+    tensor-core kernels, the LM training run's route) also shows that the o
+    limit rejects a faulty forward: the kernel's o with one key tile (keys
+    1024..1087) masked out, and measures what the forward's second bf16
+    term of p costs: the one-term forward's time and o error (printed, not
+    gated; it is on no path)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fa
     H, D = 8, 64
-    bf16 = torch.bfloat16
+    tc = dtype == torch.bfloat16
+    suffix, what = ("_tc", "bf16") if tc else ("", "fp32")
     g = torch.Generator(device="cuda")
     g.manual_seed(2)
     q, k, v, do = (torch.randn(B, T, H, D, generator=g, device="cuda")
-                   .bfloat16() for _ in range(4))
+                   .to(dtype) for _ in range(4))
     kvm = torch.ones(B, T, dtype=torch.uint8, device="cuda")
     scale = D ** -0.5
     e, (o, lse), want_o = flash_errors(q, k, v, kvm, do, None, causal=True)
-    log(f"[train] flash kernels vs plain at [{B}, {T}, {H}, {D}] bf16 "
-        f"causal: {flash_line(e, bf16)}")
+    log(f"[train] flash kernels vs plain at [{B}, {T}, {H}, {D}] {what} "
+        f"causal: {flash_line(e, dtype)}")
     if not e["ok"]:
-        raise AssertionError("flash kernels disagree with their plain "
-                             "versions at the training run's shape")
-    dropped = kvm.clone()
-    dropped[:, 1024:1088] = 0
-    bad, _ = fa.flash_attention_fwd(q, k, v, dropped, True)
-    bad_share = o_limit_share(bad, want_o, bf16)
-    bad_abs = float((bad.float() - want_o).abs().max())
-    log(f"[train] faulty forward (key tile 1024..1087 dropped): o "
-        f"{bad_abs:.2e} = {bad_share:.3f} of its limit: "
-        f"{'rejected' if bad_share > 1 else 'NOT rejected'}")
-    if not bad_share > 1:
-        raise AssertionError("the o limit does not reject a dropped key tile")
-    del bad, dropped, want_o
-    err = {"flash_fwd": max(e["o"], e["lse"]), "flash_bwd_dq": e["dq"],
-           "flash_bwd_dkv": max(e["dk"], e["dv"])}
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions at a training run's shape ({what})")
+    if tc:
+        dropped = kvm.clone()
+        dropped[:, 1024:1088] = 0
+        bad, _ = fa.flash_attention_fwd(q, k, v, dropped, True)
+        bad_share = o_limit_share(bad, want_o, dtype)
+        bad_abs = float((bad.float() - want_o).abs().max())
+        log(f"[train] faulty forward (key tile 1024..1087 dropped): o "
+            f"{bad_abs:.2e} = {bad_share:.3f} of its limit: "
+            f"{'rejected' if bad_share > 1 else 'NOT rejected'}")
+        if not bad_share > 1:
+            raise AssertionError("the o limit does not reject a dropped key "
+                                 "tile")
+        del bad, dropped
+        one_term = one_term_forward(q, k, v, kvm, scale)
+        o1 = one_term()
+        one_share = o_limit_share(o1, want_o, dtype)
+        one_ms = time_call(one_term, 10)
+        two_ms = time_call(lambda: fa.flash_attention_fwd(q, k, v, kvm, True),
+                           10)
+        log(f"[train] forward with one-term bf16 p (the TPU kernel's "
+            f"rounding, measurement only): {one_ms * 1e3:.1f} us/launch "
+            f"against {two_ms * 1e3:.1f} us with two terms; o "
+            f"{float((o1.float() - want_o).abs().max()):.2e} = "
+            f"{one_share:.3f} of its limit [{smi}]")
+        del o1
+    del want_o
+    names = [f"flash_{k}{suffix}" for k in ("fwd", "bwd_dq", "bwd_dkv")]
+    err = dict(zip(names, (max(e["o"], e["lse"]), e["dq"],
+                           max(e["dk"], e["dv"]))))
     delta = fa.backward_delta(o, do, None)
     bwd = (q, k, v, kvm, do, lse, delta, True, scale, 0, 0, None)
-    ms = {"flash_fwd": time_call(
-              lambda: fa.flash_attention_fwd(q, k, v, kvm, True), 10),
-          "flash_bwd_dq": time_call(lambda: fa.bwd_dq_kernel(*bwd), 10),
-          "flash_bwd_dkv": time_call(lambda: fa.bwd_dkv_kernel(*bwd), 10)}
+    ms = dict(zip(names, (
+        time_call(lambda: fa.flash_attention_fwd(q, k, v, kvm, True), 10),
+        time_call(lambda: fa.bwd_dq_kernel(*bwd), 10),
+        time_call(lambda: fa.bwd_dkv_kernel(*bwd), 10))))
     plain_fwd = time_call(lambda: fa.flash_attention_plain(q, k, v, kvm,
                                                            True), 3)
     plain_bwd = time_call(lambda: fa.flash_attention_bwd_plain(
@@ -782,30 +860,31 @@ def flash_records(launches: dict, B: int, T: int, smi: str) -> list:
     # recomputes S and dP and forms dQ (3), dK/dV recompute S and dP and
     # form dV and dK (4)
     pairs = B * H * T * (T + 1) / 2
-    bthd, bht = B * T * H * D * 2, B * H * T * 4
-    work = {"flash_fwd": (4 * bthd + B * T + bht, 4 * D * pairs),
-            "flash_bwd_dq": (5 * bthd + B * T + 2 * bht, 6 * D * pairs),
-            "flash_bwd_dkv": (6 * bthd + B * T + 2 * bht, 8 * D * pairs)}
+    elem = q.element_size()
+    bthd, bht = B * T * H * D * elem, B * H * T * 4
+    work = (4 * bthd + B * T + bht, 4 * D * pairs), \
+        (5 * bthd + B * T + 2 * bht, 6 * D * pairs), \
+        (6 * bthd + B * T + 2 * bht, 8 * D * pairs)
+    source = f"paddle_tpu_torch/csrc/flash_attention{suffix}.cu"
     records = []
-    for name, src_line in (("flash_fwd", 113), ("flash_bwd_dq", 239),
-                           ("flash_bwd_dkv", 278)):
-        nbytes, flops = work[name]
+    for i, (name, src_line) in enumerate(zip(names, (113, 239, 278))):
+        nbytes, flops = work[i]
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        flops_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
         bound_ms = max(bytes_ms, flops_ms)
-        plain_ms = plain_fwd if name == "flash_fwd" else plain_bwd
-        lib_ms = lib_fwd if name == "flash_fwd" else lib_bwd
-        log(f"[train] {name} at [{B}, {T}, {H}, {D}] bf16 causal: "
+        plain_ms = plain_fwd if i == 0 else plain_bwd
+        lib_ms = lib_fwd if i == 0 else lib_bwd
+        log(f"[train] {name} at [{B}, {T}, {H}, {D}] {what} causal: "
             f"{ms[name] * 1e3:.1f} us/launch; bound {bound_ms * 1e3:.1f} us "
             f"({'operations' if flops_ms >= bytes_ms else 'bytes'}; "
             f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) = "
             f"{bound_ms / ms[name]:.1%} of the bound; plain version "
-            f"{plain_ms * 1e3:.1f} us{'' if name == 'flash_fwd' else ' (whole backward)'}; "
-            f"scaled_dot_product_attention {'forward' if name == 'flash_fwd' else 'backward'} "
-            f"{lib_ms * 1e3:.1f} us [{smi}]")
+            f"{plain_ms * 1e3:.1f} us{'' if i == 0 else ' (whole backward)'}"
+            f"; scaled_dot_product_attention "
+            f"{'forward' if i == 0 else 'backward'} {lib_ms * 1e3:.1f} us "
+            f"[{smi}]")
         records.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": f"paddle_tpu/ops/pallas_attention.py:{src_line}",
             "launches": launches[name], "max_abs_err": err[name],
             "ms": ms[name], "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -814,7 +893,34 @@ def flash_records(launches: dict, B: int, T: int, smi: str) -> list:
     return records
 
 
-def phase_train_routes() -> None:
+def one_term_forward(q, k, v, kvm, scale):
+    """A launcher of the tensor-core forward with p rounded to one bf16 term
+    in P V (flash_fwd_one_term_launch, D <= 64, causal): what the second
+    term costs.  Not counted: no path runs it."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    lib = fa.kernel_tc.library().lib
+    lib.flash_fwd_one_term_launch.argtypes = lib.flash_fwd_launch.argtypes
+    lib.flash_fwd_one_term_launch.restype = ctypes.c_int
+    B, Tq, H, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+
+    def run():
+        rc = lib.flash_fwd_one_term_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), B, Tq, k.shape[1], H, k.shape[2],
+            D, float(scale), 1, -1, 0, 0,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"one-term forward failed: CUDA error {rc}")
+        return o
+    return run
+
+
+def phase_train_routes(smi: str) -> list:
+    """float32 training through the flash route (the CUDA-core kernels)
+    against the dense route; returns the CUDA-core kernels' records at this
+    run's shape with the launches it made."""
     from paddle_tpu_torch.models import transformer_lm_trainer_config
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.parameter import init_params
@@ -834,8 +940,7 @@ def phase_train_routes() -> None:
         fa.counts.reset()
         loss, grads, _ = tr.compute_gradients(tr.prepare_batch(batch))
         torch.cuda.synchronize()
-        got[impl] = (float(loss), grads, (fa.counts.fwd, fa.counts.bwd_dq,
-                                          fa.counts.bwd_dkv, fa.counts.plain))
+        got[impl] = (float(loss), grads, flash_counts())
     (la, ga, ca), (ld, gd, cd) = got["auto"], got["dense"]
     rel_loss = abs(la - ld) / abs(ld)
     worst, worst_name = 0.0, ""
@@ -847,10 +952,15 @@ def phase_train_routes() -> None:
         f"dense {ld:.6f} (rel {rel_loss:.2e}, tol 1e-5); worst gradient "
         f"{worst:.2e} of its max ({worst_name}; tol 1e-4); flash launches "
         f"{ca}, dense {cd}")
-    if ca != (2, 2, 2, 0) or cd != (0, 0, 0, 0):
+    if ca != (0, 0, 0, 2, 2, 2, 0) or cd != (0,) * 7:
         raise AssertionError(f"routes did not take their paths: {ca}, {cd}")
     if not (rel_loss <= 1e-5 and worst <= 1e-4 and set(ga) == set(gd)):
         raise AssertionError("flash and dense training routes disagree")
+    del got, ga, gd, params, tr
+    torch.cuda.empty_cache()
+    launches = {"flash_fwd": ca[3], "flash_bwd_dq": ca[4],
+                "flash_bwd_dkv": ca[5]}
+    return flash_records(launches, 2, 2048, torch.float32, smi)
 
 
 # -- the fused LSTM (K3) and the sentiment path --------------------------------
@@ -1857,7 +1967,7 @@ def main() -> int:
     phase_routes()
     phase_flash()
     flash = phase_train(smi)
-    phase_train_routes()
+    flash += phase_train_routes(smi)
     phase_lstm()
     lstm = phase_sentiment(smi)
     phase_sentiment_routes()

@@ -1,7 +1,9 @@
-// Flash attention for Hopper (sm_90a): forward, backward dQ, backward dK/dV,
-// float32 or bfloat16 inputs.
+// Flash attention for Hopper (sm_90a) on CUDA cores, float32 inputs:
+// forward, backward dQ, backward dK/dV.  bfloat16 inputs go to the
+// tensor-core kernels of flash_attention_tc.cu.
 //
-// Replaces the three Pallas TPU kernels of paddle_tpu/ops/pallas_attention.py:
+// Replaces, for float32, the three Pallas TPU kernels of
+// paddle_tpu/ops/pallas_attention.py:
 //   flash_fwd_kernel     <- _fwd_kernel      (launched by _fwd_call)
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel   (launched by _bwd_call)
 //   flash_bwd_dkv_kernel <- _bwd_dkv_kernel  (launched by _bwd_call)
@@ -22,22 +24,19 @@
 //
 // What bounds it: at the training shapes (T = 2048, D = 64) attention does
 // ~4 T^2 D flops per head against ~4 T D bytes, so the card's bound is its
-// tensor-core rate.  This first version does not reach it: every product is
-// a float32 FMA on CUDA cores (true fp32 for float32 inputs, as the TPU
-// kernel's Precision.HIGHEST; bf16 inputs are widened on load), out of
-// padded shared-memory tiles (rows of D + 1 floats, no bank conflicts), each
-// of 256 threads owning a 4 x 4 block of the 64 x 64 score tile.  The
-// backward kernels recompute p = exp(s - lse) instead of reading a stored
-// probability matrix.  dK/dV have one owner per tile (the CTA walks the kv
-// head's whole query-head group), so there are no atomics and the gradients
-// are deterministic.  Tensor cores (mma.sync / wgmma) and TMA staging are
-// later work.
+// float32 rate.  Every product is a true-fp32 FMA on CUDA cores, as the TPU
+// kernels' Precision.HIGHEST for float32 inputs (TF32 tensor cores would
+// keep ~3 decimal digits), out of padded shared-memory tiles (rows of D + 1
+// floats, no bank conflicts), each of 256 threads owning a 4 x 4 block of
+// the 64 x 64 score tile.  The backward kernels recompute p = exp(s - lse)
+// instead of reading a stored probability matrix.  dK/dV have one owner per
+// tile (the CTA walks the kv head's whole query-head group), so there are no
+// atomics and the gradients are deterministic.
 //
-// C interface (bound with ctypes): each *_launch() launches on the given
-// stream, allocates nothing, and returns cudaGetLastError() (or the error
-// of raising the shared-memory limit).
+// C interface (bound with ctypes, the same as flash_attention_tc.cu's): each
+// *_launch() launches on the given stream, allocates nothing, and returns
+// cudaGetLastError() (or the error of raising the shared-memory limit).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -51,15 +50,6 @@ constexpr int kThreads = 256;    // 16 x 16 threads, each a 4 x 4 score block
 constexpr int kPLD = kBK + 1;    // row stride of the [BQ][BK] probability tiles
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
 
 // sum / max over the 16 threads (tx = lane & 15) that share a score row
 __device__ __forceinline__ float row_sum(float x) {
@@ -102,13 +92,13 @@ struct Mask {
 
 // rows [0, 64) of a [rows, D] slice with row stride `stride` elements into a
 // float tile of row stride DM + 1; rows >= n_rows and columns >= D are 0
-template <typename T, int DM>
-__device__ void load_tile(float* dst, const T* __restrict__ src, int n_rows,
+template <int DM>
+__device__ void load_tile(float* dst, const float* __restrict__ src, int n_rows,
                           int64_t stride, int D) {
   for (int e = threadIdx.x; e < 64 * DM; e += kThreads) {
     const int r = e / DM, d = e - (e / DM) * DM;
     dst[r * (DM + 1) + d] =
-        (r < n_rows && d < D) ? to_f32(src[r * stride + d]) : 0.f;
+        (r < n_rows && d < D) ? src[r * stride + d] : 0.f;
   }
 }
 
@@ -123,12 +113,13 @@ __device__ void load_kvalid(int* dst, const uint8_t* __restrict__ kv_row,
 // forward: CTA (q tile, head, batch) walks the key tiles with the
 // online-softmax state (m, l, acc) of its rows in registers
 // ---------------------------------------------------------------------------
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                 T* __restrict__ o, float* __restrict__ lse, int Tq, int Tk,
-                 int H, int Hkv, int D, float scale, Mask mk) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 const uint8_t* __restrict__ kv_mask, float* __restrict__ o,
+                 float* __restrict__ lse, int Tq, int Tk, int H, int Hkv,
+                 int D, float scale, Mask mk) {
   constexpr int LD = DM + 1;
   constexpr int NJ = DM / 16;  // head-dim columns per thread
   extern __shared__ float smem[];
@@ -143,15 +134,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int64_t q_stride = static_cast<int64_t>(H) * D;
   const int64_t k_stride = static_cast<int64_t>(Hkv) * D;
-  const T* qb = q + (static_cast<int64_t>(b) * Tq + q0) * q_stride +
+  const float* qb = q + (static_cast<int64_t>(b) * Tq + q0) * q_stride +
                 static_cast<int64_t>(h) * D;
-  const T* kb = k + static_cast<int64_t>(b) * Tk * k_stride +
+  const float* kb = k + static_cast<int64_t>(b) * Tk * k_stride +
                 static_cast<int64_t>(hk) * D;
-  const T* vb = v + static_cast<int64_t>(b) * Tk * k_stride +
+  const float* vb = v + static_cast<int64_t>(b) * Tk * k_stride +
                 static_cast<int64_t>(hk) * D;
   const uint8_t* kv_row = kv_mask + static_cast<int64_t>(b) * Tk;
 
-  load_tile<T, DM>(sQ, qb, Tq - q0, q_stride, D);
+  load_tile<DM>(sQ, qb, Tq - q0, q_stride, D);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -167,8 +158,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = ik * kBK;
     if (!mk.live(q0, k0)) continue;  // uniform over the block
     __syncthreads();                 // the last tile's sK/sV/sP reads are done
-    load_tile<T, DM>(sK, kb + k0 * k_stride, Tk - k0, k_stride, D);
-    load_tile<T, DM>(sV, vb + k0 * k_stride, Tk - k0, k_stride, D);
+    load_tile<DM>(sK, kb + k0 * k_stride, Tk - k0, k_stride, D);
+    load_tile<DM>(sV, vb + k0 * k_stride, Tk - k0, k_stride, D);
     load_kvalid(sKv, kv_row, k0, Tk);
     __syncthreads();
 
@@ -237,12 +228,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty + 16 * i;
     if (r >= Tq) continue;
     const float inv = l[i] > 0.f ? 1.f / fmaxf(l[i], 1e-30f) : 0.f;
-    T* orow = o + (static_cast<int64_t>(b) * Tq + r) * q_stride +
+    float* orow = o + (static_cast<int64_t>(b) * Tq + r) * q_stride +
               static_cast<int64_t>(h) * D;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) store(orow + d, l[i] > 0.f ? acc[i][j] * inv : 0.f);
+      if (d < D) orow[d] = l[i] > 0.f ? acc[i][j] * inv : 0.f;
     }
     if (tx == 0)
       lse[(static_cast<int64_t>(b) * H + h) * Tq + r] =
@@ -254,13 +245,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // backward dQ: CTA (q tile, head, batch) walks the key tiles;
 // p = exp(s - lse), ds = p (dp - delta) scale, dq += ds k
 // ---------------------------------------------------------------------------
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
                     const uint8_t* __restrict__ kv_mask,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int Tq, int Tk, int H, int Hkv, int D, float scale,
                     Mask mk) {
   constexpr int LD = DM + 1;
@@ -280,15 +272,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t k_stride = static_cast<int64_t>(Hkv) * D;
   const int64_t q_base = (static_cast<int64_t>(b) * Tq + q0) * q_stride +
                          static_cast<int64_t>(h) * D;
-  const T* kb = k + static_cast<int64_t>(b) * Tk * k_stride +
+  const float* kb = k + static_cast<int64_t>(b) * Tk * k_stride +
                 static_cast<int64_t>(hk) * D;
-  const T* vb = v + static_cast<int64_t>(b) * Tk * k_stride +
+  const float* vb = v + static_cast<int64_t>(b) * Tk * k_stride +
                 static_cast<int64_t>(hk) * D;
   const uint8_t* kv_row = kv_mask + static_cast<int64_t>(b) * Tk;
   const int64_t row_base = (static_cast<int64_t>(b) * H + h) * Tq;
 
-  load_tile<T, DM>(sQ, q + q_base, Tq - q0, q_stride, D);
-  load_tile<T, DM>(sdO, dout + q_base, Tq - q0, q_stride, D);
+  load_tile<DM>(sQ, q + q_base, Tq - q0, q_stride, D);
+  load_tile<DM>(sdO, dout + q_base, Tq - q0, q_stride, D);
   float lse_r[4], delta_r[4];
   bool row_ok[4];
 #pragma unroll
@@ -310,8 +302,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = ik * kBK;
     if (!mk.live(q0, k0)) continue;
     __syncthreads();
-    load_tile<T, DM>(sK, kb + k0 * k_stride, Tk - k0, k_stride, D);
-    load_tile<T, DM>(sV, vb + k0 * k_stride, Tk - k0, k_stride, D);
+    load_tile<DM>(sK, kb + k0 * k_stride, Tk - k0, k_stride, D);
+    load_tile<DM>(sV, vb + k0 * k_stride, Tk - k0, k_stride, D);
     load_kvalid(sKv, kv_row, k0, Tk);
     __syncthreads();
 
@@ -371,11 +363,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (!row_ok[i]) continue;
-    T* row = dq + q_base + (ty + 16 * i) * q_stride;
+    float* row = dq + q_base + (ty + 16 * i) * q_stride;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) store(row + d, acc[i][j]);
+      if (d < D) row[d] = acc[i][j];
     }
   }
 }
@@ -384,14 +376,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // backward dK, dV: CTA (k tile, kv head, batch) walks every (query head of
 // the group) x (q tile) pair; dv += p^T do, dk += ds^T q
 // ---------------------------------------------------------------------------
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
                      const uint8_t* __restrict__ kv_mask,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Tq, int Tk, int H, int Hkv,
+                     const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Tq, int Tk, int H, int Hkv,
                      int D, float scale, Mask mk) {
   constexpr int LD = DM + 1;
   constexpr int NJ = DM / 16;
@@ -413,8 +406,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          static_cast<int64_t>(hk) * D;
   const uint8_t* kv_row = kv_mask + static_cast<int64_t>(b) * Tk;
 
-  load_tile<T, DM>(sK, k + k_base, Tk - k0, k_stride, D);
-  load_tile<T, DM>(sV, v + k_base, Tk - k0, k_stride, D);
+  load_tile<DM>(sK, k + k_base, Tk - k0, k_stride, D);
+  load_tile<DM>(sV, v + k_base, Tk - k0, k_stride, D);
   load_kvalid(sKv, kv_row, k0, Tk);
 
   float dk_acc[4][NJ], dv_acc[4][NJ];
@@ -433,8 +426,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();  // the last pair's sQ/sdO/sP/sdS reads are done
       const int64_t q_base = (static_cast<int64_t>(b) * Tq + q0) * q_stride +
                              static_cast<int64_t>(h) * D;
-      load_tile<T, DM>(sQ, q + q_base, Tq - q0, q_stride, D);
-      load_tile<T, DM>(sdO, dout + q_base, Tq - q0, q_stride, D);
+      load_tile<DM>(sQ, q + q_base, Tq - q0, q_stride, D);
+      load_tile<DM>(sdO, dout + q_base, Tq - q0, q_stride, D);
       __syncthreads();
 
       float s[4][4], dp[4][4];
@@ -509,14 +502,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int c = ty + 16 * i;
     if (k0 + c >= Tk) continue;
-    T* dkr = dk + k_base + c * k_stride;
-    T* dvr = dv + k_base + c * k_stride;
+    float* dkr = dk + k_base + c * k_stride;
+    float* dvr = dv + k_base + c * k_stride;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
       if (d < D) {
-        store(dkr + d, dk_acc[i][j]);
-        store(dvr + d, dv_acc[i][j]);
+        dkr[d] = dk_acc[i][j];
+        dvr[d] = dv_acc[i][j];
       }
     }
   }
@@ -550,54 +543,47 @@ int set_smem(K kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
-bool bad_shape(int dtype, int B, int Tq, int Tk, int H, int Hkv, int D) {
+bool bad_shape(int B, int Tq, int Tk, int H, int Hkv, int D) {
   return B <= 0 || Tq <= 0 || Tk <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-         D <= 0 || D > 128 || (dtype != 0 && dtype != 1) || B > 65535 ||
-         H > 65535;
+         D <= 0 || D > 128 || B > 65535 || H > 65535;
 }
 
-template <typename T, int DM>
-int fwd_typed(const void* q, const void* k, const void* v,
-              const uint8_t* kvm, void* o, float* lse, int B, int Tq, int Tk,
-              int H, int Hkv, int D, float scale, Mask mk,
-              cudaStream_t stream) {
+template <int DM>
+int fwd_dm(const float* q, const float* k, const float* v,
+           const uint8_t* kvm, float* o, float* lse, int B, int Tq, int Tk,
+           int H, int Hkv, int D, float scale, Mask mk,
+           cudaStream_t stream) {
   const size_t bytes = fwd_smem<DM>();
-  if (int rc = set_smem(flash_fwd_kernel<T, DM>, bytes)) return rc;
+  if (int rc = set_smem(flash_fwd_kernel<DM>, bytes)) return rc;
   const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, DM><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kvm, static_cast<T*>(o), lse, Tq, Tk, H, Hkv,
-      D, scale, mk);
+  flash_fwd_kernel<DM><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, kvm, o, lse, Tq, Tk, H, Hkv, D, scale, mk);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DM>
-int dq_typed(const void* q, const void* k, const void* v, const uint8_t* kvm,
-             const void* dout, const float* lse, const float* delta, void* dq,
-             int B, int Tq, int Tk, int H, int Hkv, int D, float scale,
-             Mask mk, cudaStream_t stream) {
+template <int DM>
+int dq_dm(const float* q, const float* k, const float* v, const uint8_t* kvm,
+          const float* dout, const float* lse, const float* delta, float* dq,
+          int B, int Tq, int Tk, int H, int Hkv, int D, float scale, Mask mk,
+          cudaStream_t stream) {
   const size_t bytes = dq_smem<DM>();
-  if (int rc = set_smem(flash_bwd_dq_kernel<T, DM>, bytes)) return rc;
+  if (int rc = set_smem(flash_bwd_dq_kernel<DM>, bytes)) return rc;
   const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq_kernel<T, DM><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kvm, static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), Tq, Tk, H, Hkv, D, scale, mk);
+  flash_bwd_dq_kernel<DM><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, kvm, dout, lse, delta, dq, Tq, Tk, H, Hkv, D, scale, mk);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DM>
-int dkv_typed(const void* q, const void* k, const void* v, const uint8_t* kvm,
-              const void* dout, const float* lse, const float* delta,
-              void* dk, void* dv, int B, int Tq, int Tk, int H, int Hkv,
-              int D, float scale, Mask mk, cudaStream_t stream) {
+template <int DM>
+int dkv_dm(const float* q, const float* k, const float* v, const uint8_t* kvm,
+           const float* dout, const float* lse, const float* delta,
+           float* dk, float* dv, int B, int Tq, int Tk, int H, int Hkv,
+           int D, float scale, Mask mk, cudaStream_t stream) {
   const size_t bytes = dkv_smem<DM>();
-  if (int rc = set_smem(flash_bwd_dkv_kernel<T, DM>, bytes)) return rc;
+  if (int rc = set_smem(flash_bwd_dkv_kernel<DM>, bytes)) return rc;
   const dim3 grid((Tk + kBK - 1) / kBK, Hkv, B);
-  flash_bwd_dkv_kernel<T, DM><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kvm, static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, H, Hkv, D, scale, mk);
+  flash_bwd_dkv_kernel<DM><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, kvm, dout, lse, delta, dk, dv, Tq, Tk, H, Hkv, D, scale, mk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -605,83 +591,66 @@ int dkv_typed(const void* q, const void* k, const void* v, const uint8_t* kvm,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; window < 0 = no sliding window.
-// Each returns a cudaError_t value.
-int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v,
+// float32 tensors; window < 0 = no sliding window.  Each returns a
+// cudaError_t value.
+int flash_fwd_launch(const void* q, const void* k, const void* v,
                      const void* kv_mask, void* o, void* lse, int B, int Tq,
                      int Tk, int H, int Hkv, int D, float scale, int causal,
                      int window, int q_off, int k_off, void* stream) {
-  if (bad_shape(dtype, B, Tq, Tk, H, Hkv, D))
+  if (bad_shape(B, Tq, Tk, H, Hkv, D))
     return static_cast<int>(cudaErrorInvalidValue);
   const Mask mk{causal, window, q_off, k_off};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
   const uint8_t* kvm = static_cast<const uint8_t*>(kv_mask);
+  float* of = static_cast<float*>(o);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0) {
-    return D <= 64 ? fwd_typed<float, 64>(q, k, v, kvm, o, l, B, Tq, Tk, H,
-                                          Hkv, D, scale, mk, s)
-                   : fwd_typed<float, 128>(q, k, v, kvm, o, l, B, Tq, Tk, H,
-                                           Hkv, D, scale, mk, s);
-  }
-  return D <= 64 ? fwd_typed<__nv_bfloat16, 64>(q, k, v, kvm, o, l, B, Tq, Tk,
-                                                H, Hkv, D, scale, mk, s)
-                 : fwd_typed<__nv_bfloat16, 128>(q, k, v, kvm, o, l, B, Tq,
-                                                 Tk, H, Hkv, D, scale, mk, s);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D <= 64 ? fwd_dm<64>(f(q), f(k), f(v), kvm, of, l, B, Tq, Tk, H, Hkv,
+                              D, scale, mk, s)
+                 : fwd_dm<128>(f(q), f(k), f(v), kvm, of, l, B, Tq, Tk, H,
+                               Hkv, D, scale, mk, s);
 }
 
-int flash_bwd_dq_launch(int dtype, const void* q, const void* k,
-                        const void* v, const void* kv_mask, const void* dout,
+int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
+                        const void* kv_mask, const void* dout,
                         const void* lse, const void* delta, void* dq, int B,
                         int Tq, int Tk, int H, int Hkv, int D, float scale,
                         int causal, int window, int q_off, int k_off,
                         void* stream) {
-  if (bad_shape(dtype, B, Tq, Tk, H, Hkv, D))
+  if (bad_shape(B, Tq, Tk, H, Hkv, D))
     return static_cast<int>(cudaErrorInvalidValue);
   const Mask mk{causal, window, q_off, k_off};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
   const uint8_t* kvm = static_cast<const uint8_t*>(kv_mask);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (dtype == 0) {
-    return D <= 64 ? dq_typed<float, 64>(q, k, v, kvm, dout, l, dl, dq, B, Tq,
-                                         Tk, H, Hkv, D, scale, mk, s)
-                   : dq_typed<float, 128>(q, k, v, kvm, dout, l, dl, dq, B,
-                                          Tq, Tk, H, Hkv, D, scale, mk, s);
-  }
-  return D <= 64 ? dq_typed<__nv_bfloat16, 64>(q, k, v, kvm, dout, l, dl, dq,
-                                               B, Tq, Tk, H, Hkv, D, scale,
-                                               mk, s)
-                 : dq_typed<__nv_bfloat16, 128>(q, k, v, kvm, dout, l, dl, dq,
-                                                B, Tq, Tk, H, Hkv, D, scale,
-                                                mk, s);
+  float* g = static_cast<float*>(dq);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D <= 64 ? dq_dm<64>(f(q), f(k), f(v), kvm, f(dout), f(lse),
+                             f(delta), g, B, Tq, Tk, H, Hkv, D, scale, mk, s)
+                 : dq_dm<128>(f(q), f(k), f(v), kvm, f(dout), f(lse),
+                              f(delta), g, B, Tq, Tk, H, Hkv, D, scale, mk,
+                              s);
 }
 
-int flash_bwd_dkv_launch(int dtype, const void* q, const void* k,
-                         const void* v, const void* kv_mask,
-                         const void* dout, const void* lse, const void* delta,
-                         void* dk, void* dv, int B, int Tq, int Tk, int H,
-                         int Hkv, int D, float scale, int causal, int window,
+int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                         const void* kv_mask, const void* dout,
+                         const void* lse, const void* delta, void* dk,
+                         void* dv, int B, int Tq, int Tk, int H, int Hkv,
+                         int D, float scale, int causal, int window,
                          int q_off, int k_off, void* stream) {
-  if (bad_shape(dtype, B, Tq, Tk, H, Hkv, D))
+  if (bad_shape(B, Tq, Tk, H, Hkv, D))
     return static_cast<int>(cudaErrorInvalidValue);
   const Mask mk{causal, window, q_off, k_off};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
   const uint8_t* kvm = static_cast<const uint8_t*>(kv_mask);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (dtype == 0) {
-    return D <= 64 ? dkv_typed<float, 64>(q, k, v, kvm, dout, l, dl, dk, dv,
-                                          B, Tq, Tk, H, Hkv, D, scale, mk, s)
-                   : dkv_typed<float, 128>(q, k, v, kvm, dout, l, dl, dk, dv,
-                                           B, Tq, Tk, H, Hkv, D, scale, mk,
-                                           s);
-  }
-  return D <= 64 ? dkv_typed<__nv_bfloat16, 64>(q, k, v, kvm, dout, l, dl, dk,
-                                                dv, B, Tq, Tk, H, Hkv, D,
-                                                scale, mk, s)
-                 : dkv_typed<__nv_bfloat16, 128>(q, k, v, kvm, dout, l, dl,
-                                                 dk, dv, B, Tq, Tk, H, Hkv, D,
-                                                 scale, mk, s);
+  float* gk = static_cast<float*>(dk);
+  float* gv = static_cast<float*>(dv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D <= 64 ? dkv_dm<64>(f(q), f(k), f(v), kvm, f(dout), f(lse),
+                              f(delta), gk, gv, B, Tq, Tk, H, Hkv, D, scale,
+                              mk, s)
+                 : dkv_dm<128>(f(q), f(k), f(v), kvm, f(dout), f(lse),
+                               f(delta), gk, gv, B, Tq, Tk, H, Hkv, D, scale,
+                               mk, s);
 }
 
 const char* flash_error_string(int code) {

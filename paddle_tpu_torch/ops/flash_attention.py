@@ -11,13 +11,19 @@ causal and sliding-window masks on global positions `q_offset + i` /
 validity is applied outside the kernels (o *= q_valid, lse = -inf there),
 so the zeroed cotangent kills the invalid rows' gradients, as in JAX.
 
-For CUDA tensors the forward and both backward passes launch the kernels of
-csrc/flash_attention.cu (or raise); for CPU tensors they run the plain
-versions `flash_attention_plain` / `flash_attention_bwd_plain`, the same
-arithmetic on a dense [B, H, Tq, Tk] score matrix.  There is no fallback
-from one to the other.  The backward's `delta = rowsum(do * o) - dlse`
-(non-finite values set to 0) is computed here between the two launches, as
-JAX computes it in jnp outside its kernels.
+For CUDA tensors the forward and both backward passes launch a kernel (or
+raise), chosen by dtype: bfloat16 goes to the tensor-core kernels of
+csrc/flash_attention_tc.cu (bf16 products with float32 sums, as the TPU
+kernels at the MXU's default precision: dS and the backward's p rounded to
+bf16 where they enter a product, the forward's p as two bf16 terms),
+float32 to the CUDA-core kernels of
+csrc/flash_attention.cu (true fp32, as Precision.HIGHEST).  For CPU
+tensors they run the plain versions `flash_attention_plain` /
+`flash_attention_bwd_plain`, the same arithmetic in float32 on a dense
+[B, H, Tq, Tk] score matrix.  There is no fallback from one to another.
+The backward's `delta = rowsum(do * o) - dlse` (non-finite values set to
+0) is computed here between the two launches, as JAX computes it in jnp
+outside its kernels.
 """
 
 from __future__ import annotations
@@ -30,43 +36,49 @@ import torch
 from paddle_tpu_torch.ops import cuda_build
 
 _NEG_INF = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128      # head dims the kernels take (instances for 64, 128)
 
 
 class CallCounts:
     """How often each version ran: `fwd`, `bwd_dq` and `bwd_dkv` count CUDA
-    launches of the three kernels, `plain` counts calls of the plain
-    PyTorch versions (forward or backward)."""
+    launches of the float32 CUDA-core kernels, `fwd_tc`, `bwd_dq_tc` and
+    `bwd_dkv_tc` those of the bfloat16 tensor-core kernels, `plain` counts
+    calls of the plain PyTorch versions (forward or backward)."""
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
-        self.fwd = 0
-        self.bwd_dq = 0
-        self.bwd_dkv = 0
+        self.fwd = self.bwd_dq = self.bwd_dkv = 0
+        self.fwd_tc = self.bwd_dq_tc = self.bwd_dkv_tc = 0
         self.plain = 0
+
+    def launched(self, kernel: "_Kernel", name: str) -> None:
+        name += kernel.count_suffix
+        setattr(self, name, getattr(self, name) + 1)
 
 
 counts = CallCounts()
 
 
 class _Kernel:
-    """The built library and its C entry points, made on first launch."""
+    """One kernel library (forward, dQ, dK/dV behind one C interface) and
+    its C entry points, built on first launch."""
 
-    def __init__(self):
+    def __init__(self, source: str, count_suffix: str):
+        self.source = source              # csrc/<source>.cu
+        self.count_suffix = count_suffix  # its launches' CallCounts names
         self.built: Optional[cuda_build.KernelLibrary] = None
 
     def library(self) -> cuda_build.KernelLibrary:
         if self.built is None:
-            built = cuda_build.build("flash_attention")
+            built = cuda_build.build(self.source)
             lib = built.lib
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             shape = [i] * 6 + [f] + [i] * 4 + [p]   # B..D, scale, mask, stream
-            lib.flash_fwd_launch.argtypes = [i] + [p] * 6 + shape
-            lib.flash_bwd_dq_launch.argtypes = [i] + [p] * 8 + shape
-            lib.flash_bwd_dkv_launch.argtypes = [i] + [p] * 9 + shape
+            lib.flash_fwd_launch.argtypes = [p] * 6 + shape
+            lib.flash_bwd_dq_launch.argtypes = [p] * 8 + shape
+            lib.flash_bwd_dkv_launch.argtypes = [p] * 9 + shape
             for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch,
                        lib.flash_bwd_dkv_launch):
                 fn.restype = i
@@ -76,7 +88,9 @@ class _Kernel:
         return self.built
 
 
-kernel = _Kernel()
+kernel = _Kernel("flash_attention", "")           # float32, CUDA cores
+kernel_tc = _Kernel("flash_attention_tc", "_tc")  # bfloat16, tensor cores
+_KERNELS = {torch.float32: kernel, torch.bfloat16: kernel_tc}
 
 
 # -- the plain versions -------------------------------------------------------
@@ -217,13 +231,14 @@ def _check(q, k, v, kv_mask) -> None:
                          f"{sorted(map(str, devs))}")
 
 
-def _check_cuda(name: str, **tensors) -> None:
-    """What the kernels take beyond _check: CUDA, float32/bfloat16, D <= 128,
-    contiguous tensors."""
+def _check_cuda(name: str, **tensors) -> "_Kernel":
+    """What the kernels take beyond _check: CUDA, float32 (CUDA-core
+    kernels) or bfloat16 (tensor-core kernels), D <= 128, contiguous
+    tensors.  Returns the kernel library of q's dtype."""
     q = tensors["q"]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in _KERNELS:
         raise TypeError(f"{name}: the kernel takes float32/bfloat16, got "
                         f"{q.dtype}")
     if q.shape[3] > MAX_HEAD_DIM:
@@ -232,6 +247,7 @@ def _check_cuda(name: str, **tensors) -> None:
     for tname, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: {tname} must be contiguous")
+    return _KERNELS[q.dtype]
 
 
 def _raise_if_failed(lib, rc: int, what: str) -> None:
@@ -263,20 +279,20 @@ def flash_attention_fwd(q, k, v, kv_mask, causal=False, scale=None,
         return flash_attention_plain(q, k, v, kv_mask, causal, scale,
                                      q_offset, k_offset, window)
     kvm = kv_mask.to(torch.uint8)
-    _check_cuda("flash_attention", q=q, k=k, v=v, kv_mask=kvm)
+    kern = _check_cuda("flash_attention", q=q, k=k, v=v, kv_mask=kvm)
     B, Tq, H, D = q.shape
     Tk, h_kv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
-    lib = kernel.library().lib
+    lib = kern.library().lib
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd_launch(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kvm.data_ptr(), o.data_ptr(), lse.data_ptr(), B, Tq, Tk, H, h_kv,
-            D, float(scale), *_mask_args(causal, window, q_offset, k_offset),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), B, Tq, Tk, H, h_kv, D,
+            float(scale), *_mask_args(causal, window, q_offset, k_offset),
             _stream(q))
     _raise_if_failed(lib, rc, "forward")
-    counts.fwd += 1
+    counts.launched(kern, "fwd")
     return o, lse
 
 
@@ -308,44 +324,53 @@ def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, dlse=None,
 
 def _bwd_launch_args(q, k, v, kvm, do, lse, delta, causal, scale, q_offset,
                      k_offset, window):
-    _check_cuda("flash_attention backward", q=q, k=k, v=v, kv_mask=kvm,
-                do=do, lse=lse, delta=delta)
+    kern = _check_cuda("flash_attention backward", q=q, k=k, v=v,
+                       kv_mask=kvm, do=do, lse=lse, delta=delta)
     B, Tq, H, D = q.shape
-    return ((_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             kvm.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr()),
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (B, H, Tq):
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             f"float32 [B, H, Tq] = {(B, H, Tq)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return (kern,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr()),
             (B, Tq, k.shape[1], H, k.shape[2], D, float(scale),
              *_mask_args(causal, window, q_offset, k_offset)))
 
 
 def bwd_dq_kernel(q, k, v, kvm, do, lse, delta, causal, scale, q_offset,
                   k_offset, window) -> torch.Tensor:
-    """One launch of the dQ kernel on CUDA tensors (kvm uint8, delta from
-    `backward_delta`): returns dq."""
-    head, shape = _bwd_launch_args(q, k, v, kvm, do, lse, delta, causal,
-                                   scale, q_offset, k_offset, window)
+    """One launch of the dQ kernel of q's dtype on CUDA tensors (kvm uint8,
+    delta from `backward_delta`): returns dq."""
+    kern, head, shape = _bwd_launch_args(q, k, v, kvm, do, lse, delta,
+                                         causal, scale, q_offset, k_offset,
+                                         window)
     dq = torch.empty_like(q)
-    lib = kernel.library().lib
+    lib = kern.library().lib
     with torch.cuda.device(q.device):
         rc = lib.flash_bwd_dq_launch(*head, dq.data_ptr(), *shape,
                                      _stream(q))
     _raise_if_failed(lib, rc, "backward dq")
-    counts.bwd_dq += 1
+    counts.launched(kern, "bwd_dq")
     return dq
 
 
 def bwd_dkv_kernel(q, k, v, kvm, do, lse, delta, causal, scale, q_offset,
                    k_offset, window):
-    """One launch of the dK/dV kernel on CUDA tensors: returns (dk, dv)."""
-    head, shape = _bwd_launch_args(q, k, v, kvm, do, lse, delta, causal,
-                                   scale, q_offset, k_offset, window)
+    """One launch of the dK/dV kernel of q's dtype on CUDA tensors: returns
+    (dk, dv)."""
+    kern, head, shape = _bwd_launch_args(q, k, v, kvm, do, lse, delta,
+                                         causal, scale, q_offset, k_offset,
+                                         window)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = kernel.library().lib
+    lib = kern.library().lib
     with torch.cuda.device(q.device):
         rc = lib.flash_bwd_dkv_launch(*head, dk.data_ptr(), dv.data_ptr(),
                                       *shape, _stream(q))
     _raise_if_failed(lib, rc, "backward dk/dv")
-    counts.bwd_dkv += 1
+    counts.launched(kern, "bwd_dkv")
     return dk, dv
 
 

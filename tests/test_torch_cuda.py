@@ -113,19 +113,41 @@ FLASH_CASES = [(2, 300, 300, 8, 8, 64, True, None, 0, 0, False),
                (2, 200, 333, 8, 2, 64, False, None, 0, 0, True),
                (2, 130, 190, 6, 3, 40, True, 50, 60, 17, True),
                (1, 100, 120, 4, 1, 128, True, None, 0, 0, False)]
+FLASH_IDS = ["causal", "gqa-ragged", "d40-window-offsets", "d128-mqa"]
+# bfloat16 on the tensor-core kernels besides: each mask kind of
+# chip_smoke's [flash] phase, and causal with ragged keys (its first rows
+# see no key), at D 64, 128 and 40 (no 16-byte rows: element-wise loads),
+# Tq = 1000 and Tk = 1100 (ragged tile edges).
+# (name, H_kv, causal, window, q_offset, k_offset, ragged keys)
+TC_MASKS = [("causal", 8, True, None, 0, 0, False),
+            ("causal-gqa", 2, True, None, 0, 0, False),
+            ("full", 8, False, None, 0, 0, False),
+            ("full-gqa", 2, False, None, 0, 0, False),
+            ("ragged", 2, False, None, 0, 0, True),
+            ("window", 8, True, 256, 0, 0, False),
+            ("offsets", 2, True, None, 1000, 300, True),
+            ("causal-ragged", 4, True, None, 0, 0, True)]
+TC_CASES = [(2, 1000, 1100, 8, h_kv, D, causal, window, qo, ko, ragged)
+            for _, h_kv, causal, window, qo, ko, ragged in TC_MASKS
+            for D in (64, 128, 40)]
+TC_IDS = [f"tc-{name}-d{D}" for name, *_ in TC_MASKS for D in (64, 128, 40)]
+FLASH_PARAMS = ([(dt, c) for dt in (torch.float32, torch.bfloat16)
+                 for c in FLASH_CASES]
+                + [(torch.bfloat16, c) for c in TC_CASES])
+FLASH_PARAM_IDS = ([f"{n}-{dt}" for dt in ("float32", "bfloat16")
+                    for n in FLASH_IDS] + TC_IDS)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FLASH_CASES,
-                         ids=["causal", "gqa-ragged", "d40-window-offsets",
-                              "d128-mqa"])
+@pytest.mark.parametrize("dtype,case", FLASH_PARAMS, ids=FLASH_PARAM_IDS)
 def test_flash_kernels_match_plain_versions(cuda, dtype, case):
     """The forward (o, lse) and the two backward kernels (dq, dk, dv, with
     an lse cotangent) against the plain versions in float32 on the same
     inputs, at chip_smoke's limits: o per element within rtol * |ref| +
     atol (float32 2e-5 absolute; bfloat16 2^-7 |ref| + 1e-3, the kernels
-    rounding o to bfloat16), lse within 2e-5, gradients within GRAD_TOL
-    (float32 2e-5, bfloat16 1e-2) times their max."""
+    rounding p and o to bfloat16), lse within 2e-5 and -inf on exactly the
+    rows without a key, gradients within GRAD_TOL (float32 2e-5, bfloat16
+    1e-2) times their max.  bfloat16 runs the tensor-core kernels, float32
+    the CUDA-core ones (launch counts)."""
     B, Tq, Tk, H, h_kv, D, causal, window, q_off, k_off, ragged = case
     g = torch.Generator(device=cuda).manual_seed(0)
     q, do = (torch.randn(B, Tq, H, D, generator=g, device=cuda).to(dtype)
@@ -144,8 +166,13 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, case):
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, kvm, o, lse, do, dlse,
                                         **mask)
     torch.cuda.synchronize()
-    assert (fa.counts.fwd, fa.counts.bwd_dq, fa.counts.bwd_dkv,
-            fa.counts.plain) == (1, 1, 1, 0)
+    tc = (fa.counts.fwd_tc, fa.counts.bwd_dq_tc, fa.counts.bwd_dkv_tc)
+    cc = (fa.counts.fwd, fa.counts.bwd_dq, fa.counts.bwd_dkv)
+    if dtype == torch.bfloat16:
+        assert (tc, cc) == ((1, 1, 1), (0, 0, 0))
+    else:
+        assert (tc, cc) == ((0, 0, 0), (1, 1, 1))
+    assert fa.counts.plain == 0
     f = [x.float() for x in (q, k, v)]
     want_o, want_lse = fa.flash_attention_plain(*f, kvm, **mask)
     assert o.dtype == dtype
@@ -166,6 +193,17 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda):
     kvm = torch.ones(1, 8, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention_fwd(q, q, q, kvm)
+    with pytest.raises(ValueError, match="head dims"):  # tensor-core route
+        fa.flash_attention_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16(), kvm)
+    b = torch.zeros(1, 8, 2, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="share one floating dtype"):
+        fa.flash_attention_fwd(b, b.float(), b, kvm)
+    o, lse = fa.flash_attention_fwd(b, b, b, kvm)
+    with pytest.raises(ValueError, match="do must match"):
+        fa.flash_attention_bwd(b, b, b, kvm, o, lse, b.float())
+    with pytest.raises(ValueError, match="lse must be float32"):
+        fa.bwd_dq_kernel(b, b, b, kvm.to(torch.uint8), b, lse.bfloat16(),
+                         lse, False, 0.25, 0, 0, None)
     h = torch.zeros(1, 8, 2, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32/bfloat16"):
         fa.flash_attention_fwd(h, h, h, kvm)

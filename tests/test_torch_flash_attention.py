@@ -4,7 +4,9 @@ JAX package's dense `dot_product_attention` and its gradients,
 `blockwise_attention`, and the Pallas `flash_attention` kernel itself in
 interpret mode (with offsets and an lse cotangent), in float32.  Tolerance
 2e-5 absolute on o, lse and the gradients: the same arithmetic summed in
-another order over at most 40 keys."""
+another order over at most 40 keys.  A plain model of the bfloat16
+tensor-core kernels' rounding is held against the float32 plain versions
+and the Pallas kernel on bf16 inputs at chip_smoke's bf16 limits."""
 
 import functools
 
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import GRAD_TOL, o_limit_share
 from paddle_tpu.ops import attention as jattn
 from paddle_tpu.ops import pallas_attention
 from paddle_tpu_torch.ops import attention as tattn
@@ -189,3 +192,159 @@ def test_wrapper_rejects_bad_inputs():
         fa.flash_attention_bwd(q, k, v, kval, q, q[..., 0, 0], q[:, :3])
     with pytest.raises(ValueError, match="no kernel for device"):
         fa._check_cuda("flash_attention", q=q.to("meta"))
+
+
+# -- the tensor-core kernels' rounding (bfloat16) -----------------------------
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _bf2(x):
+    """x as the sum of two bfloat16 terms, hi + lo (16 significant bits)."""
+    hi = _bf(x)
+    return hi + _bf(x - hi)
+
+
+def _tc_model(q, k, v, kv_mask, do, dlse, causal, q_offset, k_offset,
+              window, fwd_p=_bf2):
+    """Plain-PyTorch model of csrc/flash_attention_tc.cu's arithmetic on
+    bfloat16 q/k/v/do: products of bf16 operands with float32 sums; the
+    forward's p (relative to the row max) enters P V as two bf16 terms,
+    hi + lo; the backward's p = exp(s - lse) and dS are rounded to bf16
+    where they enter a product; l, delta and the softmax in float32; o and
+    the gradients rounded to bf16.  Returns (o, lse, dq, dk, dv) as float32
+    tensors.  `fwd_p` rounds the forward's p (default: two terms)."""
+    B, Tq, H, D = q.shape
+    h_kv = k.shape[2]
+    scale = D ** -0.5
+    qh, doh = (x.float().permute(0, 2, 1, 3) for x in (q, do))
+    kh, vh = fa._expand(k, H), fa._expand(v, H)
+    mask = fa._score_mask(kv_mask, Tq, causal, q_offset, k_offset, window)
+    s = torch.where(mask, torch.matmul(qh, kh.transpose(-1, -2)) * scale,
+                    0.0)
+    live = mask.any(dim=-1)
+    m = torch.where(mask, s, float("-inf")).amax(dim=-1)
+    m = torch.where(live, m, 0.0)
+    e = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = e.sum(dim=-1)
+    o = torch.matmul(fwd_p(e), vh) / l.clamp_min(1e-30)[..., None]
+    o = _bf(torch.where(live[..., None], o, 0.0)).permute(0, 2, 1, 3)
+    lse = torch.where(live, m + torch.log(l.clamp_min(1e-30)), float("-inf"))
+    delta = fa.backward_delta(o, do.float(), dlse)
+    p = torch.where(mask, torch.exp(s - torch.where(live, lse, 0.0)[..., None]),
+                    0.0)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.matmul(_bf(ds), kh)
+    dk = torch.matmul(_bf(ds).transpose(-1, -2), qh)
+    dv = torch.matmul(_bf(p).transpose(-1, -2), doh)
+
+    def to_kv(g):
+        g = g.reshape(B, h_kv, H // h_kv, *g.shape[2:]).sum(dim=2)
+        return _bf(g.permute(0, 2, 1, 3))
+
+    return (o, lse.expand(B, H, Tq).contiguous(),
+            _bf(dq.permute(0, 2, 1, 3)), to_kv(dk), to_kv(dv))
+
+
+# (D, H_kv, causal, window, q_offset, k_offset); Tq = 70, Tk = 90, H = 4,
+# batch row 1's first 6 and last 20 keys invalid (with causal masking and
+# these offsets its first rows see no key)
+TC_MODEL_CASES = [(64, 2, True, None, 0, 0), (40, 2, True, 24, 5, 0),
+                  (64, 1, False, 24, 0, 7), (40, 4, True, None, 30, 10)]
+TC_MODEL_IDS = ["d64-causal-gqa", "d40-causal-w24-qoff", "d64-mqa-w24-koff",
+                "d40-causal-offsets"]
+
+
+def _tc_case(seed, D, hkv):
+    q, k, v, kval, _, do = _case(seed, B=2, Tq=70, Tk=90, H=4, Hkv=hkv, D=D,
+                                 ragged=False)
+    kval[1, :6] = False
+    kval[1, 70:] = False
+    dlse = np.random.default_rng(seed + 1).normal(
+        size=(2, 4, 70)).astype(np.float32) * 0.1
+    bf16 = [torch.from_numpy(x).bfloat16() for x in (q, k, v, do)]
+    return bf16, _t(kval), _t(dlse)
+
+
+@pytest.mark.parametrize("D,hkv,causal,window,q_off,k_off", TC_MODEL_CASES,
+                         ids=TC_MODEL_IDS)
+def test_tc_rounding_model_within_chip_limits_of_fp32_plain(
+        D, hkv, causal, window, q_off, k_off):
+    """The tensor-core kernels' rounding (bf16 operands; the forward's p as
+    two bf16 terms, the backward's p and dS rounded to bf16, entering a
+    product) held against the float32 plain versions on the same bf16
+    inputs at chip_smoke's bf16 limits: o per element within 2^-7 |ref| +
+    1e-3, lse within 2e-5 and -inf on exactly the rows without a key,
+    dq/dk/dv within 1e-2 of their max.  The plain backward is fed the
+    model's o and lse, as chip_smoke feeds it the kernel's."""
+    (q, k, v, do), kval, dlse = _tc_case(7, D, hkv)
+    mask = dict(causal=causal, q_offset=q_off, k_offset=k_off, window=window)
+    o, lse, *grads = _tc_model(q, k, v, kval, do, dlse, **mask)
+    f = [x.float() for x in (q, k, v)]
+    want_o, want_lse = fa.flash_attention_plain(*f, kval, **mask)
+    assert o_limit_share(o, want_o, torch.bfloat16) <= 1
+    fin = torch.isfinite(want_lse)
+    assert (~fin).any() == (causal and q_off <= k_off + 5)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert float((lse[fin] - want_lse[fin]).abs().max()) <= 2e-5
+    want = fa.flash_attention_bwd_plain(*f, kval, o, lse, do.float(), dlse,
+                                        **mask)
+    for got, ref in zip(grads, want):
+        err = float((got - ref).abs().max())
+        assert err <= GRAD_TOL[torch.bfloat16] * float(ref.abs().max()), err
+
+
+def test_tc_rounding_model_needs_two_bf16_terms_for_p():
+    """Why the forward kernel multiplies P V as two bf16 products: with p
+    rounded to one bf16 term, o misses its limit (causal rows with few keys
+    whose values cancel), while the gradients, whose p and dS do enter as
+    one term, stay within theirs."""
+    (q, k, v, do), kval, dlse = _tc_case(7, 64, 2)
+    o, _, *_ = _tc_model(q, k, v, kval, do, dlse, True, 0, 0, None,
+                         fwd_p=_bf)
+    want_o, _ = fa.flash_attention_plain(*(x.float() for x in (q, k, v)),
+                                         kval, causal=True)
+    assert o_limit_share(o, want_o, torch.bfloat16) > 1
+
+
+@pytest.mark.parametrize("D,hkv,causal,window,q_off,k_off", TC_MODEL_CASES,
+                         ids=TC_MODEL_IDS)
+def test_tc_rounding_model_within_chip_limits_of_pallas_bf16(
+        monkeypatch, D, hkv, causal, window, q_off, k_off):
+    """The same model against paddle_tpu's Pallas flash_attention on the
+    same bf16 inputs (interpret mode, 32 x 32 tiles), o, lse and the vjp
+    of (o, lse) with cotangents (do, dlse), at the same limits.  Also the
+    Pallas kernel's own o against the float32 plain version, as a share of
+    the o limit: in interpret mode its default-precision products run in
+    float32 on the CPU, so p enters P V unrounded and o stays within the
+    limit; the MXU's one bf16 pass rounds p to one term, the rounding that
+    test_tc_rounding_model_needs_two_bf16_terms_for_p shows to miss it."""
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    (q, k, v, do), kval, dlse = _tc_case(7, D, hkv)
+    mask = dict(causal=causal, q_offset=q_off, k_offset=k_off, window=window)
+    o, lse, *grads = _tc_model(q, k, v, kval, do, dlse, **mask)
+
+    def jf(q_, k_, v_):
+        return pallas_attention.flash_attention(
+            q_, k_, v_, k_valid=jnp.asarray(kval.numpy()), causal=causal,
+            block_q=32, block_k=32, q_offset=q_off, k_offset=k_off,
+            return_lse=True, window=window)
+    jbf = [jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)]
+    (jo, jlse), vjp = jax.vjp(jf, *jbf)
+    jfin = np.isfinite(np.asarray(jlse))
+    jg = vjp((jnp.asarray(do.float().numpy(), jnp.bfloat16),
+              jnp.asarray(np.where(jfin, dlse.numpy(), 0.0))))
+    want_o = torch.from_numpy(np.array(jo.astype(jnp.float32)))
+    plain_o, _ = fa.flash_attention_plain(*(x.float() for x in (q, k, v)),
+                                          kval, **mask)
+    pallas_share = o_limit_share(want_o, plain_o, torch.bfloat16)
+    assert pallas_share <= 1, pallas_share
+    assert o_limit_share(o, want_o, torch.bfloat16) <= 1
+    assert np.array_equal(torch.isfinite(lse).numpy(), jfin)
+    assert np.abs(lse.numpy()[jfin] - np.asarray(jlse)[jfin]).max() <= 2e-5
+    for got, w in zip(grads, jg):
+        ref = np.asarray(w.astype(jnp.float32))
+        err = float(np.abs(got.numpy() - ref).max())
+        assert err <= GRAD_TOL[torch.bfloat16] * float(np.abs(ref).max()), err
