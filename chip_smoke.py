@@ -9,9 +9,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
                on tensor cores (bf16), the fused LSTM, the fused GRU, the
                additive attention) from the sources in this checkout (nvcc,
                sm_90a), one nvcc per source started together; each
-               tensor-core flash kernel's registers, dynamic shared memory
-               and local memory (cudaFuncGetAttributes, so also when the
-               library was already built), none with local memory (spills);
+               tensor-core flash kernel's and each fused-GRU kernel's
+               registers, shared memory and local memory
+               (cudaFuncGetAttributes, so also when the library was already
+               built; the GRU walk kernels' dynamic shared memory as
+               gru_plan sizes it for the seq2seq encoder), none with local
+               memory (spills);
   3. kernel  — the ragged paged-attention kernel against its plain PyTorch
                version at decode and mixed-step shapes (GQA, page sizes 16
                and 8, lengths 1..768), float32 (atol 2e-5) and bfloat16
@@ -100,11 +103,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
  12. gru     — the two fused-GRU kernels (forward; backward) against their
                plain version in float32, fed the column slices of one
                [D, 3D] weight: forward/reverse x ragged (a length-0 row, a
-               full row) / full lengths x tanh / relu candidates, at B=64,
-               T=30, D=512 and at B=5, T=7, D=32: hs, h_last, dx3, dWg, dWc,
+               full row) / full lengths x tanh / relu candidates, at
+               [B, T, D] = [64, 30, 512], [5, 7, 32], [256, 30, 512],
+               [64, 30, 96], [1, 30, 512], and [1024, 30, 512] and
+               [1500, 12, 256] (batches walked in slices of rows, as no
+               single launch takes them): hs, h_last, dx3, dWg, dWc,
                dh0 each within 1e-5 of its max (relu cases moved off the
-               kink first); and the limit rejecting a result with one row's
-               freeze dropped;
+               kink first); the limit rejecting a result with one row's
+               freeze dropped; two backward calls bit-identical; one
+               forward + backward captured in a CUDA graph, replayed, equal
+               to eager bit for bit;
  13. additive — the additive-attention kernel against its plain version at
                [B, T, D, Dv] = [64, 30, 512, 1024], [192, 30, 512, 1024],
                T = 1 and T = 300, full and ragged lengths (with a length-0
@@ -128,7 +136,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
                then each kernel's time per launch at the run's shapes beside
                its bound, its plain version's time and, for the GRU, a cuDNN
                GRU's (torch.nn.GRU: r applied after the product; a
-               yardstick, never called by the port);
+               yardstick, never called by the port; each GRU kernel must be
+               faster); for the GRU also the launch plan, three plans
+               timed, the backward's walk and dW product apart, a
+               single-row launch, one step's split into its parts
+               (clock64() stamps) and batches of 1,024 rows at hidden 512
+               and 256, launched as gru_launches does and another way (one
+               launch or slices of rows), beside the cuDNN GRU;
  15. seq2seq-routes — float32 at full width, batch 16: one training step's
                loss and gradients through the GRU and additive kernels
                against the same step through their plain versions: loss
@@ -218,6 +232,21 @@ def phase_build() -> None:
     if any(local):
         raise AssertionError(f"the tensor-core flash kernels must run "
                              f"without local memory (spills): {local}")
+    # the same for K1's four kernels, the walk kernels' dynamic shared
+    # memory set for the seq2seq encoder's plan
+    plan = gf.plan_for(S2S_BATCH, S2S_HIDDEN, torch.device("cuda"))
+    attrs = gf.kernel_attributes(S2S_HIDDEN, plan)
+    for kname, (regs, lmem, smem, dyn) in attrs.items():
+        log(f"[build] {kname} (plan {plan.args()} at D={S2S_HIDDEN}): {regs} "
+            f"registers, {smem} bytes of static and {dyn} of dynamic shared "
+            f"memory, {lmem} bytes of local memory per thread")
+    if (attrs["gru_fwd_kernel"][3], attrs["gru_bwd_kernel"][3]) != (
+            plan.smem_fwd, plan.smem_bwd):
+        raise AssertionError(f"gru_plan's shared memory {plan} differs from "
+                             f"the kernels' {attrs}")
+    if any(a[1] for a in attrs.values()):
+        raise AssertionError(f"the fused-GRU kernels must run without local "
+                             f"memory (spills): {attrs}")
 
 
 def make_case(rng, *, rows: str, H: int, h_kv: int, D: int, ps: int,
@@ -1385,6 +1414,11 @@ def phase_sentiment_routes() -> None:
 
 GRU_TOL = 1e-5                     # float32: share of each tensor's max
 GRU_NAMES = ("hs", "h_last", "dx3", "dwg", "dwc", "dh0")
+# [B, T, D]: the seq2seq encoder's, a small odd one, four batch groups of
+# 64 rows, a hidden size of three 32-column tiles, a single row, and two
+# batches no single launch takes (walked in slices of rows)
+GRU_SHAPES = ((64, 30, 512), (5, 7, 32), (256, 30, 512), (64, 30, 96),
+              (1, 30, 512), (1024, 30, 512), (1500, 12, 256))
 
 
 def gru_inputs(g, B: int, T: int, D: int, ragged: bool):
@@ -1462,7 +1496,7 @@ def phase_gru() -> None:
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     worst = 0.0
-    for B, T, D in ((64, 30, 512), (5, 7, 32)):
+    for B, T, D in GRU_SHAPES:
         for reverse in (False, True):
             for ragged in (False, True):
                 for act in ("tanh", "relu"):
@@ -1499,6 +1533,50 @@ def phase_gru() -> None:
         f"; worst passing case {worst:.2e} of max")
     if not min(over["hs"], over["dx3"]) > 1:
         raise AssertionError("the gru limit does not reject a dropped freeze")
+    gru_repeat_and_graph(g)
+
+
+def gru_repeat_and_graph(g) -> None:
+    """At the seq2seq shape [64, 30, 512] (ragged, tanh): two backward
+    calls give bit-identical dx3, dWg, dWc, dh0 (no atomics in any sum); one
+    forward + backward captured in a torch.cuda.CUDAGraph (the cooperative
+    launches and their zeroed barrier counters included), replayed, equals
+    the eager result bit for bit."""
+    from paddle_tpu_torch.ops import gru_fused as gf
+    B, T, D = S2S_BATCH, S2S_SRC, S2S_HIDDEN
+    (x3, lens, w, h0), cot = gru_inputs(g, B, T, D, True)
+    leaves = [t.clone().requires_grad_(True) for t in (x3, w, h0)]
+
+    def step():
+        xl, wl, hl = leaves
+        hs, hl_ = gf.gru_fused(xl, lens, wl[:, :2 * D], wl[:, 2 * D:], hl)
+        loss = (hs * cot[0]).sum() + (hl_ * cot[1]).sum()
+        return (hs.detach(),) + torch.autograd.grad(loss, leaves)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # warm-up off the capture
+        first, second = step(), step()
+    torch.cuda.current_stream().wait_stream(side)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    log(f"[gru] two forward + backward calls at [{B}, {T}, {D}]: hs, dx3, "
+        f"dw, dh0 bit-identical {same}")
+    if not all(same):
+        raise AssertionError("the gru kernels are not deterministic")
+    c0 = (gf.counts.fwd, gf.counts.bwd)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(captured, first)]
+    log(f"[gru] forward + backward captured in a CUDA graph "
+        f"({gf.counts.fwd - c0[0]} + {gf.counts.bwd - c0[1]} launches "
+        f"captured), replayed: equal to eager bit for bit {same}")
+    if not all(same):
+        raise AssertionError("the CUDA-graph replay of the gru kernels "
+                             "differs from eager")
+    del graph
 
 
 # K2: float32 within ADD_TOL_F32; bfloat16 inputs against the plain version
@@ -1750,6 +1828,110 @@ def phase_seq2seq(smi: str) -> list:
     return gru_records(launches, smi) + additive_records(launches, smi)
 
 
+def kernel_device_ms(fn, n: int, names: tuple) -> dict:
+    """Mean device ms per call of fn() over n calls, by kernel: {name: ms}
+    for each name, summed over the CUDA kernels whose symbol contains it
+    (torch.profiler); None where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        us = sum(float(getattr(e, "self_device_time_total", 0.0)
+                       or getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA
+                 and name in e.key)
+        out[name] = us / 1e3 / n if us else None
+    return out
+
+
+# the parts of one K1 step that gru_phase_stamps splits (csrc/gru.cu)
+GRU_FWD_PARTS = ("stage h", "h Wg", "u, r", "barrier 1", "stage r h",
+                 "(r h) Wc", "c, h", "barrier 2")
+GRU_BWD_PARTS = ("dzu, dzc", "dzc Wc^T", "barrier A", "sum A, dzr",
+                 "dz Wg^T", "barrier B", "sum B, dh")
+
+
+def gru_phase_split(args, plan) -> str:
+    """gru_phase_stamps at the given inputs: the mean cycles of each part of
+    a step over the steps CTA 0 computed, forward and backward walk."""
+    from paddle_tpu_torch.ops import gru_fused as gf
+    st_f, st_b = gf.gru_phase_stamps(*args, plan=plan)
+    parts = []
+    for what, st, names in (("forward", st_f, GRU_FWD_PARTS),
+                            ("walk", st_b, GRU_BWD_PARTS)):
+        st = st[(st != 0).all(dim=1)].double()
+        d = (st[:, 1:] - st[:, :-1]).mean(0).tolist()
+        total = sum(d)
+        parts.append(f"{what} {total:.0f} cycles/step: " + ", ".join(
+            f"{n} {c:.0f} ({c / total:.0%})" for n, c in zip(names, d)))
+    return "; ".join(parts)
+
+
+GRU_PLANS_TIMED = ((16, 16), (32, 8), (64, 4))     # (rows, units)
+
+
+# batches of 1,024 rows: (B, D, rows and units a CTA of the plan of another
+# way to launch them): at D = 512 no single launch takes the batch and
+# gru_launches walks it in 16 slices of 64 rows, against 3 slices of 344
+# rows (the cost model's runner-up); at D = 256 one launch takes it, against
+# 2 slices of 512 rows
+GRU_SLICED = ((1024, 512, 342, 16), (1024, 256, 512, None))
+
+
+def gru_sliced_timings(g, T: int, names) -> list:
+    """The batches of GRU_SLICED at T steps (tanh, full lengths): the
+    forward (saving the gates) and the backward as gru_launches runs them,
+    beside the other way to launch them and the cuDNN GRU's times; one
+    line of text each."""
+    from paddle_tpu_torch.ops import gru_fused as gf
+    lines = []
+    for B, D, alt_rows, alt_units in GRU_SLICED:
+        (x3, lens, w, h0), cot = gru_inputs(g, B, T, D, False)
+        wg, wc = w[:, :2 * D], w[:, 2 * D:]
+        limits = gf.kernel.device_limits(x3.device)
+        hs, gates = gf.gru_fwd_kernel(x3, lens, wg, wc, h0, names, False,
+                                      save_gates=True)
+
+        def times(p=None):
+            return (time_call(lambda: gf.gru_fwd_kernel(
+                        x3, lens, wg, wc, h0, names, False, save_gates=True,
+                        plan=p), 5) * 1e3,
+                    time_call(lambda: gf.gru_bwd_kernel(
+                        lens, wg, wc, h0, hs, gates, *cot, names, False,
+                        plan=p), 5) * 1e3)
+
+        def launches_text(launches):
+            return (f"{len(launches)} launch(es) of plan "
+                    f"{launches[0][2].args()}")
+
+        alt = gf.gru_plan(alt_rows, D, *limits, units=alt_units)
+        picked = launches_text(gf.gru_launches(B, D, *limits))
+        text = (f"at [{B}, {T}, {D}]: {picked}: fwd %.1f us, bwd %.1f us"
+                % times())
+        text += (f"; {launches_text(gf._slices(B, D, alt, *limits))}: fwd "
+                 f"%.1f us, bwd %.1f us" % times(alt))
+        cudnn = torch.nn.GRU(3 * D, D, batch_first=True).cuda()
+        xin = x3.clone().requires_grad_(True)
+        with torch.no_grad():
+            c_fwd = time_call(lambda: cudnn(xin), 5) * 1e3
+        y, _ = cudnn(xin)
+        c_bwd = time_call(lambda: torch.autograd.grad(
+            y, [xin, *cudnn.parameters()], cot[0], retain_graph=True),
+            5) * 1e3
+        lines.append(text + f"; cuDNN GRU fwd {c_fwd:.1f} us, bwd "
+                     f"{c_bwd:.1f} us")
+        del y, cudnn, xin, hs, gates
+    return lines
+
+
 def gru_records(launches: dict, smi: str) -> list:
     """Each GRU kernel at the seq2seq encoder's shape [64, 30, 512] (tanh
     candidate, full lengths, the weight slices of one [512, 1536]
@@ -1757,8 +1939,12 @@ def gru_records(launches: dict, smi: str) -> list:
     bound, the plain version's time and a cuDNN GRU's (torch.nn.GRU fed
     x3: it applies r after the product, r (h W_hn), and adds its own
     [1536, 1536] input projection — the same work, not the same function;
-    a yardstick, never called by the port) — and the time of a single-row
-    launch, the floor that the T dependent steps set for this design."""
+    a yardstick, never called by the port).  The forward is timed as
+    training runs it (saving the gates) and as decode runs it; the
+    backward's walk and weight-gradient product apart (torch.profiler);
+    then the launch plans of GRU_PLANS_TIMED, a single-row launch, the
+    per-part split of one step (clock64() stamps, gru_phase_stamps) and
+    the batches of GRU_SLICED (gru_sliced_timings)."""
     from paddle_tpu_torch.ops import gru_fused as gf
     B, T, D = S2S_BATCH, S2S_SRC, S2S_HIDDEN
     g = torch.Generator(device="cuda")
@@ -1777,13 +1963,33 @@ def gru_records(launches: dict, smi: str) -> list:
            "gru_bwd": max(errs[n][0] for n in GRU_NAMES[2:])}
     x3, lens, w, h0 = inputs
     wg, wc = w[:, :2 * D], w[:, 2 * D:]
-    hs = gf.gru_fwd_kernel(x3, lens, wg, wc, h0, names, False)
-    ms = {"gru_fwd": time_call(lambda: gf.gru_fwd_kernel(
-              x3, lens, wg, wc, h0, names, False), 10),
-          "gru_bwd": time_call(lambda: gf.gru_bwd_kernel(
-              x3, lens, wg, wc, h0, hs, *cot, names, False), 10)}
+    plan = gf.plan_for(B, D, x3.device)
+    hs, gates = gf.gru_fwd_kernel(x3, lens, wg, wc, h0, names, False,
+                                  save_gates=True)
+
+    def fwd(p=None, save=True):
+        return gf.gru_fwd_kernel(x3, lens, wg, wc, h0, names, False,
+                                 save_gates=save, plan=p)
+
+    def bwd(p=None):
+        return gf.gru_bwd_kernel(lens, wg, wc, h0, hs, gates, *cot, names,
+                                 False, plan=p)
+
+    ms = {"gru_fwd": time_call(fwd, 20), "gru_bwd": time_call(bwd, 20)}
+    decode_ms = time_call(lambda: fwd(save=False), 20)
+    split = kernel_device_ms(bwd, 10, ("gru_bwd_kernel", "gru_dw_kernel",
+                                       "gru_reduce_kernel"))
+    plans = {}
+    for rows, units in GRU_PLANS_TIMED:
+        p = gf.gru_plan(B, D, *gf.kernel.device_limits(x3.device),
+                        rows=rows, units=units)
+        plans[(rows, units)] = (time_call(lambda: fwd(p), 20),
+                                time_call(lambda: bwd(p), 20))
+    one_plan = gf.plan_for(1, D, x3.device)
     one_row = time_call(lambda: gf.gru_fwd_kernel(
-        x3[:1], lens[:1], wg, wc, h0[:1], names, False), 10)
+        x3[:1], lens[:1], wg, wc, h0[:1], names, False), 20)
+    phases = gru_phase_split((x3, lens, wg, wc, h0, *cot, names, False),
+                             plan)
     leaves = [t.clone().requires_grad_(True) for t in (x3, w, h0)]
 
     def plain_fwd():
@@ -1806,20 +2012,36 @@ def gru_records(launches: dict, smi: str) -> list:
         y, [xin, *cudnn.parameters()], cot[0], retain_graph=True), 10)
     del y
     # the work this run's inputs need: every valid step is one [D] x [D, 3D]
-    # product per row in the forward (h Wg, then (r h) Wc) and three in the
-    # backward (the gates recomputed, dx3's products with W^T, the weight
-    # gradients); bytes: x3 of the valid steps and the weights read, hs
-    # written for every step (forward); x3, hs, the cotangents read, dx3
-    # and the gradients written (backward)
+    # product per row in the forward (h Wg, then (r h) Wc) and two in the
+    # backward (dx3's products with W^T, the weight gradients); bytes: x3
+    # of the valid steps and the weights read, the saved gates of the valid
+    # steps and hs of every step written (forward); the gates of the valid
+    # steps, hs and the cotangents read, dx3 and the gradients written
+    # (backward)
     valid = float(lens.sum())
     step, small = 3.0 * D * 4, 4.0 * (3 * D * D + 2 * B * D + B)
-    work = {"gru_fwd": (valid * step + small + B * T * D * 4,
+    work = {"gru_fwd": (2 * valid * step + B * T * D * 4 + small,
                         2.0 * valid * D * 3 * D),
-            "gru_bwd": (valid * (2 * step + 2 * D * 4) + B * T * D * 4
-                        + 2 * small, 6.0 * valid * D * 3 * D)}
-    log(f"[seq2seq] a single-row launch of the gru forward kernel (the "
-        f"T = {T} dependent steps alone, no other CTA on the L2): "
-        f"{one_row * 1e3:.1f} us = {one_row * 1e3 / T:.2f} us/step [{smi}]")
+            "gru_bwd": (valid * step + B * T * (step + 2 * D * 4)
+                        + 2 * small, 4.0 * valid * D * 3 * D)}
+    log(f"[seq2seq] gru plan {plan.args()} (groups, CTAs a group, rows a "
+        f"group, units a CTA, rows staged at once) = {plan.grid} CTAs, "
+        f"{plan.smem_fwd} / {plan.smem_bwd} bytes of shared memory; plans "
+        f"timed (rows, units): " + ", ".join(
+            f"{k}: fwd {f * 1e3:.1f} us, bwd {b_ * 1e3:.1f} us"
+            for k, (f, b_) in plans.items()) + f" [{smi}]")
+    log(f"[seq2seq] gru backward {ms['gru_bwd'] * 1e3:.1f} us: walk "
+        + ", ".join(f"{k} {v * 1e3:.1f} us" if v is not None
+                    else f"{k} not measured (no device time)"
+                    for k, v in split.items())
+        + f" per call (torch.profiler over 10 calls); forward without the "
+        f"gates (decode) {decode_ms * 1e3:.1f} us [{smi}]")
+    log(f"[seq2seq] a single-row launch of the gru forward kernel (plan "
+        f"{one_plan.args()}): {one_row * 1e3:.1f} us = "
+        f"{one_row * 1e3 / T:.2f} us/step [{smi}]")
+    log(f"[seq2seq] one gru step at [{B}, {T}, {D}], CTA 0: {phases}")
+    for line in gru_sliced_timings(g, T, names):
+        log(f"[seq2seq] gru {line} [{smi}]")
     records = []
     for name, src_line in (("gru_fwd", 300), ("gru_bwd", 326)):
         nbytes, flops = work[name]
@@ -1834,7 +2056,12 @@ def gru_records(launches: dict, smi: str) -> list:
             f"{nbytes / 1e6:.1f} MB) = {bound_ms / ms[name]:.1%} of the "
             f"bound; plain version {plain[name] * 1e3:.1f} us; cuDNN GRU "
             f"{'forward' if name == 'gru_fwd' else 'backward'} "
-            f"{lib[name] * 1e3:.1f} us [{smi}]")
+            f"{lib[name] * 1e3:.1f} us = {lib[name] / ms[name]:.2f}x the "
+            f"kernel's time [{smi}]")
+        if not ms[name] < lib[name]:
+            raise AssertionError(f"{name} is not faster than the cuDNN GRU "
+                                 f"at [{B}, {T}, {D}]: {ms[name]} ms against "
+                                 f"{lib[name]} ms")
         records.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/gru.cu",

@@ -17,9 +17,9 @@ import torch
 from chip_smoke import (ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL, GRU_TOL,
                         LSTM_TOL, additive_error, additive_inputs,
                         gru_compare, gru_inputs, gru_move_off_relu_kink,
-                        lm_batches, lstm_compare, lstm_inputs,
-                        move_off_relu_kink, o_limit_share, sentiment_batches,
-                        seq2seq_batches)
+                        gru_repeat_and_graph, lm_batches, lstm_compare,
+                        lstm_inputs, move_off_relu_kink, o_limit_share,
+                        sentiment_batches, seq2seq_batches)
 from paddle_tpu_torch.graph import GraphExecutor
 from paddle_tpu_torch.graph.generator import generate
 from paddle_tpu_torch.models import (seq2seq_trainer_config,
@@ -330,17 +330,25 @@ GRU_CASES = [(5, 7, 32, False, True, "tanh"),
              (133, 20, 64, True, True, "relu"),
              (64, 30, 512, True, True, "tanh"),
              (3, 1, 96, False, False, "linear"),
-             (16, 12, 128, False, True, "sigmoid")]
+             (16, 12, 128, False, True, "sigmoid"),
+             (256, 30, 512, False, True, "relu"),
+             (64, 30, 96, True, True, "tanh"),
+             (1, 30, 512, False, False, "tanh"),
+             (1024, 30, 512, True, True, "tanh"),
+             (1500, 12, 256, False, True, "relu")]
 
 
 @pytest.mark.parametrize("case", GRU_CASES,
                          ids=["odd", "relu-many-rows", "d512-seq2seq",
-                              "one-step", "sigmoid-candidate"])
+                              "one-step", "sigmoid-candidate", "b256-d512",
+                              "d96", "one-row", "b1024-d512-sliced",
+                              "b1500-d256-sliced"])
 def test_gru_kernels_match_plain_version(cuda, case):
     """The GRU forward kernel (hs, h_last) and backward kernel (dx3, dWg,
     dWc, dh0), fed the column slices of one [D, 3D] weight, against
     autograd of the plain version, each within chip_smoke's GRU_TOL of its
-    max; one launch of each."""
+    max; one call of each wrapper (a batch no launch takes is walked in
+    slices, the last two cases)."""
     B, T, D, reverse, ragged, act = case
     g = torch.Generator(device=cuda).manual_seed(0)
     acts = dict(active_type=act, gate_active_type="sigmoid")
@@ -352,6 +360,36 @@ def test_gru_kernels_match_plain_version(cuda, case):
     assert (gf.counts.fwd, gf.counts.bwd) == (1, 1)
     for name, (_, rel) in errs.items():
         assert rel <= GRU_TOL, (name, rel)
+
+
+def test_gru_limit_rejects_a_dropped_freeze(cuda):
+    """The kernels told that row 0 (length 0) is full: hs and dx3 leave
+    GRU_TOL, as chip_smoke's faulty-result check needs."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    inputs, cot = gru_inputs(g, 64, 30, 512, True)
+    bad = inputs[1].clone()
+    bad[0] = 30
+    errs = gru_compare(inputs, cot, False, kernel_lens=bad)
+    assert errs["hs"][1] > GRU_TOL and errs["dx3"][1] > GRU_TOL
+
+
+def test_gru_backward_repeats_and_replays_in_a_cuda_graph(cuda):
+    """Two backward calls bit-identical; a forward + backward captured in a
+    CUDA graph and replayed equals eager bit for bit (chip_smoke's check)."""
+    gru_repeat_and_graph(torch.Generator(device=cuda).manual_seed(3))
+
+
+def test_gru_kernels_have_no_local_memory(cuda):
+    """The runtime's account of K1's kernels: no local memory (spills), and
+    the walk kernels' dynamic shared memory is what gru_plan sized."""
+    limits = gf.kernel.device_limits(torch.device(cuda))
+    for B, D in ((64, 512), (256, 512), (1, 512), (64, 96), (5, 32),
+                 (1024, 512), (1500, 256)):
+        for _, _, plan in gf.gru_launches(B, D, *limits):
+            attrs = gf.kernel_attributes(D, plan)
+            assert all(a[1] == 0 for a in attrs.values()), attrs
+            assert attrs["gru_fwd_kernel"][3] == plan.smem_fwd
+            assert attrs["gru_bwd_kernel"][3] == plan.smem_bwd
 
 
 def test_gru_wrapper_refuses_what_the_kernels_do_not_take(cuda):

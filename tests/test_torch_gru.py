@@ -5,9 +5,12 @@ The same numpy inputs (seeded) go through `paddle_tpu.ops.rnn.gru_scan`
 interpret mode, as tests/test_pallas_rnn.py runs them) and the port's
 `gru_scan` / `gru_fused`, which on CPU tensors run the kernels' plain
 version.  Outputs within rtol/atol 1e-5, gradients 1e-4 (float32, sums in
-another order).  The backward kernel's arithmetic, transcribed to PyTorch
-beside the plain version, is held against autograd of the plain version, so
-the formulas the CUDA source copies are checked where there is no card.
+another order).  The backward kernels' data flow, transcribed to PyTorch
+beside the plain version (from the forward's saved gates, the products'
+partial sums per column slice added in slice order), is held against
+autograd of the plain version and the Pallas kernels, so the formulas the
+CUDA source copies are checked where there is no card; so are the launch
+plan's invariants on the H100's limits.
 """
 
 import itertools
@@ -206,11 +209,153 @@ def test_the_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_launch_geometry():
-    """The weight-gradient product's splits fill the card without empty
-    splits (its tiles are 32 x 32 over [D, 3D])."""
-    assert gf.dw_splits(64, 30, 512) == 1
-    assert gf.dw_splits(5, 7, 32) == 1
-    assert gf.dw_splits(64, 30, 64) == 8
-    for B_, T_, D_ in ((64, 30, 512), (5, 7, 32), (64, 3, 64)):
-        s = gf.dw_splits(B_, T_, D_)
-        assert 1 <= s <= B_ * T_
+    """The weight-gradient product's splits put ~4 of its 64-thread CTAs on
+    each of the H100's 132 SMs without empty splits (its tiles are 64 x 64
+    over [D, 3D])."""
+    assert gf.dw_splits(64, 30, 512, H100_SMS) == 3
+    assert gf.dw_splits(5, 7, 32, H100_SMS) == 1
+    assert gf.dw_splits(64, 30, 64, H100_SMS) == 30
+    for B_, T_, D_ in ((64, 30, 512), (5, 7, 32), (64, 3, 64), (1, 1, 96)):
+        s = gf.dw_splits(B_, T_, D_, H100_SMS)
+        n = B_ * T_
+        assert 1 <= s <= n and -(-n // s) * (s - 1) < n
+
+
+H100_SMS, H100_SMEM = 132, 232448
+
+
+def _assert_plan_invariants(p, Bx, D):
+    """One launch of Bx rows: every batch row in exactly one group, every
+    hidden unit owned once in a group, slices on 16-byte boundaries, at
+    most one CTA per SM, and both walk kernels' shared memory (recomputed
+    here) within the limit."""
+    owner = np.full(Bx, -1)
+    for g in range(p.groups):
+        rows = np.arange(g * p.rows, min(Bx, (g + 1) * p.rows))
+        assert rows.size >= 1                       # no group is empty
+        assert (owner[rows] == -1).all()
+        owner[rows] = g
+    assert (owner >= 0).all()
+    units = np.zeros(D, int)
+    for c in range(p.ctas):
+        assert (c * p.units * 4) % 16 == 0           # slice start, bytes
+        units[c * p.units:(c + 1) * p.units] += 1
+    assert (units == 1).all() and p.ctas * p.units == D
+    assert p.units % 4 == 0 and p.grid <= H100_SMS
+    assert p.rows_pad % 8 == 0 and p.rows <= p.rows_pad < p.rows + 8
+    assert p.chunk % 4 == 0 and p.rows_pad % p.chunk == 0
+    U, Rp, C = p.units, p.rows_pad, p.chunk
+    assert (C // 4) * (2 * U // 4) <= gf.WALK_THREADS    # one tile a thread
+    # weights, state chunk (the partial sums after it), h and u, two
+    # steps' x3
+    fwd = 4 * (3 * U * D + max(C * (D + 4), 16 * gf.WALK_THREADS)
+               + 2 * Rp * U + 2 * Rp * 3 * U) + 4 * Rp
+    # weights, dz, six state arrays, two steps' g_hs, u, r, c, h_prev
+    bwd = 4 * (3 * U * D + 3 * U * Rp + 6 * Rp * U + 2 * Rp * 5 * U) + 4 * Rp
+    assert (p.smem_fwd, p.smem_bwd) == (fwd, bwd)
+    assert max(fwd, bwd) <= H100_SMEM
+    assert p.exch_bytes == 4 * p.groups * Rp * D
+    assert p.scratch_bytes == 4 * p.grid * Rp * D
+
+
+@pytest.mark.parametrize("D", [32, 96, 256, 512])
+@pytest.mark.parametrize("Bx", [1, 5, 64, 256, 1024, 4096])
+def test_launch_plan_invariants(Bx, D):
+    """gru_launches on the H100 (132 SMs, 232,448 bytes a block): the
+    slices cover the batch once, in order, all of one size but the last,
+    and each launch's plan keeps the invariants; so does gru_plan's single
+    launch wherever one takes the whole batch."""
+    launches = gf.gru_launches(Bx, D, H100_SMS, H100_SMEM)
+    size = launches[0][1]
+    assert [b0 for b0, _, _ in launches] == list(range(0, Bx, size))
+    assert all(n == min(size, Bx - b0) for b0, n, _ in launches)
+    for _, n, p in launches:
+        _assert_plan_invariants(p, n, D)
+    try:
+        p = gf.gru_plan(Bx, D, H100_SMS, H100_SMEM)
+    except ValueError:
+        assert len(launches) > 1
+    else:
+        _assert_plan_invariants(p, Bx, D)
+
+
+def test_launch_plan_slices_a_batch_no_launch_takes():
+    """At hidden 512 a group's rows must fit one CTA's shared memory beside
+    its weights, so no single launch takes 1,024 rows: gru_launches walks
+    them in equal slices that each fit; a batch one launch takes stays one
+    launch of gru_plan's pick; a pinned plan is cut the same way."""
+    with pytest.raises(ValueError, match="no split"):
+        gf.gru_plan(1024, 512, H100_SMS, H100_SMEM)
+    launches = gf.gru_launches(1024, 512, H100_SMS, H100_SMEM)
+    assert len(launches) > 1
+    assert sum(n for _, n, _ in launches) == 1024
+    for Bx, D in ((64, 512), (1024, 256)):      # one launch where one fits
+        assert gf.gru_launches(Bx, D, H100_SMS, H100_SMEM) == (
+            (0, Bx, gf.gru_plan(Bx, D, H100_SMS, H100_SMEM)),)
+    # a pinned plan walks the batch in slices of as many rows as it takes
+    alt = gf.gru_plan(342, 512, H100_SMS, H100_SMEM, units=16)
+    pinned = gf._slices(1024, 512, alt, H100_SMS, H100_SMEM)
+    assert [(b0, n) for b0, n, _ in pinned] == [(0, 344), (344, 344),
+                                                (688, 336)]
+    assert pinned[0][2] == pinned[1][2] == alt
+    assert pinned[2][2].units == 16
+    _assert_plan_invariants(pinned[2][2], 336, 512)
+
+
+def test_launch_model_ranks_the_timed_plans_as_they_ran():
+    """The cost model behind gru_plan orders the four plans timed at the
+    seq2seq shape [64, 30, 512] as they ran on the H100 (PERF.md §6: (8,
+    32) fastest, then (16, 16), (32, 8), (64, 4)), and picks the first."""
+    timed = [(8, 32), (16, 16), (32, 8), (64, 4)]
+    cycles = [gf._step_cycles(512, 512 // u, u, -(-r // 8) * 8)
+              for r, u in timed]
+    assert cycles == sorted(cycles)
+    p = gf.gru_plan(64, 512, H100_SMS, H100_SMEM)
+    assert (p.rows, p.units) == timed[0]
+
+
+SAVED_CASES = [(r, g, a, n) for r, g, a in CASES for n in (1, 2)]
+
+
+@pytest.mark.parametrize("reverse,ragged,act,slices", SAVED_CASES,
+                         ids=[f"{i}-{n}slices" for i, (_, _, _, n) in zip(
+                             [x for x in IDS for _ in (1, 2)], SAVED_CASES)])
+def test_saved_gates_backward_matches_autograd_and_pallas(reverse, ragged,
+                                                          act, slices):
+    """The kernels' data flow: gru_fwd_gates_plain's hs and gates (u, r, c)
+    saved by the forward, then gru_fused_bwd_plain from those gates with
+    the products' partial sums taken per column slice and added in slice
+    order — against autograd of gru_fused_plain and against the Pallas
+    kernels in interpret mode: 1e-5 of each tensor's scale."""
+    c = _case(7, ragged)
+    lens = torch.from_numpy(c["lengths"])
+    kw = dict(active_type=act, gate_active_type="sigmoid", reverse=reverse)
+    x3, w, h0 = (torch.from_numpy(c[n]).requires_grad_(True)
+                 for n in ("x3", "w", "h0"))
+    wg, wc = _split(w)
+    out = gf.gru_fused_plain(x3, lens, wg, wc, h0, **kw)
+    want = torch.autograd.grad(_weighted(out, c, torch), (x3, wg, wc, h0))
+    with torch.no_grad():
+        hs, gates = gf.gru_fwd_gates_plain(x3, lens, wg, wc, h0, **kw)
+        assert torch.equal(hs, out[0])
+        got = gf.gru_fused_bwd_plain(
+            x3, lens, wg, wc, h0, hs,
+            *(torch.from_numpy(c[n]) for n in ("g_hs", "g_hl")),
+            gates=gates, slices=slices, **kw)
+
+    wg_np, wc_np = (np.ascontiguousarray(a) for a in _split(c["w"]))
+
+    def jloss(x3, wg, wc, h0):
+        o = pallas_rnn.gru_fused(x3, jnp.asarray(c["lengths"]), wg, wc, h0,
+                                 **kw)
+        return _weighted(o, c, jnp)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in (c["x3"], wg_np, wc_np, c["h0"])))
+    for name, g, a, j in zip(("dx3", "dw_gate", "dw_cand", "dh0"), got,
+                             want, jgrads):
+        scale = max(float(a.abs().max()), 1.0)
+        np.testing.assert_allclose(g.numpy(), a.numpy(), rtol=0,
+                                   atol=1e-5 * scale, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=0,
+                                   atol=1e-5 * scale, err_msg=f"{name} pallas")
