@@ -9,12 +9,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
                on tensor cores (bf16), the fused LSTM, the fused GRU, the
                additive attention) from the sources in this checkout (nvcc,
                sm_90a), one nvcc per source started together; each
-               tensor-core flash kernel's and each fused-GRU kernel's
-               registers, shared memory and local memory
+               tensor-core flash kernel's, each fused-GRU kernel's and each
+               fused-LSTM kernel's registers, shared memory and local memory
                (cudaFuncGetAttributes, so also when the library was already
                built; the GRU walk kernels' dynamic shared memory as
-               gru_plan sizes it for the seq2seq encoder), none with local
-               memory (spills);
+               gru_plan sizes it for the seq2seq encoder, the LSTM walk
+               kernels' as lstm_plan sizes it for the sentiment net and for
+               hidden 512), none with local memory (spills);
   3. kernel  — the ragged paged-attention kernel against its plain PyTorch
                version at decode and mixed-step shapes (GQA, page sizes 16
                and 8, lengths 1..768), float32 (atol 2e-5) and bfloat16
@@ -71,12 +72,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
   9. lstm    — the two fused-LSTM kernels (forward; backward) against their
                plain version in float32: forward/reverse x with/without
                peepholes x ragged (a length-0 row, a full row) / full
-               lengths x tanh / relu cells, at B=128, T=100, D=128 and at
-               B=5, T=7, D=32: hs, h_last, c_last, dx4, dW, dpeep, dh0, dc0
-               each within 1e-5 of its max (relu cases first move their
-               inputs off relu's kink, where the derivative has two
-               values); and the limit rejecting a result with the freeze
-               dropped for one row;
+               lengths x tanh / relu cells, at [B, T, D] = [128, 100, 128],
+               [5, 7, 32] (a partly filled group), [64, 20, 256],
+               [32, 12, 512] (part of W read from L2) and [1000, 12, 128]
+               (clusters in waves), each with the launch plan it took: hs,
+               h_last, c_last, dx4, dW, dpeep, dh0, dc0 each within 1e-5 of
+               its max (relu cases first move their inputs off relu's
+               kink, where the derivative has two values); the limit
+               rejecting a result with the freeze dropped for one row; two
+               backward calls bit-identical; one forward + backward
+               captured in a CUDA graph, replayed, equal to eager bit for
+               bit;
  10. sentiment — the recurrent training path: Trainer on the stacked IMDB
                sentiment LSTM net at full width (vocabulary 30000, embedding
                128, three fc(512) + lstmemory(128, relu, peepholes,
@@ -89,12 +95,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
                finite probabilities that sum to 1; a save() -> fresh
                Trainer.load() round trip exact (dropout generator
                included); samples/s, ms/step, a torch.profiler pass over
-               two steps; a few steps of the bidirectional net (2 launches
-               of each kernel per step); then each kernel's time per launch
-               at the run's shape beside its bound, its plain version's
-               time and a cuDNN LSTM's (torch.nn.LSTM: no peepholes, no
-               length freeze, its own input projection; a yardstick, never
-               called by the port);
+               two steps (with the K3 kernels' share of the device time); a
+               few steps of the bidirectional net (2 launches of each
+               kernel per step); then each kernel's time per launch at the
+               run's shape beside its bound, its plain version's time and a
+               cuDNN LSTM's (torch.nn.LSTM: no peepholes, no length freeze,
+               its own input projection; a yardstick, never called by the
+               port; each K3 kernel must be faster); the launch plan and the
+               four plans ranked first for the card, timed; the backward's
+               walk, dW product and ordered sums apart; the forward without
+               the gates; a single-row launch; one step's split into its
+               parts (clock64() stamps);
  11. sentiment-routes — float32 at full width, dropout masks fed as ones:
                one training step's loss and gradients through the LSTM
                kernels against the same step through their plain version:
@@ -247,6 +258,25 @@ def phase_build() -> None:
     if any(a[1] for a in attrs.values()):
         raise AssertionError(f"the fused-GRU kernels must run without local "
                              f"memory (spills): {attrs}")
+    # and for K3's: the instances of the sentiment net's plan (W in
+    # registers) and of hidden 512's (W in shared memory and L2)
+    for B, D in ((128, 128), (32, 512)):
+        plan = lf.plan_for(B, D, torch.device("cuda"))
+        attrs = lf.kernel_attributes(D, plan)
+        quads = (lf.fwd_quads(D, plan.units, plan.rows_pad),
+                 lf.bwd_quads(D, plan.units, plan.rows_pad))
+        for kname, (regs, lmem, smem, dyn) in attrs.items():
+            log(f"[build] {kname} (plan {plan.args()} at B={B}, D={D}, W "
+                f"k-quads in registers {quads}): {regs} registers, {smem} "
+                f"bytes of static and {dyn} of dynamic shared memory, "
+                f"{lmem} bytes of local memory per thread")
+        if (attrs["lstm_fwd_kernel"][3], attrs["lstm_bwd_kernel"][3]) != (
+                plan.smem_fwd, plan.smem_bwd):
+            raise AssertionError(f"lstm_plan's shared memory {plan} differs "
+                                 f"from the kernels' {attrs}")
+        if any(a[1] for a in attrs.values()):
+            raise AssertionError(f"the fused-LSTM kernels must run without "
+                                 f"local memory (spills): {attrs}")
 
 
 def make_case(rng, *, rows: str, H: int, h_kv: int, D: int, ps: int,
@@ -493,10 +523,11 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
             "library_ms": None}
 
 
-def profile_run(run, what: str, smi: str) -> None:
+def profile_run(run, what: str, smi: str, family: str = "") -> None:
     """run() once more under torch.profiler (it returns the number of steps
     it made): the device's busy share of the wall time and the kernels that
-    take it."""
+    take it; with `family`, also the share of the kernels whose symbol
+    contains it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -527,6 +558,12 @@ def profile_run(run, what: str, smi: str) -> None:
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"[profile]   {dev_us(e) / 1e3:8.2f} ms {e.count:6d}x "
             f"{dev_us(e) / busy_ms / 10:5.1f}%  {e.key[:90]}")
+    if family:
+        fam = [e for e in kernels if family in e.key]
+        fam_ms = sum(dev_us(e) for e in fam) / 1e3
+        log(f"[profile]   kernels matching {family!r}: {fam_ms:.2f} ms in "
+            f"{sum(e.count for e in fam)} launches = {fam_ms / busy_ms:.1%} "
+            f"of the device time, {fam_ms / steps:.3f} ms/step")
 
 
 def phase_routes() -> None:
@@ -1069,12 +1106,31 @@ def lstm_compare(inputs, cot, reverse: bool, kernel_lens=None, **acts):
     return errs
 
 
+# [B, T, D]: the sentiment net's, a small odd one (a partly filled group),
+# hidden 256, hidden 512 (beyond what a cluster holds: part of W read from
+# L2 every step) and a batch of 1,000 rows (clusters in several waves)
+LSTM_SHAPES = ((128, 100, 128), (5, 7, 32), (64, 20, 256), (32, 12, 512),
+               (1000, 12, 128))
+
+
+def lstm_plan_text(B: int, D: int) -> str:
+    """The launch plan the kernels take for B rows at hidden size D."""
+    from paddle_tpu_torch.ops import lstm_fused as lf
+    p = lf.plan_for(B, D, torch.device("cuda"))
+    return (f"plan {p.args()} (clusters, CTAs a cluster, rows a group, units "
+            f"a CTA, W rows resident fwd / bwd), W k-quads in registers "
+            f"{lf.fwd_quads(D, p.units, p.rows_pad)} / "
+            f"{lf.bwd_quads(D, p.units, p.rows_pad)}, "
+            f"{p.smem_fwd} / {p.smem_bwd} bytes of shared memory")
+
+
 def phase_lstm() -> None:
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     gates = dict(gate_active_type="sigmoid", state_active_type="tanh")
     worst = 0.0
-    for B, T, D in ((128, 100, 128), (5, 7, 32)):
+    for B, T, D in LSTM_SHAPES:
+        log(f"[lstm] [{B}, {T}, {D}]: {lstm_plan_text(B, D)}")
         for reverse in (False, True):
             for peep in (False, True):
                 for ragged in (False, True):
@@ -1115,6 +1171,51 @@ def phase_lstm() -> None:
     if not min(over["hs"], over["dx4"]) > 1:
         raise AssertionError("the lstm limit does not reject a dropped "
                              "freeze")
+    lstm_repeat_and_graph(g)
+
+
+def lstm_repeat_and_graph(g) -> None:
+    """At the sentiment shape [128, 100, 128] (ragged, peepholes, relu
+    cell): two forward + backward calls give bit-identical hs, dx4, dW,
+    dpeep, dh0, dc0 (no atomics in any sum); one forward + backward
+    captured in a torch.cuda.CUDAGraph (the cluster launches included),
+    replayed, equals the eager result bit for bit."""
+    from paddle_tpu_torch.ops import lstm_fused as lf
+    acts = dict(active_type="relu", gate_active_type="sigmoid",
+                state_active_type="tanh")
+    inputs, cot = lstm_inputs(g, 128, 100, 128, True, True)
+    x4, lens, w, peeps, h0, c0 = inputs
+    leaves = [t.clone().requires_grad_(True) for t in (x4, w, peeps, h0, c0)]
+
+    def step():
+        out = lf.lstm_fused(leaves[0], lens, *leaves[1:], **acts)
+        loss = sum((o * c).sum() for o, c in zip(out, cot))
+        return (out[0].detach(),) + torch.autograd.grad(loss, leaves)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # warm-up off the capture
+        first, second = step(), step()
+    torch.cuda.current_stream().wait_stream(side)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    log(f"[lstm] two forward + backward calls at [128, 100, 128]: hs, dx4, "
+        f"dw, dpeep, dh0, dc0 bit-identical {same}")
+    if not all(same):
+        raise AssertionError("the lstm kernels are not deterministic")
+    c0_ = (lf.counts.fwd, lf.counts.bwd)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(captured, first)]
+    log(f"[lstm] forward + backward captured in a CUDA graph "
+        f"({lf.counts.fwd - c0_[0]} + {lf.counts.bwd - c0_[1]} launches "
+        f"captured), replayed: equal to eager bit for bit {same}")
+    if not all(same):
+        raise AssertionError("the CUDA-graph replay of the lstm kernels "
+                             "differs from eager")
+    del graph
 
 
 def sentiment_batches(n: int, B: int, T: int, vocab: int, seed: int,
@@ -1238,7 +1339,8 @@ def phase_sentiment(smi: str) -> list:
             tr.train_one_batch(b)
         return 2
 
-    profile_run(train_two, "2 sentiment training steps", smi)
+    profile_run(train_two, "2 sentiment training steps", smi,
+                family="lstm_")
     del tr
 
     # the bidirectional net: a forward and a reversed lstmemory per step
@@ -1258,14 +1360,41 @@ def phase_sentiment(smi: str) -> list:
     return lstm_records(launches, B, T, smi)
 
 
+# the parts of one K3 step that lstm_phase_stamps splits (csrc/lstm.cu)
+LSTM_FWD_PARTS = ("product", "elementwise", "DSMEM push", "hs/cs writes",
+                  "exchange wait")
+LSTM_BWD_PARTS = ("elementwise", "product + sends", "dx4 writes",
+                  "exchange wait", "ordered sum")
+
+
+def lstm_phase_split(args, plan) -> str:
+    """lstm_phase_stamps at the given inputs: the mean cycles of each part
+    of a step over the steps CTA 0 computed, forward and backward walk."""
+    from paddle_tpu_torch.ops import lstm_fused as lf
+    st_f, st_b = lf.lstm_phase_stamps(*args, plan=plan)
+    parts = []
+    for what, st, names in (("forward", st_f, LSTM_FWD_PARTS),
+                            ("walk", st_b, LSTM_BWD_PARTS)):
+        st = st[(st != 0).all(dim=1)].double()
+        d = (st[:, 1:] - st[:, :-1]).mean(0).tolist()
+        total = sum(d)
+        parts.append(f"{what} {total:.0f} cycles/step: " + ", ".join(
+            f"{n} {c:.0f} ({c / total:.0%})" for n, c in zip(names, d)))
+    return "; ".join(parts)
+
+
 def lstm_records(launches: dict, B: int, T: int, smi: str) -> list:
     """Each LSTM kernel at the sentiment run's shape (B x T x 128, relu
     cell, peepholes, full lengths): checked against the plain version, then
     timed beside its bound, the plain version's time and a cuDNN LSTM of the
     same sizes (torch.nn.LSTM fed x4: it has no peepholes and no length
-    freeze and adds its own [4D, 4D] input projection) — and the time of a
-    single-row launch, the floor that the T dependent steps set for this
-    design."""
+    freeze and adds its own [4D, 4D] input projection, work K3 does not do;
+    a yardstick, never called by the port; each K3 kernel must be faster).
+    The forward is timed as training runs it (saving the gates) and as
+    test() runs it; the backward's walk, dW product and ordered sums apart
+    (torch.profiler); then the four plans ranked first for the card, a
+    single-row launch and the per-part split of one step (clock64()
+    stamps, lstm_phase_stamps)."""
     from paddle_tpu_torch.ops import lstm_fused as lf
     D = 128
     g = torch.Generator(device="cuda")
@@ -1285,13 +1414,32 @@ def lstm_records(launches: dict, B: int, T: int, smi: str) -> list:
     err = {"lstm_fwd": max(errs[n][0] for n in LSTM_NAMES[:3]),
            "lstm_bwd": max(errs[n][0] for n in LSTM_NAMES[3:])}
     x4, lens, w, peeps, h0, c0 = inputs
-    hs, cs = lf.lstm_fwd_kernel(x4, lens, w, peeps, h0, c0, names, False)
-    ms = {"lstm_fwd": time_call(lambda: lf.lstm_fwd_kernel(
-              x4, lens, w, peeps, h0, c0, names, False), 10),
-          "lstm_bwd": time_call(lambda: lf.lstm_bwd_kernel(
-              x4, lens, w, peeps, h0, c0, hs, cs, *cot, names, False), 10)}
+    dev = x4.device
+    plan = lf.plan_for(B, D, dev)
+    hs, cs, gates = lf.lstm_fwd_kernel(x4, lens, w, peeps, h0, c0, names,
+                                       False, save_gates=True)
+
+    def fwd(p=None, save=True):
+        return lf.lstm_fwd_kernel(x4, lens, w, peeps, h0, c0, names, False,
+                                  save_gates=save, plan=p)
+
+    def bwd(p=None):
+        return lf.lstm_bwd_kernel(lens, w, peeps, h0, c0, hs, cs, gates,
+                                  *cot, names, False, plan=p)
+
+    ms = {"lstm_fwd": time_call(fwd, 20), "lstm_bwd": time_call(bwd, 20)}
+    test_ms = time_call(lambda: fwd(save=False), 20)
+    split = kernel_device_ms(bwd, 10, ("lstm_bwd_kernel", "lstm_dw_kernel",
+                                       "lstm_reduce_kernel"))
+    plans = {}
+    for p in lf.ranked_plans(B, D, dev)[:4]:
+        plans[p.args()] = (time_call(lambda: fwd(p), 20),
+                           time_call(lambda: bwd(p), 20))
+    one_plan = lf.plan_for(1, D, dev)
     one_row = time_call(lambda: lf.lstm_fwd_kernel(
-        x4[:1], lens[:1], w, peeps, h0[:1], c0[:1], names, False), 10)
+        x4[:1], lens[:1], w, peeps, h0[:1], c0[:1], names, False), 20)
+    phases = lstm_phase_split((x4, lens, w, peeps, h0, c0, *cot, names,
+                               False), plan)
     leaves = [t.clone().requires_grad_(True) for t in (x4, w, peeps, h0, c0)]
 
     def plain_fwd():
@@ -1312,36 +1460,61 @@ def lstm_records(launches: dict, B: int, T: int, smi: str) -> list:
         y, [xin, *cudnn.parameters()], cot[0], retain_graph=True), 10)
     del y
     # the work this run's inputs need: every valid step is one [D] x [D, 4D]
-    # product per row in the forward and three in the backward (the gates
-    # recomputed, dx4 W^T, h_prev^T dx4); bytes: x4 of the valid steps and
-    # the small operands read, hs and cs written for every step (forward);
-    # x4, hs, cs of the valid steps and the cotangents read, dx4 and the
-    # small gradients written (backward)
+    # product per row in the forward and two in the backward (dx4 W^T from
+    # the saved gates, h_prev^T dx4); bytes: x4 of the valid steps and the
+    # small operands read, hs and cs of every step and the gates of the
+    # valid steps written (forward); the gates of the valid steps, cs, hs
+    # and the cotangents read, dx4 and the small gradients written
+    # (backward).  The earlier design's count, beside it: three products a
+    # valid step in the backward (the gates recomputed), no gates in the
+    # forward's bytes
     valid = float(lens.sum())
     step, small = 4.0 * D * 4, 4.0 * (D * 4 * D + 3 * D + 2 * B * D + B)
-    work = {"lstm_fwd": (valid * step + small + 2 * B * T * D * 4,
+    work = {"lstm_fwd": (2 * valid * step + small + 2 * B * T * D * 4,
                          2.0 * valid * D * 4 * D),
-            "lstm_bwd": (valid * (step + 2 * D * 4) + B * T * D * 4
-                         + B * T * step + 2 * small,
-                         6.0 * valid * D * 4 * D)}
-    log(f"[sentiment] a single-row launch of the forward kernel (the T = "
-        f"{T} dependent steps alone, no other CTA on the L2): "
-        f"{one_row * 1e3:.1f} us = {one_row * 1e3 / T:.2f} us/step [{smi}]")
+            "lstm_bwd": (valid * step + 3 * B * T * D * 4 + B * T * step
+                         + 2 * small, 4.0 * valid * D * 4 * D)}
+    old_bwd_ms = max(
+        (valid * (step + 2 * D * 4) + B * T * D * 4 + B * T * step
+         + 2 * small) / HBM_BYTES_PER_S,
+        6.0 * valid * D * 4 * D / PEAK_FLOPS[torch.float32]) * 1e3
+    log(f"[sentiment] lstm {lstm_plan_text(B, D)}; plans ranked for this "
+        f"card, timed (fwd saving the gates, bwd): " + ", ".join(
+            f"{k}: {f * 1e3:.1f} / {b_ * 1e3:.1f} us"
+            for k, (f, b_) in plans.items()) + f" [{smi}]")
+    log(f"[sentiment] lstm backward {ms['lstm_bwd'] * 1e3:.1f} us: "
+        + ", ".join(f"{k} {v * 1e3:.1f} us" if v is not None
+                    else f"{k} not measured (no device time)"
+                    for k, v in split.items())
+        + f" per call (torch.profiler over 10 calls); forward without the "
+        f"gates (test, is_predict) {test_ms * 1e3:.1f} us [{smi}]")
+    log(f"[sentiment] a single-row launch of the lstm forward kernel (plan "
+        f"{one_plan.args()}): {one_row * 1e3:.1f} us = "
+        f"{one_row * 1e3 / T:.2f} us/step [{smi}]")
+    log(f"[sentiment] one lstm step at [{B}, {T}, {D}], CTA 0: {phases}")
     records = []
     for name, src_line in (("lstm_fwd", 66), ("lstm_bwd", 99)):
         nbytes, flops = work[name]
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         flops_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
         bound_ms = max(bytes_ms, flops_ms)
+        old = (f"; the recomputing design's count (three products) "
+               f"{old_bwd_ms * 1e3:.1f} us" if name == "lstm_bwd" else "")
         log(f"[sentiment] {name} at [{B}, {T}, {D}] float32: "
             f"{ms[name] * 1e3:.1f} us/launch = {ms[name] * 1e3 / T:.2f} "
             f"us/step; bound {bound_ms * 1e3:.1f} us "
             f"({'operations' if flops_ms >= bytes_ms else 'bytes'}; "
             f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s float32, "
-            f"{nbytes / 1e6:.1f} MB) = {bound_ms / ms[name]:.1%} of the "
+            f"{nbytes / 1e6:.1f} MB{old}) = {bound_ms / ms[name]:.1%} of the "
             f"bound; plain version {plain[name] * 1e3:.1f} us; cuDNN LSTM "
-            f"{'forward' if name == 'lstm_fwd' else 'backward'} "
-            f"{lib[name] * 1e3:.1f} us [{smi}]")
+            f"{'forward' if name == 'lstm_fwd' else 'backward'} (with its "
+            f"own [{4 * D}, {4 * D}] input projection, which K3 does not "
+            f"do) {lib[name] * 1e3:.1f} us = {lib[name] / ms[name]:.2f}x "
+            f"the kernel's time [{smi}]")
+        if not ms[name] < lib[name]:
+            raise AssertionError(f"{name} is not faster than the cuDNN LSTM "
+                                 f"at [{B}, {T}, {D}]: {ms[name]} ms against "
+                                 f"{lib[name]} ms")
         records.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/lstm.cu",

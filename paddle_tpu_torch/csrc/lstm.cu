@@ -15,51 +15,102 @@
 // [B, T, .] layout: the kernels index time themselves, nothing is flipped
 // or transposed around them.
 //
-// Design.  The TPU grid is the time axis, run in order with h and c in VMEM
-// scratch.  CUDA blocks run in no order, so the time loop lives inside the
-// kernel and the grid is the batch: the recurrence is independent across
-// batch rows, each CTA owns a tile of BT rows for all T steps, h and c of its
-// rows stay in shared memory, and there is no synchronisation across CTAs.
-// W does not fit on an SM (D = 128: 256 KiB of float32), so the CTA keeps as
-// many of W's rows as its shared memory holds (D = 128: 105-108 of 128; the
-// launcher sizes it to the device's limit) and streams the other rows from
-// L2, where W stays resident, every step.  Both go straight into the FMA
-// loop with 16-byte loads: a thread owns four adjacent gate columns over
-// every fourth row of W, neighbouring threads neighbouring columns, h is
-// broadcast from shared memory, the loads of the rows still in L2 are
-// started before the resident rows are summed, and the four partial sums are
-// added in a fixed order.  By the card's roofline the work is bound by
-// operations (float32 FMAs; the bytes of x4, hs and cs are the smaller
-// term), but the kernels stay bound by what one SM can read per step and by
-// latency (T dependent steps, each a [BT, D] x [D, 4D] product at BT of
-// 1..4), far from the card's float32 rate; the faster design (gate columns
-// split over CTAs so that every W slice is resident, a grid sync per step)
-// is later work.  A step at which every row of the tile is frozen skips its
-// products.
+// What bounds it on this card.  A step is one product of the batch's state
+// with W (h W gives all four gates), and the T steps depend on each other.
+// By the roofline the work is bound by float32 operations (25 us at
+// [128, 100, 128]), but W (16 D^2 bytes, 256 KiB at D = 128) does not fit
+// one SM, and a design that gives each CTA whole batch rows reads all of W
+// every step for a handful of rows: the product is then bound by what one
+// SM can load per step, not by arithmetic.  Split over the SMs, a step is a
+// chain of short latencies: a product of a few hundred FMAs a lane, the
+// elementwise step, the exchange of h between the SMs.
 //
-// Backward: a reverse walk over the same steps that recomputes a, i, f, o
-// from the stored h and c (the forward stores only those), forms
-// dx4 = [dza, dzi, dzf, dzo], writes it, and carries dh = dx4 W^T and dc in
-// shared memory.  The sums over the batch are not taken with atomics: the
-// peephole gradients are kept per row and the weight gradient
-// dW = sum_{b,t} h_prev^T dx4 is a separate tiled product over the finished
-// dx4 (split over row ranges), both summed in a fixed order by a last small
-// kernel, so gradients are deterministic.
+// The design.  The batch is split into groups of R rows, each run by one
+// thread-block cluster of C CTAs (C = 1, 2, 4, 8 or 16).  CTA q of a
+// cluster owns U = D / C hidden units and, for them, all four gate columns
+// of W: an [D, 4U] slice kept on chip for the whole launch.  Because it
+// owns all four gates of its units, the cell state c, the peepholes and the
+// whole elementwise step stay local.  What a CTA needs of the others is the
+// group's full h: each CTA keeps the group's h [R, D] in its own shared
+// memory, double-buffered by the parity of the step.
+//
+// The product.  A step's [R, 4U] gate pre-activations are cut into tiles
+// of 4 rows x two units' four gates; the KS (>= 8) lanes of a tile split
+// k, and xor shuffles within the warp add their partials, leaving each of
+// eight lanes with one row's four gates of one unit, so the elementwise
+// step runs in the lane that holds them, h and c in its registers for the
+// whole launch.  With W in shared memory a k-quad costs a lane 8 + 4
+// 16-byte loads for 128 FMAs and the SM's shared-memory wavefronts bound
+// it; so where each lane's share of the slice is 2 or 4 k-quads (64 or
+// 128 floats) it is held in registers instead (the NM template
+// instances), and only h is read from shared memory.
+//
+// The exchange.  A CTA sends its new h [R, U] into the other h buffer of
+// every CTA of the cluster with st.async, which counts the bytes against
+// an mbarrier in the receiving CTA; each CTA arms its barrier for the
+// R x D floats a step brings and waits on its phase.  No release fence and
+// no cluster barrier sit on the step's path (a release-ordered barrier
+// waited for every write of the step, device memory included), and the
+// writes of hs, cs and the gates to device memory and the next step's x4
+// loads go out while the exchange is in flight.  Double buffering needs no
+// barrier either: a CTA writes a peer's buffer of parity p for step s + 2
+// only after it has received that peer's h of step s + 1, which the peer
+// sent after it finished reading that buffer at step s.  A step at which
+// all R rows are frozen skips its product and its exchange; every CTA of a
+// cluster sees the same lengths, so they skip together.  Clusters never
+// meet, so no cooperative launch is needed and a batch of any size runs in
+// waves of clusters.  The launch plan (clusters, C, R, U and how many rows
+// of the W slice stay resident) is chosen by ops/lstm_fused.py
+// (`lstm_plan`, ranked on the card by `ranked_plans` with the clusters
+// cudaOccupancyMaxActiveClusters says it holds) and re-checked here; a
+// plan whose clusters the card cannot hold is refused.
+//
+// Shapes a cluster cannot hold.  The slice is 16 D U bytes; a cluster of
+// 16 holds W up to about D = 448 beside its state.  Beyond that (D up to
+// 512) the CTA keeps as many rows of its slice as its shared memory holds
+// and reads the others from L2 (where W stays resident) every step, inside
+// the same cluster design: one code path for every shape, and no group
+// spans clusters (which would need K1's global-memory barrier again).
+//
+// Backward from saved gates.  The reverse walk reads the forward's a, i,
+// f, o, so a step needs one product, dh_prev = dx4 W^T.  Each CTA holds its
+// slice transposed ([4U, D], in registers where it fits, as above), forms
+// the partial sums of that product over its own 4U columns for every k
+// and sends each 4-wide piece to the CTA that owns those k (st.async, into
+// a slot per sending rank); each CTA then sums its own units' partials in
+// the fixed order of the cluster ranks.  The cell gradient dc stays local.
+// The peephole gradients are kept per row and summed in a fixed order by
+// the last kernel; the weight gradient dW = sum h_prev^T dx4 over the
+// (b, t) rows is a register-tiled float32 product (64 x 64 tiles, operands
+// staged by cp.async, double-buffered), split over ranges of rows and
+// summed in order; it skips stages whose 16 rows are all frozen (their dx4
+// is 0).  No atomics anywhere: gradients are bit-identical run to run.
 //
 // Plain C interface (ctypes): each launcher returns the CUDA error code of
-// its launches (0 = success) and never synchronises.
+// its launches (0 = success) and never synchronises.  The `_phases`
+// launchers are a measurement export, not used by the op: they run the same
+// kernels with CTA 0 stamping clock64() around each part of a step.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int MAX_BT = 4;          // largest batch tile
-constexpr int DW_TK = 32;          // dW tile: rows of W (k)
-constexpr int DW_TJ = 64;          // dW tile: gate columns (j)
-constexpr int DW_TN = 32;          // dW tile: (b, t) rows per stage
-constexpr int DW_THREADS = 256;
+constexpr int THREADS = 256;       // walk kernels
+constexpr int RT = 4;              // products: rows of a tile
+constexpr int CQ = 2;              // products: column quads of a tile
+constexpr int MAX_KS = 16;         // products: k-splits at most
+constexpr int MAX_CTAS = 16;       // cluster size (above 8: non-portable)
+constexpr int DW_BM = 64;          // dW tile: rows of W (k)
+constexpr int DW_BN = 64;          // dW tile: columns of W (j)
+constexpr int DW_BK = 16;          // dW tile: (b, t) rows per stage
+constexpr int DW_THREADS = 64;     // 8 x 8 outputs each
+constexpr int N_FWD_STAMPS = 6;    // per step, see lstm_fwd_kernel
+constexpr int N_BWD_STAMPS = 6;    // per step, see lstm_bwd_kernel
 
 // activation codes: 0 sigmoid, 1 tanh, 2 relu, 3 linear
 __device__ __forceinline__ float act_fwd(int code, float x) {
@@ -81,456 +132,929 @@ __device__ __forceinline__ float act_grad(int code, float y) {
     }
 }
 
-constexpr int K_GROUPS = 4;        // W's rows are summed in four interleaved groups
-constexpr int PREFETCH = 8;        // loads of non-resident rows started early
-
-__device__ __forceinline__ void fma4(float4& acc, float h, const float4& w) {
-    acc.x = fmaf(h, w.x, acc.x);
-    acc.y = fmaf(h, w.y, acc.y);
-    acc.z = fmaf(h, w.z, acc.z);
-    acc.w = fmaf(h, w.w, acc.w);
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& w) {
+    acc.x = fmaf(a, w.x, acc.x);
+    acc.y = fmaf(a, w.y, acc.y);
+    acc.z = fmaf(a, w.z, acc.z);
+    acc.w = fmaf(a, w.w, acc.w);
 }
 
-// The first `n_rows` rows of W into shared memory (16-byte copies).
-__device__ __forceinline__ void load_resident_rows(
-        const float* __restrict__ w, float* w_s, int n_rows, int D) {
-    const float4* src = reinterpret_cast<const float4*>(w);
-    float4* dst = reinterpret_cast<float4*>(w_s);
-    for (int i = threadIdx.x; i < n_rows * D; i += blockDim.x)
-        dst[i] = __ldg(src + i);
+__device__ __forceinline__ float4 zero4() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// part_s[q][r][j], q < K_GROUPS: the partial sums over the rows
-// k = q, q + 4, q + 8, ... of W of sum_k h_s[r][k] W[k][j]; group 0
-// also holds x4[b0 + r, t, j] (0 for rows beyond B), so the four add up to
-// the gate pre-activations.  A work item is (group, four adjacent columns): one
-// 16-byte load of W per row, neighbouring threads on neighbouring addresses.
-// Rows below n_res are read from w_s, the others from L2.
-template <int BT>
-__device__ __forceinline__ void gates_matvec(
-        const float* __restrict__ x4, const float* __restrict__ w,
-        const float* w_s, int n_res, const float* h_s, float* part_s,
-        int b0, int B, int T, int t, int D) {
-    const int D4 = 4 * D, KQ = D / K_GROUPS;
-    const float4* wg = reinterpret_cast<const float4*>(w);
-    const float4* ws = reinterpret_cast<const float4*>(w_s);
-    for (int i = threadIdx.x; i < D4; i += blockDim.x) {
-        const int kg = i / D, quad = i - kg * D;
-        // this item's rows are k = kg + K_GROUPS * m, m < KQ; the first
-        // m_res of them are resident
-        const int m_res = min(KQ, max(0, (n_res - kg + K_GROUPS - 1)
-                                          / K_GROUPS));
-        // x4 is loaded first and added last: its latency hides behind the
-        // products
-        float4 xv[BT], acc[BT];
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-            const int b = b0 + r;
-            xv[r] = (kg == 0 && b < B)
-                ? __ldg(reinterpret_cast<const float4*>(
-                            x4 + ((size_t)b * T + t) * D4) + quad)
-                : make_float4(0.f, 0.f, 0.f, 0.f);
-            acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-        float4 pre[PREFETCH];
-#pragma unroll
-        for (int p = 0; p < PREFETCH; ++p) {
-            const int k = kg + K_GROUPS * (m_res + p);
-            pre[p] = m_res + p < KQ ? __ldg(wg + (size_t)k * D + quad)
-                                    : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll 4
-        for (int m = 0; m < m_res; ++m) {
-            const int k = kg + K_GROUPS * m;
-            const float4 wv = ws[(size_t)k * D + quad];
-#pragma unroll
-            for (int r = 0; r < BT; ++r) fma4(acc[r], h_s[r * D + k], wv);
-        }
-#pragma unroll
-        for (int p = 0; p < PREFETCH; ++p) {
-            const int k = kg + K_GROUPS * (m_res + p);
-            if (m_res + p < KQ) {
-#pragma unroll
-                for (int r = 0; r < BT; ++r)
-                    fma4(acc[r], h_s[r * D + k], pre[p]);
-            }
-        }
-#pragma unroll 8
-        for (int m = m_res + PREFETCH; m < KQ; ++m) {
-            const int k = kg + K_GROUPS * m;
-            const float4 wv = __ldg(wg + (size_t)k * D + quad);
-#pragma unroll
-            for (int r = 0; r < BT; ++r) fma4(acc[r], h_s[r * D + k], wv);
-        }
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-            acc[r].x += xv[r].x;
-            acc[r].y += xv[r].y;
-            acc[r].z += xv[r].z;
-            acc[r].w += xv[r].w;
-            reinterpret_cast<float4*>(part_s + (size_t)(kg * BT + r) * D4)[quad]
-                = acc[r];
-        }
-    }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+    const unsigned int d =
+        static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(d), "l"(src), "r"(full ? 16 : 0) : "memory");
 }
 
-// The gate pre-activation of column j of tile row r: the four partial sums
-// in order.
-template <int BT>
-__device__ __forceinline__ float gate_sum(const float* part_s, int r, int j,
-                                          int D4) {
-    float g = part_s[(size_t)r * D4 + j];
-#pragma unroll
-    for (int q = 1; q < K_GROUPS; ++q)
-        g += part_s[(size_t)(q * BT + r) * D4 + j];
-    return g;
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// The tile's lengths into shared memory (0 for rows beyond B); returns the
-// largest.  Ends in a __syncthreads.
-template <int BT>
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// The cluster barrier: every thread of every CTA of the cluster arrives
+// (release) and waits for all (acquire); used once after the set-up and
+// once before the exit.
+__device__ __forceinline__ void cluster_barrier() {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The exchange between a cluster's CTAs.  A CTA writes into a peer's
+// shared memory with st.async, which counts the bytes against an mbarrier
+// in the peer's shared memory (complete_tx); the peer arms that barrier
+// for the bytes it expects (arrive.expect_tx, count 1) and waits on its
+// phase, which completes when all have landed and makes them visible.  No
+// release fence or cluster barrier is needed on the data's path.
+__device__ __forceinline__ unsigned int smem_u32(const void* p) {
+    return static_cast<unsigned int>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of `addr` (this CTA's shared memory) in the
+// CTA of cluster rank `rank`.
+__device__ __forceinline__ unsigned int peer_addr(unsigned int addr,
+                                                  int rank) {
+    unsigned int out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(out) : "r"(addr), "r"(rank));
+    return out;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned int parity) {
+    unsigned int done = 0;
+    while (!done)
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void st_async(unsigned int addr, float v,
+                                         unsigned int bar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32"
+                 " [%0], %1, [%2];" :: "r"(addr), "f"(v), "r"(bar)
+                 : "memory");
+}
+
+__device__ __forceinline__ void st_async4(unsigned int addr, const float4& v,
+                                          unsigned int bar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes"
+                 ".v4.f32 [%0], {%1, %2, %3, %4}, [%5];"
+                 :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w),
+                    "r"(bar) : "memory");
+}
+
+// The launch plan as the kernels read it.
+struct Plan {
+    int clusters;      // groups of rows, one cluster each
+    int ctas;          // C, CTAs of a cluster
+    int rows;          // R, batch rows of a group
+    int rows_pad;      // R rounded up to the product's row tiles (4)
+    int units;         // U = D / C
+    int res_fwd;       // rows of the forward's slice [D][4U] in shared memory
+    int res_bwd;       // rows of the backward's slice [4U][D] in shared memory
+};
+
+// The lengths of the group's rows into shared memory (0 beyond B); returns
+// the largest.  Ends in a __syncthreads.
 __device__ __forceinline__ int load_lens(const int* __restrict__ lens,
-                                         int* len_s, int b0, int B) {
-    if (threadIdx.x < BT) {
-        const int b = b0 + threadIdx.x;
-        len_s[threadIdx.x] = b < B ? lens[b] : 0;
+                                         int* len_s, int b0, int rows_pad,
+                                         int rows, int B) {
+    for (int r = threadIdx.x; r < rows_pad; r += blockDim.x) {
+        const int b = b0 + r;
+        len_s[r] = (r < rows && b < B) ? lens[b] : 0;
     }
     __syncthreads();
     int max_len = 0;
-#pragma unroll
-    for (int r = 0; r < BT; ++r) max_len = max(max_len, len_s[r]);
+    for (int r = 0; r < rows_pad; ++r) max_len = max(max_len, len_s[r]);
     return max_len;
 }
 
-template <int BT>
-__global__ void lstm_fwd_kernel(
+// CTA 0 of a `_phases` launch: clock64() into stamps[i] once the CTA has
+// reached this point.
+template <bool PH>
+__device__ __forceinline__ void stamp(long long* stamps, int i) {
+    if constexpr (PH) {
+        if (stamps != nullptr) {
+            __syncthreads();
+            if (threadIdx.x == 0) stamps[i] = clock64();
+        }
+    }
+}
+
+// How many lanes share a product tile, each summing one range of k, so that
+// `tiles` tiles fill the block: a power of two up to MAX_KS (the lanes of a
+// tile are combined by xor shuffles within a warp).
+__host__ __device__ __forceinline__ int k_splits(int tiles) {
+    int ks = 1;
+    while (2 * ks <= MAX_KS && tiles * 2 * ks <= THREADS) ks *= 2;
+    return ks;
+}
+
+// One lane's share of a product tile: acc[r][c] (r < RT, c < CQ) = the
+// partial sums over its k of A[r][k] B[k][n0 + 4 c .. n0 + 4 c + 3] for the
+// tile's RT rows of A ([RT][lda] at a0, shared memory) and its 4 CQ
+// columns n0 .. of B.  The KS lanes of a tile (lane = ks 32 / KS + its
+// place in the warp) each take the k-quads kq = ks, ks + KS, .. < KQ in
+// increasing order.  B's rows k < n_res are b_s[k][.] (row stride ldb) in
+// shared memory, the others are read from device memory through L2: the
+// forward's B is the CTA's W slice with its columns interleaved by unit
+// (column 4 j + g is gate g of unit j: row k from w [k][g D + d0 + j]), the
+// backward's the slice transposed (row g U + j from W^T, wt[g D + d0 +
+// j][.]).  Only `active` lanes load.
+template <bool FWD>
+__device__ __forceinline__ void tile_product(
+        const float* a0, int lda, int KQ, int ks, int KS, const float* b_s,
+        int ldb, int n_res, const float* __restrict__ bg, int n0, int D,
+        int U, int d0, bool active, float4 (&acc)[RT][CQ]) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int c = 0; c < CQ; ++c) acc[r][c] = zero4();
+    if (!active) return;
+    for (int kq = ks; kq < KQ; kq += KS) {
+        const int k = 4 * kq;
+        float4 w[4][CQ];
+        if (k < n_res) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int c = 0; c < CQ; ++c)
+                    w[i][c] = *reinterpret_cast<const float4*>(
+                        b_s + (size_t)(k + i) * ldb + n0 + 4 * c);
+        } else if (FWD) {
+            const float* src = bg + (size_t)k * 4 * D + d0 + n0 / 4;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int c = 0; c < CQ; ++c) {
+                    const float* row = src + (size_t)i * 4 * D + c;
+                    w[i][c] = make_float4(__ldg(row), __ldg(row + D),
+                                          __ldg(row + 2 * D),
+                                          __ldg(row + 3 * D));
+                }
+        } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int j = k + i, g = j / U;
+                const float* row = bg + ((size_t)g * D + d0 + j - g * U) * D
+                    + n0;
+#pragma unroll
+                for (int c = 0; c < CQ; ++c)
+                    w[i][c] = __ldg(reinterpret_cast<const float4*>(
+                        row + 4 * c));
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(a0 + r * lda + k);
+#pragma unroll
+            for (int c = 0; c < CQ; ++c) {
+                fma4(acc[r][c], a.x, w[0][c]);
+                fma4(acc[r][c], a.y, w[1][c]);
+                fma4(acc[r][c], a.z, w[2][c]);
+                fma4(acc[r][c], a.w, w[3][c]);
+            }
+        }
+    }
+}
+
+// k-quads of W a lane keeps in registers for the whole launch (32 floats
+// each): KQ / KS when that is 2 or 4 and every lane has one tile (`tiles`
+// <= THREADS), else 0 (the slice stays in shared memory, or partly in L2).
+__host__ __device__ __forceinline__ int reg_quads(int KQ, int KS, int tiles) {
+    const int nm = KQ / KS;
+    return (tiles <= THREADS && KQ % KS == 0 && (nm == 2 || nm == 4))
+        ? nm : 0;
+}
+
+// The same share of a tile with B in registers: wreg[m][i][c] is row
+// 4 (ks + KS m) + i of the tile's column quad c.
+template <int NM>
+__device__ __forceinline__ void tile_product_reg(
+        const float* a0, int lda, int ks, int KS,
+        const float4 (&wreg)[NM][4][CQ], float4 (&acc)[RT][CQ]) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int c = 0; c < CQ; ++c) acc[r][c] = zero4();
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+        const int k = 4 * (ks + KS * m);
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(a0 + r * lda + k);
+#pragma unroll
+            for (int c = 0; c < CQ; ++c) {
+                fma4(acc[r][c], a.x, wreg[m][0][c]);
+                fma4(acc[r][c], a.y, wreg[m][1][c]);
+                fma4(acc[r][c], a.z, wreg[m][2][c]);
+                fma4(acc[r][c], a.w, wreg[m][3][c]);
+            }
+        }
+    }
+}
+
+__device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 shfl_xor4(const float4& v, int off) {
+    return make_float4(__shfl_xor_sync(0xffffffffu, v.x, off),
+                       __shfl_xor_sync(0xffffffffu, v.y, off),
+                       __shfl_xor_sync(0xffffffffu, v.z, off),
+                       __shfl_xor_sync(0xffffffffu, v.w, off));
+}
+
+__device__ __forceinline__ float4 sel4(bool c, const float4& a,
+                                       const float4& b) {
+    return make_float4(c ? a.x : b.x, c ? a.y : b.y, c ? a.z : b.z,
+                       c ? a.w : b.w);
+}
+
+// The (row, column quad) of a tile whose full sum lane ks (< 8) holds after
+// reduce_one.
+__device__ __forceinline__ int lane_row(int ks) {
+    return 2 * (ks & 1) + ((ks >> 1) & 1);
+}
+
+__device__ __forceinline__ int lane_quad(int ks) {
+    return (ks >> 2) & 1;
+}
+
+// The tile's sums from its KS >= 8 lanes' partials, scattered: three xor
+// rounds halve what a lane keeps (over ks bit 0 the rows {0, 1} or {2, 3},
+// over bit 1 one row, over bit 2 one column quad), the remaining rounds add
+// the rest; lane ks then holds the full sum of row lane_row(ks) and column
+// quad lane_quad(ks).  Every lane of the warp calls it.  The order of the
+// additions is fixed, so the bits are the same every run.
+__device__ __forceinline__ float4 reduce_one(const float4 (&acc)[RT][CQ],
+                                             int ks, int KS) {
+    const int tw = 32 / KS;
+    const bool b0 = ks & 1, b1 = (ks >> 1) & 1, b2 = (ks >> 2) & 1;
+    float4 k[2][CQ];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int c = 0; c < CQ; ++c)
+            k[e][c] = add4(sel4(b0, acc[2 + e][c], acc[e][c]),
+                           shfl_xor4(sel4(b0, acc[e][c], acc[2 + e][c]),
+                                     tw));
+    float4 kk[CQ];
+#pragma unroll
+    for (int c = 0; c < CQ; ++c)
+        kk[c] = add4(sel4(b1, k[1][c], k[0][c]),
+                     shfl_xor4(sel4(b1, k[0][c], k[1][c]), 2 * tw));
+    float4 v = add4(sel4(b2, kk[1], kk[0]),
+                    shfl_xor4(sel4(b2, kk[0], kk[1]), 4 * tw));
+    for (int off = 8 * tw; off < 32; off <<= 1)
+        v = add4(v, shfl_xor4(v, off));
+    return v;
+}
+
+// The tile's sums from its KS < 8 lanes' partials, on every lane.
+__device__ __forceinline__ void reduce_all(float4 (&acc)[RT][CQ], int KS) {
+    for (int off = 32 / KS; off < 32; off <<= 1) {
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+            for (int c = 0; c < CQ; ++c)
+                acc[r][c] = add4(acc[r][c], shfl_xor4(acc[r][c], off));
+    }
+}
+
+// Shared memory of the forward (floats, then the lengths): the resident rows
+// of the CTA's slice [res_fwd][4U + 4] (columns interleaved by unit; none
+// when in registers), the group's h [2][R_pad][D + 4].
+// ops/lstm_fused.py `fwd_smem_bytes` computes the same.
+int fwd_quads(int D, const Plan& p) {
+    const int tiles = p.rows_pad / RT * (p.units / CQ);
+    return reg_quads(D / 4, k_splits(tiles), tiles);
+}
+
+size_t fwd_smem_bytes(int D, const Plan& p) {
+    const size_t floats =
+        (fwd_quads(D, p) ? 0 : (size_t)p.res_fwd * (4 * p.units + 4))
+        + 2 * (size_t)p.rows_pad * (D + 4);
+    return floats * sizeof(float) + (size_t)p.rows_pad * sizeof(int);
+}
+
+// The forward.  CTA (cluster g, rank q) owns batch rows [g R, g R + R) and
+// hidden units [q U, q U + U).  Its product tiles are (4 rows, two units'
+// four gates); the KS >= 8 lanes of a tile split k and, after the
+// shuffles, lane ks < 8 runs the elementwise step of row lane_row(ks) of
+// unit lane_quad(ks) of the tile, keeping its h and c in registers for the
+// whole launch.  Per step (time t, scan order s), unless every row of the
+// group is frozen there: the product h W of the units' gate columns, the
+// elementwise step,
+// the new h sent into the other h buffer of every CTA of the cluster
+// (st.async), hs, cs (and the gates) written and the next step's x4 loaded
+// into registers, then the wait until the whole next h has landed in its
+// own buffer (the buffer's mbarrier).  `gates` (may be null) gets a, i, f,
+// o [B, T, 4D] of the valid steps (frozen rows' entries are left unset).
+// W is in registers for NM > 0 (wreg), else in shared memory (w_s) and L2.
+// Stamps (a `_phases` launch, CTA 0): per step [start, product,
+// elementwise, sent, hs/cs written, received].
+template <bool PH, int NM>
+__global__ void __launch_bounds__(THREADS, 1) lstm_fwd_kernel(
         const float* __restrict__ x4, const float* __restrict__ w,
         const float* __restrict__ peeps, const int* __restrict__ lens,
         const float* __restrict__ h0, const float* __restrict__ c0,
         float* __restrict__ hs, float* __restrict__ cs,
-        int B, int T, int D, int n_res, int reverse, int act, int gate,
-        int state_act) {
+        float* __restrict__ gates, int B, int T, int D, Plan p, int reverse,
+        int act, int gate, int state_act, long long* stamps) {
+    cg::cluster_group cluster = cg::this_cluster();
     extern __shared__ __align__(16) float smem[];
-    __shared__ int len_s[MAX_BT];
-    const int D4 = 4 * D;
-    float* w_s = smem;                    // [n_res][4D] resident rows of W
-    float* g_s = w_s + (size_t)n_res * D4;        // [K_GROUPS][BT][4D]
-    float* h_s = g_s + K_GROUPS * BT * D4;        // [BT][D]
-    float* c_s = h_s + BT * D;            // [BT][D]
-    const int b0 = blockIdx.x * BT;
-    const int max_len = load_lens<BT>(lens, len_s, b0, B);
-    load_resident_rows(w, w_s, n_res, D);
+    __shared__ __align__(8) unsigned long long h_bar[2];   // the h buffers'
+    const int U = p.units, U4 = 4 * U, Rp = p.rows_pad, C = p.ctas;
+    const int D4 = 4 * D, ldh = D + 4, ldw = U4 + 4;
+    const int q = (int)cluster.block_rank();
+    const int g = blockIdx.x / C;
+    const int d0 = q * U, b0 = g * p.rows;
+    const int live = max(0, min(p.rows, B - b0));     // rows of the batch
+    // product tiles: 4 rows x the four gates of 2 units (UP unit pairs)
+    const int UP = U / CQ, tiles = (Rp / RT) * UP, KS = k_splits(tiles);
+    const int TW = 32 / KS, lane = threadIdx.x & 31, ks = lane / TW;
+    const int tile = (threadIdx.x >> 5) * TW + lane % TW;
+    const bool active = tile < tiles;
+    const int rt = active ? tile / UP : 0;
+    const int j0 = active ? CQ * (tile - rt * UP) : 0;    // the pair's first
+    float* w_s = smem;                                 // [res][4U + 4]
+    float* hb_s = w_s + (NM ? 0 : (size_t)p.res_fwd * ldw);  // [2][Rp][D + 4]
+    int* len_s = reinterpret_cast<int*>(hb_s + 2 * Rp * ldh);
+    long long* st = (PH && blockIdx.x == 0) ? stamps : nullptr;
 
-    for (int idx = threadIdx.x; idx < BT * D; idx += blockDim.x) {
-        const int r = idx / D, d = idx - r * D, b = b0 + r;
-        h_s[idx] = b < B ? h0[(size_t)b * D + d] : 0.f;
-        c_s[idx] = b < B ? c0[(size_t)b * D + d] : 0.f;
+    const int max_len = load_lens(lens, len_s, b0, Rp, p.rows, B);
+    // w_s[k][4 jj + gg] = W[k][gg D + d0 + jj]: neighbouring threads read
+    // neighbouring columns of W
+    for (int i = threadIdx.x; i < (NM ? 0 : p.res_fwd * U4);
+         i += blockDim.x) {
+        const int k = i / U4, n = i - k * U4;
+        const int gg = n / U, jj = n - gg * U;
+        w_s[(size_t)k * ldw + 4 * jj + gg] =
+            __ldg(w + (size_t)k * D4 + gg * D + d0 + jj);
     }
-    __syncthreads();
-
-    for (int s = 0; s < T; ++s) {
-        const int t = reverse ? T - 1 - s : s;
-        const bool live = t < max_len;            // uniform over the CTA
-        if (live)
-            gates_matvec<BT>(x4, w, w_s, n_res, h_s, g_s, b0, B, T, t, D);
-        __syncthreads();
-        for (int idx = threadIdx.x; idx < BT * D; idx += blockDim.x) {
-            const int r = idx / D, d = idx - r * D, b = b0 + r;
-            float h = h_s[idx], c = c_s[idx];
-            if (t < len_s[r]) {
-                const float a = act_fwd(act, gate_sum<BT>(g_s, r, d, D4));
-                const float ig = act_fwd(gate, gate_sum<BT>(g_s, r, D + d, D4)
-                                         + c * peeps[d]);
-                const float fg = act_fwd(gate,
-                                         gate_sum<BT>(g_s, r, 2 * D + d, D4)
-                                         + c * peeps[D + d]);
-                const float cn = a * ig + fg * c;
-                const float og = act_fwd(gate,
-                                         gate_sum<BT>(g_s, r, 3 * D + d, D4)
-                                         + cn * peeps[2 * D + d]);
-                h = og * act_fwd(state_act, cn);
-                c = cn;
-                h_s[idx] = h;
-                c_s[idx] = c;
-            }
-            if (b < B) {
-                const size_t o = ((size_t)b * T + t) * D + d;
-                hs[o] = h;
-                cs[o] = c;
+    // NM > 0: the lane's k-quads of its units' gate columns in registers,
+    // row 4 (ks + KS m) + i of unit j0 + c in wreg[m][i][c]
+    float4 wreg[NM > 0 ? NM : 1][4][CQ];
+#pragma unroll
+    for (int m = 0; m < (NM > 0 ? NM : 1); ++m) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int c = 0; c < CQ; ++c) {
+                const float* src =
+                    w + (size_t)(4 * (ks + KS * m) + i) * D4 + d0 + j0 + c;
+                wreg[m][i][c] = NM > 0 && active
+                    ? make_float4(__ldg(src), __ldg(src + D),
+                                  __ldg(src + 2 * D), __ldg(src + 3 * D))
+                    : zero4();
             }
         }
-        __syncthreads();
     }
+    for (int i = threadIdx.x; i < Rp * D; i += blockDim.x) {
+        const int r = i / D, k = i - r * D;
+        hb_s[r * ldh + k] = r < live ? h0[(size_t)(b0 + r) * D + k] : 0.f;
+    }
+    // the lane's (row, unit) of its tile (KS >= 8: lane ks < 8 takes row
+    // lane_row(ks) of unit j0 + lane_quad(ks)), its h and c kept in
+    // registers
+    const bool mine = active && ks < RT * CQ;
+    const int r = rt * RT + (mine ? lane_row(ks) : 0);
+    const int j = j0 + (mine ? lane_quad(ks) : 0);
+    const float p_i = peeps[d0 + j], p_f = peeps[D + d0 + j];
+    const float p_o = peeps[2 * D + d0 + j];
+    const bool in_batch = mine && r < live;
+    const int len = mine ? len_s[r] : 0;
+    const size_t row = (size_t)(b0 + r) * T;
+    float h = in_batch ? h0[(size_t)(b0 + r) * D + d0 + j] : 0.f;
+    float c = in_batch ? c0[(size_t)(b0 + r) * D + d0 + j] : 0.f;
+    if (threadIdx.x == 0) {
+        mbar_init(&h_bar[0]);
+        mbar_init(&h_bar[1]);
+        mbar_init_fence();
+    }
+    // every CTA of the cluster is running (and initialised) before any
+    // writes into another's shared memory
+    cluster_barrier();
+
+    const unsigned int h_bytes = (unsigned int)(Rp * D * sizeof(float));
+    unsigned int parity = 0;     // bit b: the phase h_bar[b] completes next
+    int cur = 0;                 // the h buffer that holds the state
+    bool loaded = false;         // xv holds this step's x4
+    float4 xv = zero4();
+    for (int s = 0; s < T; ++s) {
+        const int t = reverse ? T - 1 - s : s;
+        if (t >= max_len) {      // uniform over the cluster's CTAs
+            if (in_batch) {
+                hs[(row + t) * D + d0 + j] = h;
+                cs[(row + t) * D + d0 + j] = c;
+            }
+            continue;
+        }
+        long long* sts = st ? st + (size_t)s * N_FWD_STAMPS : nullptr;
+        stamp<PH>(sts, 0);
+        const bool valid = t < len;
+        if (!loaded && valid) {
+            const float* xr = x4 + (row + t) * D4 + d0 + j;
+            xv = make_float4(__ldg(xr), __ldg(xr + D), __ldg(xr + 2 * D),
+                             __ldg(xr + 3 * D));
+        }
+        const float* hcur = hb_s + (size_t)cur * Rp * ldh;
+        float4 acc[RT][CQ];
+        if constexpr (NM > 0)
+            tile_product_reg<NM>(hcur + (size_t)rt * RT * ldh, ldh, ks, KS,
+                                 wreg, acc);
+        else
+            tile_product<true>(hcur + (size_t)rt * RT * ldh, ldh, D / 4, ks,
+                               KS, w_s, ldw, p.res_fwd, w, 4 * j0, D, U, d0,
+                               active, acc);
+        const float4 gz = reduce_one(acc, ks, KS);
+        stamp<PH>(sts, 1);
+        float4 gv = zero4();     // the activated gates a, i, f, o
+        if (valid) {
+            gv.x = act_fwd(act, gz.x + xv.x);
+            gv.y = act_fwd(gate, gz.y + xv.y + c * p_i);
+            gv.z = act_fwd(gate, gz.z + xv.z + c * p_f);
+            c = gv.x * gv.y + gv.z * c;
+            gv.w = act_fwd(gate, gz.w + xv.w + c * p_o);
+            h = gv.w * act_fwd(state_act, c);
+        }
+        stamp<PH>(sts, 2);
+        // the new h into the other buffer of every CTA of the cluster
+        const int nxt = cur ^ 1;
+        if (threadIdx.x == 0) mbar_expect(&h_bar[nxt], h_bytes);
+        if (mine) {
+            const unsigned int dst = smem_u32(
+                hb_s + (size_t)nxt * Rp * ldh + r * ldh + d0 + j);
+            const unsigned int bar = smem_u32(&h_bar[nxt]);
+#pragma unroll
+            for (int qq = 0; qq < MAX_CTAS; ++qq)
+                if (qq < C)
+                    st_async(peer_addr(dst, qq), h, peer_addr(bar, qq));
+        }
+        stamp<PH>(sts, 3);
+        if (in_batch) {
+            hs[(row + t) * D + d0 + j] = h;
+            cs[(row + t) * D + d0 + j] = c;
+            if (gates != nullptr && valid) {
+                float* gr = gates + (row + t) * D4 + d0 + j;
+                gr[0] = gv.x;
+                gr[D] = gv.y;
+                gr[2 * D] = gv.z;
+                gr[3 * D] = gv.w;
+            }
+        }
+        const int t_next = reverse ? T - 2 - s : s + 1;
+        loaded = s + 1 < T && t_next < max_len;
+        if (loaded && t_next < len) {
+            const float* xr = x4 + (row + t_next) * D4 + d0 + j;
+            xv = make_float4(__ldg(xr), __ldg(xr + D), __ldg(xr + 2 * D),
+                             __ldg(xr + 3 * D));
+        }
+        stamp<PH>(sts, 4);
+        mbar_wait(&h_bar[nxt], (parity >> nxt) & 1u);
+        parity ^= 1u << nxt;
+        stamp<PH>(sts, 5);
+        cur ^= 1;
+    }
+    // no CTA leaves while its writes into another may be in flight
+    cluster_barrier();
 }
 
-// The reverse walk.  Per step s (scan order, T-1 .. 0; time t as in the
-// forward) it recomputes the gates from the state before the step
-// (h0/c0 at s = 0, else hs/cs at the previous scan step's time) and
-// cs[t], then
+// Shared memory of the backward walk (floats, then the lengths): the
+// resident rows of the CTA's slice transposed [res_bwd][D + 4] (none when
+// in registers), the partial dh_prev of its units from each rank
+// [2][C][R_pad][U], the step's dx4 of its units [R_pad][4U + 4].
+int bwd_quads(int D, const Plan& p) {
+    const int tiles = p.rows_pad / RT * (D / (4 * CQ));
+    return reg_quads(p.units, k_splits(tiles), tiles);
+}
+
+size_t bwd_smem_bytes(int D, const Plan& p) {
+    const size_t Rp = p.rows_pad;
+    const size_t floats =
+        (bwd_quads(D, p) ? 0 : (size_t)p.res_bwd * (D + 4)) + 2 * Rp * D
+        + Rp * (4 * p.units + 4);
+    return floats * sizeof(float) + Rp * sizeof(int);
+}
+
+// The reverse walk, from the forward's saved gates [B, T, 4D] and cs.  Per
+// step s (scan order T-1 .. 0; time t as in the forward), for each (row,
+// unit) item of the CTA (one a thread; its dh, dc and peephole sums stay in
+// registers):
 //   dh_total = dh + g_hs[t]                 do = dh_total state(c')
 //   dzo = do gate'(o)
 //   dc_in = dh_total o state'(.) + dc + dzo p_o
 //   dza = dc_in i act'(a)   dzi = dc_in a gate'(i)   dzf = dc_in c gate'(f)
-//   dc <- dc_in f + dzi p_i + dzf p_f       dh <- dx4 W^T
-// and at a frozen step (t >= len): dx4 = 0, dh <- dh_total, dc kept.
-// dpeep_part [B, 3, D] gets each row's own sums over time.
-template <int BT>
-__global__ void lstm_bwd_kernel(
-        const float* __restrict__ x4, const float* __restrict__ w,
+//   dc <- dc_in f + dzi p_i + dzf p_f
+//   dh <- dx4 W^T: partials over the CTA's columns (product tiles of 4 rows
+//         x 8 k, lanes splitting the columns), each 4-wide piece sent
+//         (st.async) to the CTA that owns those k; once all have landed
+//         (mbarrier), its units' sums over the cluster's ranks in order
+// and on a frozen row (t >= len) dx4 = 0, dh <- dh_total, dc kept (selected,
+// never multiplied, so the unset gates of frozen rows cannot leak in); a
+// step at which the whole group is frozen skips the product and the
+// exchange.  While the partials travel, the step's dx4 is written and the
+// next step's seven inputs of each item are loaded into registers.
+// dpeep_part [B, 3, D] gets each row's own sums over time.  `wt` (W^T
+// [4D, D]) is read for the slice's rows beyond res_bwd, and may be null
+// when all are resident.  Stamps (a `_phases` launch, CTA 0): per step
+// [start, elementwise, product and sends, dx4 written, received, summed].
+template <bool PH, int NM>
+__global__ void __launch_bounds__(THREADS, 1) lstm_bwd_kernel(
+        const float* __restrict__ w, const float* __restrict__ wt,
         const float* __restrict__ peeps, const int* __restrict__ lens,
-        const float* __restrict__ h0, const float* __restrict__ c0,
-        const float* __restrict__ hs, const float* __restrict__ cs,
-        const float* __restrict__ g_hs, const float* __restrict__ g_hl,
-        const float* __restrict__ g_cl,
+        const float* __restrict__ c0, const float* __restrict__ cs,
+        const float* __restrict__ gates, const float* __restrict__ g_hs,
+        const float* __restrict__ g_hl, const float* __restrict__ g_cl,
         float* __restrict__ dx, float* __restrict__ dh0,
-        float* __restrict__ dc0, float* __restrict__ dpeep_part,
-        int B, int T, int D, int n_res, int reverse, int act, int gate,
-        int state_act) {
+        float* __restrict__ dc0, float* __restrict__ dpeep_part, int B,
+        int T, int D, Plan p, int reverse, int act, int gate, int state_act,
+        long long* stamps) {
+    cg::cluster_group cluster = cg::this_cluster();
     extern __shared__ __align__(16) float smem[];
-    __shared__ int len_s[MAX_BT];
-    const int D4 = 4 * D;
-    float* w_s = smem;                    // [n_res][4D] resident rows of W
-    float* g_s = w_s + (size_t)n_res * D4;        // [K_GROUPS][BT][4D]
-    float* dx_s = g_s + K_GROUPS * BT * D4;       // [BT][4D]
-    float* hp_s = dx_s + BT * D4;         // [BT][D]  h before the step
-    float* cp_s = hp_s + BT * D;          // [BT][D]  c before the step
-    float* dh_s = cp_s + BT * D;          // [BT][D]  carried dh
-    float* dc_s = dh_s + BT * D;          // [BT][D]  carried dc
-    float* dht_s = dc_s + BT * D;         // [BT][D]  dh_total of the step
-    float* dp_s = dht_s + BT * D;         // [BT][3][D] peephole sums
-    float* cn_s = dp_s + BT * 3 * D;      // [BT][D]  c after the step
-    float* gh_s = cn_s + BT * D;          // [BT][D]  the step's g_hs
-    const int b0 = blockIdx.x * BT;
-    const int max_len = load_lens<BT>(lens, len_s, b0, B);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int n_warps = blockDim.x >> 5;
+    __shared__ __align__(8) unsigned long long p_bar[2];   // recv_s's
+    const int U = p.units, U4 = 4 * U, Rp = p.rows_pad, C = p.ctas;
+    const int D4 = 4 * D, ldt = D + 4, ldz = U4 + 4;
+    const int q = (int)cluster.block_rank();
+    const int g = blockIdx.x / C;
+    const int d0 = q * U, b0 = g * p.rows;
+    const int live = max(0, min(p.rows, B - b0));
+    // product tiles: 4 rows x 8 k of dh_prev (OQ of them across D)
+    const int OQ = D / (4 * CQ), tiles = (Rp / RT) * OQ, KS = k_splits(tiles);
+    const int TW = 32 / KS, lane = threadIdx.x & 31, ks = lane / TW;
+    const int tw = (threadIdx.x >> 5) * TW + lane % TW;
+    float* wT_s = smem;                                // [res][D + 4]
+    // the partials of the CTA's units from each rank [2][C][Rp][U]
+    float* recv_s = wT_s + (NM ? 0 : (size_t)p.res_bwd * ldt);
+    float* dz_s = recv_s + 2 * Rp * D;                 // [Rp][4U + 4]
+    int* len_s = reinterpret_cast<int*>(dz_s + Rp * ldz);
+    long long* st = (PH && blockIdx.x == 0) ? stamps : nullptr;
 
-    for (int idx = threadIdx.x; idx < BT * D; idx += blockDim.x) {
-        const int r = idx / D, d = idx - r * D, b = b0 + r;
-        dh_s[idx] = b < B ? g_hl[(size_t)b * D + d] : 0.f;
-        dc_s[idx] = b < B ? g_cl[(size_t)b * D + d] : 0.f;
+    const int max_len = load_lens(lens, len_s, b0, Rp, p.rows, B);
+    // wT_s[gg U + jj][k] = W[k][gg D + d0 + jj]: neighbouring threads read
+    // neighbouring columns of W
+    for (int i = threadIdx.x; i < (NM ? 0 : p.res_bwd * D);
+         i += blockDim.x) {
+        const int k = i / p.res_bwd, jx = i - k * p.res_bwd;
+        const int gg = jx / U, jj = jx - gg * U;
+        wT_s[(size_t)jx * ldt + k] = __ldg(w + (size_t)k * D4 + gg * D + d0
+                                           + jj);
     }
-    for (int idx = threadIdx.x; idx < BT * 3 * D; idx += blockDim.x)
-        dp_s[idx] = 0.f;
-    load_resident_rows(w, w_s, n_res, D);
-    __syncthreads();
+    // NM > 0 (then one product tile a lane, tiles <= THREADS): the lane's
+    // rows of the slice transposed in registers, row 4 (ks + KS m) + i of
+    // column quad c in wreg[m][i][c]: W[n0 + 4 c + 0 .. 3][g D + d0 + jj]
+    // for that row g U + jj, n0 = 8 (the tile's place across D)
+    float4 wreg[NM > 0 ? NM : 1][4][CQ];
+    {
+        const int n0 = tw < tiles ? 4 * CQ * (tw % OQ) : 0;
+#pragma unroll
+        for (int m = 0; m < (NM > 0 ? NM : 1); ++m) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int jx = 4 * (ks + KS * m) + i, gg = jx / U;
+#pragma unroll
+                for (int c = 0; c < CQ; ++c) {
+                    const float* src = w + (size_t)(n0 + 4 * c) * D4
+                        + gg * D + d0 + jx - gg * U;
+                    wreg[m][i][c] = NM > 0 && tw < tiles
+                        ? make_float4(__ldg(src), __ldg(src + D4),
+                                      __ldg(src + 2 * D4),
+                                      __ldg(src + 3 * D4))
+                        : zero4();
+                }
+            }
+        }
+    }
+    // the thread's item: (row, unit) = (tid / U, tid % U); its dh, dc and
+    // peephole sums stay in registers
+    const bool mine = (int)threadIdx.x < Rp * U;
+    const int r = mine ? threadIdx.x / U : 0, jj = threadIdx.x - r * U;
+    const bool in_batch = mine && r < live;
+    const int len = mine ? len_s[r] : 0;
+    const size_t row = (size_t)(b0 + r) * T, unit = (size_t)d0 + jj;
+    float dh = in_batch ? g_hl[(size_t)(b0 + r) * D + unit] : 0.f;
+    float dc = in_batch ? g_cl[(size_t)(b0 + r) * D + unit] : 0.f;
+    float dht = 0.f, dp0 = 0.f, dp1 = 0.f, dp2 = 0.f;
+    const float p_i = peeps[unit], p_f = peeps[D + unit];
+    const float p_o = peeps[2 * D + unit];
+    if (threadIdx.x == 0) {
+        mbar_init(&p_bar[0]);
+        mbar_init(&p_bar[1]);
+        mbar_init_fence();
+    }
+    // every CTA of the cluster is running (and initialised) before any
+    // writes into another's shared memory
+    cluster_barrier();
+    const unsigned int p_bytes = (unsigned int)(Rp * D * sizeof(float));
+    unsigned int parity = 0;       // bit b: the phase p_bar[b] completes next
 
+    // y <- the inputs of walk step s: g_hs, a, i, f, o, c at its time t,
+    // c_prev (c0 at s = 0, else cs at the previous scan step's time); an
+    // item beyond the batch or frozen at t reads nothing
+    float y[7];
+    auto load_step = [&](int s) {
+        const int t = reverse ? T - 1 - s : s;
+        const int tp = reverse ? t + 1 : t - 1;
+        const bool valid = in_batch && t < len;
+        y[0] = in_batch ? __ldg(g_hs + (row + t) * D + unit) : 0.f;
+#pragma unroll
+        for (int gg = 0; gg < 4; ++gg)
+            y[1 + gg] = valid ? __ldg(gates + (row + t) * D4 + gg * D + unit)
+                              : 0.f;
+        y[5] = valid ? __ldg(cs + (row + t) * D + unit) : 0.f;
+        y[6] = !valid ? 0.f
+            : s == 0 ? __ldg(c0 + (size_t)(b0 + r) * D + unit)
+                     : __ldg(cs + (row + tp) * D + unit);
+    };
+
+    int cur = 0;                   // the partial buffer of this step
+    bool loaded = false;           // y holds this step's inputs
     for (int s = T - 1; s >= 0; --s) {
         const int t = reverse ? T - 1 - s : s;
-        const int t_prev = reverse ? t + 1 : t - 1;
-        if (t >= max_len) {
-            // every row of the tile is frozen here: dx4 = 0 and dh takes
-            // the step's output cotangent along
-            for (int idx = threadIdx.x; idx < BT * D; idx += blockDim.x) {
-                const int r = idx / D, d = idx - r * D, b = b0 + r;
-                if (b < B) dh_s[idx] += g_hs[((size_t)b * T + t) * D + d];
+        if (t >= max_len) {        // uniform over the cluster's CTAs
+            if (in_batch) {
+                dh += g_hs[(row + t) * D + unit];
+#pragma unroll
+                for (int gg = 0; gg < 4; ++gg)
+                    dx[(row + t) * D4 + gg * D + unit] = 0.f;
             }
-            for (int idx = threadIdx.x; idx < BT * D4; idx += blockDim.x) {
-                const int r = idx / D4, j = idx - r * D4, b = b0 + r;
-                if (b < B) dx[((size_t)b * T + t) * D4 + j] = 0.f;
-            }
-            __syncthreads();
             continue;
         }
-        for (int idx = threadIdx.x; idx < BT * D; idx += blockDim.x) {
-            const int r = idx / D, d = idx - r * D, b = b0 + r;
-            // the step's four reads from device memory start together
-            float hp = 0.f, cp = 0.f, cn = 0.f, gh = 0.f;
-            if (b < B) {
-                const size_t o = ((size_t)b * T + t) * D + d;
-                cn = cs[o];
-                gh = g_hs[o];
-                if (s == 0) {
-                    hp = h0[(size_t)b * D + d];
-                    cp = c0[(size_t)b * D + d];
-                } else {
-                    const size_t op = ((size_t)b * T + t_prev) * D + d;
-                    hp = hs[op];
-                    cp = cs[op];
-                }
-            }
-            hp_s[idx] = hp;
-            cp_s[idx] = cp;
-            cn_s[idx] = cn;
-            gh_s[idx] = gh;
+        long long* sts =
+            st ? st + (size_t)(T - 1 - s) * N_BWD_STAMPS : nullptr;
+        stamp<PH>(sts, 0);
+        if (!loaded) load_step(s);
+        const bool valid = t < len;
+        float4 dz = zero4();       // dza, dzi, dzf, dzo
+        dht = dh + y[0];
+        if (valid) {
+            const float a = y[1], ig = y[2], fg = y[3], og = y[4];
+            const float cn = y[5], cp = y[6];
+            const float sc = act_fwd(state_act, cn);
+            dz.w = dht * sc * act_grad(gate, og);
+            const float dc_in = dht * og * act_grad(state_act, sc) + dc
+                + dz.w * p_o;
+            dz.x = dc_in * ig * act_grad(act, a);
+            dz.y = dc_in * a * act_grad(gate, ig);
+            dz.z = dc_in * cp * act_grad(gate, fg);
+            dc = dc_in * fg + dz.y * p_i + dz.z * p_f;
+            dp0 += dz.y * cp;
+            dp1 += dz.z * cp;
+            dp2 += dz.w * cn;
+        }
+        if (mine) {
+            float* dzs = dz_s + r * ldz + jj;
+            dzs[0] = dz.x;
+            dzs[U] = dz.y;
+            dzs[2 * U] = dz.z;
+            dzs[3 * U] = dz.w;
         }
         __syncthreads();
-        gates_matvec<BT>(x4, w, w_s, n_res, hp_s, g_s, b0, B, T, t, D);
-        __syncthreads();
-        for (int idx = threadIdx.x; idx < BT * D; idx += blockDim.x) {
-            const int r = idx / D, d = idx - r * D, b = b0 + r;
-            const bool valid = t < len_s[r];
-            const float p_i = peeps[d], p_f = peeps[D + d],
-                        p_o = peeps[2 * D + d];
-            const float c_prev = cp_s[idx];
-            const float c_new = cn_s[idx];
-            const float a = act_fwd(act, gate_sum<BT>(g_s, r, d, D4));
-            const float ig = act_fwd(gate, gate_sum<BT>(g_s, r, D + d, D4)
-                                     + c_prev * p_i);
-            const float fg = act_fwd(gate, gate_sum<BT>(g_s, r, 2 * D + d, D4)
-                                     + c_prev * p_f);
-            const float og = act_fwd(gate, gate_sum<BT>(g_s, r, 3 * D + d, D4)
-                                     + c_new * p_o);
-            const float sc = act_fwd(state_act, c_new);
-            const float dh_total = dh_s[idx] + gh_s[idx];
-            float dzo = dh_total * sc * act_grad(gate, og);
-            const float dc_in = dh_total * og * act_grad(state_act, sc)
-                                + dc_s[idx] + dzo * p_o;
-            float dza = dc_in * ig * act_grad(act, a);
-            float dzi = dc_in * a * act_grad(gate, ig);
-            float dzf = dc_in * c_prev * act_grad(gate, fg);
-            if (valid) {
-                dc_s[idx] = dc_in * fg + dzi * p_i + dzf * p_f;
-                dp_s[(r * 3 + 0) * D + d] += dzi * c_prev;
-                dp_s[(r * 3 + 1) * D + d] += dzf * c_prev;
-                dp_s[(r * 3 + 2) * D + d] += dzo * c_new;
+        stamp<PH>(sts, 1);
+        // each partial row of 4 k goes to the CTA that owns those units,
+        // into its slot for this rank
+        if (threadIdx.x == 0) mbar_expect(&p_bar[cur], p_bytes);
+        const unsigned int slot =
+            smem_u32(recv_s + ((size_t)cur * C + q) * Rp * U);
+        const unsigned int bar = smem_u32(&p_bar[cur]);
+        for (int base = 0; base < tiles; base += 8 * TW) {
+            const int tile = base + tw;
+            const bool active = tile < tiles;
+            const int rt = active ? tile / OQ : 0;
+            const int n0 = active ? 4 * CQ * (tile - rt * OQ) : 0;
+            float4 acc[RT][CQ];
+            if constexpr (NM > 0)
+                tile_product_reg<NM>(dz_s + (size_t)rt * RT * ldz, ldz, ks,
+                                     KS, wreg, acc);
+            else
+                tile_product<false>(dz_s + (size_t)rt * RT * ldz, ldz, U, ks,
+                                    KS, wT_s, ldt, p.res_bwd, wt, n0, D, U,
+                                    d0, active, acc);
+            // row rr's 4 k from n: to the rank that owns them
+            auto send = [&](int rr, int n, const float4& v) {
+                const int to = n / U;
+                st_async4(peer_addr(slot + 4u * (rr * U + n - to * U), to), v,
+                          peer_addr(bar, to));
+            };
+            if (KS >= RT * CQ) {
+                const float4 v = reduce_one(acc, ks, KS);
+                if (active && ks < RT * CQ)
+                    send(rt * RT + lane_row(ks), n0 + 4 * lane_quad(ks), v);
             } else {
-                dza = dzi = dzf = dzo = 0.f;
-            }
-            dht_s[idx] = dh_total;
-            float* dxr = dx_s + r * D4;
-            dxr[d] = dza;
-            dxr[D + d] = dzi;
-            dxr[2 * D + d] = dzf;
-            dxr[3 * D + d] = dzo;
-            if (b < B) {
-                float* dxg = dx + ((size_t)b * T + t) * D4;
-                dxg[d] = dza;
-                dxg[D + d] = dzi;
-                dxg[2 * D + d] = dzf;
-                dxg[3 * D + d] = dzo;
+                reduce_all(acc, KS);
+#pragma unroll
+                for (int e = 0; e < RT; ++e)
+#pragma unroll
+                    for (int c = 0; c < CQ; ++c)
+                        if (active && (e * CQ + c) % KS == ks)
+                            send(rt * RT + e, n0 + 4 * c, acc[e][c]);
             }
         }
-        __syncthreads();
-        // dh_prev[r][k] = sum_j dx4[r][j] W[k][j]: a warp takes four rows k
-        // of W (resident or in L2) at a time, lanes along j four columns at
-        // a time (16-byte loads), and the four shuffle trees run interleaved
-        for (int k0 = 4 * warp; k0 < D; k0 += 4 * n_warps) {
-            float acc[4][BT];
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-#pragma unroll
-                for (int r = 0; r < BT; ++r) acc[u][r] = 0.f;
-                const int k = k0 + u;
-                const bool resident = k < n_res;
-                const float4* wk = reinterpret_cast<const float4*>(
-                                       (resident ? w_s : w) + (size_t)k * D4);
-#pragma unroll 4
-                for (int q = lane; q < D; q += 32) {
-                    const float4 wv = resident ? wk[q] : __ldg(wk + q);
-#pragma unroll
-                    for (int r = 0; r < BT; ++r) {
-                        const float4 dv =
-                            reinterpret_cast<const float4*>(dx_s + r * D4)[q];
-                        acc[u][r] = fmaf(dv.x, wv.x, acc[u][r]);
-                        acc[u][r] = fmaf(dv.y, wv.y, acc[u][r]);
-                        acc[u][r] = fmaf(dv.z, wv.z, acc[u][r]);
-                        acc[u][r] = fmaf(dv.w, wv.w, acc[u][r]);
-                    }
-                }
-            }
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-                for (int u = 0; u < 4; ++u) {
-#pragma unroll
-                    for (int r = 0; r < BT; ++r)
-                        acc[u][r] += __shfl_xor_sync(0xffffffffu, acc[u][r],
-                                                     off);
-                }
-            }
-            if (lane == 0) {
-#pragma unroll
-                for (int u = 0; u < 4; ++u) {
-#pragma unroll
-                    for (int r = 0; r < BT; ++r) {
-                        const int o = r * D + k0 + u;
-                        dh_s[o] = t < len_s[r] ? acc[u][r] : dht_s[o];
-                    }
-                }
-            }
+        stamp<PH>(sts, 2);
+        if (in_batch) {
+            float* dxr = dx + (row + t) * D4 + unit;
+            dxr[0] = dz.x;
+            dxr[D] = dz.y;
+            dxr[2 * D] = dz.z;
+            dxr[3 * D] = dz.w;
         }
-        __syncthreads();
+        loaded = s > 0 && (reverse ? T - s : s - 1) < max_len;
+        if (loaded) load_step(s - 1);
+        stamp<PH>(sts, 3);
+        mbar_wait(&p_bar[cur], (parity >> cur) & 1u);
+        parity ^= 1u << cur;
+        stamp<PH>(sts, 4);
+        // dh of the item: the cluster's partials in rank order
+        if (mine) {
+            const float* in = recv_s + (size_t)cur * C * Rp * U + r * U + jj;
+            float sum = 0.f;
+            for (int qq = 0; qq < C; ++qq) sum += in[(size_t)qq * Rp * U];
+            dh = valid ? sum : dht;
+        }
+        stamp<PH>(sts, 5);
+        cur ^= 1;
     }
-
-    for (int idx = threadIdx.x; idx < BT * D; idx += blockDim.x) {
-        const int r = idx / D, d = idx - r * D, b = b0 + r;
-        if (b < B) {
-            dh0[(size_t)b * D + d] = dh_s[idx];
-            dc0[(size_t)b * D + d] = dc_s[idx];
-#pragma unroll
-            for (int q = 0; q < 3; ++q)
-                dpeep_part[((size_t)b * 3 + q) * D + d] =
-                    dp_s[(r * 3 + q) * D + d];
-        }
+    if (in_batch) {
+        const size_t o = (size_t)(b0 + r) * D + unit;
+        dh0[o] = dh;
+        dc0[o] = dc;
+        float* dp = dpeep_part + (size_t)(b0 + r) * 3 * D + unit;
+        dp[0] = dp0;
+        dp[D] = dp1;
+        dp[2 * D] = dp2;
     }
+    // no CTA leaves while its writes into another may be in flight
+    cluster_barrier();
 }
 
-// Weight gradient, one split of it: part[z][k][j] = sum over the rows
-// n = (b, t) of split z of h_prev(n)[k] dx[n][j], where h_prev(n) is the
-// state before the step at time t: h0[b] at the first scan step, else hs at
-// the previous scan step's time.  A [32 x 64] output tile per CTA, 2 x 4
-// outputs per thread, the (b, t) axis staged through shared memory.
-__global__ void lstm_dw_kernel(
+// One stage of the dW product: rows [n0, n0 + DW_BK) of the operands, the
+// tile's k columns of h_prev and j columns of dx, into a_s / b_s (cp.async,
+// one commit group; beyond the edges zero-filled).  h_prev of row n =
+// (b, t) is h0[b] at the first scan step, else hs at the previous scan
+// step's time.
+__device__ __forceinline__ void dw_load_stage(
+        const float* hs, const float* h0, const float* dx, float* a_s,
+        float* b_s, int n0, int n_end, int k0, int j0, int T, int D,
+        int reverse) {
+    const int tid = threadIdx.x;
+    const int t_first = reverse ? T - 1 : 0, step = reverse ? 1 : -1;
+    for (int q = tid; q < DW_BK * DW_BM / 4; q += DW_THREADS) {
+        const int nn = q / (DW_BM / 4), kq = q - nn * (DW_BM / 4);
+        const int n = n0 + nn;
+        const bool ok = n < n_end && k0 + kq * 4 < D;
+        const float* src = hs;
+        if (ok) {
+            const int b = n / T, t = n - b * T;
+            src = (t == t_first ? h0 + (size_t)b * D
+                                : hs + (size_t)(n + step) * D)
+                + k0 + kq * 4;
+        }
+        cp_async16(a_s + nn * DW_BM + kq * 4, src, ok);
+    }
+    for (int q = tid; q < DW_BK * DW_BN / 4; q += DW_THREADS) {
+        const int nn = q / (DW_BN / 4), jq = q - nn * (DW_BN / 4);
+        const int n = n0 + nn;
+        const bool ok = n < n_end;
+        cp_async16(b_s + nn * DW_BN + jq * 4,
+                   ok ? dx + (size_t)n * 4 * D + j0 + jq * 4 : dx, ok);
+    }
+    cp_async_commit();
+}
+
+// The first stage at or after `from` (of n_stages from n_begin) that holds
+// a valid (b, t) row; n_stages when there is none.  Uniform over the block.
+__device__ __forceinline__ int next_live_stage(const int* lens, int from,
+                                               int n_stages, int n_begin,
+                                               int n_end, int T) {
+    for (int st = from; st < n_stages; ++st) {
+        bool any = false;
+        if (threadIdx.x < DW_BK) {
+            const int n = n_begin + st * DW_BK + threadIdx.x;
+            if (n < n_end) {
+                const int b = n / T;
+                any = n - b * T < lens[b];
+            }
+        }
+        if (__syncthreads_or(any)) return st;
+    }
+    return n_stages;
+}
+
+// Weight gradient over one range of the (b, t) rows n: C[k][j] = sum_n
+// h_prev(n)[k] dx[n][j].  A [64 x 64] tile per CTA, 8 x 8 outputs a thread
+// (two 4-wide runs of k and of j, 16-byte shared loads), 16 rows n a stage,
+// two stages in flight through cp.async; stages whose rows are all frozen
+// (dx = 0 there) are skipped.  Written to dw when `direct` (one range),
+// else to part[z] for lstm_reduce_kernel.
+__global__ void __launch_bounds__(DW_THREADS) lstm_dw_kernel(
         const float* __restrict__ hs, const float* __restrict__ h0,
-        const float* __restrict__ dx, float* __restrict__ part,
-        int B, int T, int D, int reverse, int rows_per_split) {
-    __shared__ float a_s[DW_TN][DW_TK + 1];
-    __shared__ float b_s[DW_TN][DW_TJ];
-    const int D4 = 4 * D;
-    const int N = B * T;
-    const int j0 = blockIdx.x * DW_TJ, k0 = blockIdx.y * DW_TK;
+        const float* __restrict__ dx, const int* __restrict__ lens,
+        float* __restrict__ dw, float* __restrict__ part, int B, int T,
+        int D, int reverse, int rows_per_split, int direct) {
+    __shared__ __align__(16) float a_s[2][DW_BK][DW_BM];
+    __shared__ __align__(16) float b_s[2][DW_BK][DW_BN];
+    const int D4 = 4 * D, N = B * T;
+    const int j0 = blockIdx.x * DW_BN, k0 = blockIdx.y * DW_BM;
     const int n_begin = blockIdx.z * rows_per_split;
     const int n_end = min(N, n_begin + rows_per_split);
-    const int tid = threadIdx.x;
-    const int tk = tid / 16, tj = tid % 16;
-    const int step = reverse ? 1 : -1;
-    const int t_first = reverse ? T - 1 : 0;
-    float acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
+    const int n_stages = n_end > n_begin
+        ? (n_end - n_begin + DW_BK - 1) / DW_BK : 0;
 
-    for (int n0 = n_begin; n0 < n_end; n0 += DW_TN) {
-        for (int i = tid; i < DW_TN * DW_TK; i += DW_THREADS) {
-            const int nn = i / DW_TK, kk = i - nn * DW_TK, n = n0 + nn;
-            float v = 0.f;
-            if (n < n_end) {
-                const int b = n / T, t = n - b * T;
-                v = t == t_first
-                    ? h0[(size_t)b * D + k0 + kk]
-                    : hs[(size_t)(n + step) * D + k0 + kk];
-            }
-            a_s[nn][kk] = v;
-        }
-        for (int i = tid; i < DW_TN * DW_TJ; i += DW_THREADS) {
-            const int nn = i / DW_TJ, jj = i - nn * DW_TJ, n = n0 + nn;
-            b_s[nn][jj] = n < n_end ? dx[(size_t)n * D4 + j0 + jj] : 0.f;
-        }
-        __syncthreads();
+    float acc[8][8];
 #pragma unroll
-        for (int nn = 0; nn < DW_TN; ++nn) {
-            const float a0 = a_s[nn][2 * tk], a1 = a_s[nn][2 * tk + 1];
+    for (int i = 0; i < 8; ++i) {
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                const float bv = b_s[nn][tj + 16 * c];
-                acc[0][c] = fmaf(a0, bv, acc[0][c]);
-                acc[1][c] = fmaf(a1, bv, acc[1][c]);
-            }
-        }
-        __syncthreads();
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     }
-    float* out = part + (size_t)blockIdx.z * D * D4;
+    int st = next_live_stage(lens, 0, n_stages, n_begin, n_end, T);
+    int buf = 0;
+    if (st < n_stages)
+        dw_load_stage(hs, h0, dx, &a_s[0][0][0], &b_s[0][0][0],
+                      n_begin + st * DW_BK, n_end, k0, j0, T, D, reverse);
+    while (st < n_stages) {
+        const int nxt = next_live_stage(lens, st + 1, n_stages, n_begin,
+                                        n_end, T);
+        if (nxt < n_stages) {
+            dw_load_stage(hs, h0, dx, &a_s[buf ^ 1][0][0],
+                          &b_s[buf ^ 1][0][0], n_begin + nxt * DW_BK, n_end,
+                          k0, j0, T, D, reverse);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+        for (int nn = 0; nn < DW_BK; ++nn) {
+            const float4 a0 =
+                *reinterpret_cast<const float4*>(&a_s[buf][nn][ty * 4]);
+            const float4 a1 =
+                *reinterpret_cast<const float4*>(&a_s[buf][nn][32 + ty * 4]);
+            const float4 b0 =
+                *reinterpret_cast<const float4*>(&b_s[buf][nn][tx * 4]);
+            const float4 b1 =
+                *reinterpret_cast<const float4*>(&b_s[buf][nn][32 + tx * 4]);
+            const float a[8] = {a0.x, a0.y, a0.z, a0.w,
+                                a1.x, a1.y, a1.z, a1.w};
+            const float b[8] = {b0.x, b0.y, b0.z, b0.w,
+                                b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-            out[(size_t)(k0 + 2 * tk + i) * D4 + j0 + tj + 16 * c] = acc[i][c];
+            for (int i = 0; i < 8; ++i) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                    acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+            }
+        }
+        __syncthreads();
+        st = nxt;
+        buf ^= 1;
+    }
+    float* out = direct ? dw : part + (size_t)blockIdx.z * D * D4;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int k = k0 + (i < 4 ? ty * 4 + i : 32 + ty * 4 + i - 4);
+        if (k >= D) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int j = j0 + h * 32 + tx * 4;
+            *reinterpret_cast<float4*>(out + (size_t)k * D4 + j) =
+                make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                            acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        }
+    }
 }
 
-// dw = the splits of `part` summed in order; dpeep = the rows of dpeep_part
-// summed in order.
+// dw = the splits of `part` summed in order (n_dw = 0: the dW product wrote
+// dw itself); dpeep = the rows of dpeep_part summed in order.
 __global__ void lstm_reduce_kernel(
         const float* __restrict__ part, float* __restrict__ dw, int n_dw,
         int splits, const float* __restrict__ dpeep_part,
@@ -548,137 +1072,326 @@ __global__ void lstm_reduce_kernel(
     }
 }
 
-int block_threads(int D) { return 4 * D < 512 ? 4 * D : 512; }
+// The plan's invariants: every batch row in exactly one group (no group
+// empty), every hidden unit owned by one CTA of a cluster, slices of whole
+// 16-byte units, a cluster of at most MAX_CTAS, row tiles of 4, one (row,
+// unit) item a thread (R_pad U <= 256: the forward's product tiles then
+// get at least 8 lanes each, one a (row, unit)), resident rows in whole
+// k-quads.
+bool plan_ok(int B, int D, const Plan& p) {
+    return p.clusters >= 1 && p.ctas >= 1 && p.ctas <= MAX_CTAS
+        && p.rows >= 1 && p.units >= 4 && p.units % 4 == 0
+        && (long long)p.rows_pad * p.units <= THREADS
+        && p.ctas * p.units == D && p.rows_pad == (p.rows + RT - 1) / RT * RT
+        && p.res_fwd >= 0 && p.res_fwd <= D && p.res_fwd % 4 == 0
+        && p.res_bwd >= 0 && p.res_bwd <= 4 * p.units && p.res_bwd % 4 == 0
+        && (long long)p.clusters * p.rows >= B
+        && (long long)(p.clusters - 1) * p.rows < B;
+}
 
-// How many rows of W [D, 4D] fit into the shared memory a block may use on
-// this device beside `state` bytes of the kernel's own (and 1 KB of slack for
-// its static shared memory).
-cudaError_t resident_rows(size_t state, int D, int* n_res) {
-    int dev = 0, limit = 0;
+bool shape_ok(int B, int T, int D) {
+    return B >= 1 && T >= 1 && D >= 32 && D <= 512 && D % 32 == 0;
+}
+
+bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
+
+// The launch configuration of a walk kernel: its dynamic shared memory set
+// (and checked against the device's limit), clusters of p.ctas CTAs; fails
+// when the card cannot hold one such cluster.
+cudaError_t prepare_cluster(const void* fn, size_t smem, const Plan& p,
+                            cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                            cudaLaunchAttribute* attr) {
+    int dev = 0, limit = 0, n = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&limit,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
-    const size_t row = (size_t)4 * D * sizeof(float);
-    const size_t room = (size_t)limit > state + 1024
-        ? (size_t)limit - state - 1024 : 0;
-    *n_res = (int)(room / row < (size_t)D ? room / row : (size_t)D);
-    return cudaSuccess;
+    if (smem > (size_t)limit) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    if (p.ctas > 8) {
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return err;
+    }
+    *cfg = cudaLaunchConfig_t{};
+    cfg->gridDim = dim3(p.clusters * p.ctas);
+    cfg->blockDim = dim3(THREADS);
+    cfg->dynamicSmemBytes = smem;
+    cfg->stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&n, fn, cfg);
+    if (err != cudaSuccess) return err;
+    return n >= 1 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-template <int BT>
+// The instance of a walk kernel for `nm` k-quads of W in registers (0: W in
+// shared memory).
+template <bool PH>
+decltype(&lstm_fwd_kernel<PH, 0>) fwd_instance(int nm) {
+    switch (nm) {
+        case 2: return &lstm_fwd_kernel<PH, 2>;
+        case 4: return &lstm_fwd_kernel<PH, 4>;
+        default: return &lstm_fwd_kernel<PH, 0>;
+    }
+}
+
+template <bool PH>
+decltype(&lstm_bwd_kernel<PH, 0>) bwd_instance(int nm) {
+    switch (nm) {
+        case 2: return &lstm_bwd_kernel<PH, 2>;
+        case 4: return &lstm_bwd_kernel<PH, 4>;
+        default: return &lstm_bwd_kernel<PH, 0>;
+    }
+}
+
+template <bool PH>
 cudaError_t launch_fwd(const float* x4, const float* w, const float* peeps,
                        const int* lens, const float* h0, const float* c0,
-                       float* hs, float* cs, int B, int T, int D, int reverse,
-                       int act, int gate, int state_act, cudaStream_t stream) {
-    const size_t state = (size_t)BT * D * (4 * K_GROUPS + 2) * sizeof(float);
-    int n_res = 0;
-    cudaError_t err = resident_rows(state, D, &n_res);
+                       float* hs, float* cs, float* gates, int B, int T,
+                       int D, Plan p, int reverse, int act, int gate,
+                       int state_act, long long* stamps,
+                       cudaStream_t stream) {
+    const auto kern = fwd_instance<PH>(fwd_quads(D, p));
+    const void* fn = reinterpret_cast<const void*>(kern);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    cudaError_t err = prepare_cluster(fn, fwd_smem_bytes(D, p), p, stream,
+                                      &cfg, attr);
     if (err != cudaSuccess) return err;
-    const size_t smem = state + (size_t)n_res * 4 * D * sizeof(float);
-    err = cudaFuncSetAttribute(
-        lstm_fwd_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    lstm_fwd_kernel<BT><<<(B + BT - 1) / BT, block_threads(D), smem, stream>>>(
-        x4, w, peeps, lens, h0, c0, hs, cs, B, T, D, n_res, reverse, act,
-        gate, state_act);
-    return cudaGetLastError();
+    return cudaLaunchKernelEx(&cfg, kern, x4, w, peeps, lens,
+                              h0, c0, hs, cs, gates, B, T, D, p, reverse,
+                              act, gate, state_act, stamps);
 }
 
-template <int BT>
-cudaError_t launch_bwd(const float* x4, const float* w, const float* peeps,
-                       const int* lens, const float* h0, const float* c0,
-                       const float* hs, const float* cs, const float* g_hs,
-                       const float* g_hl, const float* g_cl, float* dx,
-                       float* dh0, float* dc0, float* dpeep_part, int B,
-                       int T, int D, int reverse, int act, int gate,
-                       int state_act, cudaStream_t stream) {
-    const size_t state = (size_t)BT * D * (4 * K_GROUPS + 14) * sizeof(float);
-    int n_res = 0;
-    cudaError_t err = resident_rows(state, D, &n_res);
+template <bool PH>
+cudaError_t launch_bwd_walk(const float* w, const float* wt,
+                            const float* peeps, const int* lens,
+                            const float* c0, const float* cs,
+                            const float* gates, const float* g_hs,
+                            const float* g_hl, const float* g_cl, float* dx,
+                            float* dh0, float* dc0, float* dpeep_part, int B,
+                            int T, int D, Plan p, int reverse, int act,
+                            int gate, int state_act, long long* stamps,
+                            cudaStream_t stream) {
+    const auto kern = bwd_instance<PH>(bwd_quads(D, p));
+    const void* fn = reinterpret_cast<const void*>(kern);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    cudaError_t err = prepare_cluster(fn, bwd_smem_bytes(D, p), p, stream,
+                                      &cfg, attr);
     if (err != cudaSuccess) return err;
-    const size_t smem = state + (size_t)n_res * 4 * D * sizeof(float);
-    err = cudaFuncSetAttribute(
-        lstm_bwd_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    lstm_bwd_kernel<BT><<<(B + BT - 1) / BT, block_threads(D), smem, stream>>>(
-        x4, w, peeps, lens, h0, c0, hs, cs, g_hs, g_hl, g_cl, dx, dh0, dc0,
-        dpeep_part, B, T, D, n_res, reverse, act, gate, state_act);
-    return cudaGetLastError();
+    return cudaLaunchKernelEx(&cfg, kern, w, wt, peeps, lens,
+                              c0, cs, gates, g_hs, g_hl, g_cl, dx, dh0, dc0,
+                              dpeep_part, B, T, D, p, reverse, act, gate,
+                              state_act, stamps);
 }
 
-// (the backward's own shared memory is 120 bytes per tile row and hidden
-// unit; the launcher refuses a tile that does not fit the device's limit)
-bool shape_ok(int B, int T, int D, int bt) {
-    return B >= 1 && T >= 1 && D >= 32 && D <= 512 && D % 32 == 0
-        && (bt == 1 || bt == 2 || bt == 4);
+Plan make_plan(int clusters, int ctas, int rows, int units, int res_fwd,
+               int res_bwd) {
+    return Plan{clusters, ctas, rows, (rows + RT - 1) / RT * RT, units,
+                res_fwd, res_bwd};
 }
 
-bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
+// The walk's arguments a plan needs: W^T when the backward's slice is not
+// all resident.
+bool walk_ok(int B, int T, int D, const Plan& p, const void* w,
+             const void* wt) {
+    return shape_ok(B, T, D) && plan_ok(B, D, p) && aligned16(w)
+        && (p.res_bwd == 4 * p.units || (wt != nullptr && aligned16(wt)));
+}
 
 }  // namespace
 
 extern "C" {
 
-// hs, cs [B, T, D] <- the recurrence over x4 [B, T, 4D]; bt = batch rows
-// per CTA (1, 2 or 4).
+// hs, cs [B, T, D] <- the recurrence over x4 [B, T, 4D]; gates [B, T, 4D]
+// (a, i, f, o) or null.  The plan: `clusters` groups of `rows` batch rows,
+// clusters of `ctas` CTAs of `units` hidden units each, res_fwd rows of a
+// CTA's W slice resident (res_bwd: the backward's).
 int lstm_fwd_launch(const void* x4, const void* w, const void* peeps,
                     const void* lens, const void* h0, const void* c0,
-                    void* hs, void* cs, int B, int T, int D, int reverse,
-                    int act, int gate, int state_act, int bt, void* stream) {
-    if (!shape_ok(B, T, D, bt) || !aligned16(x4) || !aligned16(w))
+                    void* hs, void* cs, void* gates, int B, int T, int D,
+                    int reverse, int act, int gate, int state_act,
+                    int clusters, int ctas, int rows, int units, int res_fwd,
+                    int res_bwd, void* stream) {
+    const Plan p = make_plan(clusters, ctas, rows, units, res_fwd, res_bwd);
+    if (!shape_ok(B, T, D) || !plan_ok(B, D, p) || !aligned16(w))
         return (int)cudaErrorInvalidValue;
-    decltype(&launch_fwd<1>) fn = &launch_fwd<1>;
-    if (bt == 2) fn = &launch_fwd<2>;
-    if (bt == 4) fn = &launch_fwd<4>;
-    return (int)fn((const float*)x4, (const float*)w, (const float*)peeps,
-                   (const int*)lens, (const float*)h0, (const float*)c0,
-                   (float*)hs, (float*)cs, B, T, D, reverse, act, gate,
-                   state_act, (cudaStream_t)stream);
+    return (int)launch_fwd<false>(
+        (const float*)x4, (const float*)w, (const float*)peeps,
+        (const int*)lens, (const float*)h0, (const float*)c0, (float*)hs,
+        (float*)cs, (float*)gates, B, T, D, p, reverse, act, gate, state_act,
+        nullptr, (cudaStream_t)stream);
 }
 
-// dx [B, T, 4D], dh0, dc0 [B, D], dw [D, 4D], dpeep [3, D] from the stored
-// hs, cs and the cotangents g_hs [B, T, D], g_hl, g_cl [B, D].  Scratch:
-// dpeep_part [B, 3, D] and dw_part [splits, D, 4D].
-int lstm_bwd_launch(const void* x4, const void* w, const void* peeps,
-                    const void* lens, const void* h0, const void* c0,
-                    const void* hs, const void* cs, const void* g_hs,
-                    const void* g_hl, const void* g_cl, void* dx, void* dh0,
-                    void* dc0, void* dw, void* dpeep, void* dpeep_part,
-                    void* dw_part, int splits, int B, int T, int D,
-                    int reverse, int act, int gate, int state_act, int bt,
+// The reverse walk: dx [B, T, 4D], dh0, dc0 [B, D] and dpeep_part
+// [B, 3, D] from the forward's cs and gates and the cotangents g_hs
+// [B, T, D], g_hl, g_cl [B, D]; wt = W^T [4D, D] (null when the plan keeps
+// the backward's slice resident).
+int lstm_bwd_launch(const void* w, const void* wt, const void* peeps,
+                    const void* lens, const void* c0, const void* cs,
+                    const void* gates, const void* g_hs, const void* g_hl,
+                    const void* g_cl, void* dx, void* dh0, void* dc0,
+                    void* dpeep_part, int B, int T, int D, int reverse,
+                    int act, int gate, int state_act, int clusters, int ctas,
+                    int rows, int units, int res_fwd, int res_bwd,
                     void* stream) {
-    if (!shape_ok(B, T, D, bt) || splits < 1 || !aligned16(x4)
-            || !aligned16(w))
+    const Plan p = make_plan(clusters, ctas, rows, units, res_fwd, res_bwd);
+    if (!walk_ok(B, T, D, p, w, wt)) return (int)cudaErrorInvalidValue;
+    return (int)launch_bwd_walk<false>(
+        (const float*)w, (const float*)wt, (const float*)peeps,
+        (const int*)lens, (const float*)c0, (const float*)cs,
+        (const float*)gates, (const float*)g_hs, (const float*)g_hl,
+        (const float*)g_cl, (float*)dx, (float*)dh0, (float*)dc0,
+        (float*)dpeep_part, B, T, D, p, reverse, act, gate, state_act,
+        nullptr, (cudaStream_t)stream);
+}
+
+// dw [D, 4D] from hs, h0 and the walk's dx, the (b, t) rows in `splits`
+// ranges summed in order (dw_part [splits, D, 4D], unused at 1 split), and
+// dpeep [3, D] = dpeep_part [B, 3, D] summed over the rows in order.
+int lstm_dw_launch(const void* hs, const void* h0, const void* dx,
+                   const void* lens, const void* dpeep_part, void* dw,
+                   void* dpeep, void* dw_part, int splits, int B, int T,
+                   int D, int reverse, void* stream) {
+    if (!shape_ok(B, T, D) || splits < 1 || (splits > 1 && !dw_part))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    decltype(&launch_bwd<1>) fn = &launch_bwd<1>;
-    if (bt == 2) fn = &launch_bwd<2>;
-    if (bt == 4) fn = &launch_bwd<4>;
-    cudaError_t err = fn(
-        (const float*)x4, (const float*)w, (const float*)peeps,
-        (const int*)lens, (const float*)h0, (const float*)c0,
-        (const float*)hs, (const float*)cs, (const float*)g_hs,
-        (const float*)g_hl, (const float*)g_cl, (float*)dx, (float*)dh0,
-        (float*)dc0, (float*)dpeep_part, B, T, D, reverse, act, gate,
-        state_act, st);
-    if (err != cudaSuccess) return (int)err;
-    const int N = B * T;
-    const int rows_per_split = (N + splits - 1) / splits;
-    dim3 grid(4 * D / DW_TJ, D / DW_TK, splits);
+    const int N = B * T, rows_per_split = (N + splits - 1) / splits;
+    dim3 grid(4 * D / DW_BN, (D + DW_BM - 1) / DW_BM, splits);
     lstm_dw_kernel<<<grid, DW_THREADS, 0, st>>>(
         (const float*)hs, (const float*)h0, (const float*)dx,
-        (float*)dw_part, B, T, D, reverse, rows_per_split);
-    err = cudaGetLastError();
+        (const int*)lens, (float*)dw, (float*)dw_part, B, T, D, reverse,
+        rows_per_split, splits == 1);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const int n_dw = D * 4 * D, total = n_dw + 3 * D;
+    const int n_dw = splits == 1 ? 0 : D * 4 * D, total = n_dw + 3 * D;
     lstm_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(
         (const float*)dw_part, (float*)dw, n_dw, splits,
         (const float*)dpeep_part, (float*)dpeep, B, 3 * D);
     return (int)cudaGetLastError();
+}
+
+// Measurement export: the forward kernel (as lstm_fwd_launch) or the
+// backward walk (as lstm_bwd_launch) with CTA 0 writing clock64() stamps:
+// [T][6] (forward) or [T][6] (walk, in walk order), rows of steps that a
+// frozen group skips left as they were.
+int lstm_fwd_phases_launch(const void* x4, const void* w, const void* peeps,
+                           const void* lens, const void* h0, const void* c0,
+                           void* hs, void* cs, void* gates, int B, int T,
+                           int D, int reverse, int act, int gate,
+                           int state_act, int clusters, int ctas, int rows,
+                           int units, int res_fwd, int res_bwd, void* stamps,
+                           void* stream) {
+    const Plan p = make_plan(clusters, ctas, rows, units, res_fwd, res_bwd);
+    if (!shape_ok(B, T, D) || !plan_ok(B, D, p) || !aligned16(w))
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_fwd<true>(
+        (const float*)x4, (const float*)w, (const float*)peeps,
+        (const int*)lens, (const float*)h0, (const float*)c0, (float*)hs,
+        (float*)cs, (float*)gates, B, T, D, p, reverse, act, gate, state_act,
+        (long long*)stamps, (cudaStream_t)stream);
+}
+
+int lstm_bwd_phases_launch(const void* w, const void* wt, const void* peeps,
+                           const void* lens, const void* c0, const void* cs,
+                           const void* gates, const void* g_hs,
+                           const void* g_hl, const void* g_cl, void* dx,
+                           void* dh0, void* dc0, void* dpeep_part, int B,
+                           int T, int D, int reverse, int act, int gate,
+                           int state_act, int clusters, int ctas, int rows,
+                           int units, int res_fwd, int res_bwd, void* stamps,
+                           void* stream) {
+    const Plan p = make_plan(clusters, ctas, rows, units, res_fwd, res_bwd);
+    if (!walk_ok(B, T, D, p, w, wt)) return (int)cudaErrorInvalidValue;
+    return (int)launch_bwd_walk<true>(
+        (const float*)w, (const float*)wt, (const float*)peeps,
+        (const int*)lens, (const float*)c0, (const float*)cs,
+        (const float*)gates, (const float*)g_hs, (const float*)g_hl,
+        (const float*)g_cl, (float*)dx, (float*)dh0, (float*)dc0,
+        (float*)dpeep_part, B, T, D, p, reverse, act, gate, state_act,
+        (long long*)stamps, (cudaStream_t)stream);
+}
+
+// How many clusters of the plan the card holds at once: out = {forward,
+// backward walk} (cudaOccupancyMaxActiveClusters; 0 where it holds none, or
+// where a kernel's shared memory exceeds the device's limit).
+int lstm_plan_occupancy(int D, int clusters, int ctas, int rows, int units,
+                        int res_fwd, int res_bwd, int* out) {
+    const Plan p = make_plan(clusters, ctas, rows, units, res_fwd, res_bwd);
+    const void* fns[] = {
+        reinterpret_cast<const void*>(fwd_instance<false>(fwd_quads(D, p))),
+        reinterpret_cast<const void*>(bwd_instance<false>(bwd_quads(D, p)))};
+    const size_t smem[] = {fwd_smem_bytes(D, p), bwd_smem_bytes(D, p)};
+    for (int which = 0; which < 2; ++which) {
+        cudaLaunchConfig_t cfg;
+        cudaLaunchAttribute attr[1];
+        out[which] = 0;
+        cudaError_t err = prepare_cluster(fns[which], smem[which], p, nullptr,
+                                          &cfg, attr);
+        if (err == cudaErrorInvalidValue
+                || err == cudaErrorInvalidConfiguration) {
+            cudaGetLastError();
+            continue;
+        }
+        if (err != cudaSuccess) return (int)err;
+        err = cudaOccupancyMaxActiveClusters(&out[which], fns[which], &cfg);
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
+}
+
+// The runtime's account of a kernel (which: 0 forward, 1 backward walk,
+// 2 dW product, 3 ordered sums) for the plan's shared memory at hidden size
+// D: out = {registers, local memory bytes per thread, static shared memory
+// bytes, dynamic shared memory bytes}.
+int lstm_kernel_attributes(int which, int D, int clusters, int ctas,
+                           int rows, int units, int res_fwd, int res_bwd,
+                           int* out) {
+    const Plan p = make_plan(clusters, ctas, rows, units, res_fwd, res_bwd);
+    const void* fns[] = {
+        reinterpret_cast<const void*>(fwd_instance<false>(fwd_quads(D, p))),
+        reinterpret_cast<const void*>(bwd_instance<false>(bwd_quads(D, p))),
+        reinterpret_cast<const void*>(&lstm_dw_kernel),
+        reinterpret_cast<const void*>(&lstm_reduce_kernel)};
+    if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+    size_t dyn = 0;
+    if (which < 2) {
+        dyn = which == 0 ? fwd_smem_bytes(D, p) : bwd_smem_bytes(D, p);
+        cudaError_t err = cudaFuncSetAttribute(
+            fns[which], cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)dyn);
+        if (err != cudaSuccess) return (int)err;
+    }
+    cudaFuncAttributes a;
+    cudaError_t err = cudaFuncGetAttributes(&a, fns[which]);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = (int)dyn;
+    return 0;
+}
+
+// The device's SM count and the shared memory a block may opt into, which
+// the launch plan is sized against.
+int lstm_device_limits(int* sm_count, int* smem_optin) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaDeviceGetAttribute(
+        smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
 const char* lstm_error_string(int code) {

@@ -18,8 +18,9 @@ from chip_smoke import (ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL, GRU_TOL,
                         LSTM_TOL, additive_error, additive_inputs,
                         gru_compare, gru_inputs, gru_move_off_relu_kink,
                         gru_repeat_and_graph, lm_batches, lstm_compare,
-                        lstm_inputs, move_off_relu_kink, o_limit_share,
-                        sentiment_batches, seq2seq_batches)
+                        lstm_inputs, lstm_repeat_and_graph,
+                        move_off_relu_kink, o_limit_share, sentiment_batches,
+                        seq2seq_batches)
 from paddle_tpu_torch.graph import GraphExecutor
 from paddle_tpu_torch.graph.generator import generate
 from paddle_tpu_torch.models import (seq2seq_trainer_config,
@@ -247,16 +248,25 @@ LSTM_CASES = [(5, 7, 32, False, True, True, "tanh"),
               (133, 20, 64, True, True, True, "relu"),
               (300, 9, 512, False, False, True, "relu"),
               (3, 1, 96, True, True, False, "tanh"),
-              (64, 50, 128, True, False, False, "linear")]
+              (64, 50, 128, True, False, False, "linear"),
+              (64, 20, 256, False, True, True, "relu"),
+              (32, 12, 512, True, True, True, "tanh"),
+              (1000, 12, 128, False, True, True, "relu"),
+              (5, 30, 128, True, True, True, "tanh")]
 
 
 @pytest.mark.parametrize("case", LSTM_CASES,
                          ids=["odd", "two-row-tiles", "d512-four-row-tiles",
-                              "one-step", "linear-cell"])
+                              "one-step", "linear-cell", "d256",
+                              "d512-beyond-a-cluster", "b1000-waves",
+                              "b5-partly-filled-group"])
 def test_lstm_kernels_match_plain_version(cuda, case):
     """The forward kernel (hs, h_last, c_last) and the backward kernel
     (dx4, dW, dpeep, dh0, dc0) against autograd of the plain version, each
-    within chip_smoke's LSTM_TOL of its max; one launch of each."""
+    within chip_smoke's LSTM_TOL of its max; one call of each wrapper.  The
+    cases reach every kind of launch plan: W in registers or in shared
+    memory and L2 (hidden 512), clusters in waves (1,000 rows), a group
+    only partly filled (5 rows)."""
     B, T, D, reverse, peep, ragged, act = case
     g = torch.Generator(device=cuda).manual_seed(0)
     acts = dict(active_type=act, gate_active_type="sigmoid",
@@ -269,6 +279,36 @@ def test_lstm_kernels_match_plain_version(cuda, case):
     assert (lf.counts.fwd, lf.counts.bwd) == (1, 1)
     for name, (_, rel) in errs.items():
         assert rel <= LSTM_TOL, (name, rel)
+
+
+def test_lstm_limit_rejects_a_dropped_freeze(cuda):
+    """The kernels told that row 1 is full: hs and dx4 leave LSTM_TOL, as
+    chip_smoke's faulty-result check needs."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    inputs, cot = lstm_inputs(g, 128, 100, 128, True, True)
+    bad = inputs[1].clone()
+    bad[1] = 100
+    errs = lstm_compare(inputs, cot, False, kernel_lens=bad)
+    assert errs["hs"][1] > LSTM_TOL and errs["dx4"][1] > LSTM_TOL
+
+
+def test_lstm_backward_repeats_and_replays_in_a_cuda_graph(cuda):
+    """Two backward calls bit-identical; a forward + backward captured in a
+    CUDA graph and replayed equals eager bit for bit (chip_smoke's check)."""
+    lstm_repeat_and_graph(torch.Generator(device=cuda).manual_seed(3))
+
+
+def test_lstm_kernels_have_no_local_memory(cuda):
+    """The runtime's account of K3's kernels for the plans the cases take:
+    no local memory (spills), and the walk kernels' dynamic shared memory is
+    what lstm_plan sized."""
+    for B, D in ((128, 128), (5, 32), (64, 256), (32, 512), (1000, 128),
+                 (1, 512), (3, 96)):
+        plan = lf.plan_for(B, D, torch.device(cuda))
+        attrs = lf.kernel_attributes(D, plan)
+        assert all(a[1] == 0 for a in attrs.values()), attrs
+        assert attrs["lstm_fwd_kernel"][3] == plan.smem_fwd
+        assert attrs["lstm_bwd_kernel"][3] == plan.smem_bwd
 
 
 def test_lstm_wrapper_refuses_what_the_kernels_do_not_take(cuda):

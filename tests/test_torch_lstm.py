@@ -10,6 +10,7 @@ beside the plain version, is held against autograd of the plain version, so
 the formulas the CUDA source copies are checked where there is no card.
 """
 
+import functools
 import itertools
 
 import jax
@@ -240,15 +241,175 @@ def test_what_the_kernels_take(D, acts, refused):
     assert (got is None) if refused is None else (refused in got)
 
 
+H100_SMS, H100_SMEM = 132, 232448
+
+
 def test_launch_geometry():
-    """The batch tile keeps the grid within one wave while it can, and the
-    weight-gradient splits fill the card without empty splits."""
-    assert [lf.batch_tile(b, 128) for b in (1, 128, 132, 133, 264, 265,
-                                            1000)] == [1, 1, 1, 2, 2, 4, 4]
-    assert [lf.batch_tile(b, 512) for b in (132, 133, 1000)] == [1, 2, 2]
-    assert lf.dw_splits(128, 100, 128) == 8
-    assert lf.dw_splits(5, 7, 32) == 1
-    assert lf.dw_splits(128, 100, 512) == 1
-    for B_, T_, D_ in ((128, 100, 128), (5, 7, 32), (64, 3, 64)):
-        s = lf.dw_splits(B_, T_, D_)
-        assert 1 <= s <= B_ * T_
+    """The weight-gradient product's splits put ~4 of its 64-thread CTAs on
+    each of the H100's 132 SMs without empty splits (its tiles are 64 x 64
+    over [D, 4D])."""
+    assert lf.dw_splits(128, 100, 128, H100_SMS) == 33
+    assert lf.dw_splits(5, 7, 32, H100_SMS) == 1
+    assert lf.dw_splits(128, 100, 512, H100_SMS) == 3
+    for B_, T_, D_ in ((128, 100, 128), (5, 7, 32), (64, 3, 64), (1, 1, 96),
+                       (1000, 12, 512)):
+        s = lf.dw_splits(B_, T_, D_, H100_SMS)
+        n = B_ * T_
+        assert 1 <= s <= n and -(-n // s) * (s - 1) < n
+
+
+def _assert_plan_invariants(p, Bx, D):
+    """Every batch row in exactly one group, every hidden unit owned once
+    in a cluster of at most 16 CTAs (C U = D, slices on 16-byte
+    boundaries), resident rows in whole k-quads, and both walk kernels'
+    shared memory (recomputed here) within the limit."""
+    owner = np.full(Bx, -1)
+    for g in range(p.clusters):
+        rows = np.arange(g * p.rows, min(Bx, (g + 1) * p.rows))
+        assert rows.size >= 1                       # no group is empty
+        assert (owner[rows] == -1).all()
+        owner[rows] = g
+    assert (owner >= 0).all()
+    units = np.zeros(D, int)
+    for c in range(p.ctas):
+        assert (c * p.units * 4) % 16 == 0           # slice start, bytes
+        units[c * p.units:(c + 1) * p.units] += 1
+    assert (units == 1).all() and p.ctas * p.units == D
+    assert p.ctas in (1, 2, 4, 8, 16) and p.units % 4 == 0
+    assert p.rows_pad % 4 == 0 and p.rows <= p.rows_pad < p.rows + 4
+    assert 0 <= p.res_fwd <= D and p.res_fwd % 4 == 0
+    assert 0 <= p.res_bwd <= 4 * p.units and p.res_bwd % 4 == 0
+    U, Rp = p.units, p.rows_pad
+    assert Rp * U <= 256                       # one (row, unit) a thread
+    # the k-quads of W a lane keeps in registers: KQ / KS when that is 2 or
+    # 4 with one tile (4 rows x 8 columns) a lane, KS the lanes a tile (a
+    # power of two, at most 16, tiles x KS within the 256 threads)
+    def ks(tiles):
+        k = 1
+        while 2 * k <= 16 and tiles * 2 * k <= 256:
+            k *= 2
+        return k
+
+    def quads(KQ, tiles):
+        nm = KQ // ks(tiles)
+        return nm if tiles <= 256 and KQ % ks(tiles) == 0 and nm in (
+            2, 4) else 0
+
+    assert ks(Rp // 4 * U // 2) >= 8           # a (row, unit) a lane
+    reg_f = quads(D // 4, Rp // 4 * U // 2)
+    reg_b = quads(U, Rp // 4 * D // 8)
+    assert lf.fwd_quads(D, U, Rp) == reg_f
+    assert lf.bwd_quads(D, U, Rp) == reg_b
+    if reg_f:
+        assert p.res_fwd == D
+    if reg_b:
+        assert p.res_bwd == 4 * U
+    # W slice rows (columns interleaved by unit, padded) unless in
+    # registers, h [2][Rp][D + 4]; then the lengths
+    fwd = 4 * ((0 if reg_f else p.res_fwd * (4 * U + 4))
+               + 2 * Rp * (D + 4)) + 4 * Rp
+    # W^T slice rows (padded) unless in registers, partial dh [2][Rp][D],
+    # dx4 [Rp][4U + 4]
+    bwd = 4 * ((0 if reg_b else p.res_bwd * (D + 4)) + 2 * Rp * D
+               + Rp * (4 * U + 4)) + 4 * Rp
+    assert (p.smem_fwd, p.smem_bwd) == (fwd, bwd)
+    assert max(fwd, bwd) <= H100_SMEM
+    # as many rows of the slices resident as fit: one more k-quad does not
+    if p.res_fwd < D:
+        assert fwd + 4 * 4 * (4 * U + 4) > H100_SMEM
+    if p.res_bwd < 4 * U:
+        assert bwd + 4 * 4 * (D + 4) > H100_SMEM
+
+
+@pytest.mark.parametrize("D", [32, 128, 256, 512])
+@pytest.mark.parametrize("Bx", [1, 5, 128, 133, 1000])
+def test_launch_plan_invariants(Bx, D):
+    """lstm_plans on the H100 (132 SMs, 232,448 bytes a block): every plan
+    keeps the invariants, the fastest by the model comes first and is
+    lstm_plan's pick; where the whole W slice fits it stays resident."""
+    plans = lf.lstm_plans(Bx, D, H100_SMS, H100_SMEM)
+    assert plans
+    for p in plans:
+        _assert_plan_invariants(p, Bx, D)
+    assert lf.lstm_plan(Bx, D, H100_SMS, H100_SMEM) == plans[0]
+    if D <= 256:     # a cluster of 16 holds W up to about D = 448
+        assert any(p.res_fwd == D and p.res_bwd == 4 * p.units
+                   for p in plans)
+
+
+def test_launch_plan_refuses_a_card_too_small():
+    """Where no split fits a block's shared memory, lstm_plan raises."""
+    with pytest.raises(ValueError, match="no split"):
+        lf.lstm_plan(128, 512, H100_SMS, 4000)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A CPU tensor never reaches a kernel: lstm_fused runs the plain
+    version, and the launch wrappers refuse it instead of falling back."""
+    c = _case(6, True, True)
+    t = {n: torch.from_numpy(a) for n, a in c.items()}
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        lf.lstm_fwd_kernel(t["x4"], t["lengths"], t["w"],
+                           torch.from_numpy(_peeps(c)), t["h0"], t["c0"],
+                           ("tanh", "sigmoid", "tanh"), False)
+    assert lf.kernel.built is None
+
+
+SAVED_CASES = [(r, p, g, a, n) for r, p, g, a in CASES for n in (1, 2)]
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_grads(reverse, peep, ragged, act):
+    """The Pallas kernels' gradients (interpret mode) of case 8."""
+    c = _case(8, peep, ragged)
+    kw = dict(active_type=act, gate_active_type="sigmoid",
+              state_active_type="tanh", reverse=reverse)
+
+    def jloss(x4, w, peeps, h0, c0):
+        out = pallas_rnn.lstm_fused(x4, jnp.asarray(c["lengths"]), w, peeps,
+                                    h0, c0, **kw)
+        return _weighted(out, c, jnp)
+
+    grads = jax.grad(jloss, argnums=tuple(range(5)))(
+        *(jnp.asarray(a) for a in (c["x4"], c["w"], _peeps(c), c["h0"],
+                                   c["c0"])))
+    return [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("reverse,peep,ragged,act,slices", SAVED_CASES,
+                         ids=[f"{i}-{n}slices" for i, (*_, n) in zip(
+                             [x for x in IDS for _ in (1, 2)], SAVED_CASES)])
+def test_saved_gates_backward_matches_autograd_and_pallas(
+        reverse, peep, ragged, act, slices):
+    """The kernels' data flow: lstm_fwd_gates_plain's hs, cs and gates (a,
+    i, f, o) saved by the forward, then lstm_fused_bwd_plain from those
+    gates with dx4 W^T taken per slice of the hidden units (all four gate
+    columns of a slice, as one CTA of a cluster owns them) and added in
+    slice order — against autograd of lstm_fused_plain and against the
+    Pallas kernels in interpret mode: 1e-5 of each gradient's scale."""
+    c = _case(8, peep, ragged)
+    lens = torch.from_numpy(c["lengths"])
+    kw = dict(active_type=act, gate_active_type="sigmoid",
+              state_active_type="tanh", reverse=reverse)
+    x4, w, peeps, h0, c0 = (torch.from_numpy(a).requires_grad_(True)
+                            for a in (c["x4"], c["w"], _peeps(c), c["h0"],
+                                      c["c0"]))
+    out = lf.lstm_fused_plain(x4, lens, w, peeps, h0, c0, **kw)
+    want = torch.autograd.grad(_weighted(out, c, torch),
+                               (x4, w, peeps, h0, c0))
+    with torch.no_grad():
+        hs, cs, gates = lf.lstm_fwd_gates_plain(x4, lens, w, peeps, h0, c0,
+                                                **kw)
+        assert torch.equal(hs, out[0])
+        got = lf.lstm_fused_bwd_plain(
+            x4, lens, w, peeps, h0, c0, hs, cs,
+            *(torch.from_numpy(c[n]) for n in ("g_hs", "g_hl", "g_cl")),
+            gates=gates, slices=slices, **kw)
+    jgrads = _pallas_grads(reverse, peep, ragged, act)
+    for name, g, a, j in zip(("dx4", "dw", "dpeeps", "dh0", "dc0"), got,
+                             want, jgrads):
+        scale = max(float(a.abs().max()), 1.0)
+        np.testing.assert_allclose(g.numpy(), a.numpy(), rtol=0,
+                                   atol=1e-5 * scale, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), j, rtol=0, atol=1e-5 * scale,
+                                   err_msg=f"{name} pallas")
