@@ -15,20 +15,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
                built; the GRU walk kernels' dynamic shared memory as
                gru_plan sizes it for the seq2seq encoder, the LSTM walk
                kernels' as lstm_plan sizes it for the sentiment net and for
-               hidden 512), none with local memory (spills);
+               hidden 512; every instance of the paged-attention and the
+               additive-attention kernels), none with local memory (spills);
   3. kernel  — the ragged paged-attention kernel against its plain PyTorch
                version at decode and mixed-step shapes (GQA, page sizes 16
                and 8, lengths 1..768), float32 (atol 2e-5) and bfloat16
                (against the plain version in float32 on the same bfloat16
-               inputs, atol 2e-2);
+               inputs, atol 2e-2); then an edge grid (k5_case): a prompt
+               chunk beside another slot's chunk, padding rows, length-1
+               rows, a row longer than
+               a split beside splits without a live token, rep 1-8, D 32,
+               33, 40, 64, 128, pages 2-48, contexts to 4096, decode rows
+               with row_slot given and None; two identical launches
+               bit-identical, a decode launch replayed from a CUDA graph
+               equal to eager bit for bit;
   4. serve   — the serving path: the transformer LM at full width (vocab
                32000, dim 512, 8 layers, 8 heads, bfloat16, random weights
                from seed 1) serving 32 requests through ServingEngine; the
                kernel must launch once per attention layer per step and the
                plain version never; then a torch.profiler pass over 8 of
-               the requests (device busy share, top kernels), and the
-               kernel's time per launch, replayed at the launches the run
-               made, beside the plain version's and the memory bound;
+               the requests (device busy share, top kernels, the kernel's
+               share), and the kernel's time per launch, replayed at the
+               launches the run made, over all of them and apart for the
+               decode and the mixed launches, each beside its memory bound
+               and with the split count pinned to 1, 2, 4, 8 (measurement),
+               each timed in K5_ROUNDS rounds (median and range), beside
+               the plain version's;
   5. routes  — float32, 2 layers at full width: the engine reading through
                the kernel against the engine reading through the page-table
                gather (attn_impl='dense'), lm_head rows at the first mixed
@@ -126,10 +138,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
                to eager bit for bit;
  13. additive — the additive-attention kernel against its plain version at
                [B, T, D, Dv] = [64, 30, 512, 1024], [192, 30, 512, 1024],
-               T = 1 and T = 300, full and ragged lengths (with a length-0
-               row): float32 within 2e-5; bfloat16 against the plain
+               T = 1 and T = 300, and widths its cluster's slices do not
+               divide (D 500 / Dv 1000, D 33 / Dv 2047, Dv 24), full and
+               ragged lengths (with a length-0 row, whose context must be
+               zero): float32 within 2e-5; bfloat16 against the plain
                version in float32 on the same inputs, per element within
-               2^-7 |ref| + 1e-3;
+               2^-7 |ref| + 1e-3; two launches bit-identical;
  14. seq2seq — the attention seq2seq (demo/seqToseq/seqToseq_net.py) at
                full width: Trainer on vocabulary 30000, hidden 512, batch
                64, float32, seed 1, batches of the sequence-reversal
@@ -145,7 +159,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                vocabulary, beams best-first, 2 GRU forward and 30
                additive-attention launches per call, beam-decode tokens/s;
                then each kernel's time per launch at the run's shapes beside
-               its bound, its plain version's time and, for the GRU, a cuDNN
+               its bound (the additive kernel also at the beam shape and with
+               its cluster size pinned), its plain version's time and, for
+               the GRU, a cuDNN
                GRU's (torch.nn.GRU: r applied after the product; a
                yardstick, never called by the port; each GRU kernel must be
                faster); for the GRU also the launch plan, three plans
@@ -277,6 +293,30 @@ def phase_build() -> None:
         if any(a[1] for a in attrs.values()):
             raise AssertionError(f"the fused-LSTM kernels must run without "
                                  f"local memory (spills): {attrs}")
+    # and for every instance of K5 (dtype x query heads x padded head dim)
+    # and of K2 (dtype)
+    k5 = pa.kernel_attributes()
+    for a in k5:
+        if a["nq"] in (1, 8) and a["head_dim_pad"] == 64:
+            log(f"[build] paged_attention_kernel<{a['dtype']}, nq "
+                f"{a['nq']}, D {a['head_dim_pad']}>: {a['registers']} "
+                f"registers, {a['static_smem']} bytes of static and "
+                f"{a['dynamic_smem']} of dynamic shared memory, "
+                f"{a['local_bytes']} bytes of local memory per thread")
+    log(f"[build] paged_attention_kernel: {len(k5)} instances, registers "
+        f"{min(a['registers'] for a in k5)}..{max(a['registers'] for a in k5)}"
+        f", local memory {sorted({a['local_bytes'] for a in k5})}")
+    if any(a["local_bytes"] for a in k5):
+        raise AssertionError(f"the paged-attention kernels must run without "
+                             f"local memory (spills): {k5}")
+    k2 = aa.kernel_attributes()
+    for name, (regs, lmem, smem, dyn) in k2.items():
+        log(f"[build] additive_attention_kernel<{name}>: {regs} registers, "
+            f"{smem} bytes of static and up to {dyn} of dynamic shared "
+            f"memory, {lmem} bytes of local memory per thread")
+    if any(a[1] for a in k2.values()):
+        raise AssertionError(f"the additive-attention kernels must run "
+                             f"without local memory (spills): {k2}")
 
 
 def make_case(rng, *, rows: str, H: int, h_kv: int, D: int, ps: int,
@@ -315,29 +355,133 @@ def make_case(rng, *, rows: str, H: int, h_kv: int, D: int, ps: int,
     return (q, k, v, table.to(dev), lengths.to(dev), row_slot.to(dev))
 
 
+def k5_case(g, *, H: int, h_kv: int, D: int, ps: int, dtype,
+            layout: str, ctx: int = 768, S: int = 6, dev="cuda"):
+    """Random pools and page tables for S slots of up to `ctx` tokens.
+    'decode': one row per slot (R = S).  'edge': the decode rows of slots
+    2, 3, 4 (slot 2 of length 1; slot 3 at the full context, longer than
+    one split, while the others leave their last splits without a live
+    token), a 40-row prompt chunk of slot 0 from row 3, the 21-row chunk
+    of slot 1 right after it, the decode rows of slots 5.., and 5 padding rows on the
+    all-zero table row S (length 1)."""
+    maxp = -(-ctx // ps)
+    cap = maxp * ps
+    P = 1 + S * maxp
+    k = torch.randn(P, ps, h_kv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(P, ps, h_kv, D, generator=g, device=dev).to(dtype)
+    lens = torch.randint(40, cap + 1, (S,), generator=g, device=dev).cpu()
+    lens[2], lens[3] = 1, cap
+    table = torch.zeros(S + 1, maxp, dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=g, device=dev).cpu() + 1
+    for s in range(S):
+        n = -(-int(lens[s]) // ps)
+        table[s, :n] = perm[s * maxp:s * maxp + n]
+    if layout == "decode":
+        slots, lengths = list(range(S)), lens.tolist()
+    else:
+        def chunk(s, n):
+            return [s] * n, list(range(int(lens[s]) - n + 1,
+                                       int(lens[s]) + 1))
+        a_slot, a_len = chunk(0, 40)
+        b_slot, b_len = chunk(1, 21)
+        rest = list(range(5, S))
+        slots = [2, 3, 4] + a_slot + b_slot + rest + [S] * 5
+        lengths = ([int(lens[s]) for s in (2, 3, 4)] + a_len + b_len
+                   + [int(lens[s]) for s in rest] + [1] * 5)
+    row_slot = torch.tensor(slots, dtype=torch.int32, device=dev)
+    q = torch.randn(len(slots), H, D, generator=g, device=dev).to(dtype)
+    return (q, k, v, table.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev), row_slot)
+
+
+K5_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def k5_error(args, **kw) -> float:
+    """The kernel against its plain version in float32 on the same inputs
+    (max abs error); raises on a non-finite output.  A row_slot of None:
+    row r reads table row r."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    q, k, v, table, lengths, row_slot = args
+    launch = pa._launch if kw else pa.paged_attention      # kw: pins
+    got = launch(q, k, v, table, lengths, row_slot=row_slot, **kw)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(q.float(), k.float(), v.float(), table,
+                                    lengths, row_slot=row_slot)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("paged_attention kernel: non-finite output")
+    return float((got.float() - want).abs().max())
+
+
+# the [kernel] edge grid: (H, H_kv, D, page size, context) for each dtype
+# and layout: rep 1, 2, 4, 8 at D 64 and page sizes 8, 16, 32, at D 32 and
+# 128 (page size 16); contexts of 4096 (8 splits of 512; with pages of 2 a
+# split spans more page indices than the kernel keeps on chip); rep 3 at
+# D 40 (a padded head, pages of 48), and D 33 with pages of 5 (no 16-byte
+# rows)
+K5_EDGE = ([(8, h_kv, 64, ps, 768) for h_kv in (8, 4, 2, 1)
+            for ps in (8, 16, 32)]
+           + [(8, h_kv, D, 16, 768) for h_kv in (8, 4, 2, 1)
+              for D in (32, 128)]
+           + [(8, 8, 64, 16, 4096), (8, 4, 128, 32, 4096),
+              (8, 8, 64, 2, 4096), (6, 2, 40, 48, 768), (3, 1, 33, 5, 770)])
+
+
+def k5_repeat_and_graph() -> None:
+    """Two identical launches at the serving run's mixed shape give the same
+    bits; one decode launch captured in a CUDA graph replays equal to eager
+    bit for bit."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    args = make_case(g, rows="mixed", H=8, h_kv=8, D=64, ps=16,
+                     dtype=torch.bfloat16)
+    q, k, v, table, lengths, row_slot = args
+    one = pa.paged_attention(q, k, v, table, lengths, row_slot=row_slot)
+    two = pa.paged_attention(q, k, v, table, lengths, row_slot=row_slot)
+    torch.cuda.synchronize()
+    same = torch.equal(one, two)
+    q, k, v, table, lengths, _ = make_case(
+        g, rows="decode", H=8, h_kv=8, D=64, ps=16, dtype=torch.bfloat16)
+    table = table[:16].contiguous()
+    eager = pa.paged_attention(q, k, v, table, lengths)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention(q, k, v, table, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pa.paged_attention(q, k, v, table, lengths)
+    graph.replay()
+    torch.cuda.synchronize()
+    replay = torch.equal(captured, eager)
+    log(f"[kernel] two mixed launches bit-identical: {same}; a decode "
+        f"launch replayed from a CUDA graph equal to eager bit for bit: "
+        f"{replay}")
+    if not (same and replay):
+        raise AssertionError("paged_attention kernel: repeat or graph replay "
+                             "differs")
+
+
 def phase_kernel() -> float:
-    from paddle_tpu_torch.ops.paged_attention import (paged_attention,
-                                                      paged_attention_plain)
+    from paddle_tpu_torch.ops import paged_attention as pa
     rng = torch.Generator(device="cuda")
     rng.manual_seed(0)
     worst = 0.0
-    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+    for dtype, atol in K5_ATOL.items():
         for rows in ("decode", "mixed"):
             for ps in (16, 8):
                 for H, h_kv in ((8, 8), (8, 2)):
-                    q, k, v, table, lengths, row_slot = make_case(
-                        rng, rows=rows, H=H, h_kv=h_kv, D=64, ps=ps,
-                        dtype=dtype)
-                    got = paged_attention(q, k, v, table, lengths,
-                                          row_slot=row_slot)
-                    torch.cuda.synchronize()
-                    want = paged_attention_plain(
-                        q.float(), k.float(), v.float(), table, lengths,
-                        row_slot=row_slot)
-                    err = float((got.float() - want).abs().max())
-                    ok = bool(torch.isfinite(got).all()) and err <= atol
+                    args = make_case(rng, rows=rows, H=H, h_kv=h_kv, D=64,
+                                     ps=ps, dtype=dtype)
+                    if rows == "decode":        # as the engine calls it
+                        args = args[:5] + (None,)
+                    err = k5_error(args)
+                    lengths = args[4]
+                    ok = err <= atol
                     log(f"[kernel] {str(dtype)[6:]:8s} {rows:6s} ps={ps:2d} "
-                        f"H={H} H_kv={h_kv} R={q.shape[0]:2d} "
+                        f"H={H} H_kv={h_kv} R={args[0].shape[0]:2d} "
                         f"len={int(lengths.min())}..{int(lengths.max())} "
                         f"max_abs_err={err:.3e} (atol {atol:g}) "
                         f"{'ok' if ok else 'FAIL'}")
@@ -347,6 +491,37 @@ def phase_kernel() -> float:
                             f"version: {err} > {atol}")
                     if dtype == torch.float32:
                         worst = max(worst, err)
+    # the edge grid
+    errs = {}
+    for dtype, atol in K5_ATOL.items():
+        for layout in ("decode", "edge"):
+            for H, h_kv, D, ps, ctx in K5_EDGE:
+                args = k5_case(rng, H=H, h_kv=h_kv, D=D, ps=ps, dtype=dtype,
+                               layout=layout, ctx=ctx)
+                err = k5_error(args)
+                if layout == "decode":          # rows reading their own
+                    err = max(err, k5_error(args[:5] + (None,)))
+                R, maxp = args[0].shape[0], args[3].shape[1]
+                name = (f"{str(dtype)[6:]} {layout} rep={H // h_kv} D={D} "
+                        f"ps={ps} ctx={maxp * ps}")
+                errs[name] = err
+                if err > atol:
+                    raise AssertionError(
+                        f"paged_attention kernel disagrees with its plain "
+                        f"version at {name} (R={R}, splits "
+                        f"{pa.split_plan(R, args[3].shape[0], maxp, ps)})"
+                        f": {err} > {atol}")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+    for dtype in K5_ATOL:
+        tag = str(dtype)[6:]
+        mine = {n: e for n, e in errs.items() if n.startswith(tag)}
+        top = max(mine, key=mine.get)
+        log(f"[kernel] edge grid {tag}: {len(mine)} cases (decode and edge "
+            f"layouts; rep 1-8; D 32, 33, 40, 64, 128; pages 2-48; contexts "
+            f"to 4096) within atol {K5_ATOL[dtype]:g}; worst {mine[top]:.3e} "
+            f"({top})")
+    k5_repeat_and_graph()
     return worst
 
 
@@ -358,7 +533,7 @@ def launch_bytes_flops(args, elem: int) -> tuple[float, float]:
     _, ps, h_kv, _ = k_pages.shape
     tbl = table.cpu().numpy()
     lens = lengths.cpu().numpy().astype(np.int64)
-    rs = row_slot.cpu().numpy()
+    rs = np.arange(R) if row_slot is None else row_slot.cpu().numpy()
     pages = set()
     for r in range(R):
         pages.update(tbl[rs[r], :-(-int(lens[r]) // ps)].tolist())
@@ -412,6 +587,73 @@ def serve_requests(n: int, vocab: int, seed: int, lo: int, hi: int,
     return reqs
 
 
+def k5_pinned(splits: int):
+    """K5's launch with the split count pinned; measurement only."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    def launch(q, k, v, table, lengths, row_slot=None):
+        return pa._launch(q, k, v, table, lengths, row_slot=row_slot,
+                          splits=splits)
+    return launch
+
+
+# rounds of the [serve] timing: each variant is timed once a round, the
+# order reversed from round to round, so drift shows as spread
+K5_ROUNDS = 3
+
+
+def k5_serve_timings(parts: dict, smi: str) -> dict:
+    """K5 at the serving run's recorded layer-0 launches, per part (all,
+    decode, mixed): the plan's launch, the split count pinned to 1, 2, 4,
+    8, and the decode launches (row_slot None, as the engine passes it)
+    with an explicit row_slot of arange(R), the form the kernel's first
+    version was timed in; each variant K5_ROUNDS times.  Logs the median and the range
+    of each, and the bound; returns {part: (median ms of the plan's launch,
+    bound ms, bytes ms, flops ms)}."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    out = {}
+    for what, launches_of in parts.items():
+        variants = {"plan": (pa.paged_attention, launches_of)}
+        variants.update({f"splits {n}": (k5_pinned(n), launches_of)
+                         for n in (1, 2, 4, 8)})
+        if any(a[5] is None for a in launches_of):
+            given = [a if a[5] is not None else a[:5] + (torch.arange(
+                a[0].shape[0], dtype=torch.int32, device=a[0].device),)
+                for a in launches_of]
+            variants["row_slot given"] = (pa.paged_attention, given)
+        runs = {name: [] for name in variants}
+        order = list(variants)
+        for k in range(K5_ROUNDS):
+            for name in (order if k % 2 == 0 else order[::-1]):
+                runs[name].append(time_launches(*variants[name]))
+        med = {n: float(np.median(t)) for n, t in runs.items()}
+        bound = [launch_bytes_flops(a, 2) for a in launches_of]
+        bytes_ms = float(np.mean([b for b, _ in bound])) / HBM_BYTES_PER_S \
+            * 1e3
+        flops_ms = float(np.mean([f for _, f in bound])) / \
+            PEAK_FLOPS[torch.bfloat16] * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        out[what] = (med["plan"], bound_ms, bytes_ms, flops_ms)
+        rows = sorted({a[0].shape[0] for a in launches_of})
+        plans = sorted({(a[0].shape[0], a[3].shape[0],
+                         pa.split_plan(a[0].shape[0], a[3].shape[0],
+                                       a[3].shape[1], a[1].shape[1]))
+                        for a in launches_of})
+        log(f"[serve] kernel at the run's {len(launches_of)} layer-0 "
+            f"{what} launches (rows {rows[0]}..{rows[-1]}; (rows, table "
+            f"rows, (splits, tokens)) "
+            + ", ".join(str(p) for p in plans)
+            + f"): {med['plan'] * 1e3:.2f} us/launch; bound "
+            f"{bound_ms * 1e3:.3f} us ({bytes_ms * 1e3:.3f} bytes, "
+            f"{flops_ms * 1e3:.4f} flops) = {bound_ms / med['plan']:.1%} of "
+            f"the bound [{smi}]")
+        log(f"[serve]   {what}: median (min..max) of {K5_ROUNDS} rounds, "
+            f"us/launch: "
+            + "; ".join(f"{n} {med[n] * 1e3:.2f} ({min(t) * 1e3:.2f}.."
+                        f"{max(t) * 1e3:.2f})" for n, t in runs.items()))
+    return out
+
+
 def phase_serve(smi: str, kernel_err: float) -> dict:
     import paddle_tpu_torch.ops.attention as attn_ops
     from paddle_tpu_torch.graph import GraphExecutor
@@ -449,10 +691,9 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
         out = wrapper(q, k_pages, v_pages, page_table, lengths, scale,
                       row_slot)
         if k_pages is eng.kv.pools[first]["k"]:
-            rs = row_slot if row_slot is not None else torch.arange(
-                q.shape[0], dtype=torch.int32, device=q.device)
             recorded.append((q.clone(), k_pages, v_pages, page_table.clone(),
-                             lengths.clone(), rs.clone()))
+                             lengths.clone(),
+                             None if row_slot is None else row_slot.clone()))
         return out
 
     attn_ops.pa.paged_attention = recording
@@ -498,22 +739,20 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
         eng.run(reqs[:8])
         return eng.n_decode_steps - steps0
 
-    profile_run(serve_eight, "8 requests", smi)
-    kern_ms = time_launches(pa.paged_attention, recorded)
+    profile_run(serve_eight, "8 requests", smi, family="paged_attention")
+    # a decode launch has a row per table row, a mixed one more rows
+    parts = {"all": recorded,
+             "decode": [a for a in recorded if a[0].shape[0] <= a[3].shape[0]],
+             "mixed": [a for a in recorded if a[0].shape[0] > a[3].shape[0]]}
+    times = k5_serve_timings(parts, smi)
+    kern_ms, bound_ms, bytes_ms, flops_ms = times["all"]
     plain_ms = time_launches(pa.paged_attention_plain, recorded)
-    bound = [launch_bytes_flops(a, 2) for a in recorded]
-    bytes_ms = float(np.mean([b for b, _ in bound])) / HBM_BYTES_PER_S * 1e3
-    flops_ms = float(np.mean([f for _, f in bound])) / \
-        PEAK_FLOPS[torch.bfloat16] * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
-    rows = [a[0].shape[0] for a in recorded]
-    log(f"[serve] kernel at the run's {len(recorded)} layer-0 launches "
-        f"(rows {min(rows)}..{max(rows)}): {kern_ms * 1e3:.2f} us/launch; "
-        f"plain version {plain_ms * 1e3:.2f} us; bound "
-        f"{bound_ms * 1e3:.3f} us ({bytes_ms * 1e3:.3f} bytes, "
-        f"{flops_ms * 1e3:.4f} flops) = {bound_ms / kern_ms:.1%} of the "
-        f"bound; no single PyTorch call computes paged attention, so no "
-        f"library time [{smi}]")
+    log(f"[serve] kernel over all {len(recorded)} layer-0 launches "
+        f"{kern_ms * 1e3:.2f} us/launch (first version: 59.27, timed with "
+        f"an explicit row_slot on its decode launches; these pass None, as "
+        f"the engine does); plain version {plain_ms * 1e3:.2f} us; no "
+        f"single PyTorch call computes paged attention, so no library time "
+        f"[{smi}]")
     return {"name": "paged_attention", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas_paged.py:104",
@@ -1790,13 +2029,25 @@ def additive_error(args) -> tuple[float, float]:
     return float(diff.max()), float((diff / (rtol * want.abs() + atol)).max())
 
 
+# [additive] cases: (B, T, D, Dv, ragged) — the decoder's training and
+# beam shapes, T = 1, T = 300 (tiles of 32 keys, the last partial), and
+# widths that the cluster's slices do not divide: D 500 and Dv 1000 (the
+# last CTA's slices shorter), D 33 and Dv 2047 (no 16-byte rows), Dv 24 (CTAs
+# without a Dv slice)
+ADD_CASES = ((64, 30, 512, 1024, False), (64, 30, 512, 1024, True),
+             (192, 30, 512, 1024, False), (192, 30, 512, 1024, True),
+             (64, 1, 512, 1024, False), (8, 300, 512, 1024, True),
+             (64, 45, 500, 1000, True), (7, 65, 33, 2047, True),
+             (3, 33, 40, 24, True))
+
+
 def phase_additive() -> None:
+    from paddle_tpu_torch.ops import additive_attention as aa
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
-    for B, T, ragged in ((64, 30, False), (64, 30, True), (192, 30, False),
-                         (192, 30, True), (64, 1, False), (8, 300, True)):
+    for B, T, D, Dv, ragged in ADD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            args = additive_inputs(g, B, T, 512, 1024, ragged, dtype)
+            args = additive_inputs(g, B, T, D, Dv, ragged, dtype)
             err, share = additive_error(args)
             if dtype == torch.float32:
                 ok = err <= ADD_TOL_F32
@@ -1805,13 +2056,24 @@ def phase_additive() -> None:
                 ok = share <= 1
                 limit = f"{share:.3f} of 2^-7|ref| + 1e-3"
             lens = args[4]
-            log(f"[additive] {str(dtype)[6:]:8s} B={B} T={T} D=512 Dv=1024 "
-                f"len={int(lens.min())}..{int(lens.max())} max_abs_err "
-                f"{err:.3e} ({limit}) {'ok' if ok else 'FAIL'}")
-            if not ok:
+            out = aa.additive_attention_kernel(*args)
+            empty_zero = bool((out[lens == 0] == 0).all())
+            log(f"[additive] {str(dtype)[6:]:8s} B={B} T={T} D={D} Dv={Dv} "
+                f"({aa.additive_plan(B, Dv, aa._sm_count(out.device))} "
+                f"CTAs a row) len={int(lens.min())}..{int(lens.max())} "
+                f"max_abs_err {err:.3e} ({limit}); rows without a key "
+                f"zero: {empty_zero} {'ok' if ok else 'FAIL'}")
+            if not (ok and empty_zero):
                 raise AssertionError(f"additive attention kernel disagrees "
                                      f"with its plain version ({dtype}, "
-                                     f"B={B}, T={T})")
+                                     f"B={B}, T={T}, D={D}, Dv={Dv})")
+    args = additive_inputs(g, 64, 30, 512, 1024, True)
+    one = aa.additive_attention_kernel(*args)
+    two = aa.additive_attention_kernel(*args)
+    torch.cuda.synchronize()
+    log(f"[additive] two launches bit-identical: {torch.equal(one, two)}")
+    if not torch.equal(one, two):
+        raise AssertionError("additive attention kernel: repeat differs")
 
 
 S2S_VOCAB, S2S_HIDDEN, S2S_BATCH, S2S_SRC = 30000, 512, 64, 30
@@ -1955,7 +2217,8 @@ def phase_seq2seq(smi: str) -> list:
             tr.train_one_batch(b)
         return 2
 
-    profile_run(train_two, "2 seq2seq training steps", smi)
+    profile_run(train_two, "2 seq2seq training steps", smi,
+                family="additive_attention")
 
     # beam-search generation on the trained parameters
     K, L = 3, 30
@@ -2280,11 +2543,18 @@ def additive_records(launches: dict, smi: str) -> list:
         plain_ms = time_call(lambda: aa.additive_attention_plain(*args), 10)
         bound_ms, bound_by = additive_bound_ms(B, S2S_SRC, S2S_HIDDEN,
                                                2 * S2S_HIDDEN)
+        ctas = {c: time_call(
+            lambda: aa._launch(*args, ctas=c), 20)
+            for c in (1, 2, 4, 8) if -(-2 * S2S_HIDDEN // c) <= aa.MAX_SLICE}
         log(f"[seq2seq] additive_attention at [{B}, {S2S_SRC}, {S2S_HIDDEN}, "
-            f"{2 * S2S_HIDDEN}] float32: {ms * 1e3:.2f} us/launch; bound "
-            f"{bound_ms * 1e3:.2f} us ({bound_by}) = {bound_ms / ms:.1%} of "
-            f"the bound; plain version {plain_ms * 1e3:.1f} us; max_abs_err "
-            f"{err:.2e}; no single PyTorch call computes the step [{smi}]")
+            f"{2 * S2S_HIDDEN}] float32: {ms * 1e3:.2f} us/launch "
+            f"({aa.additive_plan(B, 2 * S2S_HIDDEN, aa._sm_count(args[0].device))}"
+            f" CTAs a row; pinned "
+            + ", ".join(f"{c}: {t * 1e3:.2f}" for c, t in ctas.items())
+            + f" us); bound {bound_ms * 1e3:.2f} us ({bound_by}) = "
+            f"{bound_ms / ms:.1%} of the bound; plain version "
+            f"{plain_ms * 1e3:.1f} us; max_abs_err {err:.2e}; no single "
+            f"PyTorch call computes the step [{smi}]")
         if rec is None:
             rec = {"name": "additive_attention", "route": "cuda",
                    "source": "paddle_tpu_torch/csrc/additive_attention.cu",

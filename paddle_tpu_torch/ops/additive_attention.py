@@ -12,6 +12,15 @@ The backward (`_vjp_bwd`) recomputes through the dense formula
 (ops/attention.py `additive_attention_step`) with autograd; there is no
 backward kernel, as the JAX package has none.
 
+The kernel spreads a batch row over a thread-block cluster of CTAs
+(`additive_plan` picks their number from shapes): each CTA scores the keys
+over its slice of D, the cluster sums the partial scores through
+distributed shared memory once per tile of 32 keys, and each CTA writes the
+context of its slice of Dv, so every byte of enc_proj and enc_seq is read
+once and the decoder's 64 rows fill the card.  It moves those bytes, but
+at the seq2seq shapes latency bounds it (the loads, the exchange and the
+context tail; PERF.md).
+
 The kernel is lengths-based: a row with no valid key gets a zero context,
 where the dense formula returns the average over all keys; the backward is
 the dense formula's gradient either way, as on the JAX side.
@@ -34,6 +43,8 @@ from paddle_tpu_torch.ops.attention import additive_attention_step
 
 _NEG_INF = -1e30
 MAX_D, MAX_DV = 4096, 2048          # csrc/additive_attention.cu limits
+MAX_CTAS = 8                        # CTAs of a row's cluster
+MAX_SLICE = 256                     # Dv columns one CTA owns at most
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -66,8 +77,11 @@ class _Kernel:
             built = cuda_build.build("additive_attention")
             lib = built.lib
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.additive_attention_launch.argtypes = [p] * 6 + [i] * 5 + [p]
+            lib.additive_attention_launch.argtypes = [p] * 6 + [i] * 6 + [p]
             lib.additive_attention_launch.restype = i
+            lib.additive_attention_attributes.argtypes = [
+                i, ctypes.POINTER(i)]
+            lib.additive_attention_attributes.restype = i
             lib.additive_attention_error_string.argtypes = [i]
             lib.additive_attention_error_string.restype = ctypes.c_char_p
             self.built = built
@@ -75,6 +89,46 @@ class _Kernel:
 
 
 kernel = _Kernel()
+_SM_COUNT: dict = {}
+
+
+def additive_plan(B: int, Dv: int, sm_count: int) -> int:
+    """CTAs of a batch row's cluster: the fewest of 1, 2, 4, 8 whose Dv
+    slices (ceil(Dv / ctas), which round up to 8 columns within it) stay
+    within MAX_SLICE, doubled while the B clusters give fewer CTAs than the
+    card has SMs.  Shapes alone decide."""
+    ctas = 1
+    while -(-Dv // ctas) > MAX_SLICE:
+        ctas *= 2
+    while ctas < MAX_CTAS and B * ctas < sm_count:
+        ctas *= 2
+    return ctas
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def kernel_attributes() -> dict:
+    """The runtime's account of the float32 and bfloat16 kernels
+    (cudaFuncGetAttributes): {dtype: (registers, local memory bytes per
+    thread, static shared memory bytes, the most dynamic shared memory a
+    launch asks)}."""
+    lib = kernel.library().lib
+    out = {}
+    for code, name in ((0, "float32"), (1, "bfloat16")):
+        buf = (ctypes.c_int * 4)()
+        rc = lib.additive_attention_attributes(code, buf)
+        if rc:
+            raise RuntimeError(f"additive_attention_attributes({name}) "
+                               f"failed: CUDA error {rc}")
+        out[name] = tuple(buf)
+    return out
 
 
 def _check(u, v, enc_proj, enc_seq, lengths) -> tuple[int, int, int, int]:
@@ -116,6 +170,14 @@ def additive_attention_kernel(u: torch.Tensor, v: torch.Tensor,
                               lengths: torch.Tensor) -> torch.Tensor:
     """One launch of the kernel on CUDA tensors: u [B, D] and v [D] float32,
     enc_proj and enc_seq float32 or bfloat16 (the same), lengths int32."""
+    return _launch(u, v, enc_proj, enc_seq, lengths)
+
+
+def _launch(u, v, enc_proj, enc_seq, lengths,
+            ctas: Optional[int] = None) -> torch.Tensor:
+    """The launch behind `additive_attention_kernel`.  `ctas` pins the CTAs
+    of a row's cluster (the measurements and card tests call it so; the
+    wrapper takes `additive_plan`'s)."""
     B, T, D, Dv = _check(u, v, enc_proj, enc_seq, lengths)
     if enc_proj.device.type != "cuda":
         raise ValueError(f"additive attention: no kernel for device "
@@ -136,13 +198,15 @@ def additive_attention_kernel(u: torch.Tensor, v: torch.Tensor,
                     ("enc_seq", enc_seq), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"additive attention: {name} must be contiguous")
+    if ctas is None:
+        ctas = additive_plan(B, Dv, _sm_count(enc_seq.device))
     out = torch.empty(B, Dv, dtype=enc_seq.dtype, device=enc_seq.device)
     lib = kernel.library().lib
     with torch.cuda.device(enc_seq.device):
         rc = lib.additive_attention_launch(
             u.data_ptr(), v.data_ptr(), enc_proj.data_ptr(),
             enc_seq.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, T, D,
-            Dv, _DTYPE_CODES[enc_seq.dtype],
+            Dv, _DTYPE_CODES[enc_seq.dtype], ctas,
             torch.cuda.current_stream(enc_seq.device).cuda_stream)
     if rc != 0:
         msg = lib.additive_attention_error_string(rc).decode()

@@ -154,3 +154,75 @@ def test_the_kernel_wrapper_refuses_what_it_does_not_take():
         aa.additive_attention_plain(u, t["v"][:-1], t["proj"], t["seq"],
                                     t["lengths"])
     assert aa.kernel.built is None
+
+
+@pytest.mark.parametrize("B,Dv,sms,want", [
+    (64, 1024, 132, 4),      # the decoder's training shape: 256 CTAs
+    (192, 1024, 132, 4),     # the beam search's: 768 CTAs
+    (16, 1024, 132, 8),      # a small batch: 128 CTAs
+    (64, 2048, 132, 8),      # Dv 2048: slices of 256 need 8 CTAs
+    (1000, 2048, 132, 8),
+    (1000, 512, 132, 2),     # slices of at most 256 columns
+    (1000, 256, 132, 1),
+    (3, 24, 132, 8)])
+def test_additive_plan_reads_shapes_alone(B, Dv, sms, want):
+    ctas = aa.additive_plan(B, Dv, sms)
+    assert ctas == want and ctas in (1, 2, 4, 8)
+    assert -(-Dv // ctas) <= aa.MAX_SLICE
+
+
+def _cluster_model(u, v, proj, seq, lens, ctas):
+    """The kernel's algorithm in float64: CTA c scores the keys over its D
+    slice (rounded to 4), the partial scores summed in rank order for every
+    tile of 32 keys, an online softmax over the tiles, each CTA the context
+    of its Dv slice (rounded to 8)."""
+    B, T, D = proj.shape
+    Dv = seq.shape[2]
+    def round_up(x, m):
+        return -(-x // m) * m
+    dc = round_up(-(-D // ctas), 4)
+    dvc = round_up(-(-Dv // ctas), 8)
+    out = torch.zeros(B, Dv, dtype=torch.float64)
+    for b in range(B):
+        n_b = max(0, min(int(lens[b]), T))
+        m, l = -float("inf"), 0.0
+        acc = torch.zeros(Dv, dtype=torch.float64)
+        for t0 in range(0, n_b, 32):
+            t = torch.arange(t0, min(t0 + 32, n_b))
+            s = torch.zeros(t.numel(), dtype=torch.float64)
+            for c in range(ctas):
+                sl = slice(c * dc, min(D, (c + 1) * dc))
+                s = s + (v[sl].double() * torch.tanh(
+                    proj[b, t, sl].double() + u[b, sl].double())).sum(1)
+            m_new = max(m, float(s.max()))
+            corr = np.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * corr + float(p.sum())
+            acc = acc * corr
+            for c in range(ctas):
+                sl = slice(c * dvc, min(Dv, (c + 1) * dvc))
+                acc[sl] += p @ seq[b, t, sl].double()
+            m = m_new
+        out[b] = acc / max(l, 1e-30)
+    return out
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8])
+@pytest.mark.parametrize("T,D,Dv", [(7, 19, 13), (70, 33, 50)],
+                         ids=["small", "tiles"])
+def test_cluster_model_matches_the_plain_version(ctas, T, D, Dv):
+    """The kernel's split of D and Dv over a cluster, its tiles of 32 keys
+    (the last partial) and its rows without a key (modelled in float64)
+    give the plain version's context."""
+    rng = np.random.default_rng(5)
+    B = 4
+    u = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal(D).astype(np.float32))
+    proj = torch.from_numpy(rng.standard_normal((B, T, D)).astype(np.float32))
+    seq = torch.from_numpy(rng.standard_normal((B, T, Dv)).astype(np.float32))
+    lens = torch.tensor([T, 0, 1, T - 3], dtype=torch.int32)
+    got = _cluster_model(u, v, proj, seq, lens, ctas)
+    want = aa.additive_attention_plain(u, v, proj, seq, lens)
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert not bool(got[1].any())

@@ -14,11 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL, GRU_TOL,
-                        LSTM_TOL, additive_error, additive_inputs,
-                        gru_compare, gru_inputs, gru_move_off_relu_kink,
-                        gru_repeat_and_graph, lm_batches, lstm_compare,
-                        lstm_inputs, lstm_repeat_and_graph,
+from chip_smoke import (ADD_CASES, ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL,
+                        GRU_TOL, K5_ATOL, K5_EDGE, LSTM_TOL, additive_error,
+                        additive_inputs, gru_compare, gru_inputs,
+                        gru_move_off_relu_kink, gru_repeat_and_graph,
+                        k5_case, k5_error, k5_repeat_and_graph, lm_batches,
+                        lstm_compare, lstm_inputs, lstm_repeat_and_graph,
                         move_off_relu_kink, o_limit_share, sentiment_batches,
                         seq2seq_batches)
 from paddle_tpu_torch.graph import GraphExecutor
@@ -82,6 +83,42 @@ def test_kernel_matches_plain_version(cuda, dtype, atol, H, h_kv, D, ps):
                                     lengths, row_slot=row_slot)
     assert got.dtype == dtype and torch.isfinite(got).all()
     assert float((got.float() - want).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["decode", "edge"])
+@pytest.mark.parametrize("case", K5_EDGE,
+                         ids=[f"rep{H // k}-D{D}-ps{ps}-ctx{c}"
+                              for H, k, D, ps, c in K5_EDGE])
+def test_kernel_edge_cases_match_plain_version(cuda, dtype, layout, case):
+    """chip_smoke's [kernel] edge grid: a prompt chunk beside another
+    slot's chunk, padding rows on the all-zero table row, length-1 rows, a
+    row longer than a split beside splits without a live token; rep 1-8,
+    D 32-128 (33 and 40 padded), pages 2-48."""
+    H, h_kv, D, ps, ctx = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    args = k5_case(g, H=H, h_kv=h_kv, D=D, ps=ps, dtype=dtype, layout=layout,
+                   ctx=ctx)
+    assert k5_error(args) <= K5_ATOL[dtype]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_kernel_pinned_splits_match_plain_version(cuda, splits):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = k5_case(g, H=8, h_kv=2, D=64, ps=16, dtype=dtype,
+                       layout="edge")
+        assert k5_error(args, splits=splits) <= K5_ATOL[dtype]
+
+
+def test_kernel_repeats_bit_for_bit_and_replays_in_a_cuda_graph(cuda):
+    k5_repeat_and_graph()
+
+
+def test_paged_and_additive_kernels_have_no_local_memory(cuda):
+    assert all(a["local_bytes"] == 0 for a in pa.kernel_attributes())
+    assert all(a[1] == 0 for a in aa.kernel_attributes().values())
 
 
 def test_engine_on_cuda_matches_cpu(cuda):
@@ -474,6 +511,35 @@ def test_additive_kernel_matches_plain_version(cuda, dtype, B, T, D, Dv,
     if ragged:
         out = aa.additive_attention_kernel(*args)
         assert not bool(out[0].any())               # the length-0 row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ADD_CASES,
+                         ids=[f"B{c[0]}-T{c[1]}-D{c[2]}-Dv{c[3]}"
+                              + ("-ragged" if c[4] else "")
+                              for c in ADD_CASES])
+def test_additive_kernel_cluster_cases(cuda, dtype, case):
+    """chip_smoke's [additive] cases (rows without a key, T past one key
+    tile, widths the cluster's slices do not divide, the beam shape), each
+    at every cluster size the wrapper takes, and a bit-identical repeat."""
+    B, T, D, Dv, ragged = case
+    g = torch.Generator(device=cuda).manual_seed(3)
+    u, v, proj, seq, lens = additive_inputs(g, B, T, D, Dv, ragged, dtype)
+    want = aa.additive_attention_plain(u, v, proj.float(), seq.float(), lens)
+    for ctas in (1, 2, 4, 8):
+        if -(-Dv // ctas) > aa.MAX_SLICE:
+            continue
+        got = aa._launch(u, v, proj, seq, lens, ctas=ctas)
+        again = aa._launch(u, v, proj, seq, lens, ctas=ctas)
+        assert torch.equal(got, again)
+        diff = (got.float() - want).abs()
+        if dtype == torch.float32:
+            assert float(diff.max()) <= ADD_TOL_F32, ctas
+        else:
+            rtol, atol = ADD_LIMIT_BF16
+            assert bool((diff <= rtol * want.abs() + atol).all()), ctas
+        assert not bool(got[lens == 0].any())
 
 
 def test_seq2seq_step_and_generate_on_cuda_match_cpu(cuda):
