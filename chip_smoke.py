@@ -5,11 +5,11 @@
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — compile every CUDA kernel of the serving and training paths
-               (paged attention, flash attention on CUDA cores (fp32) and
-               on tensor cores (bf16), the fused LSTM, the fused GRU, the
+               (paged attention, flash attention for fp32 (three TF32
+               passes) and for bf16, the fused LSTM, the fused GRU, the
                additive attention) from the sources in this checkout (nvcc,
-               sm_90a), one nvcc per source started together; each
-               tensor-core flash kernel's, each fused-GRU kernel's and each
+               sm_90a), one nvcc per source started together; each flash
+               kernel's (both dtypes), each fused-GRU kernel's and each
                fused-LSTM kernel's registers, shared memory and local memory
                (cudaFuncGetAttributes, so also when the library was already
                built; the GRU walk kernels' dynamic shared memory as
@@ -48,20 +48,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
   6. flash   — the three flash-attention kernels (forward, backward dQ,
                backward dK/dV) against their plain versions at B=2,
                T=2048, H=8 (H_kv 8 and 2): causal and not, a ragged key
-               mask with Tq != Tk, window 256, nonzero offsets; float32 at
-               D=64 on the CUDA-core kernels (o, lse within 2e-5, gradients
-               within 2e-5 of their max) and bfloat16 at D=64 and D=128 on
-               the tensor-core kernels (against the plain version in
+               mask with Tq != Tk, window 256, nonzero offsets; float32
+               (flash_attention.cu, three TF32 passes; o, lse within 2e-5,
+               gradients within 2e-5 of their max) and bfloat16
+               (flash_attention_tc.cu; against the plain version in
                float32 on the same inputs: o per element within
                2^-7 |ref| + 1e-3, lse within 2e-5, gradients within 1e-2 of
-               their max); each case launches its dtype's three kernels
-               once and nothing else;
+               their max), each at D=64 and D=128; each case launches its
+               dtype's three kernels once and nothing else; each dtype's
+               three kernels launched twice at both head dims repeat bit
+               for bit;
   7. train   — the training path: Trainer on the transformer LM at full
                width in bfloat16 (seed 1), batches [8, 2048] of a
                repeated-motif token stream, warm-up steps then timed steps;
                every loss finite, the last 3 below the first 3, each
-               tensor-core flash kernel launched once per layer per step
-               and the CUDA-core kernels and plain versions never; a
+               bf16 flash kernel launched once per layer per step
+               and the fp32 kernels and plain versions never; a
                save() -> fresh Trainer.load() round trip
                exact; tokens/s, ms/step, a torch.profiler pass over two
                steps; then the flash kernels at the run's shape [8, 2048,
@@ -74,8 +76,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
                only, the forward with p as one bf16 term in P V (the TPU
                kernel's rounding): its time and its o error as a share of
                the limit;
+  7b. train-fp32 — the same LM at the config's default precision
+               (compute_dtype '' = float32) at full width, [8, 2048]
+               batches, 3 warm-up and 5 timed steps: each fp32 flash kernel
+               launched once per layer per step and nothing else of flash
+               attention, the loss falls; tokens/s, ms/step, a profiled
+               step (device busy share, the flash kernels' share); then the
+               fp32 kernels at [8, 2048, 8, 64] causal against their plain
+               versions and timed beside both bounds (three TF32 passes,
+               and the CUDA cores' fp32 peak), the plain version's time and
+               scaled_dot_product_attention's in fp32 (TF32 off);
   8. train-routes — float32, 2 layers at full width, B=2, T=2048: one
-               training step's loss and gradients through the CUDA-core
+               training step's loss and gradients through the fp32
                flash kernels (once per layer each) against the same step
                through dense attention (attn_impl='dense'): loss within
                1e-5 relative, every gradient within 1e-4 of its max; then
@@ -192,7 +204,11 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# dense peaks: bf16 and fp32 (CUDA cores) by dtype; "tf32x3" is the rate of
+# float32 work done as three TF32 passes (494.7 TFLOP/s TF32 / 3), the route
+# of the float32 flash kernels
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              "tf32x3": 494.7e12 / 3}
 L2_FLUSH_BYTES = 64 << 20          # more than the 50 MB L2
 
 
@@ -236,29 +252,18 @@ def phase_build() -> None:
                if lib.build_seconds else "already built")
         log(f"[build] {name}: {lib.path.name}, {how}")
     log(f"[build] all kernels {time.perf_counter() - t0:.2f}s")
-    # the runtime's own account of each tensor-core instance, whether or
-    # not this run compiled the library
-    tc = built["flash_attention_tc"].lib
-    tc.flash_kernel_attributes.argtypes = [ctypes.c_int, ctypes.c_int,
-                                           ctypes.POINTER(ctypes.c_int)]
-    tc.flash_kernel_attributes.restype = ctypes.c_int
-    local = []
-    for which, kname in enumerate(("flash_fwd_tc_kernel",
-                                   "flash_bwd_dq_tc_kernel",
-                                   "flash_bwd_dkv_tc_kernel")):
-        for dm in (64, 128):
-            out = (ctypes.c_int * 3)()
-            rc = tc.flash_kernel_attributes(which, dm, out)
-            if rc:
-                raise RuntimeError(f"cudaFuncGetAttributes({kname}<{dm}>) "
-                                   f"failed: CUDA error {rc}")
-            log(f"[build] {kname}<{dm}>: {out[0]} registers, {out[2]} bytes "
-                f"of dynamic shared memory, {out[1]} bytes of local memory "
-                f"per thread")
-            local.append(out[1])
-    if any(local):
-        raise AssertionError(f"the tensor-core flash kernels must run "
-                             f"without local memory (spills): {local}")
+    # the runtime's own account of each flash instance (bf16 and fp32),
+    # whether or not this run compiled the library
+    local = {}
+    for kern in (fa.kernel_tc, fa.kernel):
+        for (kname, dm), (regs, lmem, smem) in kern.attributes().items():
+            log(f"[build] {kname}<{dm}>: {regs} registers, {smem} bytes of "
+                f"dynamic shared memory, {lmem} bytes of local memory per "
+                f"thread")
+            local[f"{kname}<{dm}>"] = lmem
+    if any(local.values()):
+        raise AssertionError(f"the flash kernels must run without local "
+                             f"memory (spills): {local}")
     # the same for K1's four kernels, the walk kernels' dynamic shared
     # memory set for the seq2seq encoder's plan
     plan = gf.plan_for(S2S_BATCH, S2S_HIDDEN, torch.device("cuda"))
@@ -880,8 +885,8 @@ FLASH_COUNTS = ("fwd_tc", "bwd_dq_tc", "bwd_dkv_tc", "fwd", "bwd_dq",
 
 
 def flash_counts() -> tuple:
-    """The flash launch counts in FLASH_COUNTS order: the tensor-core
-    (bf16) kernels, the CUDA-core (fp32) ones, the plain versions."""
+    """The flash launch counts in FLASH_COUNTS order: the bf16 kernels, the
+    fp32 ones, the plain versions."""
     from paddle_tpu_torch.ops import flash_attention as fa
     return tuple(getattr(fa.counts, n) for n in FLASH_COUNTS)
 
@@ -892,7 +897,8 @@ def flash_errors(q, k, v, kvm, do, dlse, **mask):
     kernel's own o and lse, so each check isolates one kernel.  Returns the
     errors (with "ok"), the kernel's (o, lse) and the plain version's o.
     "ok" also needs one launch of each kernel of q's dtype's route
-    (tensor cores for bf16, CUDA cores for fp32) and none of the other."""
+    (flash_attention_tc.cu for bf16, flash_attention.cu for fp32) and none
+    of the other."""
     from paddle_tpu_torch.ops import flash_attention as fa
     c0 = flash_counts()
     o, lse = fa.flash_attention_fwd(q, k, v, kvm, **mask)
@@ -928,15 +934,36 @@ def flash_line(e: dict, dtype) -> str:
             f"(tol {GRAD_TOL[dtype]:g}) {'ok' if e['ok'] else 'FAIL'}")
 
 
+def flash_repeats(q, k, v, kvm, do, **mask) -> bool:
+    """The three flash kernels of q's dtype, each launched twice on the same
+    inputs: bit-identical outputs (one owner per dK/dV tile, no atomics)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    scale = q.shape[-1] ** -0.5
+    o1, l1 = fa.flash_attention_fwd(q, k, v, kvm, **mask)
+    o2, l2 = fa.flash_attention_fwd(q, k, v, kvm, **mask)
+    kvm8 = kvm.to(torch.uint8)
+    args = (q, k, v, kvm8, do, l1, fa.backward_delta(o1, do, None),
+            mask.get("causal", False), scale, mask.get("q_offset", 0),
+            mask.get("k_offset", 0), mask.get("window"))
+    dq1, dq2 = fa.bwd_dq_kernel(*args), fa.bwd_dq_kernel(*args)
+    g1, g2 = fa.bwd_dkv_kernel(*args), fa.bwd_dkv_kernel(*args)
+    torch.cuda.synchronize()
+    return (torch.equal(o1, o2) and torch.equal(l1, l2)
+            and torch.equal(dq1, dq2)
+            and all(torch.equal(a, b) for a, b in zip(g1, g2)))
+
+
 def phase_flash() -> None:
     """The three flash kernels against their plain versions at B=2 over the
-    mask cases, with a random lse cotangent: float32 (CUDA-core kernels) at
-    D=64, bfloat16 (tensor-core kernels) at D=64 and D=128."""
+    mask cases, with a random lse cotangent: float32 (flash_attention.cu,
+    three TF32 passes) and bfloat16 (flash_attention_tc.cu), each at D=64
+    and D=128; then each dtype's three kernels repeated bit for bit at
+    both head dims (GQA, causal)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     B, H = 2, 8
-    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 64),
-                     (torch.bfloat16, 128)):
+    for dtype, D in ((torch.float32, 64), (torch.float32, 128),
+                     (torch.bfloat16, 64), (torch.bfloat16, 128)):
         for name, Tq, Tk, h_kv, causal, window, qo, ko, ragged in \
                 FLASH_CASES:
             q, do = (torch.randn(B, Tq, H, D, generator=g,
@@ -956,6 +983,18 @@ def phase_flash() -> None:
                 raise AssertionError(f"flash kernels disagree with their "
                                      f"plain versions or took another "
                                      f"route ({dtype}, D={D}, {name})")
+        q, do = (torch.randn(B, 2048, H, D, generator=g,
+                             device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, 2048, 2, D, generator=g,
+                            device="cuda").to(dtype) for _ in range(2))
+        kvm = torch.ones(B, 2048, dtype=torch.bool, device="cuda")
+        same = flash_repeats(q, k, v, kvm, do, causal=True)
+        log(f"[flash] {str(dtype)[6:]:8s} D={D:<3d} fwd, dq, dk/dv launched "
+            f"twice at [{B}, 2048, {H}, {D}] H_kv=2 causal: "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"flash kernels do not repeat bit for bit "
+                                 f"({dtype}, D={D})")
 
 
 def lm_batches(n: int, B: int, T: int, vocab: int, seed: int,
@@ -1017,40 +1056,11 @@ def phase_train(smi: str) -> list:
                                         compute_dtype="bfloat16")
     tr = Trainer(cfg, seed=1)
     batches = lm_batches(warm + timed + 2, B, T, vocab, seed=1)
-    # warm-up pass (allocator, library handles); its cost is the mean loss
-    # of the first `warm` steps
-    first = tr.train_one_pass(batches[:warm])["cost"]
-    torch.cuda.synchronize()
-    per_step, losses = [], []
-    fa.counts.reset()
-    t0 = time.perf_counter()
-    for b in batches[warm:warm + timed]:
-        c0 = flash_counts()
-        losses.append(tr.train_one_batch(b))
-        per_step.append(tuple(x - y for x, y in zip(flash_counts(), c0)))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    train_lm_steps(tr, batches, warm, timed, (layers,) * 3 + (0,) * 4,
+                   "[train]", smi)
     launches = {"flash_fwd_tc": fa.counts.fwd_tc,
                 "flash_bwd_dq_tc": fa.counts.bwd_dq_tc,
                 "flash_bwd_dkv_tc": fa.counts.bwd_dkv_tc}
-    others = {n: getattr(fa.counts, n) for n in ("fwd", "bwd_dq", "bwd_dkv",
-                                                   "plain")}
-    losses = [float(x) for x in losses]
-    tokens = timed * B * T
-    log(f"[train] {timed} steps of [{B}, {T}] in {wall:.3f}s = "
-        f"{tokens / wall:.1f} tokens/s, {wall / timed * 1e3:.2f} ms/step; "
-        f"mean loss of the first {warm} (warm-up) steps {first:.4f}, "
-        f"losses {' '.join(f'{x:.4f}' for x in losses)}; kernel launches "
-        f"{launches}, CUDA-core kernels and plain calls {others} [{smi}]")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite training loss: {losses}")
-    if not np.mean(losses[-3:]) < first:
-        raise AssertionError(f"loss did not fall: first {warm} mean "
-                             f"{first}, last 3 {losses[-3:]}")
-    if any(c != (layers,) * 3 + (0,) * 4 for c in per_step):
-        raise AssertionError(f"main path did not run through the "
-                             f"tensor-core flash kernels once per layer per "
-                             f"step, and nothing else: {per_step}")
 
     with tempfile.TemporaryDirectory() as d:
         t1 = time.perf_counter()
@@ -1079,21 +1089,100 @@ def phase_train(smi: str) -> list:
     profile_run(train_two, "2 training steps", smi)
     del tr
     torch.cuda.empty_cache()
-    return flash_records(launches, B, T, torch.bfloat16, smi)
+    return flash_records(launches, B, T, torch.bfloat16, smi, "[train]")
 
 
-def flash_records(launches: dict, B: int, T: int, dtype, smi: str) -> list:
+def train_lm_steps(tr, batches, warm: int, timed: int, route: tuple,
+                   tag: str, smi: str) -> None:
+    """A warm-up pass over batches[:warm] (allocator, library handles; its
+    cost is the mean loss of those steps), then `timed` steps with the
+    flash counts reset before them: logs tokens/s and ms/step; fails on a
+    non-finite loss, on a loss that did not fall (the last 3 against the
+    warm-up's mean) and on a step whose flash launches (FLASH_COUNTS
+    order) are not `route`."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, T = batches[0]["tokens"].ids.shape
+    first = tr.train_one_pass(batches[:warm])["cost"]
+    torch.cuda.synchronize()
+    per_step, losses = [], []
+    fa.counts.reset()
+    t0 = time.perf_counter()
+    for b in batches[warm:warm + timed]:
+        c0 = flash_counts()
+        losses.append(tr.train_one_batch(b))
+        per_step.append(tuple(x - y for x, y in zip(flash_counts(), c0)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    log(f"{tag} {timed} steps of [{B}, {T}] in {wall:.3f}s = "
+        f"{timed * B * T / wall:.1f} tokens/s, "
+        f"{wall / timed * 1e3:.2f} ms/step; mean loss of the first {warm} "
+        f"(warm-up) steps {first:.4f}, losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; flash launches a step "
+        f"{dict(zip(FLASH_COUNTS, per_step[0]))} [{smi}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not np.mean(losses[-3:]) < first:
+        raise AssertionError(f"loss did not fall: first {warm} mean "
+                             f"{first}, last 3 {losses[-3:]}")
+    if any(c != route for c in per_step):
+        raise AssertionError(f"the training path did not run through its "
+                             f"flash kernels once per layer per step, and "
+                             f"nothing else: {per_step}")
+
+
+def phase_train_fp32(smi: str) -> list:
+    """The LM at the config's default precision: demo/model_zoo/
+    transformer_lm.py leaves compute_dtype '' (= the float32 dtype), so
+    `python -m paddle_tpu train` trains it in float32.  Full width (vocab
+    32000, dim 512, 8 layers, 8 heads), [8, 2048] batches, Adam lr 3e-4,
+    clipping 1.0; warm-up steps, then timed steps, each launching the
+    float32 flash kernels once per layer and nothing else of flash
+    attention; the loss falls; tokens/s, ms/step, a profiled step; then the
+    kernels' records at [8, 2048, 8, 64] fp32."""
+    from paddle_tpu_torch.models import transformer_lm_trainer_config
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.trainer import Trainer
+
+    vocab, layers, B, T = 32000, 8, 8, 2048
+    warm, timed = 3, 5
+    cfg = transformer_lm_trainer_config(vocab=vocab, dim=512, layers=layers,
+                                        heads=8, batch_size=B)
+    if cfg.opt_config.compute_dtype != "":
+        raise AssertionError("the LM config's default precision changed")
+    tr = Trainer(cfg, seed=1)
+    batches = lm_batches(warm + timed + 1, B, T, vocab, seed=1)
+    train_lm_steps(tr, batches, warm, timed, (0,) * 3 + (layers,) * 3 + (0,),
+                   "[train-fp32]", smi)
+    launches = {"flash_fwd": fa.counts.fwd, "flash_bwd_dq": fa.counts.bwd_dq,
+                "flash_bwd_dkv": fa.counts.bwd_dkv}
+
+    def train_one():
+        tr.train_one_batch(batches[-1])
+        return 1
+
+    profile_run(train_one, "1 float32 training step", smi, family="flash_")
+    del tr
+    torch.cuda.empty_cache()
+    return flash_records(launches, B, T, torch.float32, smi, "[train-fp32]")
+
+
+def flash_records(launches: dict, B: int, T: int, dtype, smi: str,
+                  tag: str) -> list:
     """Each flash kernel of dtype's route at a training run's shapes
     ([B, T, 8, 64], causal, all keys valid, no lse cotangent): checked
     against its plain version in float32 on the same inputs, then timed
     beside its bound, its plain version and the library call:
     scaled_dot_product_attention's forward for the forward kernel, its
-    backward for the two backward kernels together.  For bf16 (the
-    tensor-core kernels, the LM training run's route) also shows that the o
-    limit rejects a faulty forward: the kernel's o with one key tile (keys
-    1024..1087) masked out, and measures what the forward's second bf16
-    term of p costs: the one-term forward's time and o error (printed, not
-    gated; it is on no path)."""
+    backward for the two backward kernels together (float32 with TF32 off,
+    as main() sets it).  The bound of the float32 kernels is their route's,
+    three TF32 passes (PEAK_FLOPS["tf32x3"]); the CUDA cores' float32 bound
+    is logged beside it.  Their records' names carry the shape, as two
+    runs time them.  For bf16 (the LM training run's route) also shows
+    that the o limit rejects a faulty forward: the kernel's o with one key
+    tile (keys 1024..1087) masked out, and measures what the forward's
+    second bf16 term of p costs: the one-term forward's time and o error
+    (printed, not gated; it is on no path)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1107,7 +1196,7 @@ def flash_records(launches: dict, B: int, T: int, dtype, smi: str) -> list:
     kvm = torch.ones(B, T, dtype=torch.uint8, device="cuda")
     scale = D ** -0.5
     e, (o, lse), want_o = flash_errors(q, k, v, kvm, do, None, causal=True)
-    log(f"[train] flash kernels vs plain at [{B}, {T}, {H}, {D}] {what} "
+    log(f"{tag} flash kernels vs plain at [{B}, {T}, {H}, {D}] {what} "
         f"causal: {flash_line(e, dtype)}")
     if not e["ok"]:
         raise AssertionError(f"flash kernels disagree with their plain "
@@ -1171,25 +1260,28 @@ def flash_records(launches: dict, B: int, T: int, dtype, smi: str) -> list:
         (5 * bthd + B * T + 2 * bht, 6 * D * pairs), \
         (6 * bthd + B * T + 2 * bht, 8 * D * pairs)
     source = f"paddle_tpu_torch/csrc/flash_attention{suffix}.cu"
+    shape = "" if tc else f" [{B}, {T}, {H}, {D}]"
     records = []
     for i, (name, src_line) in enumerate(zip(names, (113, 239, 278))):
         nbytes, flops = work[i]
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+        flops_ms = flops / PEAK_FLOPS[dtype if tc else "tf32x3"] * 1e3
         bound_ms = max(bytes_ms, flops_ms)
         plain_ms = plain_fwd if i == 0 else plain_bwd
         lib_ms = lib_fwd if i == 0 else lib_bwd
-        log(f"[train] {name} at [{B}, {T}, {H}, {D}] {what} causal: "
+        cores = ("" if tc else f"; the CUDA cores' fp32 bound "
+                 f"{flops / PEAK_FLOPS[torch.float32] * 1e6:.1f} us")
+        log(f"{tag} {name} at [{B}, {T}, {H}, {D}] {what} causal: "
             f"{ms[name] * 1e3:.1f} us/launch; bound {bound_ms * 1e3:.1f} us "
             f"({'operations' if flops_ms >= bytes_ms else 'bytes'}; "
-            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) = "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB{cores}) = "
             f"{bound_ms / ms[name]:.1%} of the bound; plain version "
             f"{plain_ms * 1e3:.1f} us{'' if i == 0 else ' (whole backward)'}"
             f"; scaled_dot_product_attention "
             f"{'forward' if i == 0 else 'backward'} {lib_ms * 1e3:.1f} us "
             f"[{smi}]")
         records.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name + shape, "route": "cuda", "source": source,
             "replaces": f"paddle_tpu/ops/pallas_attention.py:{src_line}",
             "launches": launches[name], "max_abs_err": err[name],
             "ms": ms[name], "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1223,9 +1315,9 @@ def one_term_forward(q, k, v, kvm, scale):
 
 
 def phase_train_routes(smi: str) -> list:
-    """float32 training through the flash route (the CUDA-core kernels)
-    against the dense route; returns the CUDA-core kernels' records at this
-    run's shape with the launches it made."""
+    """float32 training through the flash route (the float32 kernels)
+    against the dense route; returns those kernels' records at this run's
+    shape with the launches it made."""
     from paddle_tpu_torch.models import transformer_lm_trainer_config
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.parameter import init_params
@@ -1265,7 +1357,8 @@ def phase_train_routes(smi: str) -> list:
     torch.cuda.empty_cache()
     launches = {"flash_fwd": ca[3], "flash_bwd_dq": ca[4],
                 "flash_bwd_dkv": ca[5]}
-    return flash_records(launches, 2, 2048, torch.float32, smi)
+    return flash_records(launches, 2, 2048, torch.float32, smi,
+                         "[train-routes]")
 
 
 # -- the fused LSTM (K3) and the sentiment path --------------------------------
@@ -2637,6 +2730,7 @@ def main() -> int:
     phase_routes()
     phase_flash()
     flash = phase_train(smi)
+    flash += phase_train_fp32(smi)
     flash += phase_train_routes(smi)
     phase_lstm()
     lstm = phase_sentiment(smi)

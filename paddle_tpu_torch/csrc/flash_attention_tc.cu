@@ -6,8 +6,8 @@
 //   flash_fwd_tc_kernel     <- _fwd_kernel      (launched by _fwd_call)
 //   flash_bwd_dq_tc_kernel  <- _bwd_dq_kernel   (launched by _bwd_call)
 //   flash_bwd_dkv_tc_kernel <- _bwd_dkv_kernel  (launched by _bwd_call)
-// float32 inputs stay on the CUDA-core kernels of flash_attention.cu (true
-// fp32, as the TPU kernels' Precision.HIGHEST).  For bf16 inputs the TPU
+// float32 inputs go to flash_attention.cu (three TF32 passes, the card's
+// counterpart of the TPU kernels' Precision.HIGHEST).  For bf16 inputs the TPU
 // kernels multiply at the MXU's default precision: bf16 operands, float32
 // sums, p and dS rounded to bf16 where they enter a product.  These kernels
 // compute the same, every product mma.sync m16n8k16 bf16 x bf16 -> f32,

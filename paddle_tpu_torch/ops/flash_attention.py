@@ -12,12 +12,14 @@ validity is applied outside the kernels (o *= q_valid, lse = -inf there),
 so the zeroed cotangent kills the invalid rows' gradients, as in JAX.
 
 For CUDA tensors the forward and both backward passes launch a kernel (or
-raise), chosen by dtype: bfloat16 goes to the tensor-core kernels of
-csrc/flash_attention_tc.cu (bf16 products with float32 sums, as the TPU
-kernels at the MXU's default precision: dS and the backward's p rounded to
-bf16 where they enter a product, the forward's p as two bf16 terms),
-float32 to the CUDA-core kernels of
-csrc/flash_attention.cu (true fp32, as Precision.HIGHEST).  For CPU
+raise), chosen by dtype; both routes run on the tensor cores.  bfloat16
+goes to the kernels of csrc/flash_attention_tc.cu (bf16 products with
+float32 sums, as the TPU kernels at the MXU's default precision: dS and the
+backward's p rounded to bf16 where they enter a product, the forward's p as
+two bf16 terms), float32 to the kernels of csrc/flash_attention.cu (every
+product three TF32 passes on a hi/lo split of each operand, ~22
+significant bits with float32 sums: the card's counterpart of the TPU
+kernels' Precision.HIGHEST for float32).  For CPU
 tensors they run the plain versions `flash_attention_plain` /
 `flash_attention_bwd_plain`, the same arithmetic in float32 on a dense
 [B, H, Tq, Tk] score matrix.  There is no fallback from one to another.
@@ -41,7 +43,7 @@ MAX_HEAD_DIM = 128      # head dims the kernels take (instances for 64, 128)
 
 class CallCounts:
     """How often each version ran: `fwd`, `bwd_dq` and `bwd_dkv` count CUDA
-    launches of the float32 CUDA-core kernels, `fwd_tc`, `bwd_dq_tc` and
+    launches of the float32 kernels, `fwd_tc`, `bwd_dq_tc` and
     `bwd_dkv_tc` those of the bfloat16 tensor-core kernels, `plain` counts
     calls of the plain PyTorch versions (forward or backward)."""
 
@@ -84,12 +86,33 @@ class _Kernel:
                 fn.restype = i
             lib.flash_error_string.argtypes = [i]
             lib.flash_error_string.restype = ctypes.c_char_p
+            lib.flash_kernel_attributes.argtypes = [i, i,
+                                                    ctypes.POINTER(i)]
+            lib.flash_kernel_attributes.restype = i
             self.built = built
         return self.built
 
+    def attributes(self) -> dict:
+        """{(kernel, dm): (registers, local bytes per thread, dynamic shared
+        bytes)} of the library's six instances, as the CUDA runtime reports
+        them (also when the library was built by an earlier run)."""
+        lib = self.library().lib
+        out = {}
+        for which, name in enumerate(("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")):
+            for dm in (64, 128):
+                vals = (ctypes.c_int * 3)()
+                rc = lib.flash_kernel_attributes(which, dm, vals)
+                if rc:
+                    raise RuntimeError(f"cudaFuncGetAttributes({name}"
+                                       f"{self.count_suffix}<{dm}>) failed: "
+                                       f"CUDA error {rc}")
+                out[(f"{name}{self.count_suffix}_kernel", dm)] = tuple(vals)
+        return out
 
-kernel = _Kernel("flash_attention", "")           # float32, CUDA cores
-kernel_tc = _Kernel("flash_attention_tc", "_tc")  # bfloat16, tensor cores
+
+kernel = _Kernel("flash_attention", "")           # float32, 3xTF32
+kernel_tc = _Kernel("flash_attention_tc", "_tc")  # bfloat16
 _KERNELS = {torch.float32: kernel, torch.bfloat16: kernel_tc}
 
 
@@ -232,8 +255,8 @@ def _check(q, k, v, kv_mask) -> None:
 
 
 def _check_cuda(name: str, **tensors) -> "_Kernel":
-    """What the kernels take beyond _check: CUDA, float32 (CUDA-core
-    kernels) or bfloat16 (tensor-core kernels), D <= 128, contiguous
+    """What the kernels take beyond _check: CUDA, float32 or bfloat16,
+    D <= 128, contiguous
     tensors.  Returns the kernel library of q's dtype."""
     q = tensors["q"]
     if q.device.type != "cuda":

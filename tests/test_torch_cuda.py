@@ -16,7 +16,8 @@ import torch
 
 from chip_smoke import (ADD_CASES, ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL,
                         GRU_TOL, K5_ATOL, K5_EDGE, LSTM_TOL, additive_error,
-                        additive_inputs, gru_compare, gru_inputs,
+                        additive_inputs, flash_repeats, gru_compare,
+                        gru_inputs,
                         gru_move_off_relu_kink, gru_repeat_and_graph,
                         k5_case, k5_error, k5_repeat_and_graph, lm_batches,
                         lstm_compare, lstm_inputs, lstm_repeat_and_graph,
@@ -152,10 +153,10 @@ FLASH_CASES = [(2, 300, 300, 8, 8, 64, True, None, 0, 0, False),
                (2, 130, 190, 6, 3, 40, True, 50, 60, 17, True),
                (1, 100, 120, 4, 1, 128, True, None, 0, 0, False)]
 FLASH_IDS = ["causal", "gqa-ragged", "d40-window-offsets", "d128-mqa"]
-# bfloat16 on the tensor-core kernels besides: each mask kind of
-# chip_smoke's [flash] phase, and causal with ragged keys (its first rows
-# see no key), at D 64, 128 and 40 (no 16-byte rows: element-wise loads),
-# Tq = 1000 and Tk = 1100 (ragged tile edges).
+# both dtypes' kernels besides: each mask kind of chip_smoke's [flash]
+# phase, and causal with ragged keys (its first rows see no key), at D 64,
+# 128 and 40 (bfloat16: no 16-byte rows, element-wise loads), Tq = 1000
+# and Tk = 1100 (ragged tile edges).
 # (name, H_kv, causal, window, q_offset, k_offset, ragged keys)
 TC_MASKS = [("causal", 8, True, None, 0, 0, False),
             ("causal-gqa", 2, True, None, 0, 0, False),
@@ -171,9 +172,15 @@ TC_CASES = [(2, 1000, 1100, 8, h_kv, D, causal, window, qo, ko, ragged)
 TC_IDS = [f"tc-{name}-d{D}" for name, *_ in TC_MASKS for D in (64, 128, 40)]
 FLASH_PARAMS = ([(dt, c) for dt in (torch.float32, torch.bfloat16)
                  for c in FLASH_CASES]
-                + [(torch.bfloat16, c) for c in TC_CASES])
+                + [(torch.bfloat16, c) for c in TC_CASES]
+                + [(torch.float32, c) for c in TC_CASES]
+                # float32 rows of 30 floats: element-wise loads
+                + [(torch.float32,
+                    (2, 300, 350, 4, 2, 30, True, None, 0, 0, True))])
 FLASH_PARAM_IDS = ([f"{n}-{dt}" for dt in ("float32", "bfloat16")
-                    for n in FLASH_IDS] + TC_IDS)
+                    for n in FLASH_IDS] + TC_IDS
+                   + [f"fp32-{n[3:]}" for n in TC_IDS]
+                   + ["fp32-d30-elementwise"])
 
 
 @pytest.mark.parametrize("dtype,case", FLASH_PARAMS, ids=FLASH_PARAM_IDS)
@@ -184,8 +191,8 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, case):
     atol (float32 2e-5 absolute; bfloat16 2^-7 |ref| + 1e-3, the kernels
     rounding p and o to bfloat16), lse within 2e-5 and -inf on exactly the
     rows without a key, gradients within GRAD_TOL (float32 2e-5, bfloat16
-    1e-2) times their max.  bfloat16 runs the tensor-core kernels, float32
-    the CUDA-core ones (launch counts)."""
+    1e-2) times their max.  bfloat16 runs flash_attention_tc.cu's kernels,
+    float32 flash_attention.cu's (launch counts)."""
     B, Tq, Tk, H, h_kv, D, causal, window, q_off, k_off, ragged = case
     g = torch.Generator(device=cuda).manual_seed(0)
     q, do = (torch.randn(B, Tq, H, D, generator=g, device=cuda).to(dtype)
@@ -224,6 +231,27 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, case):
         assert got.dtype == dtype and torch.isfinite(got).all()
         err = float((got.float() - ref).abs().max())
         assert err <= GRAD_TOL[dtype] * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D,h_kv,causal,window",
+                         [(64, 2, True, None), (128, 1, False, 50),
+                          (40, 4, True, None)],
+                         ids=["d64-gqa-causal", "d128-mqa-window",
+                              "d40-causal"])
+def test_flash_kernels_repeat_bit_for_bit(cuda, dtype, D, h_kv, causal,
+                                          window):
+    """The forward, dQ and dK/dV kernels launched twice on the same inputs
+    give the same bits: one owner per output tile, no atomics."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, do = (torch.randn(2, 700, 8, D, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, 900, h_kv, D, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kvm = torch.ones(2, 900, dtype=torch.bool, device=cuda)
+    kvm[1, 600:] = False
+    assert flash_repeats(q, k, v, kvm, do, causal=causal, window=window)
 
 
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda):

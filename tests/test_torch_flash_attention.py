@@ -348,3 +348,155 @@ def test_tc_rounding_model_within_chip_limits_of_pallas_bf16(
         ref = np.asarray(w.astype(jnp.float32))
         err = float(np.abs(got.numpy() - ref).max())
         assert err <= GRAD_TOL[torch.bfloat16] * float(np.abs(ref).max()), err
+
+
+# -- the float32 kernels' arithmetic (three TF32 passes) ----------------------
+
+def _tf32(x):
+    """x rounded to tf32 (10 explicit mantissa bits) to nearest, ties away
+    from zero, on the bit pattern: the kernels' cvt.rna.tf32.f32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as csrc/flash_attention.cu multiplies: hi = tf32(x), lo =
+    tf32(x - hi) for each operand, three tf32 products (the small terms
+    first) with float32 sums."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.matmul(ah, bl) + torch.matmul(al, bh)) + torch.matmul(ah, bh)
+
+
+def _mm1(a, b):
+    """a @ b in one tf32 pass."""
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _tf32x3_model(q, k, v, kv_mask, do, dlse, causal, q_offset, k_offset,
+                  window, mm=_mm3):
+    """Plain-PyTorch model of csrc/flash_attention.cu's arithmetic on float32
+    q/k/v/do: every product through `mm` (default: three tf32 passes), the
+    softmax, l, delta and the masks in float32.  Returns (o, lse, dq, dk,
+    dv)."""
+    B, Tq, H, D = q.shape
+    h_kv = k.shape[2]
+    scale = D ** -0.5
+    qh, doh = (x.float().permute(0, 2, 1, 3) for x in (q, do))
+    kh, vh = fa._expand(k, H), fa._expand(v, H)
+    mask = fa._score_mask(kv_mask, Tq, causal, q_offset, k_offset, window)
+    s = torch.where(mask, mm(qh, kh.transpose(-1, -2)) * scale, 0.0)
+    live = mask.any(dim=-1)
+    m = torch.where(mask, s, float("-inf")).amax(dim=-1)
+    m = torch.where(live, m, 0.0)
+    e = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = e.sum(dim=-1)
+    o = mm(e, vh) / l.clamp_min(1e-30)[..., None]
+    o = torch.where(live[..., None], o, 0.0).permute(0, 2, 1, 3)
+    lse = torch.where(live, m + torch.log(l.clamp_min(1e-30)), float("-inf"))
+    delta = fa.backward_delta(o, do.float(), dlse)
+    p = torch.where(mask, torch.exp(s - torch.where(live, lse, 0.0)[..., None]),
+                    0.0)
+    dp = mm(doh, vh.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = mm(ds, kh)
+    dk = mm(ds.transpose(-1, -2), qh)
+    dv = mm(p.transpose(-1, -2), doh)
+
+    def to_kv(g):
+        g = g.reshape(B, h_kv, H // h_kv, *g.shape[2:]).sum(dim=2)
+        return g.permute(0, 2, 1, 3)
+
+    return (o, lse.expand(B, H, Tq).contiguous(), dq.permute(0, 2, 1, 3),
+            to_kv(dk), to_kv(dv))
+
+
+# the masks of TC_MODEL_CASES at the float32 kernels' two head-dim instances
+F32_MODEL_CASES = [(D, hkv, causal, window, q_off, k_off)
+                   for _, hkv, causal, window, q_off, k_off in TC_MODEL_CASES
+                   for D in (64, 128)]
+F32_MODEL_IDS = [f"{name.split('-', 1)[1]}-d{D}" for name in TC_MODEL_IDS
+                 for D in (64, 128)]
+
+
+def _f32_case(seed, D, hkv, q_scale=1.0):
+    """_tc_case's shapes and masks in float32; q scaled by `q_scale`."""
+    q, k, v, kval, _, do = _case(seed, B=2, Tq=70, Tk=90, H=4, Hkv=hkv, D=D,
+                                 ragged=False)
+    kval[1, :6] = False
+    kval[1, 70:] = False
+    dlse = np.random.default_rng(seed + 1).normal(
+        size=(2, 4, 70)).astype(np.float32) * 0.1
+    return ([_t(q) * q_scale, _t(k), _t(v), _t(do)], _t(kval), _t(dlse))
+
+
+def _assert_f32_limits(o, lse, grads, want_o, want_lse, want_grads):
+    """chip_smoke's float32 limits: o within 2e-5, lse within 2e-5 and -inf
+    on exactly the same rows, gradients within GRAD_TOL[float32] of their
+    max."""
+    assert o_limit_share(o, want_o, torch.float32) <= 1
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert float((lse[fin] - want_lse[fin]).abs().max()) <= 2e-5
+    for got, ref in zip(grads, want_grads):
+        ref = torch.as_tensor(np.array(ref))
+        err = float((got - ref).abs().max())
+        assert err <= GRAD_TOL[torch.float32] * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("D,hkv,causal,window,q_off,k_off", F32_MODEL_CASES,
+                         ids=F32_MODEL_IDS)
+def test_tf32x3_model_within_chip_limits_of_fp32_plain(
+        D, hkv, causal, window, q_off, k_off):
+    """The float32 kernels' arithmetic (every product three tf32 passes on
+    a hi/lo split) held against the float32 plain versions at chip_smoke's
+    float32 limits; the plain backward is fed the model's o and lse, as
+    chip_smoke feeds it the kernel's."""
+    (q, k, v, do), kval, dlse = _f32_case(7, D, hkv)
+    mask = dict(causal=causal, q_offset=q_off, k_offset=k_off, window=window)
+    o, lse, *grads = _tf32x3_model(q, k, v, kval, do, dlse, **mask)
+    want_o, want_lse = fa.flash_attention_plain(q, k, v, kval, **mask)
+    want = fa.flash_attention_bwd_plain(q, k, v, kval, o, lse, do, dlse,
+                                        **mask)
+    _assert_f32_limits(o, lse, grads, want_o, want_lse, want)
+
+
+@pytest.mark.parametrize("D,hkv,causal,window,q_off,k_off", F32_MODEL_CASES,
+                         ids=F32_MODEL_IDS)
+def test_tf32x3_model_within_chip_limits_of_pallas_highest(
+        monkeypatch, D, hkv, causal, window, q_off, k_off):
+    """The same model against paddle_tpu's Pallas flash_attention on the
+    same float32 inputs (interpret mode, 32 x 32 tiles; float32 inputs take
+    Precision.HIGHEST in its products): o, lse and the vjp of (o, lse) with
+    cotangents (do, dlse), at the same limits."""
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    (q, k, v, do), kval, dlse = _f32_case(7, D, hkv)
+    mask = dict(causal=causal, q_offset=q_off, k_offset=k_off, window=window)
+    o, lse, *grads = _tf32x3_model(q, k, v, kval, do, dlse, **mask)
+
+    def jf(q_, k_, v_):
+        return pallas_attention.flash_attention(
+            q_, k_, v_, k_valid=jnp.asarray(kval.numpy()), causal=causal,
+            block_q=32, block_k=32, q_offset=q_off, k_offset=k_off,
+            return_lse=True, window=window)
+    (jo, jlse), vjp = jax.vjp(jf, *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    jfin = np.isfinite(np.asarray(jlse))
+    jg = vjp((jnp.asarray(do.numpy()),
+              jnp.asarray(np.where(jfin, dlse.numpy(), 0.0))))
+    _assert_f32_limits(o, lse, grads, _t(jo), _t(jlse), jg)
+
+
+def test_tf32x3_model_needs_three_passes():
+    """Why every product takes three tf32 passes: with one pass, lse misses
+    its 2e-5 limit at scores of a few units (q scaled by 4), while three
+    passes stay well within it."""
+    (q, k, v, do), kval, dlse = _f32_case(7, 64, 2, q_scale=4.0)
+    _, want_lse = fa.flash_attention_plain(q, k, v, kval, causal=True)
+    fin = torch.isfinite(want_lse)
+    err = {}
+    for name, mm in (("one", _mm1), ("three", _mm3)):
+        _, lse, *_ = _tf32x3_model(q, k, v, kval, do, dlse, True, 0, 0, None,
+                                   mm=mm)
+        err[name] = float((lse[fin] - want_lse[fin]).abs().max())
+    assert err["one"] > 2e-5, err
+    assert err["three"] <= 2e-5, err
