@@ -40,7 +40,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
                decode and the mixed launches, each beside its memory bound
                and with the split count pinned to 1, 2, 4, 8 (measurement),
                each timed in K5_ROUNDS rounds (median and range), beside
-               the plain version's;
+               the plain version's; then the same 32 requests on an engine
+               with decode_steps=KSTEP (4: windows of 4 decode steps, each
+               a CUDA graph captured per all-greedy / sampling variant)
+               and again at k = 1, in KSTEP_ROUNDS rounds of swapped order
+               (kstep_serving): the same tokens as the k = 1 run, the
+               plain version never; tokens/s, ms/step, windows, and a
+               profiled run of 8 requests each (device ms/step, busy
+               share, kernels and host launch calls a step), in which the
+               card launched the kernel once per layer per forward (the
+               profiler's kernel events; window bodies included) and the
+               wrapper counted only the forwards outside the windows;
   5. routes  — float32, 2 layers at full width: the engine reading through
                the kernel against the engine reading through the page-table
                gather (attn_impl='dense'), lm_head rows at the first mixed
@@ -57,7 +67,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                their max), each at D=64 and D=128; each case launches its
                dtype's three kernels once and nothing else; each dtype's
                three kernels launched twice at both head dims repeat bit
-               for bit;
+               for bit and, captured in a CUDA graph, replay bit for bit;
   7. train   — the training path: Trainer on the transformer LM at full
                width in bfloat16 (seed 1), batches [8, 2048] of a
                repeated-motif token stream, warm-up steps then timed steps;
@@ -75,7 +85,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
                yardstick, never called by the port); and, as a measurement
                only, the forward with p as one bf16 term in P V (the TPU
                kernel's rounding): its time and its o error as a share of
-               the limit;
+               the limit; before the kernels' records, the k-step run
+               (kstep_training, below);
   7b. train-fp32 — the same LM at the config's default precision
                (compute_dtype '' = float32) at full width, [8, 2048]
                batches, 3 warm-up and 5 timed steps: each fp32 flash kernel
@@ -85,7 +96,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
                fp32 kernels at [8, 2048, 8, 64] causal against their plain
                versions and timed beside both bounds (three TF32 passes,
                and the CUDA cores' fp32 peak), the plain version's time and
-               scaled_dot_product_attention's in fp32 (TF32 off);
+               scaled_dot_product_attention's in fp32 (TF32 off); and
+               the k-step run: two trainers from one seed, the k = 1 loop
+               and train_one_pass(steps_per_dispatch=KSTEP), each group
+               of KSTEP steps one replay of a CUDA graph of KSTEP steps
+               after an eager first step, on the same [8, 2048] batches (a
+               warm-up pass, then KSTEP_ROUNDS rounds of a timed and a
+               profiled pass, the order swapped each round): parameters,
+               Adam slots, counters, dropout generator, every loss and the
+               pass statistics bit-identical after every pass; the counts
+               set to 0 before each pass, no plain version called, and in
+               the profiled pass the card (the profiler's kernel events)
+               launched each kernel as k = 1 does, the wrappers counting
+               them all at k = 1 and none at k = KSTEP; wall and device
+               ms/step, busy share, kernels and host launch calls a step
+               (so also in phases 7, 10 for both sentiment nets, and 14);
+               for the stacked sentiment net and seq2seq also a run of
+               batches of two padded lengths (kstep_alternating): graphs
+               of both signatures in one memory pool, replayed out of
+               capture order, bit-identical to k = 1 over two passes;
   8. train-routes — float32, 2 layers at full width, B=2, T=2048: one
                training step's loss and gradients through the fp32
                flash kernels (once per layer each) against the same step
@@ -155,7 +184,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
                ragged lengths (with a length-0 row, whose context must be
                zero): float32 within 2e-5; bfloat16 against the plain
                version in float32 on the same inputs, per element within
-               2^-7 |ref| + 1e-3; two launches bit-identical;
+               2^-7 |ref| + 1e-3; two launches bit-identical; a launch
+               replayed from a CUDA graph bit-identical to eager;
  14. seq2seq — the attention seq2seq (demo/seqToseq/seqToseq_net.py) at
                full width: Trainer on vocabulary 30000, hidden 512, batch
                64, float32, seed 1, batches of the sequence-reversal
@@ -196,9 +226,11 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -745,6 +777,20 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
         return eng.n_decode_steps - steps0
 
     profile_run(serve_eight, "8 requests", smi, family="paged_attention")
+
+    # the same requests with multi-step decode (windows as CUDA graphs)
+    engk = ServingEngine(ex, params, num_slots=16, page_size=16,
+                         max_context=768, decode_steps=KSTEP)
+    # warm-up: windows with a sampling slot, then all-greedy ones (each
+    # variant's first window runs eagerly, its second is captured)
+    engk.run(serve_requests(4, vocab, seed=7, lo=8, hi=80, max_new=12,
+                            sampled_every=2))
+    engk.run(serve_requests(2, vocab, seed=8, lo=8, hi=80, max_new=12))
+    kstep_serving({1: eng, KSTEP: engk},
+                  lambda: serve_requests(32, vocab, seed=1, lo=32, hi=256,
+                                         max_new=64, sampled_every=4),
+                  results, layers, smi)
+    del engk
     # a decode launch has a row per table row, a mixed one more rows
     parts = {"all": recorded,
              "decode": [a for a in recorded if a[0].shape[0] <= a[3].shape[0]],
@@ -767,11 +813,22 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
             "library_ms": None}
 
 
-def profile_run(run, what: str, smi: str, family: str = "") -> None:
-    """run() once more under torch.profiler (it returns the number of steps
-    it made): the device's busy share of the wall time and the kernels that
-    take it; with `family`, also the share of the kernels whose symbol
-    contains it."""
+def dev_us(e) -> float:
+    """A profiler event's own device time in µs."""
+    return float(getattr(e, "self_device_time_total", 0.0)
+                 or getattr(e, "self_cuda_time_total", 0.0))
+
+
+# host calls that start work on the card: kernel launches (runtime and
+# driver API, cluster and cooperative forms) and CUDA graph launches
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+                     "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def profiled(run):
+    """run() under torch.profiler: (what it returned, wall ms, the device
+    kernel events, the host launch calls: kernel launches plus graph
+    launches, each API entry point counted by its name's prefix)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -779,16 +836,186 @@ def profile_run(run, what: str, smi: str, family: str = "") -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        steps = run()
+        out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total", 0.0)
-                     or getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if getattr(e, "device_type", None) == DeviceType.CUDA]
+    calls = sum(e.count for e in events
+                if e.key.startswith(HOST_LAUNCH_CALLS))
+    return out, wall_ms, kernels, calls
+
+
+# each hand-written kernel's symbol (paddle_tpu_torch/csrc/*.cu) and the
+# launch counter of its wrapper (module of paddle_tpu_torch.ops, attribute
+# of its `counts`); the wrappers of the recurrent kernels also launch
+# helper kernels (the weight-gradient sums), not listed
+KERNEL_COUNTERS = {
+    "paged_attention_kernel": ("paged_attention", "kernel"),
+    "flash_fwd_kernel": ("flash_attention", "fwd"),
+    "flash_bwd_dq_kernel": ("flash_attention", "bwd_dq"),
+    "flash_bwd_dkv_kernel": ("flash_attention", "bwd_dkv"),
+    "flash_fwd_tc_kernel": ("flash_attention", "fwd_tc"),
+    "flash_bwd_dq_tc_kernel": ("flash_attention", "bwd_dq_tc"),
+    "flash_bwd_dkv_tc_kernel": ("flash_attention", "bwd_dkv_tc"),
+    "lstm_fwd_kernel": ("lstm_fused", "fwd"),
+    "lstm_bwd_kernel": ("lstm_fused", "bwd"),
+    "gru_fwd_kernel": ("gru_fused", "fwd"),
+    "gru_bwd_kernel": ("gru_fused", "bwd"),
+    "additive_attention_kernel": ("additive_attention", "kernel"),
+}
+COUNTED_OPS = ("paged_attention", "flash_attention", "lstm_fused",
+               "gru_fused", "additive_attention")
+
+
+def op_counts(module: str):
+    import importlib
+    return importlib.import_module(f"paddle_tpu_torch.ops.{module}").counts
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch counts and plain-version calls to 0."""
+    for m in COUNTED_OPS:
+        op_counts(m).reset()
+
+
+def wrapper_counts(symbols) -> dict:
+    """The wrappers' launch counts of the kernels `symbols`."""
+    return {s: getattr(op_counts(KERNEL_COUNTERS[s][0]), KERNEL_COUNTERS[s][1])
+            for s in symbols}
+
+
+def plain_calls() -> dict:
+    """The calls of every kernel's plain PyTorch version, by op."""
+    return {m: op_counts(m).plain for m in COUNTED_OPS}
+
+
+def device_launches(kernels, symbols) -> dict:
+    """Launches on the card by kernel symbol, from the profiler's kernel
+    events (a CUDA graph's replay shows each kernel it launched): the
+    events whose name holds the symbol as a whole identifier."""
+    out = {}
+    for sym in symbols:
+        pat = re.compile(rf"(?<!\w){sym}(?!\w)")
+        out[sym] = sum(e.count for e in kernels if pat.search(e.key))
+    return out
+
+
+def check_launches(what: str, kernels, want: dict, replayed: bool,
+                   wrappers: Optional[dict] = None) -> str:
+    """Hold a profiled run against `want` ({symbol: launches}), the counts
+    set to 0 before the run; no plain version may have run.  An eager run
+    (`replayed` False) is held by the wrappers' counts, which move where a
+    kernel launches; the profiler's kernel events are logged beside them,
+    as they can list one launch fewer than were made (PERF.md §7).  A run
+    with graph replays is held by the profiler's kernel events, the record
+    of what a replay launched, and the wrappers must have counted
+    `wrappers` (unless None): the launches made outside a replay, eagerly
+    or into a capture.  Returns a line for the log."""
+    on_card = device_launches(kernels, want)
+    counted = wrapper_counts(want)
+    plain = plain_calls()
+    held = on_card if replayed else counted
+    if (held != want or any(plain.values())
+            or (replayed and wrappers is not None and counted != wrappers)):
+        raise AssertionError(
+            f"{what}: kernel launches listed by the profiler {on_card}, "
+            f"counted by the wrappers {counted} (want {want} held by "
+            f"{'the profiler' if replayed else 'the wrappers'}, wrappers "
+            f"{wrappers}); plain calls {plain}")
+    return (f"launches {({s: n for s, n in want.items() if n})} as the "
+            f"path says, held by "
+            f"{'the profiler' if replayed else 'the wrappers'}; of "
+            f"{sum(want.values())} the profiler listed "
+            f"{sum(on_card.values())}, the wrappers counted "
+            f"{sum(counted.values())}; plain versions 0")
+
+
+def kstep_serving(engines: dict, reqs_fn, want: dict, layers: int,
+                  smi: str) -> dict:
+    """The serving run's requests on the k = 1 engine and on the engine
+    with decode_steps=KSTEP (its windows CUDA graphs), KSTEP_ROUNDS
+    rounds, the order swapped each round: each run's tokens equal `want`
+    (the k = 1 run's) and no plain version runs; tokens/s, ms/step and
+    windows; then a profiled run over 8 requests: device ms/step, busy
+    share, kernels and host launch calls per step, and the
+    paged-attention kernel launched on the card once per layer per
+    forward (decode and mixed steps, window bodies), the wrapper counting
+    only the forwards outside the windows (each window a graph's
+    replay)."""
+    syms = ("paged_attention_kernel",)
+    rows = {1: [], KSTEP: []}
+    order = sorted(engines)
+
+    def counters(eng):
+        return (eng.n_decode_steps, eng.n_scan_flushes, eng.n_scan_steps,
+                eng.tokens_generated)
+
+    for r in range(KSTEP_ROUNDS):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            eng = engines[k]
+            n0 = counters(eng)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = eng.run(reqs_fn())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps, flushes, bodies, tokens = (
+                x - y for x, y in zip(counters(eng), n0))
+            same = sorted(results) == sorted(want) and all(
+                np.array_equal(results[i], want[i]) for i in want)
+            if not same:
+                raise AssertionError(f"[serve] decode_steps={k}: tokens "
+                                     f"differ from the k = 1 run")
+            if any(plain_calls().values()):
+                raise AssertionError(f"[serve] decode_steps={k}: plain "
+                                     f"calls {plain_calls()}")
+            n0 = counters(eng)
+            reset_counts()
+            out, pwall, kernels, calls = profiled(
+                lambda: eng.run(reqs_fn()[:8]))
+            psteps, pflushes, pbodies, _ = (
+                x - y for x, y in zip(counters(eng), n0))
+            eager = psteps - pflushes
+            line = check_launches(
+                f"[serve] decode_steps={k}", kernels,
+                {syms[0]: layers * (eager + pbodies)}, k > 1,
+                {syms[0]: layers * eager})
+            busy = sum(dev_us(e) for e in kernels) / 1e3
+            n_kern = sum(e.count for e in kernels)
+            rows[k].append(dict(tokens_s=tokens / wall,
+                                ms_step=wall / steps * 1e3, steps=steps,
+                                flushes=flushes, dev_ms=busy / psteps,
+                                busy=busy / pwall, kernels=n_kern / psteps,
+                                calls=calls / psteps))
+            log(f"[serve] decode_steps={k} round {r + 1}: {len(results)} "
+                f"requests, tokens as at k=1; {steps} steps ({flushes} "
+                f"windows of {k}, {bodies} bodies), {tokens} tokens in "
+                f"{wall:.3f}s = {tokens / wall:.1f} tokens/s, "
+                f"{wall / steps * 1e3:.2f} ms/step; profiled 8 requests: "
+                f"{psteps} steps ({pflushes} windows), device "
+                f"{busy / psteps:.2f} ms/step, busy {busy / pwall:.1%} of "
+                f"{pwall:.1f} ms, {n_kern / psteps:.0f} kernels and "
+                f"{calls / psteps:.1f} host launch calls a step; {line} "
+                f"[{smi}]")
+    graphs = [g for g in engines[KSTEP]._windows[KSTEP].graphs.values()
+              if g is not None]
+    replays = sum(g.replays for g in graphs)
+    log(f"[serve] decode_steps={KSTEP}: {len(graphs)} captured window "
+        f"graph(s) (all-greedy / sampling), replayed {replays} times")
+    if replays < 1:
+        raise AssertionError("[serve] no window replayed from a CUDA graph")
+    return rows
+
+
+def profile_run(run, what: str, smi: str, family: str = "") -> None:
+    """run() once more under torch.profiler (it returns the number of steps
+    it made): the device's busy share of the wall time and the kernels that
+    take it; with `family`, also the share of the kernels whose symbol
+    contains it."""
+    steps, wall_ms, kernels, _ = profiled(run)
     if not kernels:
         log(f"[profile] {what}: wall {wall_ms:.1f} ms (profiler on); device "
             f"time not measured: the profiler saw no CUDA events")
@@ -808,6 +1035,229 @@ def profile_run(run, what: str, smi: str, family: str = "") -> None:
         log(f"[profile]   kernels matching {family!r}: {fam_ms:.2f} ms in "
             f"{sum(e.count for e in fam)} launches = {fam_ms / busy_ms:.1%} "
             f"of the device time, {fam_ms / steps:.3f} ms/step")
+
+
+# steps per dispatch (training) and decode steps per window (serving) of
+# the k-step runs, each held bit for bit against its k = 1 run
+KSTEP = 4
+KSTEP_ROUNDS = 2        # k = 1 and k = KSTEP alternate their order per round
+
+
+def pass_with_losses(tr, batches, k: int):
+    """tr.train_one_pass(batches, steps_per_dispatch=k) keeping every
+    step's loss: (pass statistics without the times, losses as a tensor)."""
+    seen = []
+    drain = tr._drain_losses
+
+    def keep():
+        if tr._loss_buf:
+            seen.append(torch.stack(tr._loss_buf).float())
+        return drain()
+
+    tr._drain_losses = keep
+    try:
+        stats = tr.train_one_pass(batches, steps_per_dispatch=k)
+    finally:
+        del tr._drain_losses
+    stats = {n: v for n, v in stats.items()
+             if n not in ("seconds", "samples_per_sec")}
+    return stats, torch.cat(seen)
+
+
+def training_state_differs(a, b) -> list:
+    """The names of the parts of two trainers' state that are not
+    bit-identical: parameters, optimizer slots, counters, the dropout
+    generator."""
+    bad = [n for n, p in a.params.items() if not torch.equal(p, b.params[n])]
+    bad += [f"{n}.{k}" for n, sl in a.opt_state["slots"].items()
+            for k, v in sl.items()
+            if not torch.equal(v, b.opt_state["slots"][n][k])]
+    bad += [c for c in ("num_samples", "num_updates", "pass_id")
+            if a.opt_state[c] != b.opt_state[c]]
+    if not torch.equal(a.dropout_rng.get_state(), b.dropout_rng.get_state()):
+        bad.append("dropout_rng")
+    return bad
+
+
+def kstep_training(tag: str, smi: str, make, batches: list, route,
+                   unit: tuple, timed: int = 8,
+                   profiled_steps: int = 4) -> dict:
+    """Two trainers from one seed on the same batches, one through the
+    k = 1 loop, one through the fused dispatch at KSTEP (a group of KSTEP
+    steps one replay of a CUDA graph): a warm-up pass of 2 KSTEP batches
+    (the fused trainer's first step runs eagerly, the rest of its group
+    and the next group are captured and replayed), then KSTEP_ROUNDS
+    rounds, each a timed pass of `timed` batches and a profiled pass of
+    `profiled_steps` batches per mode, the two modes' order swapped each
+    round.  After every pass both hold the same parameters, optimizer
+    slots, counters and dropout generator, their losses and pass
+    statistics are the same, bit for bit.  The counts are set to 0 before
+    each pass: no plain version runs, and in the profiled pass the card
+    launched each kernel as `route(batch)` ({symbol: launches}) says,
+    summed over the batches, whatever the mode; the wrappers counted all
+    of them at k = 1 and none at KSTEP (every step a replay).  Logs per
+    mode and round: wall ms/step and `unit` per second, device ms/step
+    and busy share, kernels on the device and host launch calls per step.
+    Returns {k: [per-round figures]}."""
+    per, what = unit
+    t1, tk = make(), make()
+    pairs = ((t1, 1), (tk, KSTEP))
+    pos = 2 * KSTEP
+    for tr, k in pairs:
+        pass_with_losses(tr, batches[:pos], k)
+    torch.cuda.synchronize()
+    rows = {1: [], KSTEP: []}
+    for r in range(KSTEP_ROUNDS):
+        timed_b = batches[pos:pos + timed]
+        prof_b = batches[pos + timed:pos + timed + profiled_steps]
+        pos += timed + profiled_steps
+        if len(prof_b) != profiled_steps:
+            raise ValueError("kstep_training: too few batches")
+        want = route_total(route, prof_b)
+        results = {}
+        for tr, k in (pairs if r % 2 == 0 else pairs[::-1]):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats, losses = pass_with_losses(tr, timed_b, k)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / timed
+            if any(plain_calls().values()):
+                raise AssertionError(f"{tag} k={k}: plain calls "
+                                     f"{plain_calls()}")
+            reset_counts()
+            (st2, l2), pwall, kernels, calls = profiled(
+                lambda: pass_with_losses(tr, prof_b, k))
+            line = check_launches(f"{tag} k={k}", kernels, want, k > 1,
+                                  {s: 0 for s in want})
+            busy = sum(dev_us(e) for e in kernels) / 1e3
+            n_kern = sum(e.count for e in kernels)
+            results[k] = (stats, losses, st2, l2)
+            rows[k].append(dict(wall_ms=wall, per_s=per * 1e3 / wall,
+                                dev_ms=busy / profiled_steps,
+                                busy=busy / pwall,
+                                kernels=n_kern / profiled_steps,
+                                calls=calls / profiled_steps))
+            log(f"{tag} k={k} round {r + 1}: {wall:.2f} ms/step wall = "
+                f"{per * 1e3 / wall:.1f} {what}/s over {timed} steps; "
+                f"profiled {profiled_steps} steps: device "
+                f"{busy / profiled_steps:.2f} ms/step, busy "
+                f"{busy / pwall:.1%} of {pwall / profiled_steps:.2f} "
+                f"ms/step, {n_kern / profiled_steps:.0f} kernels and "
+                f"{calls / profiled_steps:.1f} host launch calls (kernel "
+                f"and graph launches) a step; {line} [{smi}]")
+        a, b = results[1], results[KSTEP]
+        same_stats = a[0] == b[0] and a[2] == b[2]
+        same_losses = torch.equal(a[1], b[1]) and torch.equal(a[3], b[3])
+        differ = training_state_differs(t1, tk)
+        log(f"{tag} round {r + 1}: k={KSTEP} against k=1: pass statistics "
+            f"{'equal' if same_stats else 'DIFFER'}, losses "
+            f"{'bit-identical' if same_losses else 'DIFFER'}, parameters, "
+            f"slots, counters and dropout generator "
+            f"{'bit-identical' if not differ else 'DIFFER: ' + str(differ[:5])}")
+        if not (same_stats and same_losses and not differ):
+            raise AssertionError(f"{tag}: steps_per_dispatch={KSTEP} is not "
+                                 f"bit-identical to the k = 1 loop")
+    log(f"{tag} k={KSTEP}: {tk.n_fused_dispatches} group dispatches, "
+        f"{tk.n_settle_steps} eager first step(s), graphs by group size "
+        f"{graph_replays(tk)}")
+    if not any(n for n in graph_replays(tk).values()):
+        raise AssertionError(f"{tag}: the fused dispatch replayed no graph")
+    del t1, tk
+    torch.cuda.empty_cache()
+    return rows
+
+
+def route_total(route, batches) -> dict:
+    """route(batch) ({kernel symbol: launches a step}) summed over
+    batches."""
+    total: dict = {}
+    for b in batches:
+        for sym, n in route(b).items():
+            total[sym] = total.get(sym, 0) + n
+    return total
+
+
+def graph_replays(tr) -> dict:
+    """A trainer's captured graphs: {(signature number, group size):
+    replays}, signatures numbered in the order they were first captured."""
+    sigs: dict = {}
+    out = {}
+    for (sig, j), steps in tr._graphs.items():
+        out[(sigs.setdefault(sig, len(sigs)), j)] = steps.graph.replays
+    return out
+
+
+# padded lengths by batch (long 0, short 1) of the runs with two batch
+# signatures: runs of 3, 2, 4 and 1, so a group of KSTEP flushes both on a
+# signature change and at KSTEP
+ALTERNATE = (0, 0, 0, 1, 1, 0, 0, 0, 0, 1)
+
+
+def kstep_alternating(tag: str, make, long_b: list, short_b: list,
+                      route) -> dict:
+    """Bucketed data: batch i from long_b or short_b as ALTERNATE says,
+    two passes of a k = 1 trainer and a steps_per_dispatch=KSTEP one from
+    one seed.  After each pass both hold the same state, losses and pass
+    statistics, bit for bit.  The second pass is profiled: the card
+    launched each kernel as `route` says, summed over the batches, and no
+    plain version ran.  At KSTEP both signatures have graphs (one per
+    group size met), all in the trainer's one memory pool, and a graph
+    was replayed after one captured later than it (replays out of capture
+    order).  Returns the fused trainer's {(signature, group size):
+    replays}."""
+    from paddle_tpu_torch.utils import cuda_graphs as cg
+    batches = [(long_b, short_b)[p][i] for i, p in enumerate(ALTERNATE)]
+    want = route_total(route, batches)
+    t1, tk = make(), make()
+    order = []
+    replay = cg.StepGraph.replay
+
+    def logged(graph):
+        order.append(graph)
+        replay(graph)
+
+    cg.StepGraph.replay = logged
+    try:
+        for p in range(2):
+            res = {}
+            for tr, k in ((t1, 1), (tk, KSTEP)):
+                if p == 0:
+                    res[k] = pass_with_losses(tr, batches, k)
+                    continue
+                reset_counts()
+                res[k], _, kernels, _ = profiled(
+                    lambda: pass_with_losses(tr, batches, k))
+                check_launches(f"{tag} alternating k={k}", kernels, want,
+                               k > 1)
+            differ = training_state_differs(t1, tk)
+            same = (res[1][0] == res[KSTEP][0]
+                    and torch.equal(res[1][1], res[KSTEP][1]))
+            if differ or not same:
+                raise AssertionError(
+                    f"{tag} alternating pass {p + 1}: k={KSTEP} differs "
+                    f"from k=1 (statistics and losses equal: {same}; state "
+                    f"{differ[:5]})")
+    finally:
+        cg.StepGraph.replay = replay
+    rank = {id(s.graph): i for i, s in enumerate(tk._graphs.values())}
+    seq = [rank[id(g)] for g in order]
+    out_of_order = any(x < max(seq[:i]) for i, x in enumerate(seq) if i)
+    graphs = graph_replays(tk)
+    pools = {s.graph.pool for s in tk._graphs.values()}
+    log(f"{tag} alternating lengths, 2 passes of {len(batches)} batches: "
+        f"k={KSTEP} bit-identical to k=1 after each; graphs (signature, "
+        f"group size): replays {graphs}, {len(pools)} memory pool; replay "
+        f"sequence by capture order {seq}; second pass launches on the "
+        f"card {({s: n for s, n in want.items() if n})} as the route says, "
+        f"plain versions 0")
+    if len({s for s, _ in graphs}) < 2 or not out_of_order:
+        raise AssertionError(f"{tag}: the alternating run did not replay "
+                             f"graphs of two signatures out of capture "
+                             f"order: {graphs}, {seq}")
+    del t1, tk
+    torch.cuda.empty_cache()
+    return graphs
 
 
 def phase_routes() -> None:
@@ -884,6 +1334,17 @@ FLASH_COUNTS = ("fwd_tc", "bwd_dq_tc", "bwd_dkv_tc", "fwd", "bwd_dq",
                 "bwd_dkv", "plain")
 
 
+def flash_route(layers: int, dtype):
+    """The flash kernels an LM training step launches on the card: dtype's
+    three once per layer, the other dtype's none."""
+    tc = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+          "flash_bwd_dkv_tc_kernel")
+    f32 = tuple(s.replace("_tc", "") for s in tc)
+    mine = tc if dtype == torch.bfloat16 else f32
+    step = {s: (layers if s in mine else 0) for s in tc + f32}
+    return lambda batch: step
+
+
 def flash_counts() -> tuple:
     """The flash launch counts in FLASH_COUNTS order: the bf16 kernels, the
     fp32 ones, the plain versions."""
@@ -953,6 +1414,42 @@ def flash_repeats(q, k, v, kvm, do, **mask) -> bool:
             and all(torch.equal(a, b) for a, b in zip(g1, g2)))
 
 
+def graph_replay_equal(run) -> bool:
+    """run() (a tuple of tensors) once eagerly on a side stream, then
+    captured in a torch.cuda.CUDAGraph and replayed: the replay's outputs
+    equal the eager ones bit for bit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(captured, eager))
+    del graph
+    return same
+
+
+def flash_graph_replay(q, k, v, kvm, do, **mask) -> bool:
+    """The three flash kernels of q's dtype (forward, then dQ and dK/dV
+    from its o and lse) replayed from a CUDA graph equal eager."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    scale = q.shape[-1] ** -0.5
+    kvm8 = kvm.to(torch.uint8)
+
+    def run():
+        o, lse = fa.flash_attention_fwd(q, k, v, kvm, **mask)
+        args = (q, k, v, kvm8, do, lse, fa.backward_delta(o, do, None),
+                mask.get("causal", False), scale, mask.get("q_offset", 0),
+                mask.get("k_offset", 0), mask.get("window"))
+        return (o, lse, fa.bwd_dq_kernel(*args)) + tuple(
+            fa.bwd_dkv_kernel(*args))
+    return graph_replay_equal(run)
+
+
 def phase_flash() -> None:
     """The three flash kernels against their plain versions at B=2 over the
     mask cases, with a random lse cotangent: float32 (flash_attention.cu,
@@ -989,12 +1486,14 @@ def phase_flash() -> None:
                             device="cuda").to(dtype) for _ in range(2))
         kvm = torch.ones(B, 2048, dtype=torch.bool, device="cuda")
         same = flash_repeats(q, k, v, kvm, do, causal=True)
+        replay = flash_graph_replay(q, k, v, kvm, do, causal=True)
         log(f"[flash] {str(dtype)[6:]:8s} D={D:<3d} fwd, dq, dk/dv launched "
             f"twice at [{B}, 2048, {H}, {D}] H_kv=2 causal: "
-            f"{'bit-identical' if same else 'DIFFER'}")
-        if not same:
-            raise AssertionError(f"flash kernels do not repeat bit for bit "
-                                 f"({dtype}, D={D})")
+            f"{'bit-identical' if same else 'DIFFER'}; replayed from a CUDA "
+            f"graph: {'equal to eager bit for bit' if replay else 'DIFFER'}")
+        if not (same and replay):
+            raise AssertionError(f"flash kernels do not repeat or replay "
+                                 f"bit for bit ({dtype}, D={D})")
 
 
 def lm_batches(n: int, B: int, T: int, vocab: int, seed: int,
@@ -1089,6 +1588,9 @@ def phase_train(smi: str) -> list:
     profile_run(train_two, "2 training steps", smi)
     del tr
     torch.cuda.empty_cache()
+    kstep_training("[train]", smi, lambda: Trainer(cfg, seed=1),
+                   lm_batches(32, B, T, vocab, seed=3),
+                   flash_route(layers, torch.bfloat16), (B * T, "tokens"))
     return flash_records(launches, B, T, torch.bfloat16, smi, "[train]")
 
 
@@ -1164,6 +1666,9 @@ def phase_train_fp32(smi: str) -> list:
     profile_run(train_one, "1 float32 training step", smi, family="flash_")
     del tr
     torch.cuda.empty_cache()
+    kstep_training("[train-fp32]", smi, lambda: Trainer(cfg, seed=1),
+                   lm_batches(32, B, T, vocab, seed=3),
+                   flash_route(layers, torch.float32), (B * T, "tokens"))
     return flash_records(launches, B, T, torch.float32, smi, "[train-fp32]")
 
 
@@ -1674,6 +2179,24 @@ def phase_sentiment(smi: str) -> list:
     profile_run(train_two, "2 sentiment training steps", smi,
                 family="lstm_")
     del tr
+    torch.cuda.empty_cache()
+
+    def lstm_route(n):
+        return lambda batch: {"lstm_fwd_kernel": n, "lstm_bwd_kernel": n}
+
+    kstep_training("[sentiment]", smi, lambda: Trainer(cfg, seed=1),
+                   sentiment_batches(32, B, T, vocab, seed=5, ragged=True),
+                   lstm_route(n_lstm), (B, "samples"))
+    kstep_alternating("[sentiment]", lambda: Trainer(cfg, seed=1),
+                      sentiment_batches(10, B, T, vocab, seed=7,
+                                        ragged=True),
+                      sentiment_batches(10, B, 80, vocab, seed=8,
+                                        ragged=True),
+                      lstm_route(n_lstm))
+    bicfg = bidirectional_lstm_net_config(vocab, batch_size=B)
+    kstep_training("[sentiment-bidi]", smi, lambda: Trainer(bicfg, seed=1),
+                   sentiment_batches(24, B, T, vocab, seed=6, ragged=True),
+                   lstm_route(2), (B, "samples"), timed=4)
 
     # the bidirectional net: a forward and a reversed lstmemory per step
     bi = Trainer(bidirectional_lstm_net_config(vocab, batch_size=B), seed=1)
@@ -2164,9 +2687,13 @@ def phase_additive() -> None:
     one = aa.additive_attention_kernel(*args)
     two = aa.additive_attention_kernel(*args)
     torch.cuda.synchronize()
-    log(f"[additive] two launches bit-identical: {torch.equal(one, two)}")
-    if not torch.equal(one, two):
-        raise AssertionError("additive attention kernel: repeat differs")
+    replay = graph_replay_equal(lambda: (aa.additive_attention_kernel(*args),))
+    log(f"[additive] two launches bit-identical: {torch.equal(one, two)}; "
+        f"a launch replayed from a CUDA graph equal to eager bit for bit: "
+        f"{replay}")
+    if not (torch.equal(one, two) and replay):
+        raise AssertionError("additive attention kernel: repeat or graph "
+                             "replay differs")
 
 
 S2S_VOCAB, S2S_HIDDEN, S2S_BATCH, S2S_SRC = 30000, 512, 64, 30
@@ -2200,6 +2727,15 @@ def seq2seq_batches(n: int, B: int, T: int, seed: int, ragged: bool = False):
                     "target_language_next_word": Argument(ids=nxt,
                                                           lengths=lens + 1)})
     return out
+
+
+def seq2seq_route(batch) -> dict:
+    """The kernels a seq2seq training step launches on the card: the
+    encoder's two GRUs forward and backward, the additive attention once
+    per decoder step (T + 1 of them)."""
+    T = batch["source_language_word"].ids.shape[1]
+    return {"gru_fwd_kernel": 2, "gru_bwd_kernel": 2,
+            "additive_attention_kernel": T + 1}
 
 
 def seq2seq_counts():
@@ -2312,6 +2848,13 @@ def phase_seq2seq(smi: str) -> list:
 
     profile_run(train_two, "2 seq2seq training steps", smi,
                 family="additive_attention")
+    kstep_training("[seq2seq]", smi, lambda: Trainer(cfg, seed=1),
+                   seq2seq_batches(32, B, T, seed=4, ragged=True),
+                   seq2seq_route, (B, "samples"))
+    kstep_alternating("[seq2seq]", lambda: Trainer(cfg, seed=1),
+                      seq2seq_batches(10, B, T, seed=5, ragged=True),
+                      seq2seq_batches(10, B, 24, seed=6, ragged=True),
+                      seq2seq_route)
 
     # beam-search generation on the trained parameters
     K, L = 3, 30

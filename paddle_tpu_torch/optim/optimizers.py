@@ -6,7 +6,9 @@ opt, t, **kw) -> (new p, new slots)) over one parameter tensor, applied per
 parameter by the ParameterUpdater.  The rules are the JAX package's (and so
 the reference's): momentum (alias sgd, sparse_momentum), adagrad,
 decayed_adagrad, adadelta, rmsprop, adam, adamax.  They return new tensors
-and leave their inputs untouched; `t` is the 1-based update count.
+and leave their inputs untouched (the updater writes the results into the
+parameter and slot storage); `lr` is a float or a 0-d tensor, `t` the
+1-based update count, an int or the updater's `StepCount`.
 """
 
 from __future__ import annotations
@@ -101,10 +103,28 @@ def _rmsprop_update(p, g, slots, lr, opt, t, **_):
 _register("rmsprop")((_rmsprop_init, _rmsprop_update))
 
 
-def _f32_pow(base: float, t: int) -> float:
-    """base ** t in float32, as jnp.power(base, t.astype(float32))."""
-    return float(torch.pow(torch.tensor(base, dtype=torch.float32),
-                           torch.tensor(float(t), dtype=torch.float32)))
+class StepCount:
+    """The 1-based update count of one step as a 0-d float32 tensor on the
+    parameters' device (from the updater's device counter), with each bias
+    correction 1 - base ** t the rules take computed once for all
+    parameters, without a host read."""
+
+    def __init__(self, t: torch.Tensor):
+        self.value = t.to(torch.float32)
+        self._corrections: dict[float, torch.Tensor] = {}
+
+    def correction(self, base: float) -> torch.Tensor:
+        if base not in self._corrections:
+            self._corrections[base] = 1.0 - torch.pow(base, self.value)
+        return self._corrections[base]
+
+
+def _correction(base: float, t) -> torch.Tensor:
+    """1 - base ** t in float32, as 1 - jnp.power(base, t.astype(float32));
+    `t` an int or a StepCount."""
+    if isinstance(t, StepCount):
+        return t.correction(base)
+    return 1.0 - torch.pow(base, torch.tensor(float(t), dtype=torch.float32))
 
 
 def _adam_init(p, opt):
@@ -115,8 +135,8 @@ def _adam_update(p, g, slots, lr, opt, t, **_):
     b1, b2, eps = opt.adam_beta1, opt.adam_beta2, opt.adam_epsilon
     m = b1 * slots["m"] + (1.0 - b1) * g
     v = b2 * slots["v"] + (1.0 - b2) * torch.square(g)
-    mhat = m / (1.0 - _f32_pow(b1, t))
-    vhat = v / (1.0 - _f32_pow(b2, t))
+    mhat = m / _correction(b1, t)
+    vhat = v / _correction(b2, t)
     return p - lr * mhat / (torch.sqrt(vhat) + eps), {"m": m, "v": v}
 
 
@@ -131,7 +151,7 @@ def _adamax_update(p, g, slots, lr, opt, t, **_):
     b1, b2 = opt.adam_beta1, opt.adam_beta2
     m = b1 * slots["m"] + (1.0 - b1) * g
     u = torch.maximum(b2 * slots["u"], torch.abs(g))
-    lr_t = lr / (1.0 - _f32_pow(b1, t))
+    lr_t = lr / _correction(b1, t)
     return p - lr_t * m / (u + 1e-12), {"m": m, "u": u}
 
 

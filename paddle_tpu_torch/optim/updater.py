@@ -8,6 +8,14 @@ gradient, and the update rule of `learning_method`.  Static parameters are
 left alone.  The state holds each parameter's slots as tensors and three
 host counters (`num_samples`, `num_updates`, `pass_id`).
 
+An update writes the new parameters and slots into their tensors in place,
+and reads the counters from 0-d device copies that it advances itself, so
+it makes no host read and a CUDA graph of the training step can hold it:
+`step` is `load_counters` (upload the host counters where they moved, not
+capturable), `apply` (the update, capturable) and `advance` (the host
+counters); the Trainer's fused dispatch runs the first and last around
+every replay of a graph that holds `apply`.
+
 Not ported yet, and refused when configured (ROADMAP.md): pruning hooks
 (`update_hooks`), model averaging (`average_window`) and gradient
 accumulation (`num_batches_per_send_parameter > 1`).
@@ -15,14 +23,14 @@ accumulation (`num_batches_per_send_parameter > 1`).
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from paddle_tpu_torch.config.schema import (ModelConfig, OptimizationConfig,
                                             ParameterConfig)
-from paddle_tpu_torch.optim.optimizers import get_optimizer
-from paddle_tpu_torch.optim.schedulers import learning_rate_at
+from paddle_tpu_torch.optim.optimizers import StepCount, get_optimizer
+from paddle_tpu_torch.optim.schedulers import learning_rate_tensor
 
 _MOMENTUM_RULES = ("momentum", "sgd", "sparse_momentum")
 
@@ -47,6 +55,10 @@ class ParameterUpdater:
             p.name: p for p in model.parameters}
         self.init_slots_fn, self.update_fn = get_optimizer(
             opt.learning_method)
+        # (num_samples, num_updates, pass_id) on the parameters' device,
+        # and the host values they hold
+        self._counters: Optional[torch.Tensor] = None
+        self._mirror: Optional[tuple] = None
 
     def init_state(self, params: dict[str, torch.Tensor]) -> dict[str, Any]:
         slots = {name: self.init_slots_fn(p, self.opt)
@@ -55,24 +67,59 @@ class ParameterUpdater:
         return {"slots": slots, "num_samples": 0, "num_updates": 0,
                 "pass_id": 0}
 
-    @torch.no_grad()
     def step(self, params: dict[str, torch.Tensor],
              grads: dict[str, torch.Tensor], state: dict[str, Any],
              batch_size: int):
-        """One update.  Returns (new params, new state); the inputs are not
-        modified."""
+        """One update.  The parameters and slots are updated in place;
+        returns (params, the new state)."""
+        self.load_counters(state, next(iter(params.values())).device)
+        self.apply(params, grads, state["slots"], batch_size)
+        return params, self.advance(state, batch_size)
+
+    def load_counters(self, state: dict[str, Any],
+                      device: torch.device) -> None:
+        """Make the device counters hold the state's host counters: an
+        upload only when they moved other than by `advance` (a new state,
+        a loaded checkpoint, the end of a pass)."""
+        host = (int(state["num_samples"]), int(state["num_updates"]),
+                int(state["pass_id"]))
+        device = torch.device(device)
+        if self._counters is None or not _same_device(self._counters.device,
+                                                      device):
+            self._counters = torch.zeros(3, dtype=torch.int64, device=device)
+            self._mirror = None
+        if host != self._mirror:
+            self._counters.copy_(torch.tensor(host, dtype=torch.int64))
+            self._mirror = host
+
+    def advance(self, state: dict[str, Any], batch_size: int
+                ) -> dict[str, Any]:
+        """The host counters after one `apply` (which advanced the device
+        ones the same way)."""
+        new = dict(state, num_samples=state["num_samples"] + int(batch_size),
+                   num_updates=state["num_updates"] + 1)
+        self._mirror = (new["num_samples"], new["num_updates"],
+                        new["pass_id"])
+        return new
+
+    @torch.no_grad()
+    def apply(self, params: dict[str, torch.Tensor],
+              grads: dict[str, torch.Tensor], slots: dict[str, Any],
+              batch_size: int) -> None:
+        """The update on the device, in place: the counters advance, then
+        every trainable parameter with a gradient and its slots take the
+        rule's new values.  No host read."""
         opt = self.opt
-        num_samples = state["num_samples"] + int(batch_size)
-        t = state["num_updates"] + 1
-        base_lr = learning_rate_at(opt, num_samples, state["pass_id"])
-        new_params: dict[str, torch.Tensor] = {}
-        new_slots: dict[str, Any] = {}
+        c = self._counters
+        c[0].add_(int(batch_size))
+        c[1].add_(1)
+        base_lr = learning_rate_tensor(opt, c[0], c[2])
+        step = StepCount(c[1])
+        lrs: dict[float, torch.Tensor] = {}     # by per-parameter multiplier
+        dst, src = [], []
         for name, p in params.items():
             cfg = self.param_cfgs[name]
             if cfg.is_static or name not in grads:
-                new_params[name] = p
-                if name in state["slots"]:
-                    new_slots[name] = state["slots"][name]
                 continue
             g = grads[name]
             # per-param None inherits the global threshold; 0.0 disables
@@ -92,11 +139,28 @@ class ParameterUpdater:
             kw = ({"mom_override": cfg.momentum}
                   if cfg.momentum is not None
                   and opt.learning_method in _MOMENTUM_RULES else {})
-            new_params[name], new_slots[name] = self.update_fn(
-                p, g, state["slots"][name], base_lr * cfg.learning_rate,
-                opt, t, **kw)
-        return new_params, {"slots": new_slots, "num_samples": num_samples,
-                            "num_updates": t, "pass_id": state["pass_id"]}
+            if cfg.learning_rate not in lrs:
+                lrs[cfg.learning_rate] = base_lr * cfg.learning_rate
+            new_p, new_slots = self.update_fn(
+                p, g, slots[name], lrs[cfg.learning_rate], opt, step, **kw)
+            dst.append(p)
+            src.append(new_p)
+            for k, v in new_slots.items():
+                dst.append(slots[name][k])
+                src.append(v)
+        if dst:
+            torch._foreach_copy_(dst, src)
 
     def finish_pass(self, state: dict[str, Any]) -> dict[str, Any]:
         return dict(state, pass_id=state["pass_id"] + 1)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """a and b name one device ('cuda' is the current CUDA device)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)

@@ -24,10 +24,24 @@ samples token g), the draw does not depend on the step or slot a token
 lands in; the draws themselves differ from JAX's threefry keys.  Greedy
 requests use no noise.
 
+Multi-step decode (`decode_steps=k > 1`, the reference's scanned step):
+a step with every live slot decoding and none filling runs a WINDOW of k
+decode bodies on the device — per-slot token, position, generation count
+and run mask live in device tensors, a slot dropping out of the run mask
+at its eos or max_new exactly where `_bank_token` would retire it — and
+the host reads the [k, S] token block once and banks each slot's column up
+to its own end.  Every slot first gets pages for its whole window; a mixed
+step, or a window whose pages cannot be grown, runs the k = 1 step.  On
+the card the window is a CUDA graph captured once per (k, all-greedy or
+sampling) after the variant's first window ran eagerly; the noise for
+tokens gen .. gen + k - 1 of each sampling slot is drawn by `noise` into a
+fixed [k, S, V] buffer before the replay, the same noise k = 1 draws.
+Tokens are identical to k = 1.
+
 Not ported yet (ROADMAP.md): preemption of an overcommitted pool, prefix
-cache and copy-on-write, the host spill tier, speculative and multi-step
-decode, tensor parallelism, tracing, checkpoint/restore, and the legacy
-whole-prompt prefill (`prefill_chunk=None`).
+cache and copy-on-write, the host spill tier, speculative decode (and with
+it `decode_mode`), tensor parallelism, tracing, checkpoint/restore, and
+the legacy whole-prompt prefill (`prefill_chunk=None`).
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from paddle_tpu_torch.graph.registry import (cost_layer_types,
 from paddle_tpu_torch.parameter.argument import Argument
 from paddle_tpu_torch.serving.paged_kv import PagedKVCache
 from paddle_tpu_torch.serving.sampler import pick_next_per_slot
+from paddle_tpu_torch.utils.cuda_graphs import StepGraph, new_pool
 
 # noise(request, g, vocab, device) -> [vocab] float32 Gumbel noise for
 # the request's token g
@@ -139,7 +154,8 @@ class ServingEngine:
                  num_slots: int = 4, page_size: int = 16,
                  max_context: int = 256, prefill_chunk: Optional[int] = -1,
                  max_step_tokens: Optional[int] = None,
-                 noise: Optional[NoiseFn] = None, device: DeviceLike = None):
+                 noise: Optional[NoiseFn] = None, device: DeviceLike = None,
+                 decode_steps: int = 1):
         self.device = resolve_device(device)
         self.executor = executor
         self.input_name, self.logits_name = _resolve_io_names(executor.model)
@@ -164,7 +180,17 @@ class ServingEngine:
         self.tokens_generated = 0
         self._admit_seq = 0
         self._table_version = -1
-        self._d_table: Optional[torch.Tensor] = None
+        # the device page table [S+1, pages_per_slot], one buffer for the
+        # engine's life (a captured window reads it)
+        self._d_table = torch.zeros(
+            (num_slots + 1, self.kv.pages_per_slot), dtype=torch.int32,
+            device=self.device)
+        self.n_scan_flushes = 0             # multi-step windows run
+        self.n_scan_steps = 0               # decode bodies in them (k each)
+        self.set_decode_steps(decode_steps)
+        # the device state and graphs of the windows, by k
+        self._windows: dict[int, _Window] = {}
+        self._pool = new_pool(self.device)
         if prefill_chunk is None:
             raise NotImplementedError(
                 "prefill_chunk=None (whole-prompt prefill through the dense "
@@ -210,6 +236,19 @@ class ServingEngine:
             return
         self.queue.append(req)
 
+    def set_decode_steps(self, decode_steps: int) -> None:
+        """Multi-step decode: up to `decode_steps` tokens per slot in one
+        window whenever the engine is pure-decode (1 = off).  Tokens are
+        the same either way.  Only on an idle engine (a live slot's host
+        state must be at a window boundary)."""
+        if any(sl is not None for sl in self.slots) or self.queue:
+            raise RuntimeError("set_decode_steps requires an idle engine")
+        decode_steps = int(decode_steps)
+        if decode_steps < 1:
+            raise ValueError(f"decode_steps must be >= 1 (1 = multi-step "
+                             f"off), got {decode_steps}")
+        self.decode_steps = decode_steps
+
     def step(self) -> bool:
         """One scheduler iteration: admit -> one step over all slots ->
         retire.  Returns False when idle (nothing in flight or queued)."""
@@ -225,7 +264,12 @@ class ServingEngine:
                 # broken invariant, not page pressure
                 raise RuntimeError(f"slot {s}: page pool exhausted")
         if filling:
+            # an admission never waits behind a window: mixed load runs the
+            # k = 1 mixed step
             self._run_mixed_step(decoding, filling)
+        elif self.decode_steps > 1 and self._scan_window_ok(
+                decoding, self.decode_steps):
+            self._run_scan_step(decoding, self.decode_steps)
         else:
             self._run_decode_step(decoding)
         return True
@@ -262,13 +306,10 @@ class ServingEngine:
 
     def _sync_table(self) -> torch.Tensor:
         """The device page table [S+1, pages_per_slot] — row S is the
-        all-zero row padding rows address — re-uploaded only when a host
-        table write moved kv.version."""
+        all-zero row padding rows address — copied into its one buffer
+        only when a host table write moved kv.version."""
         if self.kv.version != self._table_version:
-            tbl = np.concatenate(
-                [self.kv.table,
-                 np.zeros((1, self.kv.pages_per_slot), np.int32)], axis=0)
-            self._d_table = torch.from_numpy(tbl).to(self.device)
+            self._d_table[:-1].copy_(torch.from_numpy(self.kv.table))
             self._table_version = self.kv.version
         return self._d_table
 
@@ -297,7 +338,8 @@ class ServingEngine:
                                       self.device)
         nxt = pick_next_per_slot(last, noise, self._to_device(temp),
                                  self._to_device(top_k),
-                                 self._to_device(top_p), is_probs=self._probs)
+                                 self._to_device(top_p), is_probs=self._probs,
+                                 any_sampling=bool(sampling))
         return nxt.cpu().numpy()
 
     def _run_decode_step(self, runnable) -> None:
@@ -323,6 +365,73 @@ class ServingEngine:
         self.n_decode_steps += 1
         for s in runnable:
             self._bank_token(s, int(nxt[s]))
+
+    def _scan_window_ok(self, runnable, k: int) -> bool:
+        """Pages for one window: every runnable slot gets pages up to pos +
+        min(k, tokens it may still emit).  False (the caller runs the k = 1
+        step) when the free list runs dry; pages taken stay with the
+        slot."""
+        ok = True
+        for s in runnable:
+            sl = self.slots[s]
+            if not self.kv.try_grow(s, sl.pos + min(k, sl.req.max_new
+                                                    - sl.gen)):
+                ok = False
+        return ok
+
+    def _run_scan_step(self, runnable, k: int) -> None:
+        """One window of k decode bodies (module docstring): stage the
+        slots' state and noise, run or replay the window, read the [k, S]
+        token block once, bank each slot's column up to its eos/max_new."""
+        S = len(self.slots)
+        win = self._windows.get(k)
+        if win is None:
+            win = self._windows[k] = _Window(self, k)
+        ints = np.zeros((7, S), np.int64)       # tok pos gen run eos max topk
+        floats = np.zeros((2, S), np.float32)   # temperature, top_p
+        sampling = []
+        for s in runnable:
+            sl, req = self.slots[s], self.slots[s].req
+            ints[:, s] = (sl.last_tok, sl.pos, sl.gen, 1, req.eos_id,
+                          req.max_new, req.top_k)
+            floats[:, s] = (req.temperature, req.top_p)
+            if req.temperature > 0.0:
+                sampling.append(s)
+        self._sync_table()
+        win.ints.copy_(torch.from_numpy(ints))
+        win.floats.copy_(torch.from_numpy(floats))
+        for s in sampling:
+            sl = self.slots[s]
+            for i in range(min(k, sl.req.max_new - sl.gen)):
+                win.noise[i, s] = self.noise(sl.req, sl.gen + i, self.vocab,
+                                             self.device)
+        sampled = bool(sampling)
+        if self.device.type != "cuda" or sampled not in win.graphs:
+            # the CPU's mode, and a variant's first window on the card,
+            # after which the variant is captured
+            win.body(sampled)
+            if self.device.type == "cuda":
+                win.graphs[sampled] = None
+        else:
+            if win.graphs[sampled] is None:
+                graph = win.graphs[sampled] = StepGraph(self._pool)
+                graph.capture(lambda: win.body(sampled))
+            win.graphs[sampled].replay()
+        blk = win.block.cpu().numpy()                   # [k, S]
+        self.n_decode_steps += 1
+        self.n_scan_flushes += 1
+        self.n_scan_steps += k
+        for s in runnable:
+            sl = self.slots[s]
+            burst = []
+            for i in range(k):
+                t = int(blk[i, s])
+                burst.append(t)
+                if t == sl.req.eos_id or sl.gen + len(burst) >= \
+                        sl.req.max_new:
+                    break                # the run mask froze here too
+            for t in burst:
+                self._bank_token(s, t)
 
     def _run_mixed_step(self, runnable, filling) -> None:
         """One mixed prefill/decode step: each decoding slot's row first,
@@ -411,3 +520,56 @@ class ServingEngine:
             [sl.req.prompt_ids, np.asarray(sl.generated, np.int32)])
         self.kv.release(s)
         self.slots[s] = None
+
+
+class _Window:
+    """The device state of one engine's windows of k bodies, and their
+    graphs: per-slot integers (last token, position, generation count,
+    run mask, eos id, max_new, top_k) and floats (temperature, top_p)
+    staged by the host at a window's start, the noise of the sampling
+    slots' k tokens, and the [k, S] token block the window writes."""
+
+    def __init__(self, eng: ServingEngine, k: int):
+        S, dev = len(eng.slots), eng.device
+        self.eng, self.k = eng, k
+        # all-greedy / sampling -> its graph on the card (None: ran eagerly
+        # once, captured at the next window)
+        self.graphs: dict[bool, Optional[StepGraph]] = {}
+        self.ints = torch.zeros((7, S), dtype=torch.int64, device=dev)
+        self.floats = torch.zeros((2, S), dtype=torch.float32, device=dev)
+        self.noise = torch.zeros((k, S, eng.vocab), dtype=torch.float32,
+                                 device=dev)
+        self.block = torch.zeros((k, S), dtype=torch.int32, device=dev)
+        self.ones = torch.ones(S, dtype=torch.int32, device=dev)
+
+    def body(self, sampling: bool) -> None:
+        """k decode steps on the device, no host read: each the k = 1 decode
+        step's forward and sampler over all S slots, then the running slots
+        advance and a slot leaves the run mask at its eos or max_new.  A
+        stopped slot recomputes its frozen row; its K/V write lands one
+        position past its last token (in its own pages or the trash page),
+        where nothing reads it."""
+        eng = self.eng
+        S = self.ints.shape[1]
+        tok, pos, gen, run, eos, max_new, top_k = self.ints
+        temp, top_p = self.floats
+        table = eng._d_table[:S]
+        for i in range(self.k):
+            state = {name: {"k_pages": p["k"], "v_pages": p["v"],
+                            "page_table": table, "pos": pos}
+                     for name, p in eng.kv.pools.items()}
+            feed = {eng.input_name: Argument(ids=tok[:, None],
+                                             lengths=self.ones)}
+            outputs, _, _ = eng.executor.forward(eng.params, feed, state,
+                                                 TEST)
+            nxt = pick_next_per_slot(
+                outputs[eng.logits_name].value[:, 0, :],
+                self.noise[i] if sampling else None, temp, top_k, top_p,
+                is_probs=eng._probs, any_sampling=sampling)
+            self.block[i].copy_(nxt)
+            nxt = nxt.to(torch.int64)
+            on = run.bool()
+            pos.add_(run)
+            gen.add_(run)
+            tok.copy_(torch.where(on, nxt, tok))
+            run.copy_((on & (nxt != eos) & (gen < max_new)).to(torch.int64))

@@ -27,20 +27,26 @@ def greedy_next(last: torch.Tensor) -> torch.Tensor:
 def pick_next_per_slot(last: torch.Tensor, noise: Optional[torch.Tensor],
                        temperature: torch.Tensor, top_k: torch.Tensor,
                        top_p: torch.Tensor,
-                       is_probs: bool = False) -> torch.Tensor:
+                       is_probs: bool = False,
+                       any_sampling: Optional[bool] = None) -> torch.Tensor:
     """[S, V] scores + [S, V] Gumbel noise + per-slot knobs [S] -> [S] int32.
 
     Slots with temperature <= 0 decode greedily and ignore their noise row
     (`noise` may be None when every slot is greedy); top_k <= 0 keeps the
     full support; top_p outside (0, 1) disables the nucleus cut.
     `is_probs`: the scores are probabilities, sampled through
-    log(max(p, 1e-30)) in float32."""
+    log(max(p, 1e-30)) in float32.  `any_sampling` says whether some slot
+    samples, as the host knows it; None reads it from `temperature` (a
+    host read, which a CUDA graph cannot hold).  The tokens are the same
+    either way."""
     S, V = last.shape
     last = torch.log(torch.clamp_min(last.float(), 1e-30)) if is_probs \
         else last.float()
     greedy = greedy_next(last)
     sampling = temperature > 0.0
-    if not bool(sampling.any()):
+    if any_sampling is None:
+        any_sampling = bool(sampling.any())
+    if not any_sampling:
         return greedy
     if noise is None:
         raise ValueError("sampling slots need Gumbel noise")

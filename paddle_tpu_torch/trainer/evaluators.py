@@ -72,11 +72,13 @@ class EvaluatorSet:
         return res
 
     def accumulate(self, acc: dict, partials: dict) -> dict:
-        """Add one batch's partials in float64, on their device."""
+        """Add one batch's partials in float64, on their device.  The sums
+        never alias a partial: a captured training step writes its partials
+        into the same output tensors on every replay."""
         for name, parts in partials.items():
             slot = acc.setdefault(name, {})
             for k, v in parts.items():
-                v = v.detach().to(torch.float64)
+                v = v.detach().to(torch.float64, copy=True)
                 slot[k] = v if k not in slot else slot[k] + v
         return acc
 

@@ -16,13 +16,17 @@ import torch
 
 from chip_smoke import (ADD_CASES, ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL,
                         GRU_TOL, K5_ATOL, K5_EDGE, LSTM_TOL, additive_error,
-                        additive_inputs, flash_repeats, gru_compare,
-                        gru_inputs,
+                        additive_inputs, check_launches, flash_graph_replay,
+                        flash_repeats, flash_route, graph_replays,
+                        graph_replay_equal, gru_compare, gru_inputs,
                         gru_move_off_relu_kink, gru_repeat_and_graph,
-                        k5_case, k5_error, k5_repeat_and_graph, lm_batches,
-                        lstm_compare, lstm_inputs, lstm_repeat_and_graph,
-                        move_off_relu_kink, o_limit_share, sentiment_batches,
-                        seq2seq_batches)
+                        k5_case, k5_error, k5_repeat_and_graph,
+                        kstep_alternating, lm_batches, lstm_compare,
+                        lstm_inputs, lstm_repeat_and_graph,
+                        move_off_relu_kink, o_limit_share, pass_with_losses,
+                        profiled, reset_counts, route_total,
+                        sentiment_batches, seq2seq_batches, seq2seq_route,
+                        serve_requests, training_state_differs)
 from paddle_tpu_torch.graph import GraphExecutor
 from paddle_tpu_torch.graph.generator import generate
 from paddle_tpu_torch.models import (seq2seq_trainer_config,
@@ -254,6 +258,22 @@ def test_flash_kernels_repeat_bit_for_bit(cuda, dtype, D, h_kv, causal,
     assert flash_repeats(q, k, v, kvm, do, causal=causal, window=window)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_replay_from_a_cuda_graph(cuda, dtype, D):
+    """The forward, dQ and dK/dV kernels captured in a CUDA graph and
+    replayed give the eager bits (GQA, causal, a ragged key mask)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, do = (torch.randn(2, 700, 8, D, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, 700, 2, D, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kvm = torch.ones(2, 700, dtype=torch.bool, device=cuda)
+    kvm[1, 500:] = False
+    assert flash_graph_replay(q, k, v, kvm, do, causal=True)
+
+
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 160, device=cuda)
     kvm = torch.ones(1, 8, dtype=torch.bool, device=cuda)
@@ -301,7 +321,9 @@ def test_training_steps_on_cuda_match_cpu(cuda):
                 assert (fa.counts.fwd, fa.counts.bwd_dq, fa.counts.bwd_dkv,
                         fa.counts.plain) == (2, 2, 2, 0)
             if after1 is None:
-                after1 = {n: p.cpu() for n, p in tr.params.items()}
+                # copies: the updates write the parameters in place
+                after1 = {n: p.to("cpu", copy=True)
+                          for n, p in tr.params.items()}
         runs[dev] = losses, after1
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5)
     for n, p in runs["cpu"][1].items():
@@ -606,3 +628,151 @@ def test_seq2seq_step_and_generate_on_cuda_match_cpu(cuda):
         err = float((runs["cuda"][1][n] - ref).abs().max())
         assert err <= 1e-4 * float(ref.abs().max()) + 1e-9, n
     assert torch.equal(runs["cuda"][2], runs["cpu"][2])
+
+
+def test_additive_kernel_replays_from_a_cuda_graph(cuda):
+    """The additive-attention kernel at the seq2seq shape, ragged (a row
+    without keys), captured in a CUDA graph and replayed: the eager bits."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    args = additive_inputs(g, 64, 30, 512, 1024, True)
+    assert graph_replay_equal(lambda: (aa.additive_attention_kernel(*args),))
+
+
+def _lm_cfg(dtype):
+    return lambda: transformer_lm_trainer_config(
+        97, 64, 2, 4, batch_size=3, block_k_min=16, compute_dtype=dtype)
+
+
+def _lstm_route(batch):
+    return {"lstm_fwd_kernel": 3, "lstm_bwd_kernel": 3}
+
+
+# model -> (config builder, batches(n, T), (long T, short T),
+#           route(batch): {kernel symbol: launches a step})
+FUSED_MODELS = {
+    "lm-bf16": (_lm_cfg("bfloat16"),
+                lambda n, T: lm_batches(n, 3, T, 97, seed=T, motifs=6,
+                                        short_last=5),
+                (40, 24), flash_route(2, torch.bfloat16)),
+    "lm-fp32": (_lm_cfg(""),
+                lambda n, T: lm_batches(n, 3, T, 97, seed=T, motifs=6,
+                                        short_last=5),
+                (40, 24), flash_route(2, torch.float32)),
+    "sentiment": (lambda: stacked_lstm_net_config(97, batch_size=6,
+                                                  hid_dim=128),
+                  lambda n, T: sentiment_batches(n, 6, T, 97, seed=T,
+                                                 ragged=True),
+                  (14, 11), _lstm_route),
+    "seq2seq": (lambda: seq2seq_trainer_config(1100, 64, 6),
+                lambda n, T: seq2seq_batches(n, 6, T, seed=T, ragged=True),
+                (14, 11), seq2seq_route),
+}
+
+
+@pytest.mark.parametrize("model", sorted(FUSED_MODELS))
+def test_fused_dispatch_graphs_equal_the_k1_loop(cuda, model):
+    """Two passes of 7 batches with steps_per_dispatch=4 (the first step
+    eager; pass 1 groups of 3 and 3 steps, pass 2 of 4 and 3, each group
+    one replay of a graph of that many steps) against the k = 1 loop from
+    the same seed: pass statistics, every loss, parameters, optimizer
+    slots, counters and the dropout generator bit for bit.  The counts set
+    to 0 before each pass: the card launches each step's kernels as at
+    k = 1 (the profiler's kernel events), the plain versions never, and
+    the wrappers count the launches they make eagerly or into a capture
+    (at k = 4 the eager step and 3 captured steps in pass 1, 4 captured in
+    pass 2)."""
+    build, make, (T, _), route = FUSED_MODELS[model]
+    batches = make(7, T)
+    want = route_total(route, batches)
+    ref, tr = Trainer(build(), seed=1), Trainer(build(), seed=1)
+    for p in range(2):
+        runs = []
+        for t, k in ((ref, 1), (tr, 4)):
+            reset_counts()
+            out, _, kernels, _ = profiled(
+                lambda: pass_with_losses(t, batches, k))
+            runs.append(out)
+            check_launches(f"k={k}", kernels, want, k > 1,
+                           route_total(route, batches[:4]))
+        (sa, la), (sb, lb) = runs
+        assert sa == sb
+        assert torch.equal(la, lb)
+        assert training_state_differs(ref, tr) == []
+    assert tr.n_settle_steps == 1 and tr.n_fused_dispatches == 4
+    assert graph_replays(tr) == {(0, 3): 3, (0, 4): 1}
+
+
+@pytest.mark.parametrize("model", ["lm-fp32", "sentiment", "seq2seq"])
+def test_fused_dispatch_graphs_of_two_signatures(cuda, model):
+    """Batches of two padded lengths in runs of 3, 2, 4 and 1, two passes:
+    graphs of both signatures and of each group size met, in one memory
+    pool, replayed out of their capture order, bit-identical to the k = 1
+    loop after each pass, the card launching each batch's kernels and the
+    plain versions never (chip_smoke.kstep_alternating)."""
+    build, make, (long_t, short_t), route = FUSED_MODELS[model]
+    graphs = kstep_alternating(f"[{model}]", lambda: Trainer(build(), seed=1),
+                               make(10, long_t), make(10, short_t), route)
+    # pass 1: settle + 2, settle + 1, 4, 1; pass 2: 3, 2, 4, 1
+    assert graphs == {(0, 2): 1, (1, 1): 3, (0, 4): 2, (0, 3): 1,
+                      (1, 2): 1}
+
+
+def test_engine_windows_from_cuda_graphs_equal_k1(cuda):
+    """Greedy and sampled requests, more than the slots, served twice by
+    an engine with decode_steps=4 (windows captured per variant, then
+    replayed) and by one at k = 1: the same tokens; the card (the
+    profiler's kernel events) launches the paged-attention kernel once
+    per layer per forward, window bodies included, and the plain version
+    never runs."""
+    ex = GraphExecutor(transformer_lm_config(97, 64, 2, 4),
+                       compute_dtype="bfloat16")
+    params = init_params(ex.model, seed=0)
+    runs = {}
+    for k in (1, 4):
+        eng = ServingEngine(ex, params, num_slots=4, page_size=8,
+                            max_context=64, decode_steps=k)
+        runs[k] = []
+        for _ in range(2):
+            reset_counts()
+            n0 = (eng.n_decode_steps, eng.n_scan_flushes, eng.n_scan_steps)
+            res, _, kernels, _ = profiled(lambda: eng.run(serve_requests(
+                10, 97, seed=2, lo=3, hi=30, max_new=12, sampled_every=3)))
+            runs[k].append(res)
+            steps, flushes, bodies = (x - y for x, y in zip(
+                (eng.n_decode_steps, eng.n_scan_flushes, eng.n_scan_steps),
+                n0))
+            check_launches(f"decode_steps={k}", kernels,
+                           {"paged_attention_kernel":
+                            2 * (steps - flushes + bodies)}, k > 1)
+        if k > 1:
+            assert eng.n_scan_flushes > 0
+            assert sum(g.replays for g in eng._windows[k].graphs.values()
+                       if g is not None) > 0
+    # another k, then back: each k keeps its own window tensors and graphs
+    for k in (2, 4):
+        eng.set_decode_steps(k)
+        runs[4].append(eng.run(serve_requests(10, 97, seed=2, lo=3, hi=30,
+                                              max_new=12, sampled_every=3)))
+    for res in runs[1] + runs[4]:
+        assert sorted(res) == sorted(runs[1][0])
+        for i, toks in runs[1][0].items():
+            np.testing.assert_array_equal(res[i], toks)
+
+
+def test_fused_dispatch_recaptures_after_a_load(cuda, tmp_path):
+    """A checkpoint loaded into a trainer whose step was captured replaces
+    its parameters and slots: the next fused pass captures anew and stays
+    bit-identical to the k = 1 loop doing the same."""
+    build, make, (T, _), _ = FUSED_MODELS["lm-fp32"]
+    batches = make(5, T)
+    runs = []
+    for k in (1, 4):
+        tr = Trainer(build(), seed=1)
+        pass_with_losses(tr, batches, k)
+        d = tr.save(str(tmp_path / f"k{k}"))
+        pass_with_losses(tr, batches, k)
+        tr.load(d)
+        runs.append((tr, pass_with_losses(tr, batches, k)))
+    (ref, (sa, la)), (tr, (sb, lb)) = runs
+    assert sa == sb and torch.equal(la, lb)
+    assert training_state_differs(ref, tr) == []
