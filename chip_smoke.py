@@ -215,7 +215,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
  15. seq2seq-routes — float32 at full width, batch 16: one training step's
                loss and gradients through the GRU and additive kernels
                against the same step through their plain versions: loss
-               within 1e-5 relative, every gradient within 1e-4 of its max.
+               within 1e-5 relative, every gradient within 1e-4 of its max;
+ 16. cli     — the user's entry point, `python -m paddle_tpu_torch train`
+               (its main() called in this process), on three demo config
+               files and their own data providers (synthetic data, no
+               download): demo/sentiment/trainer_config.py at its defaults
+               (hid_dim 512, batch 128; K3), demo/seqToseq/seqToseq_net.py
+               at dict_size 30000, hidden 512, batch 64 (K1, K2) and
+               demo/model_zoo/transformer_lm.py at vocab 32000, dim 512, 8
+               layers, 8 heads, attn_impl=flash, bfloat16 (K4's bf16
+               kernels); first, a Trainer here steps once on a batch of
+               each shape the config's feeder gives (and tests one of each
+               test shape), keeping each kernel wrapper's inputs at each
+               signature, and every kernel is held against its plain
+               version on those inputs with its phase's limit (K3, K1 1e-5
+               of max; K2 2e-5; K4 bf16 2^-7|ref| + 1e-3, gradients 1e-2
+               of max); then each one pass (and the test pass of its test
+               source) at --steps_per_dispatch=1 and at KSTEP, each run
+               under torch.profiler: the card launched each kernel as the
+               pass's batches say (held by the wrappers at k = 1, by the
+               profiler's kernel events at KSTEP), no plain version; the
+               two runs' pass statistics and checkpoints (parameters,
+               optimizer state, dropout generator) bit-identical; samples/s
+               of the pass, device busy share and ms per step, beside the
+               feeder's host ms to assemble a batch; then, on the
+               sentiment config, --job=test --init_model_path of the
+               checkpoint the k = 1 run saved: the statistics of a
+               Trainer.load() of it here, exactly.
 The last three lines of the output are a JSON object with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.  Exits non-zero without a result when CUDA
@@ -224,12 +250,15 @@ is not available.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+import types
 from typing import Optional
 
 import numpy as np
@@ -814,9 +843,8 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
 
 
 def dev_us(e) -> float:
-    """A profiler event's own device time in µs."""
-    return float(getattr(e, "self_device_time_total", 0.0)
-                 or getattr(e, "self_cuda_time_total", 0.0))
+    """A profiler row's device time in µs (`device_rows`)."""
+    return e.self_device_time_total
 
 
 # host calls that start work on the card: kernel launches (runtime and
@@ -825,25 +853,59 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
                      "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
 
 
-def profiled(run):
-    """run() under torch.profiler: (what it returned, wall ms, the device
-    kernel events, the host launch calls: kernel launches plus graph
-    launches, each API entry point counted by its name's prefix)."""
+# seconds spent by the profiler around the runs it profiles (starting,
+# collecting, summing the events), logged at the end
+PROFILER_SECONDS = [0.0]
+
+
+def device_rows(prof) -> tuple[list, int]:
+    """A finished torch.profiler session's device events summed by name,
+    as `key_averages()` rows give them (`key`: the demangled name,
+    `count`, `self_device_time_total` in µs), and its host launch calls:
+    kernel launches plus graph launches, each API entry point counted by
+    its name's prefix.  Summed from the profiler's raw events:
+    `key_averages()` first builds a Python event tree, minutes over a long
+    run's host operators."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _rewrite_name
+
+    by_name: dict = {}
+    calls = 0
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        if e.device_type() == DeviceType.CUDA:
+            row = by_name.setdefault(e.name(), [0, 0])
+            row[0] += 1
+            row[1] += e.duration_ns()
+        elif e.name().startswith(HOST_LAUNCH_CALLS):
+            calls += 1
+    rows: dict = {}
+    for name, (n, ns) in by_name.items():
+        key = _rewrite_name(name, with_wildcard=True)
+        row = rows.setdefault(key, types.SimpleNamespace(
+            key=key, count=0, self_device_time_total=0.0))
+        row.count += n
+        row.self_device_time_total += ns / 1e3
+    return list(rows.values()), calls
+
+
+def profiled(run):
+    """run() under torch.profiler (host operators and the card's
+    activity): (what it returned, wall ms, the device events and the host
+    launch calls as `device_rows` sums them)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    calls = sum(e.count for e in events
-                if e.key.startswith(HOST_LAUNCH_CALLS))
+    kernels, calls = device_rows(prof)
+    PROFILER_SECONDS[0] += time.perf_counter() - start - wall_ms / 1e3
     return out, wall_ms, kernels, calls
 
 
@@ -3259,30 +3321,443 @@ def phase_seq2seq_routes() -> None:
                              "routes disagree")
 
 
-def main() -> int:
+@contextlib.contextmanager
+def logged(name: str):
+    """The log records the logger `name` writes within."""
+    import logging
+    seen = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            seen.append(record)
+
+    keep = Keep()
+    logging.getLogger(name).addHandler(keep)
+    try:
+        yield seen
+    finally:
+        logging.getLogger(name).removeHandler(keep)
+
+
+def _lstm_train(batch) -> dict:
+    return {"lstm_fwd_kernel": 3, "lstm_bwd_kernel": 3}
+
+
+def _lstm_test(batch) -> dict:
+    return {"lstm_fwd_kernel": 3}
+
+
+def _s2s_train(batch) -> dict:
+    """A seq2seq step on the feeder's batches: the encoder's GRUs, the
+    additive attention once per decoder step (the target's padded
+    length)."""
+    T = batch["target_language_word"].ids.shape[1]
+    return {"gru_fwd_kernel": 2, "gru_bwd_kernel": 2,
+            "additive_attention_kernel": T}
+
+
+def _s2s_test(batch) -> dict:
+    T = batch["target_language_word"].ids.shape[1]
+    return {"gru_fwd_kernel": 2, "additive_attention_kernel": T}
+
+
+# the [cli] runs: (tag, config file, --config_args, the kernels a training
+# step launches, those a test batch launches)
+CLI_RUNS = (
+    ("sentiment", "demo/sentiment/trainer_config.py", "", _lstm_train,
+     _lstm_test),
+    ("seq2seq", "demo/seqToseq/seqToseq_net.py",
+     "dict_size=30000,hidden_dim=512,batch_size=64", _s2s_train, _s2s_test),
+    ("lm", "demo/model_zoo/transformer_lm.py",
+     "vocab=32000,dim=512,layers=8,heads=8,attn_impl=flash,"
+     "compute_dtype=bfloat16", flash_route(8, torch.bfloat16), None),
+)
+
+
+def checkpoint_differs(a: str, b: str) -> list:
+    """The arrays of two checkpoints (parameters, optimizer state, dropout
+    generator) that are not bit-identical, by name."""
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+    da, db = ckpt.load_checkpoint(a), ckpt.load_checkpoint(b)
+    bad = []
+    for part in ("params", "opt", "dropout_rng"):
+        fa = ckpt._flatten(da.get(part), part)
+        fb = ckpt._flatten(db.get(part), part)
+        bad += sorted(fa.keys() ^ fb.keys())
+        bad += [n for n in fa.keys() & fb.keys()
+                if not np.array_equal(fa[n], fb[n])]
+    return bad
+
+
+# the kernel wrappers the config's layers call, as the layers look them up
+# (module, attribute)
+CLI_WRAPPERS = (("paddle_tpu_torch.ops.lstm_fused", "lstm_fused"),
+                ("paddle_tpu_torch.ops.gru_fused", "gru_fused"),
+                ("paddle_tpu_torch.ops.additive_attention",
+                 "additive_attention"),
+                ("paddle_tpu_torch.graph.layers_attn", "flash_attention"))
+
+
+def signature(x):
+    """A call argument as it selects a kernel's shape: a tensor by its
+    shape and dtype, anything else as it is."""
+    if torch.is_tensor(x):
+        return tuple(x.shape), x.dtype
+    return x
+
+
+@contextlib.contextmanager
+def recorded_inputs():
+    """Within: each wrapper of CLI_WRAPPERS keeps a copy of its arguments
+    at the first call of each signature (its tensors' shapes and dtypes,
+    its other arguments), then runs as it would.  Yields {(attribute,
+    signature): (args, kwargs)}."""
+    import importlib
+
+    def copy(x):
+        return x.detach().clone() if torch.is_tensor(x) else x
+
+    seen: dict = {}
+    originals = []
+    for module, attr in CLI_WRAPPERS:
+        mod = importlib.import_module(module)
+        fn = getattr(mod, attr)
+        originals.append((mod, attr, fn))
+
+        def keep(*args, _fn=fn, _attr=attr, **kw):
+            key = (_attr, tuple(signature(a) for a in args),
+                   tuple((n, signature(v)) for n, v in sorted(kw.items())))
+            if key not in seen:
+                seen[key] = (tuple(copy(a) for a in args),
+                             {n: copy(v) for n, v in kw.items()})
+            return _fn(*args, **kw)
+        setattr(mod, attr, keep)
+    try:
+        yield seen
+    finally:
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+
+
+def one_of_each_shape(batches: list) -> list:
+    """The first batch of each shape (every slot's), in the order seen."""
+    first: dict = {}
+    for b in batches:
+        key = tuple((n, tuple(a.data.shape)) for n, a in sorted(b.items()))
+        first.setdefault(key, b)
+    return list(first.values())
+
+
+def cli_check_lstm(g, args, kw) -> tuple:
+    x4, lens, w, peeps, h0, c0 = args
+    B, T, D4 = x4.shape
+    D, reverse = D4 // 4, kw.get("reverse", False)
+    acts = {n: kw.get(n, d) for n, d in (
+        ("active_type", "tanh"), ("gate_active_type", "sigmoid"),
+        ("state_active_type", "tanh"))}
+    inputs = (x4, lens.to(torch.int32), w, peeps, h0, c0)
+    if acts["active_type"] == "relu":
+        inputs = move_off_relu_kink(inputs, reverse, **acts)
+    cot = tuple(torch.randn(*s, generator=g, device="cuda")
+                for s in ((B, T, D), (B, D), (B, D)))
+    errs = lstm_compare(inputs, cot, reverse, **acts)
+    rel = max(r for _, r in errs.values())
+    return (f"[{B}, {T}, {D}] {'rev' if reverse else 'fwd'} "
+            f"{acts['active_type']}",
+            f"worst {rel:.2e} of max (tol {LSTM_TOL:g})", rel <= LSTM_TOL)
+
+
+def cli_check_gru(g, args, kw) -> tuple:
+    x3, lens, w_gate, w_cand, h0 = args
+    B, T, D3 = x3.shape
+    D, reverse = D3 // 3, kw.get("reverse", False)
+    acts = {n: kw.get(n, d) for n, d in (("active_type", "tanh"),
+                                         ("gate_active_type", "sigmoid"))}
+    inputs = (x3, lens.to(torch.int32), torch.cat([w_gate, w_cand], 1), h0)
+    if acts["active_type"] == "relu":
+        inputs = gru_move_off_relu_kink(inputs, reverse, **acts)
+    cot = tuple(torch.randn(*s, generator=g, device="cuda")
+                for s in ((B, T, D), (B, D)))
+    errs = gru_compare(inputs, cot, reverse, **acts)
+    rel = max(r for _, r in errs.values())
+    return (f"[{B}, {T}, {D}] {'rev' if reverse else 'fwd'} "
+            f"{acts['active_type']}",
+            f"worst {rel:.2e} of max (tol {GRU_TOL:g})", rel <= GRU_TOL)
+
+
+def cli_check_additive(g, args, kw) -> tuple:
+    dec, w, v, proj, seq, lens = args
+    u = torch.matmul(dec.float(), w.float())    # as the autograd function
+    err, share = additive_error((u, v.float().contiguous(), proj.contiguous(),
+                                 seq.contiguous(), lens.to(torch.int32)))
+    B, T, D = proj.shape
+    if seq.dtype == torch.float32:
+        text, ok = f"max_abs_err {err:.3e} (atol {ADD_TOL_F32:g})", \
+            err <= ADD_TOL_F32
+    else:
+        text, ok = f"{share:.3f} of 2^-7|ref| + 1e-3", share <= 1
+    return (f"[{B}, {T}, {D}, {seq.shape[2]}] {str(seq.dtype)[6:]} "
+            f"len={int(lens.min())}..{int(lens.max())}", text, ok)
+
+
+def cli_check_flash(g, args, kw) -> tuple:
+    q, k, v = args
+    B, Tq, H, _ = q.shape
+    kvm = kw.get("k_valid")
+    kvm = (torch.ones(B, k.shape[1], dtype=torch.bool, device="cuda")
+           if kvm is None else kvm.bool())
+    do = torch.randn(*q.shape, generator=g, device="cuda").to(q.dtype)
+    dlse = 0.1 * torch.randn(B, H, Tq, generator=g, device="cuda")
+    mask = dict(causal=bool(kw.get("causal", False)), window=kw.get("window"))
+    e, _, _ = flash_errors(q, k, v, kvm, do, dlse, **mask)
+    return (f"{list(q.shape)} H_kv={k.shape[2]} {str(q.dtype)[6:]} "
+            f"causal={mask['causal']} window={mask['window']}",
+            flash_line(e, q.dtype), e["ok"])
+
+
+CLI_CHECKS = {"lstm_fused": cli_check_lstm, "gru_fused": cli_check_gru,
+              "additive_attention": cli_check_additive,
+              "flash_attention": cli_check_flash}
+
+
+def cli_kernel_checks(tag: str, cfg, train_b: list, test_b: list,
+                      want: dict) -> int:
+    """A Trainer here steps once on the first batch of each shape of
+    `train_b` (and tests one of each shape of `test_b`), keeping each
+    kernel wrapper's inputs at each signature; then each kernel against
+    its plain version on those inputs, with its phase's limit.  Every
+    kernel of `want` ({symbol: launches}) must have been held.  Raises on
+    a disagreement; returns the number of checks."""
+    from paddle_tpu_torch.trainer import Trainer
+
+    tr = Trainer(cfg, seed=1)
+    with recorded_inputs() as calls:
+        tr.train_one_pass(one_of_each_shape(train_b), steps_per_dispatch=1)
+        if test_b:
+            tr.test(one_of_each_shape(test_b))
+    del tr
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    for (attr, _, _), (args, kw) in calls.items():
+        shape, text, ok = CLI_CHECKS[attr](g, args, kw)
+        log(f"[cli] {tag}: {attr} at the CLI's {shape} against its plain "
+            f"version: {text} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[cli] {tag}: {attr} disagrees with its "
+                                 f"plain version at {shape}")
+    held = {attr for attr, _, _ in calls}
+    needed = {KERNEL_COUNTERS[sym][0] for sym, n in want.items() if n}
+    if not needed <= held:
+        raise AssertionError(f"[cli] {tag}: {sorted(needed - held)} not "
+                             f"called by the steps")
+    return len(calls)
+
+
+def cli_pair(tag: str, path: str, args: str, train_route, test_route,
+             out: str, smi: str = "") -> dict:
+    """`python -m paddle_tpu_torch train --config=path --config_args=args
+    --num_passes=1` in this process at --steps_per_dispatch=1 and KSTEP,
+    each under torch.profiler, the counts set to 0 before it: exit 0, the
+    kernels launched as the pass's training batches (`train_route`) and
+    test batches (`test_route`) say, held by the wrappers at k = 1 and by
+    the profiler at KSTEP, no plain version; the two runs' pass
+    statistics and checkpoints bit-identical.  The batches are the
+    feeder's, assembled here once more (make_feeder, as the trainer
+    does) and timed: the host ms per batch; before the runs, every kernel
+    is held against its plain version at their shapes
+    (cli_kernel_checks).  Returns the runs' figures."""
+    from paddle_tpu_torch.__main__ import main as cli
+    from paddle_tpu_torch.config.parser import parse_config
+    from paddle_tpu_torch.trainer.trainer import make_feeder
+
+    cfg = parse_config(path, args)
+    t0 = time.perf_counter()
+    feeder = make_feeder(cfg, cfg.data_config, True)
+    t1 = time.perf_counter()
+    train_b = list(feeder.batches())
+    host_ms = (time.perf_counter() - t1) * 1e3 / len(train_b)
+    log(f"[cli] {tag}: the feeder: {(t1 - t0) * 1e3:.1f} host ms to load "
+        f"and initialize the provider, {host_ms:.3f} host ms per batch "
+        f"over {len(train_b)} batches")
+    test_b = (list(make_feeder(cfg, cfg.test_data_config, False).batches())
+              if cfg.test_data_config is not None else [])
+    want = route_total(train_route, train_b)
+    for sym, n in route_total(test_route, test_b).items():
+        want[sym] = want.get(sym, 0) + n
+    n = cli_kernel_checks(tag, cfg, train_b, test_b, want)
+    log(f"[cli] {tag}: {n} kernel checks at the CLI's shapes passed")
+    runs = {}
+    for k in (1, KSTEP):
+        save = os.path.join(out, f"k{k}")
+
+        def train():
+            return cli(["train", f"--config={path}", f"--config_args={args}",
+                        "--num_passes=1", f"--save_dir={save}",
+                        f"--steps_per_dispatch={k}", "--log_period=100000"])
+
+        reset_counts()
+        rc, wall, kernels, _ = profiled(train)
+        busy = sum(dev_us(e) for e in kernels) / 1e3
+        if rc != 0:
+            raise AssertionError(f"[cli] {tag} k={k}: exit code {rc}")
+        line = check_launches(f"[cli] {tag} k={k}", kernels, want, k > 1)
+        with open(os.path.join(save, "metrics.jsonl")) as f:
+            row = json.loads(f.readline())
+        runs[k] = dict(row=row, save=save, wall_ms=wall, busy=busy / wall)
+        log(f"[cli] {tag} k={k}: {row['batches']} batches, "
+            f"{row['samples']} samples, cost {row['cost']:.5g}; "
+            f"{row['samples_per_sec']:.1f} samples/s over the pass (the "
+            f"provider's load, the first step of each shape and the "
+            f"captures included); the whole call (parse, init, pass, test "
+            f"pass of {len(test_b)} batches, checkpoint) {wall / 1e3:.2f} "
+            f"s, device busy {busy:.1f} ms = {busy / wall:.1%}; {line} "
+            f"[{smi}]")
+    stats = [{n: v for n, v in runs[k]["row"].items()
+              if n not in ("ts", "seconds", "samples_per_sec")}
+             for k in (1, KSTEP)]
+    differ = checkpoint_differs(
+        os.path.join(runs[1]["save"], "pass-00000"),
+        os.path.join(runs[KSTEP]["save"], "pass-00000"))
+    log(f"[cli] {tag}: k={KSTEP} against k=1: pass statistics "
+        f"{'equal' if stats[0] == stats[1] else 'DIFFER'}, checkpoints "
+        f"{'bit-identical' if not differ else 'DIFFER: ' + str(differ[:5])}")
+    if stats[0] != stats[1] or differ:
+        raise AssertionError(f"[cli] {tag}: --steps_per_dispatch={KSTEP} is "
+                             f"not bit-identical to 1")
+    return dict(runs=runs, host_ms=host_ms, cfg=cfg,
+                steady=cli_steady_pass(tag, cfg, runs[KSTEP]["save"],
+                                       route_total(train_route, train_b),
+                                       len(train_b), smi))
+
+
+def cli_steady_pass(tag: str, cfg, save: str, want: dict, n: int,
+                    smi: str) -> dict:
+    """The path past its first passes: a Trainer here on the checkpoint of
+    the KSTEP run, two passes of the config's source at KSTEP (the first
+    runs each shape's first batch eagerly, so its groups differ from
+    every later pass's: the second captures those), then a third under
+    the profiler, every group a replay: the card launching the kernels
+    the batches say, device ms and wall ms per step, busy share,
+    samples/s."""
+    from paddle_tpu_torch.trainer import Trainer
+
+    tr = Trainer(cfg, seed=1)
+    tr.load(os.path.join(save, "pass-00000"))
+    for _ in range(2):
+        tr.train_one_pass(steps_per_dispatch=KSTEP)
+    reset_counts()
+    stats, wall, kernels, calls = profiled(
+        lambda: tr.train_one_pass(steps_per_dispatch=KSTEP))
+    line = check_launches(f"[cli] {tag} steady pass", kernels, want, True,
+                          {sym: 0 for sym in want})
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    out = dict(dev_ms=busy / n, wall_ms=wall / n, busy=busy / wall,
+               per_s=stats["samples_per_sec"], calls=calls / n)
+    log(f"[cli] {tag} steady pass (k={KSTEP}, graphs captured, the "
+        f"feeder on its thread): {out['wall_ms']:.2f} ms/step wall, "
+        f"{out['dev_ms']:.3f} device ms/step, busy {out['busy']:.1%}, "
+        f"{out['per_s']:.1f} samples/s, {out['calls']:.1f} host launch "
+        f"calls a step; {line} [{smi}]")
+    del tr
+    return out
+
+
+def cli_test_round_trip(tag: str, path: str, args: str, save: str,
+                        cfg) -> dict:
+    """--job=test --init_model_path=<save>/pass-00000: exit 0, and the
+    statistics it logs are those of a Trainer here that load()s the
+    checkpoint (its parameters the saved arrays bit for bit) and test()s,
+    exactly."""
+    from paddle_tpu_torch.__main__ import main as cli
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+
+    ck = os.path.join(save, "pass-00000")
+    with logged("paddle_tpu_torch.main") as rec:
+        rc = cli(["train", f"--config={path}", f"--config_args={args}",
+                  "--job=test", f"--init_model_path={ck}"])
+    if rc != 0:
+        raise AssertionError(f"[cli] {tag} --job=test: exit code {rc}")
+    got = [r.args for r in rec if r.getMessage().startswith("test result")]
+    tr = Trainer(cfg, seed=1)
+    tr.load(ck)
+    saved = ckpt.load_checkpoint(ck)["params"]
+    same = all(np.array_equal(tr.params[n].cpu().numpy(), saved[n])
+               for n in saved)
+    want = tr.test()
+    log(f"[cli] {tag} --job=test --init_model_path: {got[0] if got else None}"
+        f"; loaded parameters {'equal' if same else 'DIFFER from'} the "
+        f"saved arrays; an in-process load + test() "
+        f"{'gives the same statistics' if got and got[0] == want else 'DIFFERS: ' + str(want)}")
+    if not (got and got[0] == want and same):
+        raise AssertionError(f"[cli] {tag}: the checkpoint does not round "
+                             f"trip through --init_model_path")
+    del tr
+    return want
+
+
+def phase_cli(smi: str) -> None:
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        for tag, path, args, train_route, test_route in CLI_RUNS:
+            out = os.path.join(root, tag)
+            res = cli_pair(tag, path, args, train_route, test_route, out,
+                           smi)
+            if tag == "sentiment":
+                cli_test_round_trip(tag, path, args, res["runs"][1]["save"],
+                                    res["cfg"])
+            r1, rk, st = res["runs"][1], res["runs"][KSTEP], res["steady"]
+            log(f"[cli] {tag}: the feeder {res['host_ms']:.3f} host ms to "
+                f"assemble a batch against {st['dev_ms']:.3f} device and "
+                f"{st['wall_ms']:.2f} wall ms per step of the steady pass "
+                f"(busy {st['busy']:.1%}); the CLI's one pass at k=1 / "
+                f"k={KSTEP}: {r1['row']['samples_per_sec']:.1f} / "
+                f"{rk['row']['samples_per_sec']:.1f} samples/s, the whole "
+                f"call {r1['wall_ms'] / 1e3:.2f} / {rk['wall_ms'] / 1e3:.2f}"
+                f" s [{smi}]")
+            torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if argv:
+        print("usage: python3 chip_smoke.py", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    err = phase_kernel()
-    record = phase_serve(smi, err)
-    phase_routes()
-    phase_flash()
-    flash = phase_train(smi)
-    flash += phase_train_fp32(smi)
-    flash += phase_train_routes(smi)
-    phase_lstm()
-    lstm = phase_sentiment(smi)
-    phase_sentiment_routes()
-    phase_gru()
-    phase_additive()
-    seq2seq = phase_seq2seq(smi)
-    phase_seq2seq_routes()
-    log(f"[done] {time.perf_counter() - t0:.1f}s")
+    seconds = {}
+
+    def phase(name: str, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    smi = phase("device", phase_device)
+    phase("build", phase_build)
+    err = phase("kernel", phase_kernel)
+    record = phase("serve", phase_serve, smi, err)
+    phase("routes", phase_routes)
+    phase("flash", phase_flash)
+    flash = phase("train", phase_train, smi)
+    flash += phase("train-fp32", phase_train_fp32, smi)
+    flash += phase("train-routes", phase_train_routes, smi)
+    phase("lstm", phase_lstm)
+    lstm = phase("sentiment", phase_sentiment, smi)
+    phase("sentiment-routes", phase_sentiment_routes)
+    phase("gru", phase_gru)
+    phase("additive", phase_additive)
+    seq2seq = phase("seq2seq", phase_seq2seq, smi)
+    phase("seq2seq-routes", phase_seq2seq_routes)
+    phase("cli", phase_cli, smi)
+    log(f"[done] {time.perf_counter() - t0:.1f}s: "
+        + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
+        + f"; the profiler around its runs {PROFILER_SECONDS[0]:.1f}")
     print(json.dumps({"kernels": [record] + flash + lstm + seq2seq}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,14 @@ slice 2 trains it (trainer.Trainer, optim/), long-context attention going
 through hand-written flash-attention kernels, forward and backward
 (csrc/flash_attention.cu); slice 3 trains and runs the IMDB sentiment LSTM
 nets (models/sentiment.py), the recurrence going through hand-written
-fused-LSTM kernels, forward and backward (csrc/lstm.cu).
+fused-LSTM kernels, forward and backward (csrc/lstm.cu); later slices add
+the seq2seq (GRU and additive-attention kernels), k steps per dispatch as
+CUDA graphs, and (slice 11) the user's own surface: the config DSL
+(dsl/), its parser (config/parser.py), the data provider and feeder
+(data/) and the CLI, `python -m paddle_tpu_torch train --config=...`
+(trainer_main.py); the model builders of models/ parse the demo configs.
 """
+
+__version__ = "0.1.0"
 
 from paddle_tpu_torch.device import resolve_device  # noqa: F401

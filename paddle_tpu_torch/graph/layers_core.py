@@ -50,7 +50,10 @@ def mixed_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
         if inp.proj is None:
             continue
         if inp.proj.type == "table":
-            y = ctx.param_of(cfg, i)[arg.ids]
+            # F.embedding, not W[ids]: the gather's backward as an index_put
+            # accumulates in a thread-dependent order on the CPU, and two
+            # runs of one step would differ in the table's gradient
+            y = torch.nn.functional.embedding(arg.ids, ctx.param_of(cfg, i))
         elif inp.proj.type in ("fc", "full_matrix"):
             y = torch.matmul(arg.value, ctx.param_of(cfg, i))
         elif inp.proj.type == "identity":

@@ -1,8 +1,10 @@
 """Argument — the inter-layer data record.
 
 The port's counterpart of paddle_tpu/parameter/argument.py: sequences are
-padded dense [B, T, ...] tensors plus a [B] `lengths` vector.  The serving
-slice carries dense values, integer ids and lengths only.
+padded dense [B, T, ...] tensors plus a [B] `lengths` vector.  The data
+feeder (data/feeder.py) also fills the nested-sequence and sparse-row
+fields, as the JAX package's does; the executor does not take them yet,
+and `Trainer.prepare_batch` refuses a feed that carries them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ class Argument:
     ids: Optional[torch.Tensor] = None
     # [B] valid lengths; None => not a sequence
     lengths: Optional[torch.Tensor] = None
+    # nested sequences: [B, S] per-subsequence lengths
+    sub_lengths: Optional[torch.Tensor] = None
+    # sparse rows: `ids` holds [..., K] column ids, `sparse_vals` their
+    # [..., K] values (1/0 validity for binary slots), sparse_dim the width
+    sparse_vals: Optional[torch.Tensor] = None
+    sparse_dim: int = 0
 
     @property
     def is_sequence(self) -> bool:

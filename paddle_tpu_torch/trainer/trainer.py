@@ -33,24 +33,43 @@ the addresses it captured): `Trainer.params` and the optimizer slots are
 the same tensors for a trainer's life, and whoever keeps one sees it
 change.  Take a snapshot with `clone()` or `.to(device, copy=True)`.
 
-`test()` runs the TEST forward; `save`/`load` write and read the JAX
-package's checkpoint layout, so either side resumes the other's run.
+Without `batches`, a pass reads the config's data source: `load_provider`
+imports the @provider module it names (under the port's binding of the
+JAX package's names, config/parser.py) and `DataFeeder` (data/feeder.py)
+batches its samples on the host, as the JAX package's trainer does, so
+the batches are the same.  In the fused pass the groups are staged on a
+thread one ahead of the dispatch (`DeviceDoubleBuffer`): on the card each
+group's host-to-device copies run from pinned memory on a side stream,
+and the dispatch's stream waits on the event recorded after them before
+it copies the group into a captured graph's input tensors, so the copy
+into those tensors is ordered after the replay that last read them.
 
-Not ported yet, and refused (ROADMAP.md): the data provider and feeder
-(pass `batches=`; with it the reference's staging of the next group on a
-thread), meshes, pipeline stages, the parameter server, gradient probes and
-the evaluators other than classification_error.
+`train()` runs passes, each followed by `test()` on the config's test
+source when it has one and a checkpoint in `save_dir`; `test()` runs the
+TEST forward; `save`/`load` write and read the JAX package's checkpoint
+layout, so either side resumes the other's run.
+
+Not ported yet, and refused (ROADMAP.md): the binary-shard data source
+(`ptsh`), meshes, pipeline stages, the parameter server, gradient probes
+and the evaluators other than classification_error.
 """
 
 from __future__ import annotations
 
+import datetime
+import importlib
+import json
+import os
 import time
-from typing import Any, Iterable, Optional, Sequence
+from typing import Any, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.config.schema import TrainerConfig
+from paddle_tpu_torch.config.parser import bound_config_names
+from paddle_tpu_torch.config.schema import DataConfig, TrainerConfig
+from paddle_tpu_torch.data.feeder import DataFeeder, DeviceDoubleBuffer
+from paddle_tpu_torch.data.provider import MultiProviderWrapper
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.graph.builder import GraphExecutor
 from paddle_tpu_torch.graph.context import TEST, TRAIN
@@ -60,12 +79,80 @@ from paddle_tpu_torch.parameter.init import init_params
 from paddle_tpu_torch.trainer import checkpoint as ckpt
 from paddle_tpu_torch.trainer.evaluators import EvaluatorSet
 from paddle_tpu_torch.utils.cuda_graphs import StepGraph, new_pool
+from paddle_tpu_torch.utils.logger import get_logger
 
 Batch = dict[str, Argument]
+log = get_logger("trainer")
 
 
-def _as_tensor(x, device: torch.device) -> Optional[torch.Tensor]:
-    return None if x is None else torch.as_tensor(x, device=device)
+def load_provider(data_cfg: DataConfig):
+    """Instantiate a @provider from a DataConfig
+    (ref: gserver/dataproviders/PyDataProvider2.cpp createPyDataProvider).
+
+    The module is imported under `bound_config_names()`: a provider written
+    for the JAX package gets the port's `@provider` and slot types, and the
+    module is imported afresh and dropped from `sys.modules` again.  So
+    each call initializes a wrapper of its own, and sub-sources naming one
+    @provider with different args never share its settings (the JAX
+    package's loader clones them for that)."""
+    with bound_config_names():
+        mod = importlib.import_module(data_cfg.load_data_module)
+    prov = getattr(mod, data_cfg.load_data_object)
+    files: list[str] = []
+    if data_cfg.files:
+        if os.path.exists(data_cfg.files):
+            with open(data_cfg.files) as f:
+                files = [ln.strip() for ln in f if ln.strip()]
+        else:
+            files = [data_cfg.files]
+    kwargs = json.loads(data_cfg.load_data_args) if data_cfg.load_data_args else {}
+    if not isinstance(kwargs, dict):
+        kwargs = {"args": kwargs}
+    prov.initialize(files, **kwargs)
+    return prov, files
+
+
+def _as_tensor(x, device: torch.device,
+               pinned: bool = False) -> Optional[torch.Tensor]:
+    if x is None:
+        return None
+    if not (pinned and device.type == "cuda"):
+        return torch.as_tensor(x, device=device)
+    t = torch.as_tensor(x)
+    if t.device.type == "cpu":
+        # the caching host allocator keeps the pinned copy until the
+        # device copy from it has run
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def make_feeder(config: TrainerConfig, data_cfg: DataConfig, train: bool,
+                seed: int = 1) -> DataFeeder:
+    """The feeder of one of a config's data sources, as the JAX package's
+    trainer builds it (its `_feeder`): shuffled from `seed` and without the
+    last short batch for training, in order and whole for testing."""
+    if data_cfg.type == "ptsh":
+        raise NotImplementedError(
+            "the ptsh binary-shard data source (the native shard reader) "
+            "is not ported yet (ROADMAP.md)")
+    if data_cfg.type == "multi":
+        # ratio-mixed sub-providers (ref: MultiDataProvider.{h,cpp})
+        subs, sub_files = [], []
+        for sub_cfg in data_cfg.sub_configs:
+            p, f = load_provider(sub_cfg)
+            subs.append(p)
+            sub_files.append(f)
+        prov = MultiProviderWrapper(subs, sub_files,
+                                    ratios=data_cfg.data_ratios or None,
+                                    is_test=not train)
+        files: list[str] = []
+    else:
+        prov, files = load_provider(data_cfg)
+    return DataFeeder(
+        prov, files, input_names=config.model_config.input_layer_names,
+        batch_size=config.opt_config.batch_size, seed=seed,
+        drop_last=train, shuffle=None if train else False,
+        constant_slots=data_cfg.constant_slots)
 
 
 class Trainer:
@@ -86,20 +173,24 @@ class Trainer:
 
     def __init__(self, config: TrainerConfig, seed: int = 1,
                  device: DeviceLike = None,
-                 params: Optional[dict[str, torch.Tensor]] = None):
+                 params: Optional[dict[str, torch.Tensor]] = None,
+                 compute_dtype: str = ""):
+        """`compute_dtype` overrides the config's (the CLI's
+        --compute_dtype)."""
         if config.model_config is None or config.opt_config is None:
             raise ValueError("TrainerConfig needs model_config and opt_config")
         self.device = resolve_device(device)
         self.config = config
         self.model = config.model_config
         self.opt = config.opt_config
+        self.seed = seed
         staged = [l.name for l in self.model.layers if l.device >= 0]
         if staged:
             raise NotImplementedError(
                 f"layers {staged} carry pipeline-stage annotations; pipeline "
                 f"training is not ported yet (ROADMAP.md)")
-        self.executor = GraphExecutor(self.model,
-                                      compute_dtype=self.opt.compute_dtype)
+        self.executor = GraphExecutor(
+            self.model, compute_dtype=compute_dtype or self.opt.compute_dtype)
         self.updater = ParameterUpdater(self.model, self.opt)
         self.evaluators = EvaluatorSet(self.model)
         if params is None:
@@ -133,12 +224,18 @@ class Trainer:
         self._pool = new_pool(self.device)
         self.n_fused_dispatches = 0     # groups dispatched
         self.n_settle_steps = 0         # eager first steps of a signature
+        # the fused pass's staging: a side stream for the host-to-device
+        # copies of the next group (the card only)
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
 
     # -- one step -------------------------------------------------------
-    def prepare_batch(self, batch: Batch) -> Batch:
+    def prepare_batch(self, batch: Batch, pinned: bool = False) -> Batch:
         """Check the feed against the data layers (missing or unknown keys,
         ids out of range on host arrays, batch sizes) and move it to the
-        device."""
+        device; `pinned` copies host arrays through pinned memory without
+        waiting for the copy (the fused pass's staging, on its side
+        stream)."""
         missing = sorted(set(self._data_layers) - set(batch))
         if missing:
             raise KeyError(f"batch is missing feed(s) for data layer(s) "
@@ -152,6 +249,10 @@ class Trainer:
             if arg.value is None and arg.ids is None:
                 raise ValueError(f"feed {name!r} carries neither dense "
                                  f"values nor ids")
+            if arg.sub_lengths is not None or arg.sparse_vals is not None:
+                raise NotImplementedError(
+                    f"feed {name!r} is a nested sequence or sparse rows; "
+                    f"the executor does not take them yet (ROADMAP.md)")
             ids = arg.ids
             size = self._data_layers[name].size
             host = isinstance(ids, np.ndarray) or (
@@ -162,10 +263,11 @@ class Trainer:
                     raise ValueError(
                         f"feed {name!r}: id {hi if hi >= size else lo} out "
                         f"of range for data layer size {size}")
-            ids = _as_tensor(ids, self.device)
-            arg = Argument(value=_as_tensor(arg.value, self.device),
+            ids = _as_tensor(ids, self.device, pinned)
+            arg = Argument(value=_as_tensor(arg.value, self.device, pinned),
                            ids=None if ids is None else ids.long(),
-                           lengths=_as_tensor(arg.lengths, self.device))
+                           lengths=_as_tensor(arg.lengths, self.device,
+                                              pinned))
             sizes.add(arg.data.shape[0])
             out[name] = arg
         if len(sizes) > 1:
@@ -245,21 +347,33 @@ class Trainer:
                 f"before the last dispatched)")
         return float(losses.sum())
 
+    # -- data -----------------------------------------------------------
+    def _feeder(self, data_cfg: DataConfig, train: bool) -> DataFeeder:
+        return make_feeder(self.config, data_cfg, train, self.seed)
+
+    def train_batches(self) -> Iterator[Batch]:
+        """One pass of the config's training source, assembled on a host
+        thread unless the source says async_load_data=False."""
+        if self.config.data_config is None:
+            raise ValueError("config has no data source")
+        feeder = self._feeder(self.config.data_config, True)
+        if not self.config.data_config.async_load_data:
+            return feeder.batches()
+        return feeder.prefetched_batches()
+
     # -- passes ---------------------------------------------------------
     def train_one_pass(self, batches: Optional[Iterable[Batch]] = None,
                        steps_per_dispatch: Optional[int] = None,
-                       dropout_masks: Optional[Sequence[dict]] = None
-                       ) -> dict[str, float]:
-        """Train on every batch of `batches`; returns the pass statistics
-        (cost = mean loss, the evaluators, batches, samples, seconds,
-        samples_per_sec).  `steps_per_dispatch=k > 1` runs the fused
-        dispatch (module docstring), with results identical to k = 1.
-        `dropout_masks` gives each batch's keep-masks by layer (one dict
-        per batch) in place of draws from `dropout_rng`."""
-        if batches is None:
-            raise NotImplementedError(
-                "the data provider / feeder is not ported yet (ROADMAP.md): "
-                "pass batches=")
+                       dropout_masks: Optional[Sequence[dict]] = None,
+                       log_period: int = 0) -> dict[str, float]:
+        """Train on every batch of `batches` (default: a pass of the
+        config's data source, `train_batches()`); returns the pass
+        statistics (cost = mean loss, the evaluators, batches, samples,
+        seconds, samples_per_sec).  `steps_per_dispatch=k > 1` runs the
+        fused dispatch (module docstring), with results identical to
+        k = 1.  `dropout_masks` gives each batch's keep-masks by layer (one
+        dict per batch) in place of draws from `dropout_rng`.  Every
+        `log_period` batches the cost so far is logged."""
         k = 1 if steps_per_dispatch is None else int(steps_per_dispatch)
         if k < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
@@ -267,6 +381,8 @@ class Trainer:
         self._acc = {}
         self._loss_buf.clear()
         self._drained_cost = 0.0
+        if batches is None:
+            batches = self.train_batches()
         masks = iter(dropout_masks) if dropout_masks is not None else None
         n_batches = n_samples = 0
         if k == 1:
@@ -274,11 +390,22 @@ class Trainer:
                 self.train_one_batch(batch, _next_masks(masks))
                 n_batches += 1
                 n_samples += _batch_size(batch)
+                if log_period and n_batches % log_period == 0:
+                    self._log_progress(n_batches)
         else:
-            for sig, group in self._host_groups(batches, masks, k):
-                self._dispatch_fused(sig, group)
-                n_batches += len(group)
-                n_samples += sum(_batch_size(b) for b, _ in group)
+            staged = DeviceDoubleBuffer(self._host_groups(batches, masks, k),
+                                        self._stage_group)
+            try:
+                for group, ready in staged:
+                    self._dispatch_fused(self._received(group, ready), group)
+                    j = len(group)
+                    n_batches += j
+                    n_samples += sum(_batch_size(b) for b, _ in group)
+                    if log_period and (n_batches // log_period
+                                       != (n_batches - j) // log_period):
+                        self._log_progress(n_batches)
+            finally:
+                staged.close()
         self._drained_cost += self._drain_losses()
         self.opt_state = self.updater.finish_pass(self.opt_state)
         stats = self.evaluators.finalize(self._acc)
@@ -286,42 +413,114 @@ class Trainer:
         stats.update(cost=self._drained_cost / max(n_batches, 1),
                      batches=n_batches, samples=n_samples, seconds=dt,
                      samples_per_sec=n_samples / dt if dt > 0 else 0.0)
+        log.info("pass %d done: %s", self.pass_id, _fmt(stats))
         self.pass_id += 1
         return stats
+
+    def _log_progress(self, n_batches: int) -> None:
+        self._drained_cost += self._drain_losses()
+        log.info("pass %d batch %d: cost=%.5f %s", self.pass_id, n_batches,
+                 self._drained_cost / n_batches,
+                 _fmt(self.evaluators.finalize(self._acc)))
+
+    def train(self, num_passes: int = 1, log_period: int = 100,
+              save_dir: Optional[str] = None, keep_last: int = 0,
+              steps_per_dispatch: Optional[int] = None) -> list[dict]:
+        """Full training job (ref: Trainer::train): `num_passes` passes of
+        the config's data source, each followed by `test()` when the config
+        has a test source (its statistics under "test") and, with
+        `save_dir`, a checkpoint and a row of `metrics.jsonl` there."""
+        history = []
+        for _ in range(num_passes):
+            stats = self.train_one_pass(steps_per_dispatch=steps_per_dispatch,
+                                        log_period=log_period)
+            if self.config.test_data_config is not None:
+                test_stats = self.test()
+                log.info("pass %d test: %s", self.pass_id - 1,
+                         _fmt(test_stats))
+                stats["test"] = test_stats
+            if save_dir:
+                self.save(save_dir, keep_last=keep_last)
+                self.append_metrics(save_dir, extra=stats)
+            history.append(stats)
+        return history
+
+    def append_metrics(self, save_dir: str,
+                       extra: Optional[dict] = None) -> str:
+        """Append one record to `<save_dir>/metrics.jsonl`: {ts, pass_id,
+        the scalar pass statistics}, as the JAX package's trainer writes
+        it (without its metrics-registry snapshot, not ported)."""
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, "metrics.jsonl")
+        rec = {"ts": datetime.datetime.now(datetime.timezone.utc)
+               .isoformat(timespec="seconds"), "pass_id": self.pass_id}
+        for k, v in (extra or {}).items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                rec[k] = v
+        with open(path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        return path
 
     # -- fused k-step dispatch ------------------------------------------
     def _batch_signature(self, batch: Batch,
                          dropout_masks: Optional[dict] = None) -> tuple:
-        """Shapes and dtypes of every feed of a prepared batch and of its
-        fed dropout masks, plus the net_state structure: the key of a
-        captured step."""
-        def spec(t):
-            return None if t is None else (tuple(t.shape), str(t.dtype))
-        feeds = tuple(sorted((name, spec(a.value), spec(a.ids),
-                              spec(a.lengths)) for name, a in batch.items()))
-        masks = tuple(sorted((name, spec(m))
+        """Shapes and dtypes of every feed of a batch and of its fed
+        dropout masks, plus the net_state structure: of a prepared batch,
+        the key of a captured step."""
+        feeds = tuple(sorted((name, _spec(a.value), _spec(a.ids),
+                              _spec(a.lengths)) for name, a in batch.items()))
+        masks = tuple(sorted((name, _spec(m))
                              for name, m in (dropout_masks or {}).items()))
         return feeds, masks, _structure(self.net_state)
 
     def _host_groups(self, batches: Iterable[Batch], masks, k: int):
-        """(signature, [(prepared batch, masks), ...]) groups of at most k
-        consecutive same-signature batches, in arrival order."""
+        """[(batch, masks), ...] groups of at most k consecutive batches of
+        one signature (of the feeds and masks as given, before they are
+        moved to the device), in arrival order."""
         pending: list = []
         sig = None
         for batch in batches:
             m = _next_masks(masks)
-            if m is not None:
-                m = {n: torch.as_tensor(v, device=self.device)
-                     for n, v in m.items()}
-            batch = self.prepare_batch(batch)
             s = self._batch_signature(batch, m)
             if pending and (s != sig or len(pending) == k):
-                yield sig, pending
+                yield pending
                 pending = []
             sig = s
             pending.append((batch, m))
         if pending:
-            yield sig, pending
+            yield pending
+
+    def _stage_group(self, group: list):
+        """The DeviceDoubleBuffer's place_fn, on its thread: a host group
+        checked and moved to the device, ([(prepared batch, masks), ...],
+        the event recorded after its copies on the side stream, or None
+        off the card)."""
+        def place(batch, m, pinned):
+            return (self.prepare_batch(batch, pinned),
+                    None if m is None else {
+                        n: _as_tensor(v, self.device, pinned)
+                        for n, v in m.items()})
+        if self._copy_stream is None:
+            return [place(b, m, False) for b, m in group], None
+        with torch.cuda.stream(self._copy_stream):
+            staged = [place(b, m, True) for b, m in group]
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        return staged, ready
+
+    def _received(self, group: list, ready) -> tuple:
+        """A staged group taken over by the dispatching stream: it waits on
+        the staging event, and the staged tensors (allocated on the side
+        stream) are marked as used on it, so that their memory is not
+        reused before the dispatch has read them.  Returns the group's
+        signature."""
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for batch, m in group:
+                for t in _tensors(batch, m):
+                    t.record_stream(stream)
+        return self._batch_signature(*group[0])
 
     def _dispatch_fused(self, sig: tuple, group: list) -> None:
         """One group: on the CPU the step once per batch, uncaptured; on the
@@ -352,9 +551,21 @@ class Trainer:
             self._commit(losses[i], steps.partials[i], _batch_size(batch))
 
     @torch.no_grad()
-    def test(self, batches: Iterable[Batch]) -> dict[str, float]:
+    def test(self, batches: Optional[Iterable[Batch]] = None
+             ) -> dict[str, float]:
         """The TEST-mode cost (sample-weighted mean of the batch losses) and
-        the evaluators over `batches`."""
+        the evaluators over `batches` (default: the config's test source,
+        in order, the last short batch kept; ref: Tester::testOnePeriod)."""
+        if batches is None:
+            if self.config.test_data_config is None:
+                raise ValueError(
+                    "test needs a test data source, but this config "
+                    "declares none — add define_py_data_sources2("
+                    "test_list=...) to the config, or pass batches= "
+                    "explicitly (ref: --job=test requires a test source, "
+                    "TrainerMain.cpp)")
+            batches = self._feeder(self.config.test_data_config,
+                                   False).batches()
         acc: dict = {}
         total, n = 0.0, 0
         for batch in batches:
@@ -493,6 +704,28 @@ def _state_tensors(trainer: Trainer) -> list:
     slots = trainer.opt_state["slots"]
     return ([trainer.updater._counters] + list(trainer.params.values())
             + [v for n in slots for v in slots[n].values()])
+
+
+def _spec(t) -> Optional[tuple]:
+    """Shape and dtype of a feed's array or tensor (None for none)."""
+    return None if t is None else (tuple(t.shape), str(t.dtype))
+
+
+def _tensors(batch: Batch, masks: Optional[dict]) -> list:
+    """The tensors of a prepared batch and its masks."""
+    out = [t for a in batch.values()
+           for t in (a.value, a.ids, a.lengths) if t is not None]
+    return out + list((masks or {}).values())
+
+
+def _fmt(stats: dict) -> str:
+    parts = []
+    for k, v in stats.items():
+        if isinstance(v, float):
+            parts.append(f"{k}={v:.5g}")
+        elif isinstance(v, (int, np.integer)):
+            parts.append(f"{k}={v}")
+    return " ".join(parts)
 
 
 def _structure(tree) -> str:

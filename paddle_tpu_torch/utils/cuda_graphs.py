@@ -45,8 +45,13 @@ class StepGraph:
     def capture(self, steps: Callable[[], object]):
         """Capture `steps()` (run once by Python, launching nothing) and
         return what it returned: tensors in the graph's memory, which every
-        replay overwrites."""
-        with torch.cuda.graph(self.graph, pool=self.pool):
+        replay overwrites.  Only this thread's CUDA calls are held to the
+        capture's rules ("thread_local"): the trainer's staging thread
+        pins host memory and copies the next group on a side stream
+        meanwhile, which under the default, process-wide mode would
+        invalidate the capture."""
+        with torch.cuda.graph(self.graph, pool=self.pool,
+                              capture_error_mode="thread_local"):
             return steps()
 
     def replay(self) -> None:

@@ -16,7 +16,8 @@ import torch
 
 from chip_smoke import (ADD_CASES, ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL,
                         GRU_TOL, K5_ATOL, K5_EDGE, LSTM_TOL, additive_error,
-                        additive_inputs, check_launches, flash_graph_replay,
+                        additive_inputs, check_launches, cli_pair,
+                        cli_test_round_trip, flash_graph_replay,
                         flash_repeats, flash_route, graph_replays,
                         graph_replay_equal, gru_compare, gru_inputs,
                         gru_move_off_relu_kink, gru_repeat_and_graph,
@@ -700,6 +701,43 @@ def test_fused_dispatch_graphs_equal_the_k1_loop(cuda, model):
         assert training_state_differs(ref, tr) == []
     assert tr.n_settle_steps == 1 and tr.n_fused_dispatches == 4
     assert graph_replays(tr) == {(0, 3): 3, (0, 4): 1}
+
+
+# config -> (config file, --config_args at a small width, the kernels a
+# training step launches, those a test batch launches)
+CLI_CONFIGS = {
+    "sentiment": ("demo/sentiment/trainer_config.py",
+                  "hid_dim=128,batch_size=128",
+                  lambda b: {"lstm_fwd_kernel": 3, "lstm_bwd_kernel": 3},
+                  lambda b: {"lstm_fwd_kernel": 3}),
+    "seq2seq": ("demo/seqToseq/seqToseq_net.py",
+                "dict_size=1100,hidden_dim=64,batch_size=256",
+                lambda b: {"gru_fwd_kernel": 2, "gru_bwd_kernel": 2,
+                           "additive_attention_kernel":
+                           b["target_language_word"].ids.shape[1]},
+                lambda b: {"gru_fwd_kernel": 2, "additive_attention_kernel":
+                           b["target_language_word"].ids.shape[1]}),
+    "lm-bf16": ("demo/model_zoo/transformer_lm.py",
+                "vocab=97,dim=64,layers=2,heads=4,attn_impl=flash,"
+                "compute_dtype=bfloat16", flash_route(2, torch.bfloat16),
+                None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLI_CONFIGS))
+def test_cli_trains_a_demo_config_on_the_card(cuda, name, tmp_path):
+    """`python -m paddle_tpu_torch train` on the demo config and its own
+    provider, one pass at --steps_per_dispatch=1 and at 4 (chip_smoke's
+    cli_pair): exit 0, the card launching each batch's kernels and no
+    plain version, the two runs' statistics and checkpoints bit-identical;
+    for the sentiment config also --job=test --init_model_path of the saved
+    checkpoint equal to an in-process load."""
+    path, args, train_route, test_route = CLI_CONFIGS[name]
+    res = cli_pair(name, path, args, train_route, test_route, str(tmp_path))
+    assert res["runs"][1]["row"]["batches"] == 16
+    if name == "sentiment":
+        cli_test_round_trip(name, path, args, res["runs"][1]["save"],
+                            res["cfg"])
 
 
 @pytest.mark.parametrize("model", ["lm-fp32", "sentiment", "seq2seq"])

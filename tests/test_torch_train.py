@@ -252,16 +252,18 @@ def test_port_checkpoint_round_trip_is_exact(tmp_path):
 
 
 def test_trainer_defaults_to_cuda_and_refuses_unported_paths():
-    """Without a card, Trainer() without device='cpu' raises; the data
-    provider, a steps_per_dispatch below 1 and batch-shape mistakes raise
-    clearly."""
+    """Without a card, Trainer() without device='cpu' raises; the
+    binary-shard data source (not ported), a steps_per_dispatch below 1
+    and batch-shape mistakes raise clearly."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(_port_cfg())
     ttr = Trainer(_port_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="data provider"):
-        ttr.train_one_pass()
+    shards = _port_cfg()
+    shards.data_config.type = "ptsh"
+    with pytest.raises(NotImplementedError, match="ptsh"):
+        Trainer(shards, device="cpu").train_one_pass()
     with pytest.raises(ValueError, match="steps_per_dispatch"):
         ttr.train_one_pass([], steps_per_dispatch=0)
     b = _tbatch(_batches(1)[0])
