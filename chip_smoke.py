@@ -241,7 +241,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
                feeder's host ms to assemble a batch; then, on the
                sentiment config, --job=test --init_model_path of the
                checkpoint the k = 1 run saved: the statistics of a
-               Trainer.load() of it here, exactly.
+               Trainer.load() of it here, exactly;
+ 17. image   — the image path, no hand-written kernel on it (cuDNN and
+               ATen convolutions, pools and batch norm): the CLI on
+               demo/image_classification/vgg_16_cifar.py (batch 128,
+               fp32, and compute_dtype=bfloat16), demo/mnist/vgg_16_mnist.py
+               (batch 128) and demo/model_zoo/resnet.py at its defaults
+               (ResNet-50, 224 x 224, 1000 classes, batch 64, discexp),
+               each on its provider's synthetic data, TF32 off: one pass
+               at --steps_per_dispatch=1 and at KSTEP under the profiler,
+               no hand-written kernel and no plain version; the two runs'
+               statistics and checkpoints bit-identical, batch norm's
+               moving mean, variance and count included, each count the
+               pass's steps; --job=test --init_model_path of the k = 1
+               checkpoint equal to an in-process load (parameters and
+               moving statistics the saved arrays) + test(); then steady
+               passes over the feeder's batches at k = 1 and KSTEP:
+               wall and device ms/step, busy share, samples/s, kernels
+               and host launch calls a step, the top device operations,
+               peak memory.
 The last three lines of the output are a JSON object with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.  Exits non-zero without a result when CUDA
@@ -1129,7 +1147,8 @@ def pass_with_losses(tr, batches, k: int):
 def training_state_differs(a, b) -> list:
     """The names of the parts of two trainers' state that are not
     bit-identical: parameters, optimizer slots, counters, the dropout
-    generator."""
+    generator, the layer state (batch norm's moving mean, variance and
+    count)."""
     bad = [n for n, p in a.params.items() if not torch.equal(p, b.params[n])]
     bad += [f"{n}.{k}" for n, sl in a.opt_state["slots"].items()
             for k, v in sl.items()
@@ -1138,6 +1157,11 @@ def training_state_differs(a, b) -> list:
             if a.opt_state[c] != b.opt_state[c]]
     if not torch.equal(a.dropout_rng.get_state(), b.dropout_rng.get_state()):
         bad.append("dropout_rng")
+    if a.net_state.keys() != b.net_state.keys():
+        bad.append("net_state layers")
+    bad += [f"net.{n}.{k}" for n, st in a.net_state.items()
+            if n in b.net_state for k, v in st.items()
+            if not torch.equal(v, b.net_state[n][k])]
     return bad
 
 
@@ -3375,12 +3399,12 @@ CLI_RUNS = (
 
 
 def checkpoint_differs(a: str, b: str) -> list:
-    """The arrays of two checkpoints (parameters, optimizer state, dropout
-    generator) that are not bit-identical, by name."""
+    """The arrays of two checkpoints (parameters, optimizer state, layer
+    state, dropout generator) that are not bit-identical, by name."""
     from paddle_tpu_torch.trainer import checkpoint as ckpt
     da, db = ckpt.load_checkpoint(a), ckpt.load_checkpoint(b)
     bad = []
-    for part in ("params", "opt", "dropout_rng"):
+    for part in ("params", "opt", "net", "dropout_rng"):
         fa = ckpt._flatten(da.get(part), part)
         fb = ckpt._flatten(db.get(part), part)
         bad += sorted(fa.keys() ^ fb.keys())
@@ -3666,8 +3690,8 @@ def cli_test_round_trip(tag: str, path: str, args: str, save: str,
                         cfg) -> dict:
     """--job=test --init_model_path=<save>/pass-00000: exit 0, and the
     statistics it logs are those of a Trainer here that load()s the
-    checkpoint (its parameters the saved arrays bit for bit) and test()s,
-    exactly."""
+    checkpoint (its parameters and layer state the saved arrays bit for
+    bit) and test()s, exactly."""
     from paddle_tpu_torch.__main__ import main as cli
     from paddle_tpu_torch.trainer import Trainer
     from paddle_tpu_torch.trainer import checkpoint as ckpt
@@ -3681,12 +3705,15 @@ def cli_test_round_trip(tag: str, path: str, args: str, save: str,
     got = [r.args for r in rec if r.getMessage().startswith("test result")]
     tr = Trainer(cfg, seed=1)
     tr.load(ck)
-    saved = ckpt.load_checkpoint(ck)["params"]
+    data = ckpt.load_checkpoint(ck)
+    saved, net = data["params"], data["net"]
     same = all(np.array_equal(tr.params[n].cpu().numpy(), saved[n])
-               for n in saved)
+               for n in saved) and tr.net_state.keys() == net.keys() and all(
+        np.array_equal(v.cpu().numpy(), net[n][k])
+        for n, st in tr.net_state.items() for k, v in st.items())
     want = tr.test()
     log(f"[cli] {tag} --job=test --init_model_path: {got[0] if got else None}"
-        f"; loaded parameters {'equal' if same else 'DIFFER from'} the "
+        f"; loaded parameters{' and the moving statistics of ' + str(len(net)) + ' layers' if net else ''} {'equal' if same else 'DIFFER from'} the "
         f"saved arrays; an in-process load + test() "
         f"{'gives the same statistics' if got and got[0] == want else 'DIFFERS: ' + str(want)}")
     if not (got and got[0] == want and same):
@@ -3716,6 +3743,212 @@ def phase_cli(smi: str) -> None:
                 f"{rk['row']['samples_per_sec']:.1f} samples/s, the whole "
                 f"call {r1['wall_ms'] / 1e3:.2f} / {rk['wall_ms'] / 1e3:.2f}"
                 f" s [{smi}]")
+            torch.cuda.empty_cache()
+
+
+# the [image] runs: (tag, config file, --config_args); each at its
+# defaults otherwise (VGG batch 128, ResNet-50 at 224 x 224, 1000 classes,
+# batch 64), fp32 unless it says bfloat16
+IMAGE_RUNS = (
+    ("cifar", "demo/image_classification/vgg_16_cifar.py", ""),
+    ("cifar-bf16", "demo/image_classification/vgg_16_cifar.py",
+     "compute_dtype=bfloat16"),
+    ("mnist", "demo/mnist/vgg_16_mnist.py", ""),
+    ("resnet50", "demo/model_zoo/resnet.py", ""),
+)
+# no hand-written kernel lies on the image path: each must launch 0 times
+NO_KERNELS = {sym: 0 for sym in KERNEL_COUNTERS}
+
+
+def image_batches(n: int, B: int, C: int, size: int, seed: int,
+                  classes: int = 10) -> list:
+    """n batches {"image": [B, C*size*size] rows, "label": [B] ids} of
+    class templates plus noise (the demo providers' synthetic data)."""
+    from paddle_tpu_torch.parameter import Argument
+
+    rng = np.random.default_rng(seed)
+    dim = C * size * size
+    templates = rng.random((classes, dim), dtype=np.float32)
+    out = []
+    for _ in range(n):
+        y = rng.integers(0, classes, B)
+        x = 0.6 * templates[y] + 0.4 * rng.random((B, dim), dtype=np.float32)
+        out.append({"image": Argument(value=x - 0.5),
+                    "label": Argument(ids=y.astype(np.int32))})
+    return out
+
+
+def top_ops(kernels, n: int = 5) -> str:
+    """The n device operations that take the most time: ms, launches,
+    share of the device time, name."""
+    busy = sum(dev_us(e) for e in kernels) or 1.0
+    return "; ".join(
+        f"{dev_us(e) / 1e3:.2f} ms {e.count}x {dev_us(e) / busy:.1%} "
+        f"{e.key[:60]}"
+        for e in sorted(kernels, key=dev_us, reverse=True)[:n])
+
+
+def image_steady(tag: str, cfg, save: str, batches: list, smi: str) -> dict:
+    """The path past its first passes, per k in (1, KSTEP): a Trainer here
+    on the checkpoint the CLI's k = 1 run saved, passes over the feeder's
+    batches (assembled beforehand, so the provider is not timed) until
+    every group is a replay, then one under the profiler: wall and device
+    ms/step, busy share, samples/s, the top device operations, and the
+    peak memory of the trainer's passes (torch.cuda.max_memory_allocated
+    from a reset before the trainer was built)."""
+    from paddle_tpu_torch.trainer import Trainer
+
+    out = {}
+    for k in (1, KSTEP):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, seed=1)
+        tr.load(os.path.join(save, "pass-00000"))
+        for _ in range(1 if k == 1 else 2):
+            tr.train_one_pass(batches, steps_per_dispatch=k)
+        reset_counts()
+        stats, wall, kernels, calls = profiled(
+            lambda: tr.train_one_pass(batches, steps_per_dispatch=k))
+        line = check_launches(f"[image] {tag} steady k={k}", kernels,
+                              NO_KERNELS, k > 1, NO_KERNELS)
+        n = len(batches)
+        busy = sum(dev_us(e) for e in kernels) / 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[k] = dict(dev_ms=busy / n, wall_ms=wall / n, busy=busy / wall,
+                      per_s=stats["samples_per_sec"], calls=calls / n,
+                      kernels=sum(e.count for e in kernels) / n, peak=peak)
+        o = out[k]
+        log(f"[image] {tag} steady k={k} ({n} batches, "
+            f"{'every group a replay' if k > 1 else 'eager'}): "
+            f"{o['wall_ms']:.2f} ms/step wall, {o['dev_ms']:.3f} device "
+            f"ms/step, busy {o['busy']:.1%}, {o['per_s']:.1f} samples/s, "
+            f"{o['kernels']:.0f} kernels and {o['calls']:.1f} host launch "
+            f"calls a step, peak memory {peak:.2f} GiB; {line} [{smi}]")
+        log(f"[image] {tag} steady k={k} top device operations: "
+            f"{top_ops(kernels)} [{smi}]")
+        if k > 1 and not any(graph_replays(tr).values()):
+            raise AssertionError(f"[image] {tag}: no graph replayed")
+        if k > 1:
+            # measurement only: the same replayed pass with cuDNN free to
+            # pick its nondeterministic algorithms (captured anew)
+            tr.cudnn_deterministic = False
+            tr._graphs.clear()
+            tr.train_one_pass(batches, steps_per_dispatch=k)
+            _, wall, kernels, _ = profiled(
+                lambda: tr.train_one_pass(batches, steps_per_dispatch=k))
+            free = sum(dev_us(e) for e in kernels) / 1e3 / n
+            o["free_dev_ms"] = free
+            log(f"[image] {tag} steady k={k}, cuDNN not held to "
+                f"deterministic algorithms (measurement only): {free:.3f} "
+                f"device ms/step, {wall / n:.2f} wall; determinism costs "
+                f"{o['dev_ms'] - free:+.3f} ms/step "
+                f"({o['dev_ms'] / free - 1:+.1%}) [{smi}]")
+        del tr
+    return out
+
+
+def image_pair(tag: str, path: str, args: str, out: str, smi: str) -> dict:
+    """`python -m paddle_tpu_torch train --config=path --config_args=args
+    --num_passes=1` in this process at --steps_per_dispatch=1 and KSTEP,
+    each under torch.profiler with the counts set to 0: exit 0, no
+    hand-written kernel and no plain version; the two runs' pass
+    statistics and checkpoints (parameters, momentum slots, every batch
+    norm's moving mean, variance and count, dropout generator)
+    bit-identical; then --job=test --init_model_path of the k = 1
+    checkpoint (the moving statistics loaded and read) equal to an
+    in-process load + test(), and the steady passes (image_steady)."""
+    from paddle_tpu_torch.__main__ import main as cli
+    from paddle_tpu_torch.config.parser import parse_config
+    from paddle_tpu_torch.trainer.trainer import make_feeder
+
+    start = time.perf_counter()
+    cfg = parse_config(path, args)
+    t0 = time.perf_counter()
+    feeder = make_feeder(cfg, cfg.data_config, True)
+    t1 = time.perf_counter()
+    train_b = list(feeder.batches())
+    host_ms = (time.perf_counter() - t1) * 1e3 / len(train_b)
+    log(f"[image] {tag}: the feeder: {(t1 - t0) * 1e3:.1f} host ms to load "
+        f"and initialize the provider, {host_ms:.3f} host ms per batch "
+        f"over {len(train_b)} batches of {train_b[0]['label'].ids.shape[0]}")
+    runs = {}
+    for k in (1, KSTEP):
+        save = os.path.join(out, f"k{k}")
+
+        def train():
+            return cli(["train", f"--config={path}", f"--config_args={args}",
+                        "--num_passes=1", f"--save_dir={save}",
+                        f"--steps_per_dispatch={k}", "--log_period=100000"])
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rc, wall, kernels, _ = profiled(train)
+        if rc != 0:
+            raise AssertionError(f"[image] {tag} k={k}: exit code {rc}")
+        line = check_launches(f"[image] {tag} k={k}", kernels, NO_KERNELS,
+                              k > 1, NO_KERNELS)
+        busy = sum(dev_us(e) for e in kernels) / 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(save, "metrics.jsonl")) as f:
+            row = json.loads(f.readline())
+        runs[k] = dict(row=row, save=save, wall_ms=wall, busy=busy / wall,
+                       peak=peak)
+        log(f"[image] {tag} k={k}: {row['batches']} batches, "
+            f"{row['samples']} samples, cost {row['cost']:.5g}, "
+            f"classification_error {row.get('classification_error', 0):.4f}"
+            f"; {row['samples_per_sec']:.1f} samples/s over the pass (the "
+            f"provider, the first step and the captures included); the "
+            f"whole call {wall / 1e3:.2f} s, device busy {busy:.1f} ms = "
+            f"{busy / wall:.1%}, peak memory {peak:.2f} GiB; {line} [{smi}]")
+    stats = [{n: v for n, v in runs[k]["row"].items()
+              if n not in ("ts", "seconds", "samples_per_sec")}
+             for k in (1, KSTEP)]
+    differ = checkpoint_differs(
+        os.path.join(runs[1]["save"], "pass-00000"),
+        os.path.join(runs[KSTEP]["save"], "pass-00000"))
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+    net = ckpt.load_checkpoint(os.path.join(runs[1]["save"],
+                                            "pass-00000"))["net"]
+    counts = {float(st["count"]) for st in net.values()}
+    log(f"[image] {tag}: k={KSTEP} against k=1: pass statistics "
+        f"{'equal' if stats[0] == stats[1] else 'DIFFER'}, checkpoints "
+        f"(with the moving statistics of {len(net)} batch norms, counts "
+        f"{sorted(counts)}) "
+        f"{'bit-identical' if not differ else 'DIFFER: ' + str(differ[:5])}")
+    if stats[0] != stats[1] or differ:
+        raise AssertionError(f"[image] {tag}: --steps_per_dispatch={KSTEP} "
+                             f"is not bit-identical to 1")
+    if not net or counts != {float(len(train_b))}:
+        raise AssertionError(f"[image] {tag}: the checkpoint's batch-norm "
+                             f"counts {sorted(counts)} are not the pass's "
+                             f"{len(train_b)} steps")
+    cli_test_round_trip(tag, path, args, runs[1]["save"], cfg)
+    steady_b = train_b if len(train_b) >= 8 else train_b * 2
+    steady = image_steady(tag, cfg, runs[1]["save"], steady_b, smi)
+    return dict(runs=runs, steady=steady, host_ms=host_ms,
+                seconds=time.perf_counter() - start)
+
+
+def phase_image(smi: str) -> None:
+    """The image path from the config files (module docstring, phase
+    17)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        for tag, path, args in IMAGE_RUNS:
+            res = image_pair(tag, path, args, os.path.join(root, tag), smi)
+            r1, rk = res["runs"][1], res["runs"][KSTEP]
+            s1, sk = res["steady"][1], res["steady"][KSTEP]
+            log(f"[image] {tag}: the CLI's pass at k=1 / k={KSTEP}: "
+                f"{r1['row']['samples_per_sec']:.1f} / "
+                f"{rk['row']['samples_per_sec']:.1f} samples/s; steady "
+                f"{s1['per_s']:.1f} / {sk['per_s']:.1f} samples/s, device "
+                f"{s1['dev_ms']:.3f} / {sk['dev_ms']:.3f} ms/step, busy "
+                f"{s1['busy']:.1%} / {sk['busy']:.1%}, peak memory "
+                f"{s1['peak']:.2f} / {sk['peak']:.2f} GiB; the feeder "
+                f"{res['host_ms']:.3f} host ms a batch; "
+                f"{res['seconds']:.1f} s [{smi}]")
             torch.cuda.empty_cache()
 
 
@@ -3755,6 +3988,7 @@ def main(argv=None) -> int:
     seq2seq = phase("seq2seq", phase_seq2seq, smi)
     phase("seq2seq-routes", phase_seq2seq_routes)
     phase("cli", phase_cli, smi)
+    phase("image", phase_image, smi)
     log(f"[done] {time.perf_counter() - t0:.1f}s: "
         + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
         + f"; the profiler around its runs {PROFILER_SECONDS[0]:.1f}")

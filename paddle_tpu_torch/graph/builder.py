@@ -4,7 +4,9 @@ The port's counterpart of paddle_tpu/graph/builder.py: layers run eagerly in
 config order (the config lists them topologically), each a function of the
 context.  A TEST forward runs under `torch.no_grad` (the serving engine
 builds no autograd graph); a TRAIN forward records one, and autograd of
-`loss` replaces the JAX side's `jax.value_and_grad`.
+`loss` replaces the JAX side's `jax.value_and_grad`.  Layer state (the
+batch-norm moving statistics) comes in as `state` and goes out as the
+forward's new state, in TRAIN and TEST; its update is not differentiated.
 
 A recurrent layer group (a SubModelConfig) runs as a Python loop over its
 time steps where the JAX side runs a `lax.scan`: its in-links are sliced per
@@ -24,8 +26,9 @@ from typing import Any, Optional
 import torch
 
 # importing the layer modules registers their layer types
-from paddle_tpu_torch.graph import (layers_attn, layers_core,  # noqa: F401
-                                    layers_cost, layers_misc, layers_seq)
+from paddle_tpu_torch.graph import (layers_attn, layers_conv,  # noqa: F401
+                                    layers_core, layers_cost, layers_misc,
+                                    layers_seq)
 from paddle_tpu_torch.config.schema import (LayerConfig, ModelConfig,
                                             SubModelConfig)
 from paddle_tpu_torch.graph.context import TEST, TRAIN, ForwardContext

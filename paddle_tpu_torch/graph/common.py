@@ -36,10 +36,17 @@ def apply_dropout(ctx: ForwardContext, cfg: LayerConfig,
 
 def finish_layer(ctx: ForwardContext, cfg: LayerConfig, value: torch.Tensor,
                  like: Optional[Argument] = None,
-                 lengths: Optional[torch.Tensor] = None) -> Argument:
+                 lengths: Optional[torch.Tensor] = None,
+                 image: bool = False) -> Argument:
     """Apply the activation and dropout and package the output Argument,
-    inheriting sequence lengths from `like`."""
-    if lengths is None and like is not None and value.dim() >= 3:
+    inheriting sequence lengths from `like`.  `image` marks a [B, C, H, W]
+    output, which stays an image for the next image layer; a whole-row
+    activation (softmax) works on the flat rows, so its output is rows."""
+    if image and cfg.active_type in ("softmax", "sequence_softmax"):
+        value = value.reshape(value.shape[0], -1)
+        image = False
+    if lengths is None and like is not None and value.dim() >= 3 \
+            and not image:
         lengths = like.lengths
     out = apply_dropout(ctx, cfg, activation(cfg.active_type, value))
-    return Argument(value=out, lengths=lengths)
+    return Argument(value=out, lengths=lengths, image=image)

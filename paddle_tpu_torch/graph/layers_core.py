@@ -1,6 +1,6 @@
-"""Core layers: data, fc, mixed (table, full-matrix and identity
-projections), addto, concat — the counterparts of
-paddle_tpu/graph/layers_core.py."""
+"""Core layers: data, fc, mixed (table, full-matrix, identity and conv
+projections, the conv and dot-mul operators), addto, concat — the
+counterparts of paddle_tpu/graph/layers_core.py."""
 
 from __future__ import annotations
 
@@ -33,16 +33,24 @@ def fc_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     return finish_layer(ctx, cfg, acc, like=inputs[0])
 
 
+def _apply_operator(op, inputs: list[Argument]) -> torch.Tensor:
+    a, b = (inputs[i] for i in op.input_indices[:2])
+    if op.type == "dot_mul":
+        return op.dotmul_scale * a.value * b.value
+    if op.type == "conv":
+        from paddle_tpu_torch.graph.layers_conv import conv_operator_forward
+        return conv_operator_forward(op, a, b)
+    raise NotImplementedError(f"operator type {op.type!r} is not ported yet "
+                              f"(ROADMAP.md)")
+
+
 @register_layer("mixed")
 def mixed_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
-    """Sum of per-input projections plus bias.  Ported projections:
-    `table` (embedding lookup), `fc` / `full_matrix` (x @ W) and
-    `identity`; the others and the mixed operators are queued in
-    ROADMAP.md."""
-    if cfg.operators:
-        raise NotImplementedError(
-            f"layer {cfg.name!r}: mixed-layer operators are not ported yet "
-            f"(ROADMAP.md)")
+    """Sum of per-input projections and operators plus bias.  Ported
+    projections: `table` (embedding lookup), `fc` / `full_matrix`
+    (x @ W), `identity` and `conv`; operators: `dot_mul` and `conv` (a
+    filter per sample from a layer output).  The other projections are
+    queued in ROADMAP.md."""
     inputs = ctx.get_inputs(cfg)
     acc = None
     like = inputs[0] if inputs else None
@@ -58,12 +66,19 @@ def mixed_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
             y = torch.matmul(arg.value, ctx.param_of(cfg, i))
         elif inp.proj.type == "identity":
             y = arg.data
+        elif inp.proj.type == "conv":
+            from paddle_tpu_torch.graph.layers_conv import \
+                conv_projection_forward
+            y = conv_projection_forward(inp.proj, arg, ctx.param_of(cfg, i))
         else:
             raise NotImplementedError(
                 f"layer {cfg.name!r}: projection {inp.proj.type!r} is not "
                 f"ported yet (ROADMAP.md)")
         if arg.is_sequence and (like is None or not like.is_sequence):
             like = arg
+        acc = y if acc is None else acc + y
+    for op in cfg.operators:
+        y = _apply_operator(op, inputs)
         acc = y if acc is None else acc + y
     b = ctx.bias_of(cfg)
     if b is not None:
@@ -74,15 +89,23 @@ def mixed_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
 
 @register_layer("addto")
 def addto_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
-    """Elementwise sum of all inputs + bias."""
-    inputs = ctx.get_inputs(cfg)
+    """Elementwise sum of all inputs + bias.  Images of one shape (ResNet's
+    shortcut sums) are summed as images, the bias's flat C-major row viewed
+    as [C, H, W], and the output stays an image: the same values as the
+    flat sum, without a round trip through the rows.  A layer with dropout
+    (dropout_layer) works on the rows, where the JAX package draws its
+    keep-mask."""
+    raw = [ctx.get_raw_input(cfg, i) for i in range(len(cfg.inputs))]
+    image = cfg.drop_rate <= 0.0 and all(
+        a.image and a.value.shape == raw[0].value.shape for a in raw)
+    inputs = raw if image else [a.flatten_image() for a in raw]
     acc = inputs[0].value
     for arg in inputs[1:]:
         acc = acc + arg.value
     b = ctx.bias_of(cfg)
     if b is not None:
-        acc = acc + b
-    return finish_layer(ctx, cfg, acc, like=inputs[0])
+        acc = acc + (b.reshape((1,) + tuple(acc.shape[1:])) if image else b)
+    return finish_layer(ctx, cfg, acc, like=inputs[0], image=image)
 
 
 @register_layer("concat")

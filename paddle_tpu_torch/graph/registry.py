@@ -2,8 +2,11 @@
 
 A layer implementation is a function (ctx, cfg) -> Argument on tensors,
 as in paddle_tpu/graph/registry.py.  The port implements the layers the
-transformer LM and the sentiment LSTM nets run, their cost layer included;
-all the JAX package's cost and validation types are known by name so that
+transformer LM, the sentiment LSTM nets, the attention seq2seq and the
+image classifiers (small_vgg on CIFAR-10 and MNIST, ResNet) run, their
+cost layer included: layers_core, layers_misc, layers_seq, layers_attn,
+layers_cost and layers_conv (every image layer type of the JAX package).
+All the JAX package's cost and validation types are known by name so that
 the serving engine can tell the model's output layer from its training
 head.
 """

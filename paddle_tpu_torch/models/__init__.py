@@ -9,3 +9,8 @@ from paddle_tpu_torch.models.sentiment import (  # noqa: F401
 from paddle_tpu_torch.models.seq2seq import (  # noqa: F401
     seq2seq_trainer_config,
 )
+from paddle_tpu_torch.models.image import (  # noqa: F401
+    resnet_config,
+    vgg_16_cifar_config,
+    vgg_16_mnist_config,
+)

@@ -5,6 +5,12 @@ padded dense [B, T, ...] tensors plus a [B] `lengths` vector.  The data
 feeder (data/feeder.py) also fills the nested-sequence and sparse-row
 fields, as the JAX package's does; the executor does not take them yet,
 and `Trainer.prepare_batch` refuses a feed that carries them.
+
+Images travel between image layers as [B, C, H, W] tensors (`image`
+True; in `torch.channels_last` memory on the card, cuDNN's preferred
+layout, where the JAX package keeps [B, H, W, C]) and become the flat
+C-major [B, C*H*W] rows of the reference only at the row boundary
+(`flatten_image`, which ForwardContext.get_input calls).
 """
 
 from __future__ import annotations
@@ -14,6 +20,14 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+
+
+def image_layout(v: torch.Tensor) -> torch.Tensor:
+    """A [B, C, H, W] image in the executor's memory layout: channels_last
+    on the card, as it stands elsewhere."""
+    if v.is_cuda:
+        return v.contiguous(memory_format=torch.channels_last)
+    return v
 
 
 @dataclass
@@ -30,6 +44,8 @@ class Argument:
     # [..., K] values (1/0 validity for binary slots), sparse_dim the width
     sparse_vals: Optional[torch.Tensor] = None
     sparse_dim: int = 0
+    # True => value is a [B, C, H, W] image; False => flat rows
+    image: bool = False
 
     @property
     def is_sequence(self) -> bool:
@@ -59,3 +75,12 @@ class Argument:
 
     def replace(self, **kw: Any) -> "Argument":
         return dataclasses.replace(self, **kw)
+
+    def flatten_image(self) -> "Argument":
+        """An image as the reference's flat C-major [B, C*H*W] rows (the
+        identity for other arguments); a channels_last value is copied into
+        row order."""
+        if not self.image:
+            return self
+        return self.replace(value=self.value.reshape(self.value.shape[0], -1),
+                            image=False)

@@ -25,13 +25,26 @@ runs the step eagerly and is kept, as the k = 1 loop runs it (the
 reference's settling dispatch; a warm-up before capture would apply extra
 updates), and the rest of its group replays.  On the CPU the same step
 runs uncaptured, batch by batch.  Losses, parameters, optimizer state,
-evaluator sums and the dropout generator end where k = 1 leaves them, bit
-for bit.
+evaluator sums, the dropout generator and the layer state end where k = 1
+leaves them, bit for bit.
+
+Layer state (`net_state`: the batch-norm moving mean, variance and count,
+by layer name) is carried as the reference carries it through its scan:
+the first step that grows a layer's state creates its tensors, every later
+step writes the same tensors in place, so a captured step reads and writes
+them where the eager one does (a signature's eager first step settles the
+state's structure before its capture).  `test()` and an is_predict forward
+read the moving statistics; `save`/`load` write and read them as the JAX
+package's `net|<layer>|<statistic>` keys.  The steps and `test()` run
+cuDNN's deterministic algorithms, never autotuned (`cudnn_deterministic`):
+its fastest fp32 convolution backward algorithms add with atomics, and
+the eager and the captured step would then differ in their last bits.
 
 Updates write into the trainer's tensors in place (a graph replays into
-the addresses it captured): `Trainer.params` and the optimizer slots are
-the same tensors for a trainer's life, and whoever keeps one sees it
-change.  Take a snapshot with `clone()` or `.to(device, copy=True)`.
+the addresses it captured): `Trainer.params`, the optimizer slots and the
+layer state are the same tensors for a trainer's life (until `load`), and
+whoever keeps one sees it change.  Take a snapshot with `clone()` or
+`.to(device, copy=True)`.
 
 Without `batches`, a pass reads the config's data source: `load_provider`
 imports the @provider module it names (under the port's binding of the
@@ -50,12 +63,15 @@ TEST forward; `save`/`load` write and read the JAX package's checkpoint
 layout, so either side resumes the other's run.
 
 Not ported yet, and refused (ROADMAP.md): the binary-shard data source
-(`ptsh`), meshes, pipeline stages, the parameter server, gradient probes
-and the evaluators other than classification_error.
+(`ptsh`), meshes, pipeline stages, the parameter server, gradient probes,
+the evaluators other than classification_error, and the carry of a
+recurrent layer's final state into the next batch (`--prev_batch_state`;
+batch norm's moving statistics are the layer state the port carries).
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import importlib
 import json
@@ -170,6 +186,11 @@ class Trainer:
     # bulk finiteness check of buffered losses, as the JAX side's
     # --nonfinite_check_period default
     nonfinite_check_period = 100
+    # cuDNN's deterministic algorithms for the steps and test(): some of
+    # its fp32 convolution backward algorithms add with atomics, and two
+    # runs of a step (eager and captured, or two eager ones) then differ
+    # in their last bits; False only to measure what determinism costs
+    cudnn_deterministic = True
 
     def __init__(self, config: TrainerConfig, seed: int = 1,
                  device: DeviceLike = None,
@@ -290,9 +311,26 @@ class Trainer:
         grads = torch.autograd.grad(loss, [leaves[n] for n in names],
                                     allow_unused=True)
         grads = {n: g for n, g in zip(names, grads) if g is not None}
-        if new_net:
-            self.net_state = new_net
+        self._keep_net_state(new_net)
         return loss.detach(), grads, outputs
+
+    def _keep_net_state(self, new: dict) -> None:
+        """A forward's new layer state into `net_state`: a layer's first
+        state (or one of another structure or shape) becomes the trainer's
+        own copy, later states are written into those tensors in place.
+        A captured step may only write in place."""
+        for name, tree in new.items():
+            mine = self.net_state.get(name)
+            if mine is not None and _same_layout(mine, tree):
+                _copy_into(mine, tree)
+                continue
+            if (self.device.type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    f"layer {name!r} grows its state inside a captured step;"
+                    f" the signature's eager first step should have grown "
+                    f"it")
+            self.net_state[name] = _own_copy(tree)
 
     def _step(self, batch: Batch, dropout_masks: Optional[dict] = None):
         """The training step on a prepared batch, on the device and with no
@@ -300,12 +338,29 @@ class Trainer:
         device counters advance), the evaluators' partials.  Returns (loss,
         partials).  `train_one_batch` runs it eagerly; the fused dispatch
         captures it."""
-        loss, grads, outputs = self.compute_gradients(batch, dropout_masks)
-        self.updater.apply(self.params, grads, self.opt_state["slots"],
-                           _batch_size(batch))
-        with torch.no_grad():
-            partials = self.evaluators.batch_partials(outputs, batch)
+        with self._cudnn():
+            loss, grads, outputs = self.compute_gradients(batch,
+                                                          dropout_masks)
+            self.updater.apply(self.params, grads, self.opt_state["slots"],
+                               _batch_size(batch))
+            with torch.no_grad():
+                partials = self.evaluators.batch_partials(outputs, batch)
         return loss, partials
+
+    @contextlib.contextmanager
+    def _cudnn(self):
+        """cuDNN as the trainer's steps use it: `cudnn_deterministic`
+        algorithms, never autotuned (an autotuned choice could differ
+        between the eager and the captured step); the process's settings
+        are restored after."""
+        cudnn = torch.backends.cudnn
+        saved = cudnn.deterministic, cudnn.benchmark
+        cudnn.deterministic = self.cudnn_deterministic
+        cudnn.benchmark = False
+        try:
+            yield
+        finally:
+            cudnn.deterministic, cudnn.benchmark = saved
 
     def _commit(self, loss: torch.Tensor, partials: dict,
                 batch_size: int) -> None:
@@ -465,13 +520,15 @@ class Trainer:
     def _batch_signature(self, batch: Batch,
                          dropout_masks: Optional[dict] = None) -> tuple:
         """Shapes and dtypes of every feed of a batch and of its fed
-        dropout masks, plus the net_state structure: of a prepared batch,
-        the key of a captured step."""
+        dropout masks: of a prepared batch, the key of a captured step.
+        (The layer state's structure is not part of it: a signature's eager
+        first step settles it, and a capture whose state tensors were
+        replaced is retaken, `_CapturedSteps.holds`.)"""
         feeds = tuple(sorted((name, _spec(a.value), _spec(a.ids),
                               _spec(a.lengths)) for name, a in batch.items()))
         masks = tuple(sorted((name, _spec(m))
                              for name, m in (dropout_masks or {}).items()))
-        return feeds, masks, _structure(self.net_state)
+        return feeds, masks
 
     def _host_groups(self, batches: Iterable[Batch], masks, k: int):
         """[(batch, masks), ...] groups of at most k consecutive batches of
@@ -570,8 +627,9 @@ class Trainer:
         total, n = 0.0, 0
         for batch in batches:
             batch = self.prepare_batch(batch)
-            loss, (outputs, _, _) = self.executor.loss(
-                self.params, batch, self.net_state, TEST)
+            with self._cudnn():
+                loss, (outputs, _, _) = self.executor.loss(
+                    self.params, batch, self.net_state, TEST)
             bsz = _batch_size(batch)
             total += float(loss) * bsz
             n += bsz
@@ -592,9 +650,9 @@ class Trainer:
             dropout_rng=self.dropout_rng.get_state())
 
     def load(self, path: str) -> None:
-        """Load parameters, optimizer state and pass numbering from a
-        checkpoint either side wrote; optimizer leaves whose shape differs
-        from this model's keep their initial value."""
+        """Load parameters, optimizer state, layer state and pass numbering
+        from a checkpoint either side wrote; optimizer leaves whose shape
+        differs from this model's keep their initial value."""
         data = ckpt.load_checkpoint(path)
         loaded = data["params"]
         for name in self.params:
@@ -607,7 +665,7 @@ class Trainer:
                 self.updater.init_state(self.params), data["opt"],
                 self.device)
         if data.get("net"):
-            self.net_state = data["net"]
+            self.net_state = _tensor_tree(data["net"], self.device)
         if data.get("rng") is not None:
             self.rng = data["rng"]
         state = data.get("dropout_rng")
@@ -655,7 +713,6 @@ class _CapturedSteps:
         # allocator puts there next), and a trainer that replaced one
         # (load(), a new parameter) gets a new capture
         self.state = _state_tensors(trainer)
-        net = trainer.net_state
 
         def steps():
             out = [trainer._step(f, m) for f, m in zip(self.feeds,
@@ -663,10 +720,6 @@ class _CapturedSteps:
             return torch.stack([loss for loss, _ in out]), [p for _, p in out]
 
         self.losses, self.partials = self.graph.capture(steps)
-        if trainer.net_state is not net:
-            raise NotImplementedError(
-                "a step that changes the net state (stateful layers) cannot "
-                "be captured yet")
 
     def holds(self, trainer: Trainer) -> bool:
         """Whether the trainer still updates the tensors captured here."""
@@ -699,11 +752,49 @@ def _next_masks(masks) -> Optional[dict]:
 
 
 def _state_tensors(trainer: Trainer) -> list:
-    """The parameters, optimizer slots and updater counters of a trainer,
-    in a fixed order."""
+    """The parameters, optimizer slots, updater counters and layer state of
+    a trainer, in a fixed order."""
     slots = trainer.opt_state["slots"]
     return ([trainer.updater._counters] + list(trainer.params.values())
-            + [v for n in slots for v in slots[n].values()])
+            + [v for n in slots for v in slots[n].values()]
+            + _leaves(trainer.net_state))
+
+
+def _leaves(tree) -> list:
+    """The tensors of a state tree, dict keys in sorted order."""
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in _leaves(tree[k])]
+    return [tree]
+
+
+def _same_layout(a, b) -> bool:
+    """Whether two state trees have the same keys, shapes and dtypes."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and a.keys() == b.keys()
+                and all(_same_layout(a[k], b[k]) for k in a))
+    return a.shape == b.shape and a.dtype == b.dtype
+
+
+def _copy_into(dst, src) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif dst is not src:
+        dst.copy_(src)
+
+
+def _own_copy(tree):
+    if isinstance(tree, dict):
+        return {k: _own_copy(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _tensor_tree(tree, device: torch.device):
+    """A loaded state tree's arrays as tensors on `device`."""
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v, device) for k, v in tree.items()}
+    return torch.as_tensor(np.array(tree), device=device)
 
 
 def _spec(t) -> Optional[tuple]:
@@ -726,16 +817,6 @@ def _fmt(stats: dict) -> str:
         elif isinstance(v, (int, np.integer)):
             parts.append(f"{k}={v}")
     return " ".join(parts)
-
-
-def _structure(tree) -> str:
-    """The nesting of a state tree (its dict keys), without its values."""
-    if isinstance(tree, dict):
-        return "{" + ",".join(f"{k}:{_structure(v)}"
-                              for k, v in sorted(tree.items())) + "}"
-    if isinstance(tree, (list, tuple)):
-        return "[" + ",".join(_structure(v) for v in tree) + "]"
-    return "*"
 
 
 def _batch_size(batch: Batch) -> int:

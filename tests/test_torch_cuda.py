@@ -21,7 +21,7 @@ from chip_smoke import (ADD_CASES, ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL,
                         flash_repeats, flash_route, graph_replays,
                         graph_replay_equal, gru_compare, gru_inputs,
                         gru_move_off_relu_kink, gru_repeat_and_graph,
-                        k5_case, k5_error, k5_repeat_and_graph,
+                        image_batches, image_pair, k5_case, k5_error, k5_repeat_and_graph,
                         kstep_alternating, lm_batches, lstm_compare,
                         lstm_inputs, lstm_repeat_and_graph,
                         move_off_relu_kink, o_limit_share, pass_with_losses,
@@ -33,7 +33,8 @@ from paddle_tpu_torch.graph.generator import generate
 from paddle_tpu_torch.models import (seq2seq_trainer_config,
                                      stacked_lstm_net_config,
                                      transformer_lm_config,
-                                     transformer_lm_trainer_config)
+                                     transformer_lm_trainer_config,
+                                     vgg_16_cifar_config)
 from paddle_tpu_torch.ops import additive_attention as aa
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import gru_fused as gf
@@ -667,6 +668,11 @@ FUSED_MODELS = {
     "seq2seq": (lambda: seq2seq_trainer_config(1100, 64, 6),
                 lambda n, T: seq2seq_batches(n, 6, T, seed=T, ragged=True),
                 (14, 11), seq2seq_route),
+    # small_vgg's 11 batch norms: the moving statistics written in place
+    # by the captured steps (no hand-written kernel on this path)
+    "vgg": (lambda: vgg_16_cifar_config(16),
+            lambda n, T: image_batches(n, 16, 3, 32, seed=T), (1, 2),
+            lambda b: {}),
 }
 
 
@@ -676,7 +682,8 @@ def test_fused_dispatch_graphs_equal_the_k1_loop(cuda, model):
     eager; pass 1 groups of 3 and 3 steps, pass 2 of 4 and 3, each group
     one replay of a graph of that many steps) against the k = 1 loop from
     the same seed: pass statistics, every loss, parameters, optimizer
-    slots, counters and the dropout generator bit for bit.  The counts set
+    slots, counters, the dropout generator and the layer state (the VGG's
+    moving statistics) bit for bit.  The counts set
     to 0 before each pass: the card launches each step's kernels as at
     k = 1 (the profiler's kernel events), the plain versions never, and
     the wrappers count the launches they make eagerly or into a capture
@@ -738,6 +745,17 @@ def test_cli_trains_a_demo_config_on_the_card(cuda, name, tmp_path):
     if name == "sentiment":
         cli_test_round_trip(name, path, args, res["runs"][1]["save"],
                             res["cfg"])
+
+
+def test_cli_trains_the_mnist_vgg_on_the_card(cuda, tmp_path):
+    """`python -m paddle_tpu_torch train` on demo/mnist/vgg_16_mnist.py at
+    batch 256 (chip_smoke's image_pair): one pass at k = 1 and at 4, no
+    hand-written kernel, statistics and checkpoints (batch norm's moving
+    statistics included) bit-identical, --job=test of the checkpoint
+    equal to an in-process load, the steady passes' graphs replayed."""
+    res = image_pair("mnist", "demo/mnist/vgg_16_mnist.py",
+                     "batch_size=256", str(tmp_path), "")
+    assert res["runs"][1]["row"]["batches"] == 32
 
 
 @pytest.mark.parametrize("model", ["lm-fp32", "sentiment", "seq2seq"])
