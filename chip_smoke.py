@@ -127,8 +127,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
                peepholes x ragged (a length-0 row, a full row) / full
                lengths x tanh / relu cells, at [B, T, D] = [128, 100, 128],
                [5, 7, 32] (a partly filled group), [64, 20, 256],
-               [32, 12, 512] (part of W read from L2) and [1000, 12, 128]
-               (clusters in waves), each with the launch plan it took: hs,
+               [32, 12, 512] (part of W read from L2), [1000, 12, 128]
+               (clusters in waves) and [150, 32, 32] (SRL's: 150 rows at
+               the smallest hidden size the kernels take), each with the
+               launch plan it took: hs,
                h_last, c_last, dx4, dW, dpeep, dh0, dc0 each within 1e-5 of
                its max (relu cases first move their inputs off relu's
                kink, where the derivative has two values); the limit
@@ -259,7 +261,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
                passes over the feeder's batches at k = 1 and KSTEP:
                wall and device ms/step, busy share, samples/s, kernels
                and host launch calls a step, the top device operations,
-               peak memory.
+               peak memory;
+ 18. tagging — the sequence-tagging and sparse-input path: the CLI on
+               demo/semantic_role_labeling/db_lstm.py at its defaults
+               (depth 8, hidden_dim 128, batch 150; K3 once per lstmemory
+               a step, forward and backward), demo/sequence_tagging/
+               linear_crf.py and rnn_crf.py (batch 16, model averaging,
+               the CRF, sparse-row features, the chunk and sum
+               evaluators), demo/quick_start/trainer_config.lr.py and .cnn.py,
+               demo/recommendation/trainer_config.py and
+               demo/introduction/trainer_config.py, each as in phase 16
+               (kernels held at the CLI's shapes, k = 1 against KSTEP bit
+               for bit, averages and evaluator results included, launches
+               as the route says, no plain version, the steady pass with
+               its top device operations), then --job=test of the k = 1
+               checkpoint on the averaged parameters equal to an
+               in-process load + test() (every config with a test
+               source); then K3 at SRL's [150, 32, 32] against its plain
+               version and timed beside its bound, the plain version and a
+               cuDNN LSTM; the table gradient's repeats (F.embedding
+               against ops/table.py lookup_rows, which must repeat bit for
+               bit) and the fp32 step product of rnn_crf's RNN timed.
 The last three lines of the output are a JSON object with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.  Exits non-zero without a result when CUDA
@@ -1147,8 +1169,8 @@ def pass_with_losses(tr, batches, k: int):
 def training_state_differs(a, b) -> list:
     """The names of the parts of two trainers' state that are not
     bit-identical: parameters, optimizer slots, counters, the dropout
-    generator, the layer state (batch norm's moving mean, variance and
-    count)."""
+    generator, the model averages and their count, the layer state (batch
+    norm's moving mean, variance and count)."""
     bad = [n for n, p in a.params.items() if not torch.equal(p, b.params[n])]
     bad += [f"{n}.{k}" for n, sl in a.opt_state["slots"].items()
             for k, v in sl.items()
@@ -1157,6 +1179,15 @@ def training_state_differs(a, b) -> list:
             if a.opt_state[c] != b.opt_state[c]]
     if not torch.equal(a.dropout_rng.get_state(), b.dropout_rng.get_state()):
         bad.append("dropout_rng")
+    avg_a, avg_b = a.opt_state.get("average"), b.opt_state.get("average")
+    if (avg_a is None) != (avg_b is None):
+        bad.append("average")
+    elif avg_a is not None:
+        bad += [f"average.{n}" for n, v in avg_a.items()
+                if not torch.equal(v, avg_b[n])]
+        if not torch.equal(a.opt_state["average_count"],
+                           b.opt_state["average_count"]):
+            bad.append("average_count")
     if a.net_state.keys() != b.net_state.keys():
         bad.append("net_state layers")
     bad += [f"net.{n}.{k}" for n, st in a.net_state.items()
@@ -2031,9 +2062,10 @@ def lstm_compare(inputs, cot, reverse: bool, kernel_lens=None, **acts):
 
 # [B, T, D]: the sentiment net's, a small odd one (a partly filled group),
 # hidden 256, hidden 512 (beyond what a cluster holds: part of W read from
-# L2 every step) and a batch of 1,000 rows (clusters in several waves)
+# L2 every step), a batch of 1,000 rows (clusters in several waves) and the
+# SRL net's (150 rows at the smallest hidden size the kernels take)
 LSTM_SHAPES = ((128, 100, 128), (5, 7, 32), (64, 20, 256), (32, 12, 512),
-               (1000, 12, 128))
+               (1000, 12, 128), (150, 32, 32))
 
 
 def lstm_plan_text(B: int, D: int) -> str:
@@ -2324,6 +2356,22 @@ def lstm_phase_split(args, plan) -> str:
     return "; ".join(parts)
 
 
+def lstm_work(valid: float, B: int, T: int, D: int) -> dict:
+    """{kernel: (bytes, flops)} the LSTM kernels' work needs for B rows of
+    T padded steps at hidden size D, `valid` of the steps within their
+    rows' lengths: every valid step is one [D] x [D, 4D] product per row in
+    the forward and two in the backward (dx4 W^T from the saved gates,
+    h_prev^T dx4); bytes: x4 of the valid steps and the small operands
+    read, hs and cs of every step and the gates of the valid steps written
+    (forward); the gates of the valid steps, cs, hs and the cotangents
+    read, dx4 and the small gradients written (backward)."""
+    step, small = 4.0 * D * 4, 4.0 * (D * 4 * D + 3 * D + 2 * B * D + B)
+    return {"lstm_fwd": (2 * valid * step + small + 2 * B * T * D * 4,
+                         2.0 * valid * D * 4 * D),
+            "lstm_bwd": (valid * step + 3 * B * T * D * 4 + B * T * step
+                         + 2 * small, 4.0 * valid * D * 4 * D)}
+
+
 def lstm_records(launches: dict, B: int, T: int, smi: str) -> list:
     """Each LSTM kernel at the sentiment run's shape (B x T x 128, relu
     cell, peepholes, full lengths): checked against the plain version, then
@@ -2400,21 +2448,12 @@ def lstm_records(launches: dict, B: int, T: int, smi: str) -> list:
     lib["lstm_bwd"] = time_call(lambda: torch.autograd.grad(
         y, [xin, *cudnn.parameters()], cot[0], retain_graph=True), 10)
     del y
-    # the work this run's inputs need: every valid step is one [D] x [D, 4D]
-    # product per row in the forward and two in the backward (dx4 W^T from
-    # the saved gates, h_prev^T dx4); bytes: x4 of the valid steps and the
-    # small operands read, hs and cs of every step and the gates of the
-    # valid steps written (forward); the gates of the valid steps, cs, hs
-    # and the cotangents read, dx4 and the small gradients written
-    # (backward).  The earlier design's count, beside it: three products a
-    # valid step in the backward (the gates recomputed), no gates in the
-    # forward's bytes
     valid = float(lens.sum())
     step, small = 4.0 * D * 4, 4.0 * (D * 4 * D + 3 * D + 2 * B * D + B)
-    work = {"lstm_fwd": (2 * valid * step + small + 2 * B * T * D * 4,
-                         2.0 * valid * D * 4 * D),
-            "lstm_bwd": (valid * step + 3 * B * T * D * 4 + B * T * step
-                         + 2 * small, 4.0 * valid * D * 4 * D)}
+    work = lstm_work(valid, B, T, D)
+    # the earlier design's count, beside it: three products a valid step
+    # in the backward (the gates recomputed), no gates in the forward's
+    # bytes
     old_bwd_ms = max(
         (valid * (step + 2 * D * 4) + B * T * D * 4 + B * T * step
          + 2 * small) / HBM_BYTES_PER_S,
@@ -3627,7 +3666,8 @@ def cli_pair(tag: str, path: str, args: str, train_route, test_route,
         line = check_launches(f"[cli] {tag} k={k}", kernels, want, k > 1)
         with open(os.path.join(save, "metrics.jsonl")) as f:
             row = json.loads(f.readline())
-        runs[k] = dict(row=row, save=save, wall_ms=wall, busy=busy / wall)
+        runs[k] = dict(row=row, save=save, wall_ms=wall, busy=busy / wall,
+                       counted=wrapper_counts(want))
         log(f"[cli] {tag} k={k}: {row['batches']} batches, "
             f"{row['samples']} samples, cost {row['cost']:.5g}; "
             f"{row['samples_per_sec']:.1f} samples/s over the pass (the "
@@ -3662,7 +3702,7 @@ def cli_steady_pass(tag: str, cfg, save: str, want: dict, n: int,
     every later pass's: the second captures those), then a third under
     the profiler, every group a replay: the card launching the kernels
     the batches say, device ms and wall ms per step, busy share,
-    samples/s."""
+    samples/s, the top device operations."""
     from paddle_tpu_torch.trainer import Trainer
 
     tr = Trainer(cfg, seed=1)
@@ -3682,6 +3722,8 @@ def cli_steady_pass(tag: str, cfg, save: str, want: dict, n: int,
         f"{out['dev_ms']:.3f} device ms/step, busy {out['busy']:.1%}, "
         f"{out['per_s']:.1f} samples/s, {out['calls']:.1f} host launch "
         f"calls a step; {line} [{smi}]")
+    log(f"[cli] {tag} steady pass top device operations: "
+        f"{top_ops(kernels)} [{smi}]")
     del tr
     return out
 
@@ -3952,6 +3994,284 @@ def phase_image(smi: str) -> None:
             torch.cuda.empty_cache()
 
 
+# -- the sequence-tagging and sparse-input configs -----------------------------
+
+SRL_DEPTH = 8           # db_lstm.py's default: one lstmemory per level
+
+
+def _srl_train(batch) -> dict:
+    """An SRL step: each lstmemory's forward and backward kernel once."""
+    return dict(NO_KERNELS, lstm_fwd_kernel=SRL_DEPTH,
+                lstm_bwd_kernel=SRL_DEPTH)
+
+
+def _srl_test(batch) -> dict:
+    return dict(NO_KERNELS, lstm_fwd_kernel=SRL_DEPTH)
+
+
+def _no_kernels(batch) -> dict:
+    return dict(NO_KERNELS)
+
+
+# the [tagging] runs: (tag, config file, --config_args, the kernels a
+# training step launches, those a test batch launches), each config at its
+# defaults (SRL: depth 8, hidden_dim 128 (LSTM hidden 32), batch 150)
+TAGGING_RUNS = (
+    ("srl", "demo/semantic_role_labeling/db_lstm.py", "", _srl_train,
+     _srl_test),
+    ("linear_crf", "demo/sequence_tagging/linear_crf.py", "", _no_kernels,
+     _no_kernels),
+    ("rnn_crf", "demo/sequence_tagging/rnn_crf.py", "", _no_kernels,
+     _no_kernels),
+    ("qs_lr", "demo/quick_start/trainer_config.lr.py", "", _no_kernels,
+     _no_kernels),
+    ("qs_cnn", "demo/quick_start/trainer_config.cnn.py", "", _no_kernels,
+     _no_kernels),
+    ("recommendation", "demo/recommendation/trainer_config.py", "",
+     _no_kernels, _no_kernels),
+    ("introduction", "demo/introduction/trainer_config.py", "", _no_kernels,
+     None),
+)
+SRL_SHAPE = (150, 32, 32)           # [B, T, D]: batch 150, the longest bucket
+
+
+def srl_lstm_records(launches: dict, smi: str) -> list:
+    """Each LSTM kernel at SRL's shape (SRL_SHAPE, relu cell as levels 1-7
+    run it, peepholes, ragged lengths as the provider's 5-29 in a bucket
+    of 32): checked against the plain version, then timed beside its bound
+    (lstm_work), the plain version's time and a cuDNN LSTM of the same
+    sizes (a yardstick with its own input projection and no length freeze;
+    not required to lose to K3 here).  `launches`: the SRL k = 1 run's
+    wrapper counts."""
+    from paddle_tpu_torch.ops import lstm_fused as lf
+    B, T, D = SRL_SHAPE
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    names = ("relu", "sigmoid", "tanh")
+    acts = dict(active_type="relu", gate_active_type="sigmoid",
+                state_active_type="tanh")
+    inputs, cot = lstm_inputs(g, B, T, D, True, False)
+    x4, lens, w, peeps, h0, c0 = inputs
+    lens = torch.randint(5, 30, (B,), generator=g, device="cuda").to(
+        torch.int32)
+    inputs = move_off_relu_kink((x4, lens, w, peeps, h0, c0), False, **acts)
+    errs = lstm_compare(inputs, cot, False, **acts)
+    rel = max(r for _, r in errs.values())
+    log(f"[tagging] lstm kernels vs plain at [{B}, {T}, {D}] relu, "
+        f"peepholes, lengths 5-29: worst {rel:.2e} of max (tol "
+        f"{LSTM_TOL:g}); {lstm_plan_text(B, D)}")
+    if not rel <= LSTM_TOL:
+        raise AssertionError(f"lstm kernels disagree with their plain "
+                             f"version at SRL's shape: {errs}")
+    err = {"lstm_fwd": max(errs[n][0] for n in LSTM_NAMES[:3]),
+           "lstm_bwd": max(errs[n][0] for n in LSTM_NAMES[3:])}
+    x4, lens, w, peeps, h0, c0 = inputs
+    hs, cs, gates = lf.lstm_fwd_kernel(x4, lens, w, peeps, h0, c0, names,
+                                       False, save_gates=True)
+    ms = {"lstm_fwd": time_call(lambda: lf.lstm_fwd_kernel(
+              x4, lens, w, peeps, h0, c0, names, False, save_gates=True),
+              20),
+          "lstm_bwd": time_call(lambda: lf.lstm_bwd_kernel(
+              lens, w, peeps, h0, c0, hs, cs, gates, *cot, names, False),
+              20)}
+    leaves = [t.clone().requires_grad_(True) for t in (x4, w, peeps, h0, c0)]
+
+    def plain_fwd():
+        return lf.lstm_fused_plain(leaves[0], lens, *leaves[1:], **acts)
+
+    plain = {"lstm_fwd": time_call(plain_fwd, 3)}
+    out = plain_fwd()
+    loss = sum((o * c).sum() for o, c in zip(out, cot))
+    plain["lstm_bwd"] = time_call(lambda: torch.autograd.grad(
+        loss, leaves, retain_graph=True), 3)
+    del out, loss
+    cudnn = torch.nn.LSTM(4 * D, D, batch_first=True).cuda()
+    xin = x4.clone().requires_grad_(True)
+    with torch.no_grad():
+        lib = {"lstm_fwd": time_call(lambda: cudnn(xin), 10)}
+    y, _ = cudnn(xin)
+    lib["lstm_bwd"] = time_call(lambda: torch.autograd.grad(
+        y, [xin, *cudnn.parameters()], cot[0], retain_graph=True), 10)
+    del y
+    work = lstm_work(float(lens.sum()), B, T, D)
+    records = []
+    for name, src_line, sym in (("lstm_fwd", 66, "lstm_fwd_kernel"),
+                                ("lstm_bwd", 99, "lstm_bwd_kernel")):
+        nbytes, flops = work[name]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        by = "operations" if flops_ms >= bytes_ms else "bytes"
+        log(f"[tagging] {name} at SRL's [{B}, {T}, {D}] float32: "
+            f"{ms[name] * 1e3:.1f} us/launch = {ms[name] * 1e3 / T:.2f} "
+            f"us/step; bound {bound_ms * 1e3:.2f} us ({by}; "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) = "
+            f"{bound_ms / ms[name]:.1%} of the bound; plain version "
+            f"{plain[name] * 1e3:.1f} us; cuDNN LSTM {lib[name] * 1e3:.1f} "
+            f"us = {lib[name] / ms[name]:.2f}x the kernel's time; "
+            f"{launches[sym]} launches on SRL's k=1 CLI pass [{smi}]")
+        records.append({
+            "name": f"{name} [{B}, {T}, {D}]", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/lstm.cu",
+            "replaces": f"paddle_tpu/ops/pallas_rnn.py:{src_line}",
+            "launches": launches[sym], "max_abs_err": err[name],
+            "ms": ms[name], "plain_ms": plain[name], "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib[name]})
+    return records
+
+
+def tagging_steady(tag: str, cfg, save: str, batches: list, route,
+                   smi: str) -> dict:
+    """Past the first passes, over the feeder's batches assembled
+    beforehand (so the provider is not timed), per k in (1, KSTEP): a
+    Trainer here on the k = 1 run's checkpoint, passes until every group
+    is a replay, then one under the profiler: wall and device ms/step,
+    busy share, samples/s, kernels and host launch calls a step, and the
+    host evaluators' ms a step (`EvaluatorSet.host_update`, timed around
+    its calls), the card launching the kernels `route` says."""
+    from paddle_tpu_torch.trainer import Trainer
+
+    want = route_total(route, batches)
+    n = len(batches)
+    out = {}
+    for k in (1, KSTEP):
+        tr = Trainer(cfg, seed=1)
+        tr.load(os.path.join(save, "pass-00000"))
+        for _ in range(1 if k == 1 else 2):
+            tr.train_one_pass(batches, steps_per_dispatch=k)
+        spent = [0.0]
+        update = tr.evaluators.host_update
+
+        def timed_update(*a, **kw):
+            t0 = time.perf_counter()
+            update(*a, **kw)
+            spent[0] += time.perf_counter() - t0
+        tr.evaluators.host_update = timed_update
+        reset_counts()
+        stats, wall, kernels, calls = profiled(
+            lambda: tr.train_one_pass(batches, steps_per_dispatch=k))
+        line = check_launches(f"[tagging] {tag} steady k={k}", kernels,
+                              want, k > 1,
+                              {sym: 0 for sym in want} if k > 1 else None)
+        busy = sum(dev_us(e) for e in kernels) / 1e3
+        o = out[k] = dict(dev_ms=busy / n, wall_ms=wall / n,
+                          busy=busy / wall, per_s=stats["samples_per_sec"],
+                          calls=calls / n, host_eval_ms=spent[0] * 1e3 / n,
+                          kernels=sum(e.count for e in kernels) / n)
+        log(f"[tagging] {tag} steady k={k} ({n} batches assembled "
+            f"beforehand, {'every group a replay' if k > 1 else 'eager'}):"
+            f" {o['wall_ms']:.2f} ms/step wall, {o['dev_ms']:.3f} device "
+            f"ms/step, busy {o['busy']:.1%}, {o['per_s']:.1f} samples/s, "
+            f"{o['kernels']:.0f} kernels and {o['calls']:.1f} host launch "
+            f"calls a step, host evaluators {o['host_eval_ms']:.3f} ms a "
+            f"step; {line} [{smi}]")
+        log(f"[tagging] {tag} steady k={k} top device operations: "
+            f"{top_ops(kernels)} [{smi}]")
+        if k > 1 and not any(graph_replays(tr).values()):
+            raise AssertionError(f"[tagging] {tag}: no graph replayed")
+        del tr
+    return out
+
+
+def tagging_table_and_product(smi: str) -> None:
+    """Two measurements behind the tagging path's findings.  The table
+    gradient: ten backward calls each of F.embedding and of ops/table.py
+    lookup_rows on a 2-row table under 4,800 ids (SRL's predicate mark) and
+    a 7-row table under 20,000: how many distinct results each gives (the
+    port's must give one), and their times.  The vanilla RNN's step
+    product [16, 128] . [128, 128] in float32 beside [320, 128] .
+    [128, 128] (cuBLAS's pick for the first is slow)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.table import lookup_rows
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    for V, D, n in ((2, 5, 4800), (7, 256, 20000)):
+        ids = torch.randint(0, V, (n,), device="cuda", generator=g)
+        grad = torch.randn(n, D, device="cuda", generator=g)
+        w = torch.randn(V, D, device="cuda", generator=g).requires_grad_(
+            True)
+        line = []
+        for name, fn in (("F.embedding", F.embedding),
+                         ("lookup_rows", lookup_rows)):
+            def bwd(fn=fn):
+                return torch.autograd.grad(fn(ids, w), w, grad)[0]
+            outs = [bwd() for _ in range(10)]
+            distinct = len({o.cpu().numpy().tobytes() for o in outs})
+            line.append(f"{name} {distinct} distinct of 10, "
+                        f"{time_call(bwd, 20) * 1e3:.1f} us")
+            if name == "lookup_rows" and distinct != 1:
+                raise AssertionError(f"[tagging] lookup_rows' backward "
+                                     f"is not deterministic at {V} rows")
+        log(f"[tagging] table gradient, {V} rows x {D} under {n} ids "
+            f"(forward + backward): {'; '.join(line)} [{smi}]")
+    times = []
+    for m in (16, 320):
+        a = torch.randn(m, 128, device="cuda", generator=g)
+        b = torch.randn(128, 128, device="cuda", generator=g)
+        times.append(f"[{m}, 128] . [128, 128] "
+                     f"{time_call(lambda: a @ b, 200) * 1e3:.2f} us")
+    log(f"[tagging] float32 products (TF32 off), as rnn_crf's recurrent "
+        f"step runs them: {'; '.join(times)} [{smi}]")
+
+
+def phase_tagging(smi: str) -> list:
+    """The sequence-tagging and sparse-input configs from their files
+    (module docstring, phase 18): each through cli_pair (its kernels held
+    against their plain versions at the CLI's shapes, one pass at k = 1
+    and one at KSTEP bit-identical, statistics, averages and evaluator
+    results included, launches as the route says, the steady pass), then
+    --job=test on the k = 1 checkpoint (the averaged parameters where the
+    config averages) equal to an in-process load + test(), then steady
+    passes over batches assembled beforehand (tagging_steady); then K3
+    timed at SRL's shape; then tagging_table_and_product.  Returns K3's
+    records at that shape."""
+    import tempfile
+
+    from paddle_tpu_torch.trainer.trainer import make_feeder
+
+    records = []
+    with tempfile.TemporaryDirectory() as root:
+        for tag, path, args, train_route, test_route in TAGGING_RUNS:
+            start = time.perf_counter()
+            res = cli_pair(tag, path, args, train_route, test_route,
+                           os.path.join(root, tag), smi)
+            r1, rk, st = res["runs"][1], res["runs"][KSTEP], res["steady"]
+            if res["cfg"].test_data_config is not None:
+                got = cli_test_round_trip(tag, path, args, r1["save"],
+                                          res["cfg"])
+                evals = {k: v for k, v in got.items() if k != "cost"}
+                which = ("averaged " if res["cfg"].opt_config.average_window
+                         > 0 else "")
+                log(f"[tagging] {tag} test pass on the {which}parameters: "
+                    f"cost {got['cost']:.5g} {evals}")
+            batches = list(make_feeder(res["cfg"], res["cfg"].data_config,
+                                       True).batches())
+            steady = tagging_steady(tag, res["cfg"], r1["save"], batches,
+                                    train_route, smi)
+            if tag == "srl":
+                records = srl_lstm_records(r1["counted"], smi)
+            evals = {k: v for k, v in r1["row"].items()
+                     if "chunk" in k or k.endswith("sum")
+                     or k.endswith("error")}
+            log(f"[tagging] {tag}: the CLI's pass at k=1 / k={KSTEP}: "
+                f"{r1['row']['samples_per_sec']:.1f} / "
+                f"{rk['row']['samples_per_sec']:.1f} samples/s, cost "
+                f"{r1['row']['cost']:.5g}, {evals}; steady pass (k={KSTEP})"
+                f" {st['per_s']:.1f} samples/s, {st['dev_ms']:.3f} device "
+                f"ms/step, {st['wall_ms']:.2f} wall ms/step, busy "
+                f"{st['busy']:.1%}; over batches assembled beforehand, "
+                f"k=1 / k={KSTEP}: {steady[1]['dev_ms']:.3f} / "
+                f"{steady[KSTEP]['dev_ms']:.3f} device ms/step, busy "
+                f"{steady[1]['busy']:.1%} / {steady[KSTEP]['busy']:.1%}, "
+                f"{steady[1]['per_s']:.1f} / {steady[KSTEP]['per_s']:.1f} "
+                f"samples/s; the feeder {res['host_ms']:.3f} host ms "
+                f"a batch; {time.perf_counter() - start:.1f} s [{smi}]")
+            torch.cuda.empty_cache()
+    tagging_table_and_product(smi)
+    return records
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -3989,10 +4309,12 @@ def main(argv=None) -> int:
     phase("seq2seq-routes", phase_seq2seq_routes)
     phase("cli", phase_cli, smi)
     phase("image", phase_image, smi)
+    tagging = phase("tagging", phase_tagging, smi)
     log(f"[done] {time.perf_counter() - t0:.1f}s: "
         + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
         + f"; the profiler around its runs {PROFILER_SECONDS[0]:.1f}")
-    print(json.dumps({"kernels": [record] + flash + lstm + seq2seq}))
+    print(json.dumps({"kernels": [record] + flash + lstm + seq2seq
+                      + tagging}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -120,8 +120,9 @@ class GraphExecutor:
     def prepare(self, params: dict[str, torch.Tensor],
                 feed: dict[str, Argument]):
         """Static parameters detached (no gradient flows into them), then
-        the mixed-precision cast of floating params and inputs (a no-op for
-        tensors already in the compute dtype).  The cast is part of the
+        the mixed-precision cast of floating params, inputs and sparse-row
+        values (a no-op for tensors already in the compute dtype).  The
+        cast is part of the
         differentiated forward, so float32 master parameters get float32
         gradients."""
         static = self.static_param_names
@@ -133,10 +134,14 @@ class GraphExecutor:
         dt = torch_dtype(self.compute_dtype)
         params = {k: (v.to(dt) if v.is_floating_point() else v)
                   for k, v in params.items()}
-        feed = {name: (arg.replace(value=arg.value.to(dt))
-                       if arg.value is not None
-                       and arg.value.is_floating_point() else arg)
-                for name, arg in feed.items()}
+
+        def cast(arg: Argument) -> Argument:
+            if arg.value is not None and arg.value.is_floating_point():
+                arg = arg.replace(value=arg.value.to(dt))
+            if arg.sparse_vals is not None:
+                arg = arg.replace(sparse_vals=arg.sparse_vals.to(dt))
+            return arg
+        feed = {name: cast(arg) for name, arg in feed.items()}
         return params, feed
 
     def run_layers(self, ctx: ForwardContext, skip_sub=None) -> None:

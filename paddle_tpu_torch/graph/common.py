@@ -48,5 +48,9 @@ def finish_layer(ctx: ForwardContext, cfg: LayerConfig, value: torch.Tensor,
     if lengths is None and like is not None and value.dim() >= 3 \
             and not image:
         lengths = like.lengths
-    out = apply_dropout(ctx, cfg, activation(cfg.active_type, value))
+    mask = None
+    if cfg.active_type == "sequence_softmax" and lengths is not None:
+        mask = (torch.arange(value.shape[1], device=value.device)[None, :]
+                < lengths[:, None])
+    out = apply_dropout(ctx, cfg, activation(cfg.active_type, value, mask))
     return Argument(value=out, lengths=lengths, image=image)

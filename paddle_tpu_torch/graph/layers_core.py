@@ -1,8 +1,18 @@
-"""Core layers: data, fc, mixed (table, full-matrix, identity and conv
-projections, the conv and dot-mul operators), addto, concat — the
-counterparts of paddle_tpu/graph/layers_core.py."""
+"""Core layers: data, fc, mixed (the table, full-matrix, transposed
+full-matrix, identity, dot-mul, scaling, context and conv projections, the
+conv and dot-mul operators), addto, concat — the counterparts of
+paddle_tpu/graph/layers_core.py.
+
+An input of sparse rows (`Argument.sparse_dim`: [..., K] column ids and
+their values) multiplies a weight by gathering the K touched rows and
+summing them weighted by the values (`_input_matmul`).  A parameter marked
+`sparse_update` stays a dense tensor with a dense gradient, as in the JAX
+package's single-device trainer.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -10,6 +20,8 @@ from paddle_tpu_torch.config.schema import LayerConfig
 from paddle_tpu_torch.graph.common import finish_layer
 from paddle_tpu_torch.graph.context import ForwardContext
 from paddle_tpu_torch.graph.registry import register_layer
+from paddle_tpu_torch.ops import sequence as seqops
+from paddle_tpu_torch.ops.table import lookup_rows
 from paddle_tpu_torch.parameter.argument import Argument
 
 
@@ -19,18 +31,69 @@ def data_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     raise AssertionError("data layers are fed, not computed")
 
 
+def _input_matmul(arg: Argument, w: torch.Tensor) -> torch.Tensor:
+    """x @ W, where x may be sparse rows: the K touched rows of W gathered
+    (ops/table.py lookup_rows, whose backward adds in a fixed order;
+    padding slots carry id 0 with value 0) and summed weighted by the
+    values."""
+    if arg.sparse_dim:
+        rows = lookup_rows(arg.ids, w)                    # [..., K, Dout]
+        return torch.sum(rows * arg.sparse_vals[..., None].to(rows.dtype),
+                         dim=-2)
+    return torch.matmul(arg.value, w)
+
+
 @register_layer("fc")
 def fc_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     """Fully connected: sum_i x_i @ W_i + b, then the activation."""
     inputs = ctx.get_inputs(cfg)
     acc = None
     for i, arg in enumerate(inputs):
-        y = torch.matmul(arg.value, ctx.param_of(cfg, i))
+        y = _input_matmul(arg, ctx.param_of(cfg, i))
         acc = y if acc is None else acc + y
     b = ctx.bias_of(cfg)
     if b is not None:
         acc = acc + b
     return finish_layer(ctx, cfg, acc, like=inputs[0])
+
+
+def _apply_projection(cfg: LayerConfig, proj, arg: Argument,
+                      w: Optional[torch.Tensor]) -> torch.Tensor:
+    t = proj.type
+    if t in ("fc", "full_matrix"):
+        return _input_matmul(arg, w)
+    if t == "table":
+        if arg.sparse_dim:
+            raise ValueError(
+                f"layer {cfg.name!r}: a table projection takes token ids, "
+                f"not sparse rows (their padding slots would embed id 0); "
+                f"a sparse slot wants a full_matrix projection")
+        # lookup_rows: a backward that adds in a fixed order on the CPU
+        # and on the card (ops/table.py), so two runs of one step give the
+        # table's gradient bit for bit
+        return lookup_rows(arg.ids, w)
+    if arg.sparse_dim:
+        raise ValueError(
+            f"layer {cfg.name!r}: a {t} projection of sparse rows would read "
+            f"their column ids as values; use a full_matrix projection or "
+            f"Argument.to_dense()")
+    if t == "trans_full_matrix":
+        return torch.matmul(arg.value, w.t())
+    if t == "identity":
+        return arg.data
+    if t == "dot_mul":
+        return arg.value * w
+    if t == "scaling":
+        return arg.value * w.reshape(())
+    if t == "context":
+        return seqops.context_projection(
+            arg.value, arg.lengths, proj.context_start, proj.context_length,
+            w if proj.trainable_padding else None)
+    if t == "conv":
+        from paddle_tpu_torch.graph.layers_conv import \
+            conv_projection_forward
+        return conv_projection_forward(proj, arg, w)
+    raise NotImplementedError(f"layer {cfg.name!r}: projection type {t!r}")
 
 
 def _apply_operator(op, inputs: list[Argument]) -> torch.Tensor:
@@ -46,34 +109,20 @@ def _apply_operator(op, inputs: list[Argument]) -> torch.Tensor:
 
 @register_layer("mixed")
 def mixed_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
-    """Sum of per-input projections and operators plus bias.  Ported
-    projections: `table` (embedding lookup), `fc` / `full_matrix`
-    (x @ W), `identity` and `conv`; operators: `dot_mul` and `conv` (a
-    filter per sample from a layer output).  The other projections are
-    queued in ROADMAP.md."""
+    """Sum of per-input projections and operators plus bias.  Projections:
+    `table` (embedding lookup), `fc` / `full_matrix` (x @ W, x dense or
+    sparse rows), `trans_full_matrix` (x @ W^T), `identity`, `dot_mul`
+    (x * w elementwise), `scaling` (x times one learned scalar),
+    `context` (the sliding window over time, ops/sequence.py) and `conv`;
+    operators: `dot_mul` and `conv` (a filter per sample from a layer
+    output)."""
     inputs = ctx.get_inputs(cfg)
     acc = None
     like = inputs[0] if inputs else None
     for i, (inp, arg) in enumerate(zip(cfg.inputs, inputs)):
         if inp.proj is None:
             continue
-        if inp.proj.type == "table":
-            # F.embedding, not W[ids]: the gather's backward as an index_put
-            # accumulates in a thread-dependent order on the CPU, and two
-            # runs of one step would differ in the table's gradient
-            y = torch.nn.functional.embedding(arg.ids, ctx.param_of(cfg, i))
-        elif inp.proj.type in ("fc", "full_matrix"):
-            y = torch.matmul(arg.value, ctx.param_of(cfg, i))
-        elif inp.proj.type == "identity":
-            y = arg.data
-        elif inp.proj.type == "conv":
-            from paddle_tpu_torch.graph.layers_conv import \
-                conv_projection_forward
-            y = conv_projection_forward(inp.proj, arg, ctx.param_of(cfg, i))
-        else:
-            raise NotImplementedError(
-                f"layer {cfg.name!r}: projection {inp.proj.type!r} is not "
-                f"ported yet (ROADMAP.md)")
+        y = _apply_projection(cfg, inp.proj, arg, ctx.param_of(cfg, i))
         if arg.is_sequence and (like is None or not like.is_sequence):
             like = arg
         acc = y if acc is None else acc + y

@@ -1,5 +1,6 @@
-"""layer_norm — the counterpart of paddle_tpu/graph/layers_misc.py's
-layer_norm_layer (the slice's only layer from that module)."""
+"""layer_norm and cos — the counterparts of paddle_tpu/graph/layers_misc.py's
+layer_norm_layer and cos_sim_layer; the rest of that module is queued in
+ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -30,3 +31,17 @@ def layer_norm_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     if b is not None:
         normed = normed + b.float().reshape(-1)
     return finish_layer(ctx, cfg, normed.to(x.value.dtype), like=x)
+
+
+@register_layer("cos")
+def cos_sim_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """Cosine similarity of two inputs along the last dim, times the
+    layer's `cos_scale` (1 by default); the norms' product is held at
+    least 1e-8."""
+    a, b = ctx.get_input(cfg, 0), ctx.get_input(cfg, 1)
+    scale = cfg.attrs.get("cos_scale", 1.0)
+    num = torch.sum(a.value * b.value, dim=-1)
+    den = torch.sqrt(torch.sum(torch.square(a.value), dim=-1)
+                     * torch.sum(torch.square(b.value), dim=-1))
+    out = scale * num / torch.clamp(den, min=1e-8)
+    return finish_layer(ctx, cfg, out[..., None], like=a)

@@ -1,10 +1,11 @@
 """Sequence and recurrent layers — the counterparts of
 paddle_tpu/graph/layers_seq.py for `lstmemory`, `gated_recurrent`,
-`gru_step` and the pooling layers over time (`max`, `average`,
-`seqlastins`) on the padded [B, T, D] + lengths representation.  Nested
-(sub-sequence) inputs, the truncated-BPTT carry-over of the final state
-into the next batch (--prev_batch_state), and the other layers of that
-module are queued in ROADMAP.md.
+`gru_step`, `recurrent` (the vanilla RNN), the pooling layers over time
+(`max`, `average`, `seqlastins`), `maxid`, and the linear-chain CRF's
+`crf` (a cost) and `crf_decoding`, on the padded [B, T, D] + lengths
+representation.  Nested (sub-sequence) inputs, the truncated-BPTT
+carry-over of the final state into the next batch (--prev_batch_state),
+and the other layers of that module are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ from paddle_tpu_torch.config.schema import LayerConfig
 from paddle_tpu_torch.graph.common import finish_layer
 from paddle_tpu_torch.graph.context import ForwardContext
 from paddle_tpu_torch.graph.registry import register_layer
+import torch
+
+from paddle_tpu_torch.ops import crf as crfops
 from paddle_tpu_torch.ops import rnn as rnnops
 from paddle_tpu_torch.ops import sequence as seqops
 from paddle_tpu_torch.ops.activations import activation_registry
@@ -111,6 +115,60 @@ def gru_step_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     r = gate(zg[:, D:])
     c = act(x3[:, 2 * D:] + (r * h_prev) @ w[:, 2 * D:])
     return Argument(value=u * h_prev + (1.0 - u) * c)
+
+
+@register_layer("recurrent")
+def recurrent_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """The vanilla RNN h_t = act(x_t + h_{t-1} W) over a [B, T, D] input
+    (ops/rnn.py simple_rnn_scan), finished without an activation, as
+    lstmemory."""
+    x = _sequence_input(ctx, cfg)
+    _refuse_prev_state(ctx, cfg, ("h",))
+    hs, _ = rnnops.simple_rnn_scan(
+        x.value, x.lengths, ctx.param_of(cfg, 0), ctx.bias_of(cfg),
+        active_type=cfg.active_type or "tanh", reverse=cfg.reversed)
+    out_cfg = dataclasses.replace(cfg, active_type="")
+    return finish_layer(ctx, out_cfg, hs, like=x, lengths=x.lengths)
+
+
+@register_layer("maxid")
+def maxid_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """The argmax id of each row (the first maximal one), or with
+    beam_size k > 1 the top k values and their ids."""
+    x = ctx.get_input(cfg, 0)
+    k = max(cfg.beam_size, 1)
+    if k == 1:
+        return Argument(ids=torch.argmax(x.value, dim=-1),
+                        lengths=x.lengths)
+    vals, ids = torch.topk(x.value, k, dim=-1)
+    return Argument(value=vals, ids=ids, lengths=x.lengths)
+
+
+@register_layer("crf")
+def crf_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """Each sequence's linear-chain CRF negative log-likelihood of the
+    label ids, a cost recorded times `coeff` (times the third input, a
+    per-sequence weight, when there is one)."""
+    x, lbl = ctx.get_input(cfg, 0), ctx.get_input(cfg, 1)
+    cost = crfops.crf_nll(x.value, lbl.ids, x.lengths, ctx.param_of(cfg, 0))
+    if len(cfg.inputs) > 2:
+        cost = cost * ctx.get_input(cfg, 2).data.reshape(cost.shape)
+    ctx.costs[cfg.name] = cfg.coeff * cost
+    return Argument(value=cost[:, None])
+
+
+@register_layer("crf_decoding")
+def crf_decoding_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """The Viterbi path as ids; with a label input, the per-step 0/1
+    indicators of a decoded tag differing from the label instead (0 past
+    each row's length), as the reference layer hands them on."""
+    x = ctx.get_input(cfg, 0)
+    path = crfops.crf_decode(x.value, x.lengths, ctx.param_of(cfg, 0))
+    if len(cfg.inputs) > 1:
+        lbl = ctx.get_input(cfg, 1)
+        err = (path != lbl.ids).long() * x.mask(torch.long)
+        return Argument(ids=err, lengths=x.lengths)
+    return Argument(ids=path, lengths=x.lengths)
 
 
 def _refuse_prev_state(ctx: ForwardContext, cfg: LayerConfig,

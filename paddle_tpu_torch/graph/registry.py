@@ -2,13 +2,14 @@
 
 A layer implementation is a function (ctx, cfg) -> Argument on tensors,
 as in paddle_tpu/graph/registry.py.  The port implements the layers the
-transformer LM, the sentiment LSTM nets, the attention seq2seq and the
-image classifiers (small_vgg on CIFAR-10 and MNIST, ResNet) run, their
-cost layer included: layers_core, layers_misc, layers_seq, layers_attn,
-layers_cost and layers_conv (every image layer type of the JAX package).
-All the JAX package's cost and validation types are known by name so that
-the serving engine can tell the model's output layer from its training
-head.
+transformer LM, the sentiment LSTM nets, the attention seq2seq, the image
+classifiers (small_vgg on CIFAR-10 and MNIST, ResNet), the SRL and
+sequence-tagging nets (the vanilla RNN, the CRF and its decoder) and the
+recommendation, introduction and quick_start configs run: layers_core,
+layers_misc, layers_seq, layers_attn, layers_cost and layers_conv (every
+image layer type and every cost type of the JAX package).  All the JAX
+package's cost and validation types are known by name so that the serving
+engine can tell the model's output layer from its training head.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ LayerFn = Callable[..., "Argument"]  # noqa: F821
 layer_registry: dict[str, LayerFn] = {}
 
 # the JAX package's cost and validation layer types; the port implements
-# multi-class-cross-entropy (layers_cost.py), the rest are queued in
-# ROADMAP.md
+# the costs of layers_cost.py and crf (layers_seq.py); ctc, nce, hsigmoid
+# and the validation layers are queued in ROADMAP.md
 cost_layer_types = frozenset({
     "multi-class-cross-entropy", "multi_class_cross_entropy_with_selfnorm",
     "soft_binary_class_cross_entropy", "multi_binary_label_cross_entropy",

@@ -1,6 +1,6 @@
 """Recurrent cell scans — the counterpart of paddle_tpu/ops/rnn.py for the
-LSTM (`lstm_scan`) and the GRU (`gru_scan`); the plain recurrent scan
-(`simple_rnn_scan`) is queued in ROADMAP.md.
+LSTM (`lstm_scan`), the GRU (`gru_scan`) and the plain recurrent layer
+(`simple_rnn_scan`).
 
 Gate math (the reference's cell, hl_lstm_ops.cuh):
     a = act(xa + h.Wa)        i = gate(xi + h.Wi [+ c_prev*peep_i])
@@ -104,6 +104,35 @@ def gru_scan(
                      active_type=active_type,
                      gate_active_type=gate_active_type, reverse=reverse)
     return hs.to(x3.dtype), h_last.to(x3.dtype)
+
+
+def simple_rnn_scan(
+    x: torch.Tensor,                     # [B, T, D] pre-projected input
+    lengths: torch.Tensor,               # [B]
+    w_rec: torch.Tensor,                 # [D, D]
+    bias: Optional[torch.Tensor],        # [D] or None
+    h0: Optional[torch.Tensor] = None,   # [B, D] initial hidden
+    active_type: str = "tanh",
+    reverse: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The vanilla recurrent layer h_t = act(x_t + h_{t-1} W), the bias
+    added to x, h frozen past each row's length; `reverse` walks the
+    padded axis backwards.  A step loop of tensor ops, as the reference's
+    lax.scan (the JAX package has no kernel for it).  Returns (hiddens
+    [B, T, D], last_h [B, D])."""
+    from paddle_tpu_torch.ops.activations import activation_registry
+    B, T, D = x.shape
+    act = activation_registry[active_type]
+    if bias is not None:
+        x = x + bias.reshape(-1)
+    h = torch.zeros(B, D, dtype=x.dtype, device=x.device) if h0 is None \
+        else h0
+    lens = lengths.long()[:, None]
+    hs = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        h = torch.where(t < lens, act(x[:, t] + h @ w_rec), h)
+        hs[t] = h
+    return torch.stack(hs, dim=1), h
 
 
 def _check_impl(what: str, impl: str) -> None:

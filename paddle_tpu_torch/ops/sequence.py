@@ -1,14 +1,19 @@
 """Variable-length sequence ops on padded [B, T, D] tensors plus a [B]
 lengths vector — the counterparts of paddle_tpu/ops/sequence.py
 (`seq_pool_max`, `seq_pool_avg`, `seq_pool_first`, `seq_pool_last`, each a
-masked dense reduction over the time axis, and `seq_reverse`, which
-reversed recurrent groups need).  The nested (sub-sequence) forms and the
-other sequence ops of that module are queued in ROADMAP.md.
+masked dense reduction over the time axis, `seq_reverse`, which reversed
+recurrent groups need, and `context_projection`, the mixed layer's sliding
+window).  The nested (sub-sequence) forms and the other sequence ops of
+that module are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from paddle_tpu_torch.ops.table import lookup_rows
 
 
 def length_mask(lengths: torch.Tensor, max_len: int,
@@ -60,3 +65,44 @@ def seq_reverse(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     idx = torch.where(src >= 0, src, t.expand(B, T))
     idx = idx.reshape(B, T, *([1] * (x.dim() - 2))).expand(x.shape)
     return torch.gather(x, 1, idx)
+
+
+def context_projection(x: torch.Tensor, lengths: torch.Tensor,
+                       context_start: int, context_length: int,
+                       padding: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The sliding window of each position, concatenated: [B, T, D] ->
+    [B, T, context_length * D], zero past each row's length.  Window
+    position j reads step t + context_start + j; a step before 0 or at or
+    past the row's length reads zeros, or with `padding` ([up + down, D],
+    the trainable padding) row up + (src) for a step before the start and
+    row up + (src - length) for one past the end, where up =
+    max(0, -context_start).  Decided by each row's length, not the padded
+    T.  The padding rows are gathered with ops/table.py lookup_rows, whose
+    backward adds in a fixed order."""
+    B, T, D = x.shape
+    mask = length_mask(lengths, T, x.dtype)[..., None]
+    xm = x * mask
+    t = torch.arange(T, device=x.device)[None, :]
+    lens = lengths.long()[:, None]
+    up = max(0, -context_start)
+    cols = []
+    for j in range(context_length):
+        offset = context_start + j
+        shifted = torch.roll(xm, shifts=-offset, dims=1)
+        src = t + offset
+        valid = ((src >= 0) & (src < lens))[..., None]
+        if padding is not None and offset != 0:
+            last = padding.shape[0] - 1
+            if offset < 0:
+                row, use = (up + src).clamp(0, last), src < 0
+            else:
+                over = src - lens
+                row, use = (up + over).clamp(0, last), over >= 0
+            fill = torch.where(use[..., None],
+                               lookup_rows(row.expand(B, T), padding), 0.0)
+            col = torch.where(valid, shifted, fill)
+        else:
+            col = torch.where(valid, shifted, 0.0)
+        cols.append(col)
+    return torch.cat(cols, dim=-1) * mask

@@ -16,9 +16,18 @@ capturable), `apply` (the update, capturable) and `advance` (the host
 counters); the Trainer's fused dispatch runs the first and last around
 every replay of a graph that holds `apply`.
 
+Model averaging (`average_window > 0`, the reference's AverageOptimizer)
+keeps a running mean of every parameter after each update in the state's
+`average` tensors, with the number of updates it holds in
+`average_count` (a 0-d int32 tensor on the device): avg += (p - avg) /
+count, the count cast to the parameter's dtype; past
+`max_average_window` updates the window restarts from the current
+parameters (`torch.where`, so a captured step has no host branch).
+`averaged_params` gives the parameters to evaluate with.
+
 Not ported yet, and refused when configured (ROADMAP.md): pruning hooks
-(`update_hooks`), model averaging (`average_window`) and gradient
-accumulation (`num_batches_per_send_parameter > 1`).
+(`update_hooks`) and gradient accumulation
+(`num_batches_per_send_parameter > 1`).
 """
 
 from __future__ import annotations
@@ -42,9 +51,6 @@ class ParameterUpdater:
             raise NotImplementedError(
                 f"parameter update hooks (pruning) on {hooked} are not "
                 f"ported yet (ROADMAP.md)")
-        if opt.average_window > 0:
-            raise NotImplementedError("model averaging (average_window > 0) "
-                                      "is not ported yet (ROADMAP.md)")
         if int(opt.num_batches_per_send_parameter) > 1:
             raise NotImplementedError(
                 "gradient accumulation (num_batches_per_send_parameter > 1) "
@@ -55,6 +61,7 @@ class ParameterUpdater:
             p.name: p for p in model.parameters}
         self.init_slots_fn, self.update_fn = get_optimizer(
             opt.learning_method)
+        self.use_average = opt.average_window > 0
         # (num_samples, num_updates, pass_id) on the parameters' device,
         # and the host values they hold
         self._counters: Optional[torch.Tensor] = None
@@ -64,8 +71,15 @@ class ParameterUpdater:
         slots = {name: self.init_slots_fn(p, self.opt)
                  for name, p in params.items()
                  if not self.param_cfgs[name].is_static}
-        return {"slots": slots, "num_samples": 0, "num_updates": 0,
-                "pass_id": 0}
+        state = {"slots": slots, "num_samples": 0, "num_updates": 0,
+                 "pass_id": 0}
+        if self.use_average:
+            first = next(iter(params.values()))
+            state["average"] = {name: p.detach().clone()
+                                for name, p in params.items()}
+            state["average_count"] = torch.zeros((), dtype=torch.int32,
+                                                 device=first.device)
+        return state
 
     def step(self, params: dict[str, torch.Tensor],
              grads: dict[str, torch.Tensor], state: dict[str, Any],
@@ -73,7 +87,7 @@ class ParameterUpdater:
         """One update.  The parameters and slots are updated in place;
         returns (params, the new state)."""
         self.load_counters(state, next(iter(params.values())).device)
-        self.apply(params, grads, state["slots"], batch_size)
+        self.apply(params, grads, state, batch_size)
         return params, self.advance(state, batch_size)
 
     def load_counters(self, state: dict[str, Any],
@@ -104,12 +118,14 @@ class ParameterUpdater:
 
     @torch.no_grad()
     def apply(self, params: dict[str, torch.Tensor],
-              grads: dict[str, torch.Tensor], slots: dict[str, Any],
+              grads: dict[str, torch.Tensor], state: dict[str, Any],
               batch_size: int) -> None:
         """The update on the device, in place: the counters advance, then
-        every trainable parameter with a gradient and its slots take the
-        rule's new values.  No host read."""
+        every trainable parameter with a gradient and its slots (in
+        `state["slots"]`) take the rule's new values, then the averages.
+        No host read."""
         opt = self.opt
+        slots = state["slots"]
         c = self._counters
         c[0].add_(int(batch_size))
         c[1].add_(1)
@@ -150,6 +166,35 @@ class ParameterUpdater:
                 src.append(v)
         if dst:
             torch._foreach_copy_(dst, src)
+        if self.use_average:
+            self._average(params, state)
+
+    def _average(self, params: dict[str, torch.Tensor],
+                 state: dict[str, Any]) -> None:
+        """The running mean of every parameter after this update, the
+        window restarting from the current parameters once it would hold
+        more than max_average_window updates."""
+        count = state["average_count"]
+        cnt = count + 1
+        max_win = self.opt.max_average_window or 0
+        if max_win:
+            reset = cnt > max_win
+            cnt = torch.where(reset, torch.ones_like(cnt), cnt)
+        dst, src = [], []
+        for name, p in params.items():
+            prev = state["average"][name]
+            if max_win:
+                prev = torch.where(reset, p, prev)
+            dst.append(prev)
+            src.append(prev + (p - prev) / cnt.to(p.dtype))
+        torch._foreach_copy_([state["average"][n] for n in params], src)
+        count.copy_(cnt)
+
+    def averaged_params(self, params: dict[str, torch.Tensor],
+                        state: dict[str, Any]) -> dict[str, torch.Tensor]:
+        """The parameters to evaluate with: the averages under model
+        averaging, else the parameters themselves."""
+        return state["average"] if self.use_average else params
 
     def finish_pass(self, state: dict[str, Any]) -> dict[str, Any]:
         return dict(state, pass_id=state["pass_id"] + 1)

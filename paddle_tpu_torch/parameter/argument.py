@@ -3,7 +3,10 @@
 The port's counterpart of paddle_tpu/parameter/argument.py: sequences are
 padded dense [B, T, ...] tensors plus a [B] `lengths` vector.  The data
 feeder (data/feeder.py) also fills the nested-sequence and sparse-row
-fields, as the JAX package's does; the executor does not take them yet,
+fields, as the JAX package's does.  Sparse rows ([B, K] or [B, T, K]
+column ids in `ids`, their values in `sparse_vals`) feed the fc layer and
+the full-matrix projections, which gather the touched weight rows;
+`to_dense` materializes them.  Nested sequences are queued in ROADMAP.md,
 and `Trainer.prepare_batch` refuses a feed that carries them.
 
 Images travel between image layers as [B, C, H, W] tensors (`image`
@@ -75,6 +78,23 @@ class Argument:
 
     def replace(self, **kw: Any) -> "Argument":
         return dataclasses.replace(self, **kw)
+
+    def to_dense(self) -> "Argument":
+        """Sparse rows as a dense [..., sparse_dim] value (the identity for
+        other arguments): each row's values added at its column ids, a
+        padding slot's value 0 at id 0 adding nothing.  Memory goes as
+        sparse_dim; the training path never calls it."""
+        if not self.sparse_dim:
+            return self
+        lead = tuple(self.ids.shape[:-1])
+        K = self.ids.shape[-1]
+        ids = self.ids.reshape(-1, K).long()
+        vals = self.sparse_vals.reshape(-1, K)
+        dense = torch.zeros(ids.shape[0], self.sparse_dim, dtype=vals.dtype,
+                            device=vals.device)
+        dense.scatter_add_(1, ids, vals)
+        return Argument(value=dense.reshape(lead + (self.sparse_dim,)),
+                        lengths=self.lengths, sub_lengths=self.sub_lengths)
 
     def flatten_image(self) -> "Argument":
         """An image as the reference's flat C-major [B, C*H*W] rows (the

@@ -93,8 +93,9 @@ def opt_state_from_jax(np_opt_state: Mapping[str, Any],
                        device: DeviceLike = None) -> dict[str, Any]:
     """Carry a JAX `ParameterUpdater` state (`Trainer.opt_state` with its
     leaves converted by np.asarray) into the port's form: the per-parameter
-    slots as tensors (Adam's m/v, momentum, ...) and `num_samples`,
-    `num_updates`, `pass_id` as Python ints."""
+    slots as tensors (Adam's m/v, momentum, ...), `num_samples`,
+    `num_updates`, `pass_id` as Python ints, and under model averaging
+    the `average` tensors and the int32 `average_count`."""
     dev = resolve_device(device)
     slots = {name: {k: torch.from_numpy(np.array(v, dtype=np.float32)
                                         ).to(dev)
@@ -103,4 +104,11 @@ def opt_state_from_jax(np_opt_state: Mapping[str, Any],
     out: dict[str, Any] = {"slots": slots}
     for k in ("num_samples", "num_updates", "pass_id"):
         out[k] = int(np.asarray(np_opt_state[k]))
+    if "average" in np_opt_state:
+        out["average"] = {name: torch.from_numpy(np.array(
+            v, dtype=np.float32)).to(dev)
+            for name, v in np_opt_state["average"].items()}
+        out["average_count"] = torch.tensor(
+            int(np.asarray(np_opt_state["average_count"])),
+            dtype=torch.int32, device=dev)
     return out

@@ -57,16 +57,28 @@ and the dispatch's stream waits on the event recorded after them before
 it copies the group into a captured graph's input tensors, so the copy
 into those tensors is ordered after the replay that last read them.
 
+Feeds of sparse rows (`Argument.sparse_vals`) move to the device with
+their ids; the fc layer and full-matrix projections gather the rows they
+touch.  Under model averaging (`average_window > 0`) every update also
+moves the averages (`opt_state["average"]`, `["average_count"]`, written
+in place like the slots), `test()` evaluates with them, and checkpoints
+carry them as the JAX package's `opt|average|<name>` and
+`opt|average_count`.  Host evaluators (`chunk`) read some layers'
+outputs after each step: each step hands them on (a captured group's are
+copied out of the graph's buffers after its replay, step by step), and
+they are read in bulk with the losses.
+
 `train()` runs passes, each followed by `test()` on the config's test
 source when it has one and a checkpoint in `save_dir`; `test()` runs the
 TEST forward; `save`/`load` write and read the JAX package's checkpoint
 layout, so either side resumes the other's run.
 
 Not ported yet, and refused (ROADMAP.md): the binary-shard data source
-(`ptsh`), meshes, pipeline stages, the parameter server, gradient probes,
-the evaluators other than classification_error, and the carry of a
-recurrent layer's final state into the next batch (`--prev_batch_state`;
-batch norm's moving statistics are the layer state the port carries).
+(`ptsh`), nested-sequence feeds, meshes, pipeline stages, the parameter
+server, gradient probes, the evaluators other than classification_error,
+sum, column_sum and chunk, and the carry of a recurrent layer's final
+state into the next batch (`--prev_batch_state`; batch norm's moving
+statistics are the layer state the port carries).
 """
 
 from __future__ import annotations
@@ -236,7 +248,11 @@ class Trainer:
         self._data_layers = {l.name: l for l in self.model.layers
                              if l.type == "data"}
         self._acc: dict = {}
+        self._host_acc: dict = self.evaluators.new_host_state()
         self._loss_buf: list[torch.Tensor] = []
+        # each step's outputs the host evaluators read, queued until the
+        # losses are drained
+        self._host_buf: list[dict] = []
         self._drained_cost = 0.0
         # the fused dispatch: signatures whose first batch ran eagerly, and
         # the captured steps by (signature, group size) (the card only)
@@ -253,10 +269,12 @@ class Trainer:
     # -- one step -------------------------------------------------------
     def prepare_batch(self, batch: Batch, pinned: bool = False) -> Batch:
         """Check the feed against the data layers (missing or unknown keys,
-        ids out of range on host arrays, batch sizes) and move it to the
-        device; `pinned` copies host arrays through pinned memory without
-        waiting for the copy (the fused pass's staging, on its side
-        stream)."""
+        ids out of range on host arrays: a sparse row's column ids against
+        its width, other ids against the data layer's size; batch sizes)
+        and move it to the device, ids as int64; `pinned` copies host
+        arrays through pinned memory without waiting for the copy (the
+        fused pass's staging, on its side stream).  Sparse-row values keep
+        their dtype here; the executor casts them to the compute dtype."""
         missing = sorted(set(self._data_layers) - set(batch))
         if missing:
             raise KeyError(f"batch is missing feed(s) for data layer(s) "
@@ -270,25 +288,36 @@ class Trainer:
             if arg.value is None and arg.ids is None:
                 raise ValueError(f"feed {name!r} carries neither dense "
                                  f"values nor ids")
-            if arg.sub_lengths is not None or arg.sparse_vals is not None:
+            if arg.sub_lengths is not None:
                 raise NotImplementedError(
-                    f"feed {name!r} is a nested sequence or sparse rows; "
-                    f"the executor does not take them yet (ROADMAP.md)")
+                    f"feed {name!r} is a nested sequence; nested sequences "
+                    f"(nested groups and pooling, expand, subseq, seqconcat,"
+                    f" seqreshape, lstm_step, sparse in-links of a group) "
+                    f"are not ported yet (ROADMAP.md Queue 1 item 5)")
             ids = arg.ids
-            size = self._data_layers[name].size
+            sparse = arg.sparse_vals is not None
+            if sparse and not arg.sparse_dim:
+                raise ValueError(f"feed {name!r}: sparse rows without their "
+                                 f"width (sparse_dim)")
+            size = arg.sparse_dim if sparse else self._data_layers[name].size
             host = isinstance(ids, np.ndarray) or (
                 isinstance(ids, torch.Tensor) and ids.device.type == "cpu")
-            if ids is not None and host and size > 0 and len(ids):
+            if ids is not None and host and size > 0 and np.size(ids):
                 hi, lo = int(ids.max()), int(ids.min())
                 if hi >= size or lo < 0:
+                    what = "sparse row width" if sparse else \
+                        "data layer size"
                     raise ValueError(
                         f"feed {name!r}: id {hi if hi >= size else lo} out "
-                        f"of range for data layer size {size}")
+                        f"of range for {what} {size}")
             ids = _as_tensor(ids, self.device, pinned)
             arg = Argument(value=_as_tensor(arg.value, self.device, pinned),
                            ids=None if ids is None else ids.long(),
                            lengths=_as_tensor(arg.lengths, self.device,
-                                              pinned))
+                                              pinned),
+                           sparse_vals=_as_tensor(arg.sparse_vals,
+                                                  self.device, pinned),
+                           sparse_dim=arg.sparse_dim if sparse else 0)
             sizes.add(arg.data.shape[0])
             out[name] = arg
         if len(sizes) > 1:
@@ -335,17 +364,19 @@ class Trainer:
     def _step(self, batch: Batch, dropout_masks: Optional[dict] = None):
         """The training step on a prepared batch, on the device and with no
         host read: forward, gradients, the in-place update (the updater's
-        device counters advance), the evaluators' partials.  Returns (loss,
-        partials).  `train_one_batch` runs it eagerly; the fused dispatch
-        captures it."""
+        device counters advance, the averages follow), the evaluators'
+        partials.  Returns (loss, partials, the outputs the host
+        evaluators read).  `train_one_batch` runs it eagerly; the fused
+        dispatch captures it."""
         with self._cudnn():
             loss, grads, outputs = self.compute_gradients(batch,
                                                           dropout_masks)
-            self.updater.apply(self.params, grads, self.opt_state["slots"],
+            self.updater.apply(self.params, grads, self.opt_state,
                                _batch_size(batch))
             with torch.no_grad():
                 partials = self.evaluators.batch_partials(outputs, batch)
-        return loss, partials
+        return loss, partials, _detached(
+            self.evaluators.host_outputs(outputs))
 
     @contextlib.contextmanager
     def _cudnn(self):
@@ -362,21 +393,24 @@ class Trainer:
         finally:
             cudnn.deterministic, cudnn.benchmark = saved
 
-    def _commit(self, loss: torch.Tensor, partials: dict,
+    def _commit(self, loss: torch.Tensor, partials: dict, host_out: dict,
                 batch_size: int) -> None:
         """The host's part of a step: the counters, the evaluator sums (in
-        arrival order), the loss into the bulk check."""
+        arrival order), the loss into the bulk check, the host evaluators'
+        inputs into their queue (read in bulk with the losses)."""
         self.opt_state = self.updater.advance(self.opt_state, batch_size)
         self._acc = self.evaluators.accumulate(self._acc, partials)
         self._loss_buf.append(loss)
+        if host_out:
+            self._host_buf.append(host_out)
         if len(self._loss_buf) >= max(int(self.nonfinite_check_period), 1):
             self._drained_cost += self._drain_losses()
 
     def _run_step(self, batch: Batch, dropout_masks: Optional[dict] = None
                   ) -> torch.Tensor:
         self.updater.load_counters(self.opt_state, self.device)
-        loss, partials = self._step(batch, dropout_masks)
-        self._commit(loss, partials, _batch_size(batch))
+        loss, partials, host_out = self._step(batch, dropout_masks)
+        self._commit(loss, partials, host_out, _batch_size(batch))
         return loss
 
     def train_one_batch(self, batch: Batch,
@@ -389,7 +423,11 @@ class Trainer:
 
     def _drain_losses(self) -> float:
         """One host read for all buffered losses: bulk finiteness check and
-        their sum."""
+        their sum; the queued batches' outputs go to the host evaluators,
+        in arrival order."""
+        for host_out in self._host_buf:
+            self.evaluators.host_update(self._host_acc, host_out)
+        self._host_buf.clear()
         if not self._loss_buf:
             return 0.0
         losses = torch.stack(self._loss_buf).float().cpu().numpy()
@@ -434,7 +472,9 @@ class Trainer:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
         t0 = time.time()
         self._acc = {}
+        self._host_acc = self.evaluators.new_host_state()
         self._loss_buf.clear()
+        self._host_buf.clear()
         self._drained_cost = 0.0
         if batches is None:
             batches = self.train_batches()
@@ -464,6 +504,7 @@ class Trainer:
         self._drained_cost += self._drain_losses()
         self.opt_state = self.updater.finish_pass(self.opt_state)
         stats = self.evaluators.finalize(self._acc)
+        stats.update(self.evaluators.finalize_host(self._host_acc))
         dt = time.time() - t0
         stats.update(cost=self._drained_cost / max(n_batches, 1),
                      batches=n_batches, samples=n_samples, seconds=dt,
@@ -474,9 +515,10 @@ class Trainer:
 
     def _log_progress(self, n_batches: int) -> None:
         self._drained_cost += self._drain_losses()
+        stats = self.evaluators.finalize(self._acc)
+        stats.update(self.evaluators.finalize_host(self._host_acc))
         log.info("pass %d batch %d: cost=%.5f %s", self.pass_id, n_batches,
-                 self._drained_cost / n_batches,
-                 _fmt(self.evaluators.finalize(self._acc)))
+                 self._drained_cost / n_batches, _fmt(stats))
 
     def train(self, num_passes: int = 1, log_period: int = 100,
               save_dir: Optional[str] = None, keep_last: int = 0,
@@ -525,7 +567,8 @@ class Trainer:
         first step settles it, and a capture whose state tensors were
         replaced is retaken, `_CapturedSteps.holds`.)"""
         feeds = tuple(sorted((name, _spec(a.value), _spec(a.ids),
-                              _spec(a.lengths)) for name, a in batch.items()))
+                              _spec(a.lengths), _spec(a.sparse_vals),
+                              a.sparse_dim) for name, a in batch.items()))
         masks = tuple(sorted((name, _spec(m))
                              for name, m in (dropout_masks or {}).items()))
         return feeds, masks
@@ -602,17 +645,24 @@ class Trainer:
             steps = self._graphs[key] = _CapturedSteps(self, group)
         steps.load(group)
         steps.graph.replay()
-        # read before any other replay: the graphs share one memory pool
+        # read before any other replay (the graphs share one memory pool)
+        # or the next load (the feeds the host evaluators read): each
+        # step's own outputs, copied on the device
         losses = steps.losses.clone()
         for i, (batch, _) in enumerate(group):
-            self._commit(losses[i], steps.partials[i], _batch_size(batch))
+            host_out = {n: _cloned(a)
+                        for n, a in steps.host_outs[i].items()}
+            self._commit(losses[i], steps.partials[i], host_out,
+                         _batch_size(batch))
 
     @torch.no_grad()
     def test(self, batches: Optional[Iterable[Batch]] = None
              ) -> dict[str, float]:
         """The TEST-mode cost (sample-weighted mean of the batch losses) and
         the evaluators over `batches` (default: the config's test source,
-        in order, the last short batch kept; ref: Tester::testOnePeriod)."""
+        in order, the last short batch kept; ref: Tester::testOnePeriod),
+        with the averaged parameters under model averaging (the training
+        parameters stay as they are)."""
         if batches is None:
             if self.config.test_data_config is None:
                 raise ValueError(
@@ -623,19 +673,24 @@ class Trainer:
                     "TrainerMain.cpp)")
             batches = self._feeder(self.config.test_data_config,
                                    False).batches()
+        params = self.updater.averaged_params(self.params, self.opt_state)
         acc: dict = {}
+        host_acc = self.evaluators.new_host_state()
         total, n = 0.0, 0
         for batch in batches:
             batch = self.prepare_batch(batch)
             with self._cudnn():
                 loss, (outputs, _, _) = self.executor.loss(
-                    self.params, batch, self.net_state, TEST)
+                    params, batch, self.net_state, TEST)
             bsz = _batch_size(batch)
             total += float(loss) * bsz
             n += bsz
             acc = self.evaluators.accumulate(
                 acc, self.evaluators.batch_partials(outputs, batch))
+            self.evaluators.host_update(
+                host_acc, self.evaluators.host_outputs(outputs))
         stats = self.evaluators.finalize(acc)
+        stats.update(self.evaluators.finalize_host(host_acc))
         stats["cost"] = total / max(n, 1)
         return stats
 
@@ -696,13 +751,16 @@ def _merge_state(template, loaded, device: torch.device):
 class _CapturedSteps:
     """A group's j training steps of one signature captured into one CUDA
     graph: each step's feed and mask tensors (a replay's batches are copied
-    into them), the j losses and each step's evaluator partials."""
+    into them), the j losses, each step's evaluator partials and the
+    outputs the host evaluators read."""
 
     def __init__(self, trainer: Trainer, group: list):
         def own(t):
             return None if t is None else t.clone()
         self.feeds = [{name: Argument(value=own(a.value), ids=own(a.ids),
-                                      lengths=own(a.lengths))
+                                      lengths=own(a.lengths),
+                                      sparse_vals=own(a.sparse_vals),
+                                      sparse_dim=a.sparse_dim)
                        for name, a in batch.items()} for batch, _ in group]
         self.masks = [None if m is None else {n: v.clone()
                                               for n, v in m.items()}
@@ -717,9 +775,11 @@ class _CapturedSteps:
         def steps():
             out = [trainer._step(f, m) for f, m in zip(self.feeds,
                                                       self.masks)]
-            return torch.stack([loss for loss, _ in out]), [p for _, p in out]
+            return (torch.stack([o[0] for o in out]), [o[1] for o in out],
+                    [o[2] for o in out])
 
-        self.losses, self.partials = self.graph.capture(steps)
+        self.losses, self.partials, self.host_outs = self.graph.capture(
+            steps)
 
     def holds(self, trainer: Trainer) -> bool:
         """Whether the trainer still updates the tensors captured here."""
@@ -733,11 +793,29 @@ class _CapturedSteps:
             for name, a in batch.items():
                 mine = feed[name]
                 for dst, src in ((mine.value, a.value), (mine.ids, a.ids),
-                                 (mine.lengths, a.lengths)):
+                                 (mine.lengths, a.lengths),
+                                 (mine.sparse_vals, a.sparse_vals)):
                     if dst is not None:
                         dst.copy_(src)
             for n, m in (masks or {}).items():
                 step_masks[n].copy_(m)
+
+
+def _detached(outputs: dict[str, Argument]) -> dict[str, Argument]:
+    """Outputs without their autograd history (a queued one would keep its
+    step's graph alive)."""
+    def d(t):
+        return None if t is None else t.detach()
+    return {n: a.replace(value=d(a.value), ids=d(a.ids),
+                         lengths=d(a.lengths)) for n, a in outputs.items()}
+
+
+def _cloned(arg: Argument) -> Argument:
+    """An Argument's tensors copied (on their device)."""
+    def c(t):
+        return None if t is None else t.clone()
+    return arg.replace(value=c(arg.value), ids=c(arg.ids),
+                       lengths=c(arg.lengths))
 
 
 def _next_masks(masks) -> Optional[dict]:
@@ -752,11 +830,14 @@ def _next_masks(masks) -> Optional[dict]:
 
 
 def _state_tensors(trainer: Trainer) -> list:
-    """The parameters, optimizer slots, updater counters and layer state of
-    a trainer, in a fixed order."""
-    slots = trainer.opt_state["slots"]
+    """The parameters, optimizer slots, updater counters, averages and
+    layer state of a trainer, in a fixed order."""
+    opt = trainer.opt_state
+    slots = opt["slots"]
     return ([trainer.updater._counters] + list(trainer.params.values())
             + [v for n in slots for v in slots[n].values()]
+            + _leaves(opt.get("average", {}))
+            + ([opt["average_count"]] if "average_count" in opt else [])
             + _leaves(trainer.net_state))
 
 
@@ -805,7 +886,8 @@ def _spec(t) -> Optional[tuple]:
 def _tensors(batch: Batch, masks: Optional[dict]) -> list:
     """The tensors of a prepared batch and its masks."""
     out = [t for a in batch.values()
-           for t in (a.value, a.ids, a.lengths) if t is not None]
+           for t in (a.value, a.ids, a.lengths, a.sparse_vals)
+           if t is not None]
     return out + list((masks or {}).values())
 
 

@@ -341,14 +341,17 @@ LSTM_CASES = [(5, 7, 32, False, True, True, "tanh"),
               (64, 20, 256, False, True, True, "relu"),
               (32, 12, 512, True, True, True, "tanh"),
               (1000, 12, 128, False, True, True, "relu"),
-              (5, 30, 128, True, True, True, "tanh")]
+              (5, 30, 128, True, True, True, "tanh"),
+              (150, 32, 32, False, True, True, "tanh"),
+              (150, 32, 32, True, True, True, "relu")]
 
 
 @pytest.mark.parametrize("case", LSTM_CASES,
                          ids=["odd", "two-row-tiles", "d512-four-row-tiles",
                               "one-step", "linear-cell", "d256",
                               "d512-beyond-a-cluster", "b1000-waves",
-                              "b5-partly-filled-group"])
+                              "b5-partly-filled-group", "srl-fwd-tanh",
+                              "srl-rev-relu"])
 def test_lstm_kernels_match_plain_version(cuda, case):
     """The forward kernel (hs, h_last, c_last) and the backward kernel
     (dx4, dW, dpeep, dh0, dc0) against autograd of the plain version, each
@@ -745,6 +748,63 @@ def test_cli_trains_a_demo_config_on_the_card(cuda, name, tmp_path):
     if name == "sentiment":
         cli_test_round_trip(name, path, args, res["runs"][1]["save"],
                             res["cfg"])
+
+
+@pytest.mark.parametrize("V,D,n", [(2, 5, 4800), (7, 256, 20000),
+                                   (30000, 128, 20000)])
+def test_table_lookup_backward_repeats_bit_for_bit(cuda, V, D, n):
+    """ops/table.py lookup_rows: its gradient is the per-row sum of the
+    output gradient (against F.embedding's within 1e-5 of its max), the
+    same bits over ten calls, and the same replayed from a CUDA graph:
+    small tables through the one-hot product (where F.embedding's own
+    backward, past 3,072 ids into a table of a few rows, is not
+    deterministic), a 30,000-row table through embedding_dense_backward."""
+    from paddle_tpu_torch.ops.table import lookup_rows
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ids = torch.randint(0, V, (n,), device=cuda, generator=g)
+    grad = torch.randn(n, D, device=cuda, generator=g)
+    w = torch.randn(V, D, device=cuda, generator=g).requires_grad_(True)
+
+    def run():
+        return torch.autograd.grad(lookup_rows(ids, w), w, grad)[0]
+    first = run()
+    want = torch.autograd.grad(torch.nn.functional.embedding(ids, w), w,
+                               grad)[0]
+    assert float((first - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    assert all(torch.equal(first, run()) for _ in range(10))
+    assert graph_replay_equal(lambda: (run(),))
+
+
+# the tagging configs at small sizes: (file, --config_args, kernels a
+# training step launches, kernels a test batch launches)
+TAGGING_CONFIGS = {
+    "srl": ("demo/semantic_role_labeling/db_lstm.py",
+            "depth=2,batch_size=32",
+            lambda b: {"lstm_fwd_kernel": 2, "lstm_bwd_kernel": 2},
+            lambda b: {"lstm_fwd_kernel": 2}),
+    "rnn_crf": ("demo/sequence_tagging/rnn_crf.py", "batch_size=64",
+                lambda b: {"lstm_fwd_kernel": 0}, lambda b: {}),
+    "recommendation": ("demo/recommendation/trainer_config.py",
+                       "batch_size=256,emb_size=32",
+                       lambda b: {"lstm_fwd_kernel": 0}, lambda b: {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TAGGING_CONFIGS))
+def test_cli_trains_a_tagging_config_on_the_card(cuda, name, tmp_path):
+    """`python -m paddle_tpu_torch train` on an SRL, sequence-tagging or
+    recommendation config at a small size (chip_smoke's cli_pair): one
+    pass at --steps_per_dispatch=1 and at 4, the card launching each
+    batch's kernels (SRL: K3 per lstmemory; the others none), the two
+    runs' statistics (chunk counts included) and checkpoints (averages
+    included) bit-identical, then --job=test of the k = 1 checkpoint on
+    the averaged parameters equal to an in-process load."""
+    path, args, train_route, test_route = TAGGING_CONFIGS[name]
+    res = cli_pair(name, path, args, train_route, test_route, str(tmp_path))
+    assert res["runs"][1]["row"]["batches"] > 1
+    cli_test_round_trip(name, path, args, res["runs"][1]["save"],
+                        res["cfg"])
 
 
 def test_cli_trains_the_mnist_vgg_on_the_card(cuda, tmp_path):

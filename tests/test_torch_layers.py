@@ -305,9 +305,9 @@ def test_mixed_projections_and_concat_match_jax():
     np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
                                rtol=1e-6, atol=1e-6)
     assert torch.equal(got.lengths, _t(lens))
-    with pytest.raises(NotImplementedError, match="dot_mul"):
+    with pytest.raises(NotImplementedError, match="nonesuch"):
         get_layer_fn("mixed")(ctx, LayerConfig(inputs=[LayerInput(
-            "x", "w", ProjectionConfig(type="dot_mul"))], **spec))
+            "x", "w", ProjectionConfig(type="nonesuch"))], **spec))
     cspec = dict(name="c", type="concat", size=12)
     cwant = jget("concat")(jctx, JLayer(inputs=[JInput("x"), JInput("y")],
                                         **cspec))

@@ -154,8 +154,6 @@ def test_parameter_updater_matches_jax(rule):
 
 def test_unported_updater_options_raise():
     _, tm = _models()
-    with pytest.raises(NotImplementedError, match="average"):
-        ParameterUpdater(tm, OptimizationConfig(average_window=0.5))
     with pytest.raises(NotImplementedError, match="accumulation"):
         ParameterUpdater(tm, OptimizationConfig(
             num_batches_per_send_parameter=4))
