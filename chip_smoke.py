@@ -282,6 +282,35 @@ Phases, in order; any failure raises and the exit code is non-zero:
                cuDNN LSTM; the table gradient's repeats (F.embedding
                against ops/table.py lookup_rows, which must repeat bit for
                bit) and the fp32 step product of rnn_crf's RNN timed.
+ 19. nested  — nested sequences and carried recurrent state: (a) the
+               nested test configs (tests/configs/sequence_nest_rnn.py
+               and _multi_input.py) from their files at their own widths
+               on the reference's documents, then copies at vocabulary
+               30000, word_dim 128, hidden_dim 512, two labels on batches
+               of 128 documents of 1-8 sub-sequences of 4-32 words (seed
+               1): cost and every gradient within rtol 1e-4, atol 1e-5 of
+               their flat twins' (the reference's hierarchical oracle);
+               the nested RNN and its flat twin through kstep_training
+               (k = 4 bit-identical to k = 1; no hand-written kernel on
+               this path); (b) a hierarchical LSTM (HIER_LSTM: an outer
+               group over the sub-sequences, fc(512) -> lstmemory(128) ->
+               last_seq a step, an fc memory): K3 held against its plain
+               version at the outer steps' shapes, then kstep_training,
+               the card launching K3's forward and backward once per
+               outer step; (c) the --prev_batch_state chunk oracle: two
+               chunks of T/2 with the carried state end where one
+               T-step forward ends (final states, each row's last valid
+               output, within 1e-5 of the largest), an lstmemory at
+               [128, 100] hidden 128 (K3) and a gated_recurrent at
+               [64, 30] hidden 512 (K1), ragged rows; the second chunk's
+               kernel call, booted from the carried state, against the
+               plain version; (d) demo/sentiment/trainer_config.py with
+               --prev_batch_state at its defaults: K3 calls booted from
+               the carried states (non-zero h0, c0) against the plain
+               version, the CLI pair as in phase 16 with the flag,
+               --job=test of its checkpoint, and two passes ending in a
+               batch of 100 rows at k = 1 and 4, bit-identical after each
+               (the carried state included).
 The last three lines of the output are a JSON object with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.  Exits non-zero without a result when CUDA
@@ -1190,10 +1219,20 @@ def training_state_differs(a, b) -> list:
             bad.append("average_count")
     if a.net_state.keys() != b.net_state.keys():
         bad.append("net_state layers")
-    bad += [f"net.{n}.{k}" for n, st in a.net_state.items()
-            if n in b.net_state for k, v in st.items()
-            if not torch.equal(v, b.net_state[n][k])]
+    mine = dict(state_leaves(b.net_state, "net"))
+    bad += [n for n, v in state_leaves(a.net_state, "net")
+            if n in mine and not torch.equal(v, mine[n])]
     return bad
+
+
+def state_leaves(tree, prefix: str) -> list:
+    """(name, tensor) of each leaf of a layer-state tree: batch norm's
+    statistics by layer and statistic, a carried recurrent state
+    (--prev_batch_state) by its `<layer>:h` / `<layer>:c` key."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in state_leaves(tree[k], f"{prefix}.{k}")]
+    return [(prefix, tree)]
 
 
 def kstep_training(tag: str, smi: str, make, batches: list, route,
@@ -3470,11 +3509,12 @@ def signature(x):
 
 
 @contextlib.contextmanager
-def recorded_inputs():
+def recorded_inputs(when=None):
     """Within: each wrapper of CLI_WRAPPERS keeps a copy of its arguments
     at the first call of each signature (its tensors' shapes and dtypes,
-    its other arguments), then runs as it would.  Yields {(attribute,
-    signature): (args, kwargs)}."""
+    its other arguments) for which when(attribute, args, kwargs) holds
+    (every call without `when`), then runs as it would.  Yields
+    {(attribute, signature): (args, kwargs)}."""
     import importlib
 
     def copy(x):
@@ -3490,7 +3530,7 @@ def recorded_inputs():
         def keep(*args, _fn=fn, _attr=attr, **kw):
             key = (_attr, tuple(signature(a) for a in args),
                    tuple((n, signature(v)) for n, v in sorted(kw.items())))
-            if key not in seen:
+            if key not in seen and (when is None or when(_attr, args, kw)):
                 seen[key] = (tuple(copy(a) for a in args),
                              {n: copy(v) for n, v in kw.items()})
             return _fn(*args, **kw)
@@ -3617,9 +3657,10 @@ def cli_kernel_checks(tag: str, cfg, train_b: list, test_b: list,
 
 
 def cli_pair(tag: str, path: str, args: str, train_route, test_route,
-             out: str, smi: str = "") -> dict:
+             out: str, smi: str = "", extra: tuple = ()) -> dict:
     """`python -m paddle_tpu_torch train --config=path --config_args=args
-    --num_passes=1` in this process at --steps_per_dispatch=1 and KSTEP,
+    --num_passes=1` (and the flags `extra`) in this process at
+    --steps_per_dispatch=1 and KSTEP,
     each under torch.profiler, the counts set to 0 before it: exit 0, the
     kernels launched as the pass's training batches (`train_route`) and
     test batches (`test_route`) say, held by the wrappers at k = 1 and by
@@ -3656,7 +3697,8 @@ def cli_pair(tag: str, path: str, args: str, train_route, test_route,
         def train():
             return cli(["train", f"--config={path}", f"--config_args={args}",
                         "--num_passes=1", f"--save_dir={save}",
-                        f"--steps_per_dispatch={k}", "--log_period=100000"])
+                        f"--steps_per_dispatch={k}", "--log_period=100000",
+                        *extra])
 
         reset_counts()
         rc, wall, kernels, _ = profiled(train)
@@ -3729,11 +3771,11 @@ def cli_steady_pass(tag: str, cfg, save: str, want: dict, n: int,
 
 
 def cli_test_round_trip(tag: str, path: str, args: str, save: str,
-                        cfg) -> dict:
-    """--job=test --init_model_path=<save>/pass-00000: exit 0, and the
-    statistics it logs are those of a Trainer here that load()s the
-    checkpoint (its parameters and layer state the saved arrays bit for
-    bit) and test()s, exactly."""
+                        cfg, extra: tuple = ()) -> dict:
+    """--job=test --init_model_path=<save>/pass-00000 (and the flags
+    `extra`): exit 0, and the statistics it logs are those of a Trainer
+    here that load()s the checkpoint (its parameters and layer state the
+    saved arrays bit for bit) and test()s, exactly."""
     from paddle_tpu_torch.__main__ import main as cli
     from paddle_tpu_torch.trainer import Trainer
     from paddle_tpu_torch.trainer import checkpoint as ckpt
@@ -3741,7 +3783,7 @@ def cli_test_round_trip(tag: str, path: str, args: str, save: str,
     ck = os.path.join(save, "pass-00000")
     with logged("paddle_tpu_torch.main") as rec:
         rc = cli(["train", f"--config={path}", f"--config_args={args}",
-                  "--job=test", f"--init_model_path={ck}"])
+                  "--job=test", f"--init_model_path={ck}", *extra])
     if rc != 0:
         raise AssertionError(f"[cli] {tag} --job=test: exit code {rc}")
     got = [r.args for r in rec if r.getMessage().startswith("test result")]
@@ -3749,10 +3791,11 @@ def cli_test_round_trip(tag: str, path: str, args: str, save: str,
     tr.load(ck)
     data = ckpt.load_checkpoint(ck)
     saved, net = data["params"], data["net"]
+    saved_net = dict(state_leaves(net, "net"))
     same = all(np.array_equal(tr.params[n].cpu().numpy(), saved[n])
                for n in saved) and tr.net_state.keys() == net.keys() and all(
-        np.array_equal(v.cpu().numpy(), net[n][k])
-        for n, st in tr.net_state.items() for k, v in st.items())
+        np.array_equal(v.cpu().numpy(), saved_net[n])
+        for n, v in state_leaves(tr.net_state, "net"))
     want = tr.test()
     log(f"[cli] {tag} --job=test --init_model_path: {got[0] if got else None}"
         f"; loaded parameters{' and the moving statistics of ' + str(len(net)) + ' layers' if net else ''} {'equal' if same else 'DIFFER from'} the "
@@ -4272,6 +4315,482 @@ def phase_tagging(smi: str) -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# [nested]: nested sequences and carried recurrent state
+# ---------------------------------------------------------------------------
+
+# the nested test configs and their flat twins (tests/configs)
+NEST_PAIRS = (("tests/configs/sequence_nest_rnn.py",
+               "tests/configs/sequence_rnn.py"),
+              ("tests/configs/sequence_nest_rnn_multi_input.py",
+               "tests/configs/sequence_rnn_multi_input.py"))
+# the configs' sizes at the nearest the repo offers to full width: the
+# sentiment provider's vocabulary, its embedding, hidden 512, two classes
+NEST_WIDTH = (("dict_dim = 10", "dict_dim = 30000"),
+              ("word_dim = 8", "word_dim = 128"),
+              ("hidden_dim = 8", "hidden_dim = 512"),
+              ("label_dim = 3", "label_dim = 2"),
+              ("settings(batch_size=2,", "settings(batch_size=128,"))
+NEST_RTOL, NEST_ATOL = 1e-4, 1e-5   # the reference's hierarchical oracle
+NEST_B, NEST_SUBS, NEST_TOKENS = 128, (1, 8), (4, 32)
+# kstep_training's batches: a warm-up of 2 KSTEP, then two rounds of a
+# timed and a profiled pass of KSTEP each (every group a replay of the
+# warm-up's graph of KSTEP steps)
+NEST_BATCHES = 6 * KSTEP
+# the reference's rnn_data_provider documents (tests/test_nested_rnn.py)
+NEST_DOCS = [([[1, 3, 2], [4, 5, 2]], 0), ([[0, 2], [2, 5], [0, 1, 2]], 1)]
+
+# the hierarchical LSTM: an outer group over the sub-sequences of the
+# embedded words, its step fc(4 lstm_dim, linear) -> lstmemory (K3, once
+# per sub-sequence) -> last_seq, beside an fc memory over the
+# sub-sequences (tests/test_torch_nested.py holds the same text against
+# the JAX package)
+HIER_LSTM = """
+from paddle_tpu.dsl import *
+dict_dim = get_config_arg("dict_dim", int, 30)
+word_dim = get_config_arg("word_dim", int, 8)
+lstm_dim = get_config_arg("lstm_dim", int, 8)
+hidden_dim = get_config_arg("hidden_dim", int, 8)
+settings(batch_size=get_config_arg("batch_size", int, 4),
+         learning_rate=1e-3, learning_method=AdamOptimizer())
+data = data_layer(name="word", size=dict_dim)
+emb = embedding_layer(input=data, size=word_dim)
+
+
+def outer_step(x):
+    outer_mem = memory(name="outer_state", size=hidden_dim)
+    proj = fc_layer(input=x, size=4 * lstm_dim, act=LinearActivation(),
+                    bias_attr=False)
+    lstm = lstmemory(input=proj)
+    return fc_layer(input=[last_seq(input=lstm), outer_mem],
+                    size=hidden_dim, act=TanhActivation(), bias_attr=True,
+                    name="outer_state")
+
+
+out = recurrent_group(name="outer", step=outer_step,
+                      input=SubsequenceInput(emb))
+prob = fc_layer(input=last_seq(input=out), size=2, act=SoftmaxActivation(),
+                bias_attr=True)
+classification_cost(input=prob, label=data_layer(name="label", size=2))
+"""
+HIER_ARGS = "dict_dim=30000,word_dim=128,lstm_dim=128,hidden_dim=512," \
+            "batch_size=128"
+
+# the chunk oracle's layers: an lstmemory (K3) at the sentiment net's
+# width or a gated_recurrent (K1) at the seq2seq encoder's, each behind a
+# linear projection of a dense input sequence
+CHUNK = """
+from paddle_tpu.dsl import *
+kind = get_config_arg("kind", str, "lstm")
+hidden = get_config_arg("hidden", int, 128)
+settings(batch_size=get_config_arg("batch_size", int, 128),
+         learning_rate=1e-3)
+x = data_layer(name="x", size=64)
+if kind == "lstm":
+    rnn = lstmemory(input=fc_layer(input=x, size=4 * hidden,
+                                   act=LinearActivation()), name="rnn")
+else:
+    rnn = grumemory(input=fc_layer(input=x, size=3 * hidden,
+                                   act=LinearActivation()), name="rnn")
+prob = fc_layer(input=last_seq(input=rnn), size=2, act=SoftmaxActivation())
+classification_cost(input=prob, label=data_layer(name="label", size=2))
+"""
+# (kind, hidden, B, T, the kernel wrapper, its forward kernel symbol)
+CHUNK_RUNS = (("lstm", 128, 128, 100, "lstm_fused", "lstm_fwd_kernel"),
+              ("gru", 512, 64, 30, "gru_fused", "gru_fwd_kernel"))
+
+
+@contextlib.contextmanager
+def carried_state(on: bool = True):
+    """--prev_batch_state set in this process within (the CLI sets it from
+    its own arguments for its runs and puts it back after)."""
+    from paddle_tpu_torch.utils.flags import FLAGS
+    saved = FLAGS.prev_batch_state
+    FLAGS.prev_batch_state = on
+    try:
+        yield
+    finally:
+        FLAGS.prev_batch_state = saved
+
+
+def nest_docs(rng, n: int, vocab: int) -> list:
+    """n documents of NEST_SUBS sub-sequences of NEST_TOKENS word ids
+    each, with a label of two classes."""
+    return [([rng.integers(0, vocab, rng.integers(NEST_TOKENS[0],
+                                                  NEST_TOKENS[1] + 1))
+              .tolist() for _ in range(rng.integers(NEST_SUBS[0],
+                                                    NEST_SUBS[1] + 1))],
+             int(rng.integers(0, 2))) for _ in range(n)]
+
+
+def nest_batches(docs: list, B: int, vocab: int, labels: int,
+                 flat_len: Optional[int] = None):
+    """The documents as nested and as flat batches of B (the feeder's
+    make_batch; the flat ones padded to `flat_len` when given, else to
+    their bucket): ([nested], [flat])."""
+    import importlib
+    from paddle_tpu_torch.data.feeder import make_batch
+    prov = importlib.import_module("paddle_tpu_torch.data.provider")
+    nested, flat = [], []
+    for i in range(0, len(docs) - B + 1, B):
+        part = docs[i:i + B]
+        nested.append(make_batch(part, [prov.integer_value_sub_sequence(
+            vocab), prov.integer_value(labels)], ["word", "label"]))
+        flat.append(make_batch([([w for s in d for w in s], y)
+                                for d, y in part],
+                               [prov.integer_value_sequence(vocab),
+                                prov.integer_value(labels)],
+                               ["word", "label"], pad_len=flat_len))
+    return nested, flat
+
+
+def loss_and_grads(cfg, params: dict, batch) -> tuple:
+    """One TRAIN forward of the config's graph on the card and its
+    gradients: (loss, [gradient in the parameters' order])."""
+    from paddle_tpu_torch.graph import GraphExecutor
+    from paddle_tpu_torch.parameter import Argument
+
+    def card(x, ids=False):
+        if x is None:
+            return None
+        t = torch.as_tensor(x, device="cuda")
+        return t.long() if ids else t
+    feed = {n: Argument(value=card(a.value), ids=card(a.ids, True),
+                        lengths=card(a.lengths),
+                        sub_lengths=card(a.sub_lengths))
+            for n, a in batch.items()}
+    leaves = {n: v.detach().clone().requires_grad_(True)
+              for n, v in params.items()}
+    loss, _ = GraphExecutor(cfg.model_config).loss(leaves, feed,
+                                                   mode="train")
+    return loss.detach(), torch.autograd.grad(loss, list(leaves.values()))
+
+
+def nested_equals_flat(tag: str, nest_cfg, flat_cfg, nested_b,
+                       flat_b) -> str:
+    """The reference's hierarchical oracle on the card: from the same
+    parameters (the two configs declare the same shapes in the same order,
+    under other names), the nested config's cost and every gradient on the
+    nested batch within NEST_RTOL, NEST_ATOL of the flat config's on the
+    concatenated words.  Returns a line for the log."""
+    from paddle_tpu_torch.parameter import init_params
+    params = init_params(nest_cfg.model_config, seed=1, device="cuda")
+    fparams = init_params(flat_cfg.model_config, seed=1, device="cuda")
+    if [tuple(v.shape) for v in params.values()] != \
+            [tuple(v.shape) for v in fparams.values()]:
+        raise AssertionError(f"[nested] {tag}: the nested and flat configs "
+                             f"declare different parameters")
+    fparams = dict(zip(fparams, params.values()))
+    nl, ng = loss_and_grads(nest_cfg, params, nested_b)
+    fl, fg = loss_and_grads(flat_cfg, fparams, flat_b)
+    worst = max(float(((a - b).abs() - NEST_RTOL * b.abs()).max())
+                for a, b in zip(ng, fg))
+    loss_err = abs(float(nl) - float(fl))
+    ok = (loss_err <= NEST_ATOL + NEST_RTOL * abs(float(fl))
+          and worst <= NEST_ATOL and all(bool(torch.isfinite(g).all())
+                                         for g in ng))
+    line = (f"[nested] {tag}: nested cost {float(nl):.6f}, flat "
+            f"{float(fl):.6f}; {len(ng)} gradients, worst |nested - flat| "
+            f"- {NEST_RTOL:g} |flat| = {worst:.2e} (atol {NEST_ATOL:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+    log(line)
+    if not ok:
+        raise AssertionError(f"[nested] {tag}: nested differs from flat")
+    return line
+
+
+def full_width_copy(src: str, root: str) -> str:
+    """A nested or flat test config at NEST_WIDTH, written under root."""
+    with open(src) as f:
+        text = f.read()
+    for old, new in NEST_WIDTH:
+        if text.count(old) != 1:
+            raise AssertionError(f"[nested] {src}: {old!r} not found once")
+        text = text.replace(old, new)
+    path = os.path.join(root, os.path.basename(src))
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def nested_configs(smi: str, root: str) -> None:
+    """(a) The nested test configs from their files at their own widths on
+    the reference's documents, then copies at NEST_WIDTH on NEST_B
+    documents of NEST_SUBS sub-sequences of NEST_TOKENS words (seed 1):
+    nested equals flat; then the first pair at full width through
+    kstep_training (k = KSTEP bit-identical to k = 1; no hand-written
+    kernel on this path), its flat twin beside it."""
+    from paddle_tpu_torch.config.parser import parse_config
+    from paddle_tpu_torch.trainer import Trainer
+
+    for nest, flat in NEST_PAIRS:
+        nb, fb = nest_batches(NEST_DOCS, 2, 10, 3)
+        nested_equals_flat(f"{os.path.basename(nest)} (own widths)",
+                           parse_config(nest, ""), parse_config(flat, ""),
+                           nb[0], fb[0])
+    docs = nest_docs(np.random.default_rng(1), NEST_B * NEST_BATCHES, 30000)
+    # the flat twin padded to one length, the most words a document has,
+    # so that it has one signature, as the nested batches do
+    nested_b, flat_b = nest_batches(docs, NEST_B, 30000, 2,
+                                    NEST_SUBS[1] * NEST_TOKENS[1])
+    shapes = sorted({tuple(b["word"].ids.shape) for b in nested_b})
+    fshapes = sorted({tuple(b["word"].ids.shape) for b in flat_b})
+    log(f"[nested] full width: {len(nested_b)} batches of {NEST_B} "
+        f"documents, nested ids {shapes}, flat {fshapes}")
+    cfgs = {}
+    for nest, flat in NEST_PAIRS:
+        ncfg = parse_config(full_width_copy(nest, root), "")
+        fcfg = parse_config(full_width_copy(flat, root), "")
+        cfgs[nest] = (ncfg, fcfg)
+        nested_equals_flat(f"{os.path.basename(nest)} (full width)", ncfg,
+                           fcfg, nested_b[0], flat_b[0])
+    ncfg, fcfg = cfgs[NEST_PAIRS[0][0]]
+    for tag, cfg, batches in (("nested", ncfg, nested_b),
+                              ("flat", fcfg, flat_b)):
+        kstep_training(f"[nested] {tag} rnn (hidden 512)", smi,
+                       lambda cfg=cfg: Trainer(cfg, seed=1), batches,
+                       lambda b: {}, (NEST_B, "documents"), timed=KSTEP,
+                       profiled_steps=KSTEP)
+
+
+def hier_lstm_route(batch) -> dict:
+    """A training step of the hierarchical LSTM: K3 forward and backward
+    once per outer step, one outer step per padded sub-sequence."""
+    S = batch["word"].ids.shape[1]
+    return {"lstm_fwd_kernel": S, "lstm_bwd_kernel": S}
+
+
+def hierarchical_lstm(smi: str, root: str) -> None:
+    """(b) The hierarchical LSTM at HIER_ARGS: K3 held against its plain
+    version on the inputs the outer steps gave it (cli_kernel_checks),
+    then kstep_training: the profiler's kernel events count one K3 forward
+    and one backward per outer step, k = KSTEP bit-identical to k = 1."""
+    from paddle_tpu_torch.config.parser import parse_config
+    from paddle_tpu_torch.trainer import Trainer
+
+    path = os.path.join(root, "hier_lstm.py")
+    with open(path, "w") as f:
+        f.write(HIER_LSTM)
+    cfg = parse_config(path, HIER_ARGS)
+    docs = nest_docs(np.random.default_rng(1), NEST_B * NEST_BATCHES, 30000)
+    batches, _ = nest_batches(docs, NEST_B, 30000, 2)
+    want = route_total(hier_lstm_route, batches[:1])
+    n = cli_kernel_checks("hier_lstm", cfg, batches, [], want)
+    log(f"[nested] hier_lstm: {n} K3 check(s) at the outer steps' shapes "
+        f"passed")
+    kstep_training("[nested] hier_lstm", smi,
+                   lambda: Trainer(cfg, seed=1), batches, hier_lstm_route,
+                   (NEST_B, "documents"), timed=KSTEP,
+                   profiled_steps=KSTEP)
+
+
+def h0_nonzero(attr, args, kw) -> bool:
+    """A recurrent kernel's call whose boot state is not all zeros: the
+    LSTM's h0 or c0 (args 4, 5), the GRU's h0 (arg 4)."""
+    return any(bool(t.abs().max() > 0) for t in args[4:6]
+               if torch.is_tensor(t) and t.dim() == 2)
+
+
+def check_carried_calls(tag: str, calls: dict, attrs: set) -> int:
+    """Each recorded call (booted from a carried state) against the
+    kernels' plain version on the same inputs (CLI_CHECKS); each wrapper of
+    `attrs` must have such a call.  Returns the number of checks."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    for (attr, _, _), (args, kw) in calls.items():
+        shape, text, ok = CLI_CHECKS[attr](g, args, kw)
+        boot = ", ".join(f"|{n}| max {float(t.abs().max()):.3g}"
+                         for n, t in zip(("h0", "c0"), args[4:6])
+                         if torch.is_tensor(t) and t.dim() == 2)
+        log(f"[nested] {tag}: {attr} booted from the carried state ({boot})"
+            f" at {shape} against its plain version: {text} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[nested] {tag}: {attr} disagrees with "
+                                 f"its plain version")
+    if {attr for attr, _, _ in calls} != attrs:
+        raise AssertionError(f"[nested] {tag}: no call of {sorted(attrs)} "
+                             f"booted from a carried state")
+    return len(calls)
+
+
+def chunk_oracle(root: str) -> None:
+    """(c) --prev_batch_state on the card: for each CHUNK_RUNS layer, two
+    consecutive chunks of T/2 steps (ragged rows, some ending in the first
+    chunk) with the carried state end in the state one whole-T forward
+    ends in, and each row's last valid output is the same, within 1e-5 of
+    the largest; the second chunk's kernel call, booted from the carried
+    state, held against the plain version; one forward kernel launch a
+    chunk and no plain call."""
+    from paddle_tpu_torch.config.parser import parse_config
+    from paddle_tpu_torch.parameter import Argument
+    from paddle_tpu_torch.trainer import Trainer
+
+    path = os.path.join(root, "chunk.py")
+    with open(path, "w") as f:
+        f.write(CHUNK)
+    for kind, hidden, B, T, attr, sym in CHUNK_RUNS:
+        cfg = parse_config(path, f"kind={kind},hidden={hidden},"
+                                 f"batch_size={B}")
+        tr = Trainer(cfg, seed=1)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(3)
+        x = torch.randn(B, T, 64, generator=g, device="cuda")
+        lens = torch.randint(1, T + 1, (B,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        lens[0] = T
+        lens[1] = T // 4
+        half = T // 2
+        first = lens.clamp(max=half)
+        label = Argument(ids=torch.zeros(B, dtype=torch.long,
+                                         device="cuda"))
+
+        def fwd(xs, ln, state):
+            return tr.executor.forward(tr.params, {
+                "x": Argument(value=xs, lengths=ln), "label": label},
+                state=state)
+
+        with carried_state():
+            reset_counts()
+            with recorded_inputs(h0_nonzero) as calls:
+                out1, _, st1 = fwd(x[:, :half], first, {})
+                out2, _, st2 = fwd(x[:, half:], lens - first, st1)
+            launched = wrapper_counts([sym])[sym]
+            plain = any(plain_calls().values())
+            full, _, stf = fwd(x, lens, {})
+        worst = 0.0
+        for key, want in stf.items():
+            worst = max(worst, float((st2[key] - want).abs().max())
+                        / max(float(want.abs().max()), 1e-30))
+        rows = torch.arange(B, device="cuda")
+        last = lens.long() - 1
+        in_second = last >= half
+        got = torch.where(in_second[:, None],
+                          out2["rnn"].value[rows, (last - half).clamp(min=0)],
+                          out1["rnn"].value[rows, last.clamp(max=half - 1)])
+        want = full["rnn"].value[rows, last]
+        out_err = float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        worst = max(worst, out_err)
+        n = check_carried_calls(f"chunk {kind}", calls, {attr})
+        ok = worst <= 1e-5 and launched == 2 and not plain
+        log(f"[nested] chunk oracle {kind} [{B}, {T}] hidden {hidden}: two "
+            f"chunks of {half} steps with the carried state against one "
+            f"forward of {T}: final states {sorted(stf)} and each row's "
+            f"last valid output, worst {worst:.2e} of max (tol 1e-05); "
+            f"{launched} {sym} launches for the two chunks, plain calls "
+            f"{int(plain)}; {n} carried-state kernel check(s) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[nested] chunk oracle {kind} fails")
+        del tr
+    torch.cuda.empty_cache()
+
+
+SENTIMENT = "demo/sentiment/trainer_config.py"
+SMALL_LAST = 100        # rows of the smaller last batch of (d)'s passes
+
+
+def sentiment_carry(smi: str, root: str) -> None:
+    """(d) `python -m paddle_tpu_torch train --config=SENTIMENT
+    --prev_batch_state` on its provider at full width: first a Trainer
+    here with the flag steps twice and tests once, each forward LSTM's
+    kernel calls booted from the carried state (non-zero h0, c0) held
+    against the plain version; then cli_pair with the flag (K3 launches
+    as the route says, k = KSTEP bit-identical to k = 1, the steady
+    pass) and --job=test of its checkpoint with the flag equal to an
+    in-process load + test(); then two trainers, k = 1 and k = KSTEP, two
+    passes of the feeder's batches each ending with a smaller batch of
+    SMALL_LAST rows (which ignores the carried state; the next pass's
+    first batch ignores the small one's): bit-identical after each pass,
+    the carried state included, the second pass profiled."""
+    from paddle_tpu_torch.config.parser import parse_config
+    from paddle_tpu_torch.parameter import Argument
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.trainer.trainer import make_feeder
+
+    extra = ("--prev_batch_state",)
+    with carried_state():
+        cfg = parse_config(SENTIMENT, "")
+        train_b = list(make_feeder(cfg, cfg.data_config, True).batches())
+        test_b = list(make_feeder(cfg, cfg.test_data_config,
+                                  False).batches())
+        tr = Trainer(cfg, seed=1)
+        with recorded_inputs(h0_nonzero) as calls:
+            tr.train_one_pass(train_b[:2])
+            tr.test(test_b[:1])
+        carried = sorted(tr.net_state)
+        del tr
+        n = check_carried_calls("sentiment", calls, {"lstm_fused"})
+        log(f"[nested] sentiment --prev_batch_state: the carried states "
+            f"{carried}; {n} K3 check(s) booted from them passed")
+        res = cli_pair("sentiment-carry", SENTIMENT, "", _lstm_train,
+                       _lstm_test, os.path.join(root, "sentiment"), smi,
+                       extra)
+        got = cli_test_round_trip("sentiment-carry", SENTIMENT, "",
+                                  res["runs"][1]["save"], res["cfg"], extra)
+        log(f"[nested] sentiment --prev_batch_state --job=test: {got}")
+
+        def small(b):
+            return {n: Argument(**{f: (None if getattr(a, f) is None
+                                       else getattr(a, f)[:SMALL_LAST])
+                                   for f in ("value", "ids", "lengths")})
+                    for n, a in b.items()}
+        passes = [train_b[:7] + [small(train_b[7])],
+                  train_b[8:15] + [small(train_b[15])]]
+        t1, tk = Trainer(cfg, seed=1), Trainer(cfg, seed=1)
+        for p, batches in enumerate(passes):
+            res = {}
+            want = route_total(_lstm_train, batches)
+            for tr, k in ((t1, 1), (tk, KSTEP)):
+                reset_counts()
+                res[k], wall, kernels, calls_ = profiled(
+                    lambda: pass_with_losses(tr, batches, k))
+                line = check_launches(f"[nested] sentiment carry pass "
+                                      f"{p + 1} k={k}", kernels, want, k > 1)
+                busy = sum(dev_us(e) for e in kernels) / 1e3
+                log(f"[nested] sentiment carry pass {p + 1} k={k}: "
+                    f"{len(batches)} batches (the last of {SMALL_LAST} "
+                    f"rows), device {busy / len(batches):.3f} ms/step, busy "
+                    f"{busy / wall:.1%}, "
+                    f"{sum(e.count for e in kernels) / len(batches):.0f} "
+                    f"kernels and {calls_ / len(batches):.1f} host launch "
+                    f"calls a step (profiler on); {line} [{smi}]")
+            differ = training_state_differs(t1, tk)
+            same = (res[1][0] == res[KSTEP][0]
+                    and torch.equal(res[1][1], res[KSTEP][1]))
+            shapes = {n: tuple(v.shape) for n, v in tk.net_state.items()}
+            log(f"[nested] sentiment carry pass {p + 1}: k={KSTEP} against "
+                f"k=1: statistics and losses "
+                f"{'bit-identical' if same else 'DIFFER'}, state "
+                f"{'bit-identical' if not differ else 'DIFFERS: ' + str(differ[:5])}"
+                f"; carried state {shapes}; {tk.n_settle_steps} eager first "
+                f"steps, graphs {graph_replays(tk)}")
+            if differ or not same:
+                raise AssertionError(f"[nested] sentiment carry pass "
+                                     f"{p + 1}: k={KSTEP} differs from k=1")
+        del t1, tk
+    torch.cuda.empty_cache()
+
+
+def phase_nested(smi: str) -> None:
+    """Nested sequences and carried recurrent state (module docstring,
+    phase 19): (a) nested_configs, (b) hierarchical_lstm, (c)
+    chunk_oracle, (d) sentiment_carry."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        for name, fn, args in (("a", nested_configs, (smi, root)),
+                               ("b", hierarchical_lstm, (smi, root)),
+                               ("c", chunk_oracle, (root,)),
+                               ("d", sentiment_carry, (smi, root))):
+            start = time.perf_counter()
+            fn(*args)
+            log(f"[nested] ({name}) {fn.__name__}: "
+                f"{time.perf_counter() - start:.1f} s [{smi}]")
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -4310,6 +4829,7 @@ def main(argv=None) -> int:
     phase("cli", phase_cli, smi)
     phase("image", phase_image, smi)
     tagging = phase("tagging", phase_tagging, smi)
+    phase("nested", phase_nested, smi)
     log(f"[done] {time.perf_counter() - t0:.1f}s: "
         + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
         + f"; the profiler around its runs {PROFILER_SECONDS[0]:.1f}")

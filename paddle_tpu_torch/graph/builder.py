@@ -14,13 +14,23 @@ step and fed through their agent layers, its static links are fed whole,
 its memories carry the linked layers' outputs from step to step (frozen
 where t >= length), and its out-links are published as [B, T, .] sequences.
 Layers outside the carry's closure (a decoder's vocabulary softmax) run
-once over the stacked sequence after the loop (`_split_deferred`).  Groups
-nested in a group, and nested (SubsequenceInput) or sparse in-links, are
-not ported and raise (ROADMAP.md).
+once over the stacked sequence after the loop (`_split_deferred`).
+
+A group nested in a group (the reference's hierarchical RNN) is a ('scan',
+child) item of its parent's plan and runs inside each of the parent's
+steps.  A nested (SubsequenceInput) in-link, [B, S, T, ...] with
+sub_lengths [B, S], makes its group loop over the sub-sequence axis: each
+step feeds one whole [B, T, ...] sequence with that sub-sequence's
+lengths, and an out-link whose step emitted sequences is published as
+[B, S, T, ...] with the in-link's sub_lengths.  A sparse in-link (column
+ids and their values) stays sparse rows through the slicing, so an fc in
+the step gathers the rows it touches.  Loop bounds come from shapes, never
+from the lengths' values, so a step loop records into a CUDA graph.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
@@ -63,6 +73,33 @@ def _arg(x: torch.Tensor, lengths: Optional[torch.Tensor] = None
     return Argument(ids=x, lengths=lengths)
 
 
+@dataclass
+class _Link:
+    """A group's in-link in loop order: `seq` [B, N, ...] (N the steps: T,
+    or S for a nested link), the sparse rows' values and width for a
+    sparse link, and the [B, S] sub_lengths of a nested one."""
+    seq: torch.Tensor
+    vals: Optional[torch.Tensor] = None
+    dim: int = 0
+    sub: Optional[torch.Tensor] = None
+
+    def step(self, t: int) -> Argument:
+        """Step t's slice: a [B, ...] row, or for a nested link the
+        [B, T, ...] sequence of sub-sequence t with its lengths."""
+        lengths = None if self.sub is None else self.sub[:, t]
+        if self.dim:
+            return Argument(ids=self.seq[:, t], sparse_vals=self.vals[:, t],
+                            sparse_dim=self.dim, lengths=lengths)
+        return _arg(self.seq[:, t], lengths)
+
+    def whole(self, lengths: torch.Tensor) -> Argument:
+        """The whole (flat) sequence, for the deferred suffix."""
+        if self.dim:
+            return Argument(ids=self.seq, sparse_vals=self.vals,
+                            sparse_dim=self.dim, lengths=lengths)
+        return _arg(self.seq, lengths)
+
+
 class GraphExecutor:
     """Builds and runs the layer graph described by a ModelConfig.
 
@@ -75,42 +112,50 @@ class GraphExecutor:
                     "identity", "dot_mul", "scaling"}
 
     def __init__(self, model: ModelConfig, compute_dtype: str = ""):
-        nested = [sm.name for sm in model.sub_models
-                  if sm.is_recurrent_layer_group and sm.parent]
-        if nested:
-            raise NotImplementedError(
-                f"recurrent groups {nested} are nested in other groups; "
-                f"nested groups are not ported yet (ROADMAP.md Queue 1)")
         self.model = model
         self.compute_dtype = compute_dtype
         self.layer_map: dict[str, LayerConfig] = {l.name: l
                                                   for l in model.layers}
-        # the layers of a recurrent group run inside its step loop
+        # the layers of a recurrent group run inside its step loop (a
+        # group's layer_names hold only its own layers, not those of the
+        # groups nested in it)
         self._sub_of: dict[str, SubModelConfig] = {}
+        self._sub_by_name: dict[str, SubModelConfig] = {}
         for sm in model.sub_models:
             if sm.is_recurrent_layer_group:
+                self._sub_by_name[sm.name] = sm
                 for ln in sm.layer_names:
                     self._sub_of[ln] = sm
-        self._sub_plan: dict[str, list[LayerConfig]] = {}
+        self._sub_plan: dict[str, list[tuple[str, Any]]] = {}
         self._plan = self._build_plan()
         self._defer_cache: dict[str, Optional[dict]] = {}
 
     # -- planning ---------------------------------------------------------
     def _build_plan(self) -> list[tuple[str, Any]]:
-        """('layer', cfg) and ('scan', sub_model) items in config order, a
-        group at its first layer; each group's own layers in
-        self._sub_plan."""
+        """('layer', cfg) and ('scan', sub_model) items in config order.
+        The root plan holds the root groups, each at the first layer of it
+        or of a group nested in it; each group's own plan
+        (self._sub_plan) holds its layers and its child groups the same
+        way."""
         plan: list[tuple[str, Any]] = []
+        seen: set[str] = set()
         for l in self.model.layers:
             sm = self._sub_of.get(l.name)
             if sm is None:
                 if l.type != "data":
                     plan.append(("layer", l))
                 continue
-            if sm.name not in self._sub_plan:
-                self._sub_plan[sm.name] = []
-                plan.append(("scan", sm))
-            self._sub_plan[sm.name].append(l)
+            self._sub_plan.setdefault(sm.name, []).append(("layer", l))
+            child = sm
+            while child is not None and child.name not in seen:
+                seen.add(child.name)
+                if child.parent:
+                    self._sub_plan.setdefault(child.parent, []).append(
+                        ("scan", child))
+                    child = self._sub_by_name[child.parent]
+                else:
+                    plan.append(("scan", child))
+                    child = None
         return plan
 
     @property
@@ -206,12 +251,15 @@ class GraphExecutor:
     def run_group_layers(self, sm: SubModelConfig, sub: ForwardContext,
                          skip: Optional[set] = None) -> None:
         """One step of a group's layers; the agent layers must already be
-        fed into sub.outputs.  `skip` holds the layers deferred to after
-        the loop."""
-        for cfg in self._sub_plan.get(sm.name, []):
-            if cfg.name in sub.outputs or (skip and cfg.name in skip):
-                continue
-            sub.outputs[cfg.name] = get_layer_fn(cfg.type)(sub, cfg)
+        fed into sub.outputs.  A nested group runs its whole loop at its
+        place in the plan.  `skip` holds the layers deferred to after the
+        loop."""
+        for kind, item in self._sub_plan.get(sm.name, []):
+            if kind == "scan":
+                self._run_scan(sub, item)
+            elif not (item.name in sub.outputs
+                      or (skip and item.name in skip)):
+                sub.outputs[item.name] = get_layer_fn(item.type)(sub, item)
 
     def _split_deferred(self, sm: SubModelConfig) -> Optional[dict]:
         """The group's layers outside the carry-dependency closure: they
@@ -221,10 +269,12 @@ class GraphExecutor:
         feeds only the cost).  Returns {deferred, cfgs, emit} or None.  Only
         last-dim layer types are eligible; a deferred layer may read values
         of the step (emitted per step) or in-link aliases (fed as whole
-        sequences) but not static links."""
-        plan = self._sub_plan.get(sm.name, [])
-        if sm.generator is not None:
+        sequences) but not static links.  A group holding a nested group
+        defers nothing."""
+        items = self._sub_plan.get(sm.name, [])
+        if sm.generator is not None or any(k == "scan" for k, _ in items):
             return None
+        plan = [cfg for _, cfg in items]
         layer_cfgs = {cfg.name: cfg for cfg in plan}
         alias = set(sm.in_link_layers)
         statics = set(sm.static_link_layers)
@@ -278,43 +328,56 @@ class GraphExecutor:
         return {"deferred": deferred, "cfgs": cfgs, "emit": emit}
 
     def _in_links(self, ctx: ForwardContext, sm: SubModelConfig):
-        """The group's in-link sequences in loop order (each row's valid
-        prefix reversed for a reversed group), their lengths (the longest
-        over the links) and T."""
-        xs, lengths, T = {}, None, 0
+        """The group's in-links in loop order (each row's valid prefix
+        reversed for a reversed group), their lengths (the longest over the
+        links; for nested links the sub-sequence counts), the number of
+        steps N and the nested links' sub_lengths (None for flat links)."""
+        levels = {ctx.outputs[o].sub_lengths is not None
+                  for o in sm.in_links}
+        if len(levels) > 1:
+            raise ValueError(
+                f"recurrent group {sm.name!r} mixes nested (SubsequenceInput)"
+                f" and flat sequence in-links; all in-links must share one "
+                f"nesting level (their step counts differ)")
+        links: dict[str, _Link] = {}
+        lengths, N, sub_src = None, 0, None
         for outer in sm.in_links:
             arg = ctx.outputs[outer]
             if not arg.is_sequence:
                 raise ValueError(f"recurrent group {sm.name!r}: in-link "
                                  f"{outer!r} is not a sequence")
-            seq = arg.data
-            if seq.dim() != (2 if arg.value is None else 3):
-                raise NotImplementedError(
-                    f"recurrent group {sm.name!r}: in-link {outer!r} of "
-                    f"shape {tuple(seq.shape)} is a nested (SubsequenceInput)"
-                    f" or sparse sequence; only flat [B, T] id and "
-                    f"[B, T, D] value sequences are ported (ROADMAP.md "
-                    f"Queue 1)")
-            if sm.reversed:
-                seq = seq_reverse(seq, arg.lengths)
-            xs[outer] = seq
+            link = _Link(arg.data, arg.sparse_vals if arg.sparse_dim
+                         else None, arg.sparse_dim, arg.sub_lengths)
+            if link.sub is not None:
+                if sm.reversed:
+                    raise ValueError(
+                        f"recurrent group {sm.name!r}: reverse=True on a "
+                        f"nested recurrent group is not supported (nor in "
+                        f"the JAX package)")
+                sub_src = link.sub
+            elif sm.reversed:
+                link.seq = seq_reverse(link.seq, arg.lengths)
+                if link.dim:
+                    link.vals = seq_reverse(link.vals, arg.lengths)
+            links[outer] = link
             lengths = (arg.lengths if lengths is None
                        else torch.maximum(lengths, arg.lengths))
-            T = max(T, seq.shape[1])
+            N = max(N, link.seq.shape[1])
         if lengths is None:
             raise ValueError(f"recurrent group {sm.name!r} has no in-links")
-        return xs, lengths, T
+        return links, lengths, N, sub_src
 
     def _run_scan(self, ctx: ForwardContext, sm: SubModelConfig) -> None:
-        """Run a recurrent group over its in-links' time axis (the JAX
-        side's `lax.scan`; ref: RecurrentGradientMachine forward).  The
-        JAX side wraps the step in `jax.checkpoint` for training, to
+        """Run a recurrent group over its in-links' time axis, or over the
+        sub-sequence axis of nested in-links (the JAX side's `lax.scan`;
+        ref: RecurrentGradientMachine forward and its hierarchical form).
+        The JAX side wraps the step in `jax.checkpoint` for training, to
         recompute its internals in the backward instead of storing them;
         that is a memory device of XLA's, and here autograd stores what the
         step's operations save."""
         in_link_alias = dict(zip(sm.in_links, sm.in_link_layers))
         static_alias = dict(zip(sm.static_links, sm.static_link_layers))
-        xs, lengths, T = self._in_links(ctx, sm)
+        links, lengths, N, sub_src = self._in_links(ctx, sm)
         B = lengths.shape[0]
         dev = lengths.device
 
@@ -332,17 +395,18 @@ class GraphExecutor:
 
         if sm.name not in self._defer_cache:
             self._defer_cache[sm.name] = self._split_deferred(sm)
-        spec = self._defer_cache[sm.name]
+        spec = self._defer_cache[sm.name] if sub_src is None else None
         deferred = spec["deferred"] if spec else set()
         emit_names = (sorted((set(sm.output_layer_names) - deferred)
                              | spec["emit"]) if spec
                       else list(sm.output_layer_names))
 
         stacked: dict[str, list] = {name: [] for name in emit_names}
-        for t in range(T):
+        out_is_seq: dict[str, bool] = {}
+        for t in range(N):
             sub = ctx.sub_context()
             for outer, inner in in_link_alias.items():
-                sub.outputs[inner] = _arg(xs[outer][:, t])
+                sub.outputs[inner] = links[outer].step(t)
             for outer, inner in static_alias.items():
                 sub.outputs[inner] = ctx.outputs[outer]
             for mem in sm.memories:
@@ -357,12 +421,17 @@ class GraphExecutor:
                 carry[mem.link_name] = torch.where(v, out, prev).to(
                     prev.dtype)
             for name in emit_names:
-                stacked[name].append(sub.outputs[name].data)
+                o = sub.outputs[name]
+                out_is_seq[name] = o.lengths is not None
+                stacked[name].append(o.data)
 
         def publish(name: str, seq: torch.Tensor) -> None:
             if sm.reversed:
                 seq = seq_reverse(seq, lengths)
-            ctx.outputs[name] = Argument(value=seq, lengths=lengths)
+            nested = sub_src is not None and out_is_seq.get(name, False)
+            ctx.outputs[name] = Argument(
+                value=seq, lengths=lengths,
+                sub_lengths=sub_src if nested else None)
 
         for name in sm.output_layer_names:
             if name not in deferred:
@@ -373,7 +442,7 @@ class GraphExecutor:
         # order, so that a reversed group publishes it like the others)
         dctx = ctx.sub_context()
         for outer, inner in in_link_alias.items():
-            dctx.outputs[inner] = _arg(xs[outer], lengths)
+            dctx.outputs[inner] = links[outer].whole(lengths)
         for name in spec["emit"]:
             dctx.outputs[name] = _arg(torch.stack(stacked[name], dim=1),
                                       lengths)

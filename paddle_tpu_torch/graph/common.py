@@ -39,9 +39,10 @@ def finish_layer(ctx: ForwardContext, cfg: LayerConfig, value: torch.Tensor,
                  lengths: Optional[torch.Tensor] = None,
                  image: bool = False) -> Argument:
     """Apply the activation and dropout and package the output Argument,
-    inheriting sequence lengths from `like`.  `image` marks a [B, C, H, W]
-    output, which stays an image for the next image layer; a whole-row
-    activation (softmax) works on the flat rows, so its output is rows."""
+    inheriting sequence lengths and sub-sequence lengths from `like`.
+    `image` marks a [B, C, H, W] output, which stays an image for the next
+    image layer; a whole-row activation (softmax) works on the flat rows,
+    so its output is rows."""
     if image and cfg.active_type in ("softmax", "sequence_softmax"):
         value = value.reshape(value.shape[0], -1)
         image = False
@@ -53,4 +54,6 @@ def finish_layer(ctx: ForwardContext, cfg: LayerConfig, value: torch.Tensor,
         mask = (torch.arange(value.shape[1], device=value.device)[None, :]
                 < lengths[:, None])
     out = apply_dropout(ctx, cfg, activation(cfg.active_type, value, mask))
-    return Argument(value=out, lengths=lengths, image=image)
+    return Argument(value=out, lengths=lengths, image=image,
+                    sub_lengths=like.sub_lengths if like is not None
+                    else None)

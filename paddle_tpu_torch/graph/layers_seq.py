@@ -1,28 +1,37 @@
 """Sequence and recurrent layers — the counterparts of
 paddle_tpu/graph/layers_seq.py for `lstmemory`, `gated_recurrent`,
-`gru_step`, `recurrent` (the vanilla RNN), the pooling layers over time
-(`max`, `average`, `seqlastins`), `maxid`, and the linear-chain CRF's
-`crf` (a cost) and `crf_decoding`, on the padded [B, T, D] + lengths
-representation.  Nested (sub-sequence) inputs, the truncated-BPTT
-carry-over of the final state into the next batch (--prev_batch_state),
-and the other layers of that module are queued in ROADMAP.md.
+`gru_step`, `lstm_step`, `recurrent` (the vanilla RNN), the pooling layers
+over time (`max`, `average`, `seqlastins`, on flat and nested inputs),
+`expand`, `subseq`, `seqconcat`, `seqreshape`, `maxid`, and the
+linear-chain CRF's `crf` (a cost) and `crf_decoding`, on the padded
+[B, T, D] + lengths representation (nested: [B, S, T, D] + lengths +
+sub_lengths).
+
+Under --prev_batch_state a forward recurrent layer (`lstmemory`,
+`gated_recurrent`, `recurrent`) boots from the previous batch's final
+state, which it finds in the layer state (`ctx.state_in`, keys
+`<layer>:h` and `<layer>:c`) and hands on in `ctx.state_out`: the
+reference's truncated-BPTT continuation.  The other layers of the JAX
+module are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+import torch
 
 from paddle_tpu_torch.config.schema import LayerConfig
 from paddle_tpu_torch.graph.common import finish_layer
 from paddle_tpu_torch.graph.context import ForwardContext
 from paddle_tpu_torch.graph.registry import register_layer
-import torch
-
 from paddle_tpu_torch.ops import crf as crfops
 from paddle_tpu_torch.ops import rnn as rnnops
 from paddle_tpu_torch.ops import sequence as seqops
 from paddle_tpu_torch.ops.activations import activation_registry
 from paddle_tpu_torch.parameter.argument import Argument
+from paddle_tpu_torch.utils.flags import FLAGS
 
 
 def _sequence_input(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
@@ -31,31 +40,133 @@ def _sequence_input(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
         raise ValueError(f"layer {cfg.name!r} ({cfg.type}) needs a sequence "
                          f"input; {cfg.inputs[0].input_layer_name!r} carries "
                          f"no lengths")
-    if cfg.trans_type == "seq":
-        raise NotImplementedError(
-            f"layer {cfg.name!r}: per-sub-sequence pooling (agg_level='seq') "
-            f"needs nested sequences, not ported yet (ROADMAP.md)")
     return x
+
+
+def _prev_state(ctx: ForwardContext, cfg: LayerConfig, B: int,
+                names: tuple[str, ...]) -> list[Optional[torch.Tensor]]:
+    """The initial states of a recurrent layer under --prev_batch_state:
+    one per name, the previous batch's final state detached (BPTT stops
+    at the batch edge), or None (zeros) without the flag, for a reversed
+    layer, without a carried state or when the batch size changed."""
+    if not FLAGS.prev_batch_state or cfg.reversed:
+        return [None] * len(names)
+    out = []
+    for n in names:
+        s = ctx.state_in.get(f"{cfg.name}:{n}")
+        out.append(s.detach() if s is not None and s.shape[0] == B
+                   else None)
+    return out
+
+
+def _save_state(ctx: ForwardContext, cfg: LayerConfig,
+                **states: torch.Tensor) -> None:
+    """A forward recurrent layer's final states, for the next batch."""
+    if not FLAGS.prev_batch_state or cfg.reversed:
+        return
+    for n, v in states.items():
+        ctx.state_out[f"{cfg.name}:{n}"] = v.detach()
+
+
+def _per_sub(cfg: LayerConfig, x: Argument) -> bool:
+    """Whether a nested [B, S, T, D] input pools per sub-sequence (into a
+    [B, S, D] sequence, agg_level='seq', carried in trans_type) instead of
+    over all its valid tokens (into [B, D], the default)."""
+    if cfg.trans_type != "seq":
+        return False
+    if x.sub_lengths is None:
+        raise ValueError(
+            f"layer {cfg.name!r}: agg_level=AggregateLevel.EACH_SEQUENCE "
+            f"needs a NESTED (sub-sequence) input; this input is a plain "
+            f"sequence — drop agg_level or feed sub_lengths")
+    return True
 
 
 @register_layer("max")
 def max_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     x = _sequence_input(ctx, cfg)
-    return finish_layer(ctx, cfg, seqops.seq_pool_max(x.value, x.lengths))
+    if _per_sub(cfg, x):
+        return finish_layer(ctx, cfg, seqops.nested_pool_max_per_sub(
+            x.value, x.lengths, x.sub_lengths), lengths=x.lengths)
+    if x.sub_lengths is not None:
+        out = seqops.nested_pool_max(x.value, x.lengths, x.sub_lengths)
+    else:
+        out = seqops.seq_pool_max(x.value, x.lengths)
+    return finish_layer(ctx, cfg, out)
 
 
 @register_layer("average")
 def average_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     x = _sequence_input(ctx, cfg)
-    return finish_layer(ctx, cfg, seqops.seq_pool_avg(
-        x.value, x.lengths, cfg.average_strategy))
+    if _per_sub(cfg, x):
+        return finish_layer(ctx, cfg, seqops.nested_pool_avg_per_sub(
+            x.value, x.lengths, x.sub_lengths, cfg.average_strategy),
+            lengths=x.lengths)
+    if x.sub_lengths is not None:
+        out = seqops.nested_pool_avg(x.value, x.lengths, x.sub_lengths,
+                                     cfg.average_strategy)
+    else:
+        out = seqops.seq_pool_avg(x.value, x.lengths, cfg.average_strategy)
+    return finish_layer(ctx, cfg, out)
 
 
 @register_layer("seqlastins")
 def seq_last_ins_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     x = _sequence_input(ctx, cfg)
-    pool = seqops.seq_pool_first if cfg.select_first else seqops.seq_pool_last
-    return finish_layer(ctx, cfg, pool(x.value, x.lengths))
+    if _per_sub(cfg, x):
+        return finish_layer(ctx, cfg, seqops.nested_pool_edge_per_sub(
+            x.value, x.lengths, x.sub_lengths, bool(cfg.select_first)),
+            lengths=x.lengths)
+    if x.sub_lengths is not None:
+        pool = (seqops.nested_pool_first if cfg.select_first
+                else seqops.nested_pool_last)
+        out = pool(x.value, x.lengths, x.sub_lengths)
+    else:
+        pool = (seqops.seq_pool_first if cfg.select_first
+                else seqops.seq_pool_last)
+        out = pool(x.value, x.lengths)
+    return finish_layer(ctx, cfg, out)
+
+
+def _plus_bias(ctx: ForwardContext, cfg: LayerConfig,
+               out: torch.Tensor) -> torch.Tensor:
+    b = ctx.bias_of(cfg)
+    return out if b is None else out + b
+
+
+@register_layer("expand")
+def expand_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """Each row's vector (input 0) repeated over the steps of input 1's
+    sequence, plus the bias."""
+    x, like = ctx.get_input(cfg, 0), ctx.get_input(cfg, 1)
+    out = seqops.expand_to_sequence(x.value, like.lengths, like.max_len)
+    return finish_layer(ctx, cfg, _plus_bias(ctx, cfg, out), like=like,
+                        lengths=like.lengths)
+
+
+@register_layer("subseq")
+def sub_sequence_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """Each row's slice of input 0 at the offset and of the size that the
+    id inputs 1 and 2 give, plus the bias."""
+    x = ctx.get_input(cfg, 0)
+    off, sz = ctx.get_input(cfg, 1), ctx.get_input(cfg, 2)
+    out, lengths = seqops.sub_sequence(x.value, off.ids.reshape(-1),
+                                       sz.ids.reshape(-1), lengths=x.lengths)
+    return finish_layer(ctx, cfg, _plus_bias(ctx, cfg, out), lengths=lengths)
+
+
+@register_layer("seqconcat")
+def seq_concat_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    a, b = ctx.get_input(cfg, 0), ctx.get_input(cfg, 1)
+    out, lengths = seqops.seq_concat(a.value, a.lengths, b.value, b.lengths)
+    return finish_layer(ctx, cfg, out, lengths=lengths)
+
+
+@register_layer("seqreshape")
+def seq_reshape_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    x = ctx.get_input(cfg, 0)
+    out, lengths = seqops.seq_reshape(x.value, x.lengths, cfg.size)
+    return finish_layer(ctx, cfg, out, lengths=lengths)
 
 
 @register_layer("lstmemory")
@@ -65,13 +176,14 @@ def lstmemory_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     or [7D] with peepholes).  The cell applies the activations, so the
     output is finished without one (dropout still applies)."""
     x = _sequence_input(ctx, cfg)
-    _refuse_prev_state(ctx, cfg, ("h", "c"))
-    hs, _, _ = rnnops.lstm_scan(
+    h0, c0 = _prev_state(ctx, cfg, x.value.shape[0], ("h", "c"))
+    hs, last_h, last_c = rnnops.lstm_scan(
         x.value, x.lengths, ctx.param_of(cfg, 0), ctx.bias_of(cfg),
-        active_type=cfg.active_type or "tanh",
+        h0=h0, c0=c0, active_type=cfg.active_type or "tanh",
         gate_active_type=cfg.attrs.get("active_gate_type", "sigmoid"),
         state_active_type=cfg.attrs.get("active_state_type", "tanh"),
         reverse=cfg.reversed)
+    _save_state(ctx, cfg, h=last_h, c=last_c)
     out_cfg = dataclasses.replace(cfg, active_type="")
     return finish_layer(ctx, out_cfg, hs, like=x, lengths=x.lengths)
 
@@ -84,14 +196,15 @@ def gated_recurrent_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     land in the one parameter).  Finished without an activation, as
     lstmemory."""
     x = _sequence_input(ctx, cfg)
-    _refuse_prev_state(ctx, cfg, ("h",))
+    (h0,) = _prev_state(ctx, cfg, x.value.shape[0], ("h",))
     w = ctx.param_of(cfg, 0)
     D = cfg.size
-    hs, _ = rnnops.gru_scan(
+    hs, last_h = rnnops.gru_scan(
         x.value, x.lengths, w[:, :2 * D], w[:, 2 * D:], ctx.bias_of(cfg),
-        active_type=cfg.active_type or "tanh",
+        h0=h0, active_type=cfg.active_type or "tanh",
         gate_active_type=cfg.attrs.get("active_gate_type", "sigmoid"),
         reverse=cfg.reversed)
+    _save_state(ctx, cfg, h=last_h)
     out_cfg = dataclasses.replace(cfg, active_type="")
     return finish_layer(ctx, out_cfg, hs, like=x, lengths=x.lengths)
 
@@ -117,16 +230,53 @@ def gru_step_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     return Argument(value=u * h_prev + (1.0 - u) * c)
 
 
+@register_layer("lstm_step")
+def lstm_step_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """One LSTM step on a [B, 4D] pre-projected input (the recurrent term
+    included) and the [B, D] previous cell, plain tensor ops as on the JAX
+    side.  A 7D bias adds its first 4D to the input and holds the
+    peepholes (i, f, o) in the rest.  The new cell is published under
+    attrs['state_name'], where the group's cell memory reads it."""
+    x4 = ctx.get_input(cfg, 0).value
+    c_prev = ctx.get_input(cfg, 1).value
+    b = ctx.bias_of(cfg)
+    D = cfg.size
+    act = activation_registry[cfg.active_type or "tanh"]
+    gate = activation_registry[cfg.attrs.get("active_gate_type", "sigmoid")]
+    state_act = activation_registry[cfg.attrs.get("active_state_type",
+                                                  "tanh")]
+    peep_i = peep_f = peep_o = None
+    if b is not None:
+        b = b.reshape(-1)
+        if b.shape[0] == 7 * D:
+            x4 = x4 + b[:4 * D]
+            peep_i, peep_f, peep_o = (b[4 * D:5 * D], b[5 * D:6 * D],
+                                      b[6 * D:])
+        else:
+            x4 = x4 + b
+    a = act(x4[:, :D])
+    zi, zf, zo = x4[:, D:2 * D], x4[:, 2 * D:3 * D], x4[:, 3 * D:]
+    if peep_i is not None:
+        zi = zi + c_prev * peep_i
+        zf = zf + c_prev * peep_f
+    c_new = a * gate(zi) + gate(zf) * c_prev
+    if peep_o is not None:
+        zo = zo + c_new * peep_o
+    ctx.outputs[cfg.attrs["state_name"]] = Argument(value=c_new)
+    return Argument(value=gate(zo) * state_act(c_new))
+
+
 @register_layer("recurrent")
 def recurrent_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     """The vanilla RNN h_t = act(x_t + h_{t-1} W) over a [B, T, D] input
     (ops/rnn.py simple_rnn_scan), finished without an activation, as
     lstmemory."""
     x = _sequence_input(ctx, cfg)
-    _refuse_prev_state(ctx, cfg, ("h",))
-    hs, _ = rnnops.simple_rnn_scan(
-        x.value, x.lengths, ctx.param_of(cfg, 0), ctx.bias_of(cfg),
+    (h0,) = _prev_state(ctx, cfg, x.value.shape[0], ("h",))
+    hs, last_h = rnnops.simple_rnn_scan(
+        x.value, x.lengths, ctx.param_of(cfg, 0), ctx.bias_of(cfg), h0=h0,
         active_type=cfg.active_type or "tanh", reverse=cfg.reversed)
+    _save_state(ctx, cfg, h=last_h)
     out_cfg = dataclasses.replace(cfg, active_type="")
     return finish_layer(ctx, out_cfg, hs, like=x, lengths=x.lengths)
 
@@ -169,11 +319,3 @@ def crf_decoding_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
         err = (path != lbl.ids).long() * x.mask(torch.long)
         return Argument(ids=err, lengths=x.lengths)
     return Argument(ids=path, lengths=x.lengths)
-
-
-def _refuse_prev_state(ctx: ForwardContext, cfg: LayerConfig,
-                       names: tuple[str, ...]) -> None:
-    if any(f"{cfg.name}:{n}" in ctx.state_in for n in names):
-        raise NotImplementedError(
-            f"layer {cfg.name!r}: booting from the previous batch's final "
-            f"state (--prev_batch_state) is not ported yet (ROADMAP.md)")

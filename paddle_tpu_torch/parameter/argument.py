@@ -6,8 +6,10 @@ feeder (data/feeder.py) also fills the nested-sequence and sparse-row
 fields, as the JAX package's does.  Sparse rows ([B, K] or [B, T, K]
 column ids in `ids`, their values in `sparse_vals`) feed the fc layer and
 the full-matrix projections, which gather the touched weight rows;
-`to_dense` materializes them.  Nested sequences are queued in ROADMAP.md,
-and `Trainer.prepare_batch` refuses a feed that carries them.
+`to_dense` materializes them.  Nested sequences are [B, S, T, ...] with
+`lengths` [B] (the sub-sequences of each row) and `sub_lengths` [B, S]
+(the tokens of each sub-sequence); layers pass sub_lengths on with their
+output, and a recurrent group over a nested in-link loops over S.
 
 Images travel between image layers as [B, C, H, W] tensors (`image`
 True; in `torch.channels_last` memory on the card, cuDNN's preferred

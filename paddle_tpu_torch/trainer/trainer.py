@@ -73,12 +73,22 @@ source when it has one and a checkpoint in `save_dir`; `test()` runs the
 TEST forward; `save`/`load` write and read the JAX package's checkpoint
 layout, so either side resumes the other's run.
 
+Nested-sequence feeds (`Argument.sub_lengths`, values [B, S, T(, D)])
+move to the device with their sub_lengths, which are part of a batch's
+signature.  Under --prev_batch_state the recurrent layers' final states
+(`<layer>:h`, `<layer>:c`) are layer state like batch norm's: each step
+boots from the previous step's and writes its own in place, eager or
+captured; `test()` reads them and leaves them as they are.  A batch of
+another size ignores the carried state and leaves its own, of its size, so
+the state's shapes change with the batch size: the fused dispatch runs a
+group's first step eagerly whenever the state's layout differs from the
+one the signature's steps leave (`_settled`), and captures only steps
+that keep the layout.
+
 Not ported yet, and refused (ROADMAP.md): the binary-shard data source
-(`ptsh`), nested-sequence feeds, meshes, pipeline stages, the parameter
-server, gradient probes, the evaluators other than classification_error,
-sum, column_sum and chunk, and the carry of a recurrent layer's final
-state into the next batch (`--prev_batch_state`; batch norm's moving
-statistics are the layer state the port carries).
+(`ptsh`), meshes, pipeline stages, the parameter server, gradient probes
+and the evaluators other than classification_error, sum, column_sum and
+chunk.
 """
 
 from __future__ import annotations
@@ -254,9 +264,10 @@ class Trainer:
         # losses are drained
         self._host_buf: list[dict] = []
         self._drained_cost = 0.0
-        # the fused dispatch: signatures whose first batch ran eagerly, and
-        # the captured steps by (signature, group size) (the card only)
-        self._settled: set = set()
+        # the fused dispatch: by signature, the layout of the layer state
+        # its eager step left (a step starting from that layout keeps it),
+        # and the captured steps by (signature, group size) (the card only)
+        self._settled: dict = {}
         self._graphs: dict[tuple, _CapturedSteps] = {}
         self._pool = new_pool(self.device)
         self.n_fused_dispatches = 0     # groups dispatched
@@ -271,9 +282,10 @@ class Trainer:
         """Check the feed against the data layers (missing or unknown keys,
         ids out of range on host arrays: a sparse row's column ids against
         its width, other ids against the data layer's size; batch sizes)
-        and move it to the device, ids as int64; `pinned` copies host
-        arrays through pinned memory without waiting for the copy (the
-        fused pass's staging, on its side stream).  Sparse-row values keep
+        and move it to the device, ids as int64, with a nested feed's
+        sub_lengths; `pinned` copies host arrays through pinned memory
+        without waiting for the copy (the fused pass's staging, on its
+        side stream).  Sparse-row values keep
         their dtype here; the executor casts them to the compute dtype."""
         missing = sorted(set(self._data_layers) - set(batch))
         if missing:
@@ -288,12 +300,9 @@ class Trainer:
             if arg.value is None and arg.ids is None:
                 raise ValueError(f"feed {name!r} carries neither dense "
                                  f"values nor ids")
-            if arg.sub_lengths is not None:
-                raise NotImplementedError(
-                    f"feed {name!r} is a nested sequence; nested sequences "
-                    f"(nested groups and pooling, expand, subseq, seqconcat,"
-                    f" seqreshape, lstm_step, sparse in-links of a group) "
-                    f"are not ported yet (ROADMAP.md Queue 1 item 5)")
+            if arg.sub_lengths is not None and arg.lengths is None:
+                raise ValueError(f"feed {name!r}: sub_lengths without the "
+                                 f"sub-sequence counts (lengths)")
             ids = arg.ids
             sparse = arg.sparse_vals is not None
             if sparse and not arg.sparse_dim:
@@ -315,6 +324,8 @@ class Trainer:
                            ids=None if ids is None else ids.long(),
                            lengths=_as_tensor(arg.lengths, self.device,
                                               pinned),
+                           sub_lengths=_as_tensor(arg.sub_lengths,
+                                                  self.device, pinned),
                            sparse_vals=_as_tensor(arg.sparse_vals,
                                                   self.device, pinned),
                            sparse_dim=arg.sparse_dim if sparse else 0)
@@ -350,7 +361,7 @@ class Trainer:
         A captured step may only write in place."""
         for name, tree in new.items():
             mine = self.net_state.get(name)
-            if mine is not None and _same_layout(mine, tree):
+            if mine is not None and _layout(mine) == _layout(tree):
                 _copy_into(mine, tree)
                 continue
             if (self.device.type == "cuda"
@@ -567,8 +578,9 @@ class Trainer:
         first step settles it, and a capture whose state tensors were
         replaced is retaken, `_CapturedSteps.holds`.)"""
         feeds = tuple(sorted((name, _spec(a.value), _spec(a.ids),
-                              _spec(a.lengths), _spec(a.sparse_vals),
-                              a.sparse_dim) for name, a in batch.items()))
+                              _spec(a.lengths), _spec(a.sub_lengths),
+                              _spec(a.sparse_vals), a.sparse_dim)
+                             for name, a in batch.items()))
         masks = tuple(sorted((name, _spec(m))
                              for name, m in (dropout_masks or {}).items()))
         return feeds, masks
@@ -625,15 +637,18 @@ class Trainer:
     def _dispatch_fused(self, sig: tuple, group: list) -> None:
         """One group: on the CPU the step once per batch, uncaptured; on the
         card one replay of the graph of len(group) steps of the signature,
-        after the eager first step of a signature never seen."""
+        after an eager first step when the signature was never seen or the
+        layer state's layout is not the one its steps leave (the first
+        step grows the state, or a batch of another size left state of its
+        size)."""
         self.n_fused_dispatches += 1
         if self.device.type != "cuda":
             for batch, masks in group:
                 self._run_step(batch, masks)
             return
-        if sig not in self._settled:
+        if self._settled.get(sig) != _layout(self.net_state):
             self._run_step(*group[0])
-            self._settled.add(sig)
+            self._settled[sig] = _layout(self.net_state)
             self.n_settle_steps += 1
             group = group[1:]
             if not group:
@@ -759,6 +774,7 @@ class _CapturedSteps:
             return None if t is None else t.clone()
         self.feeds = [{name: Argument(value=own(a.value), ids=own(a.ids),
                                       lengths=own(a.lengths),
+                                      sub_lengths=own(a.sub_lengths),
                                       sparse_vals=own(a.sparse_vals),
                                       sparse_dim=a.sparse_dim)
                        for name, a in batch.items()} for batch, _ in group]
@@ -794,6 +810,7 @@ class _CapturedSteps:
                 mine = feed[name]
                 for dst, src in ((mine.value, a.value), (mine.ids, a.ids),
                                  (mine.lengths, a.lengths),
+                                 (mine.sub_lengths, a.sub_lengths),
                                  (mine.sparse_vals, a.sparse_vals)):
                     if dst is not None:
                         dst.copy_(src)
@@ -807,7 +824,8 @@ def _detached(outputs: dict[str, Argument]) -> dict[str, Argument]:
     def d(t):
         return None if t is None else t.detach()
     return {n: a.replace(value=d(a.value), ids=d(a.ids),
-                         lengths=d(a.lengths)) for n, a in outputs.items()}
+                         lengths=d(a.lengths), sub_lengths=d(a.sub_lengths))
+            for n, a in outputs.items()}
 
 
 def _cloned(arg: Argument) -> Argument:
@@ -815,7 +833,8 @@ def _cloned(arg: Argument) -> Argument:
     def c(t):
         return None if t is None else t.clone()
     return arg.replace(value=c(arg.value), ids=c(arg.ids),
-                       lengths=c(arg.lengths))
+                       lengths=c(arg.lengths),
+                       sub_lengths=c(arg.sub_lengths))
 
 
 def _next_masks(masks) -> Optional[dict]:
@@ -848,13 +867,11 @@ def _leaves(tree) -> list:
     return [tree]
 
 
-def _same_layout(a, b) -> bool:
-    """Whether two state trees have the same keys, shapes and dtypes."""
-    if isinstance(a, dict) or isinstance(b, dict):
-        return (isinstance(a, dict) and isinstance(b, dict)
-                and a.keys() == b.keys()
-                and all(_same_layout(a[k], b[k]) for k in a))
-    return a.shape == b.shape and a.dtype == b.dtype
+def _layout(tree):
+    """A state tree's keys, shapes and dtypes, comparable with ==."""
+    if isinstance(tree, dict):
+        return tuple((k, _layout(tree[k])) for k in sorted(tree))
+    return tuple(tree.shape), tree.dtype
 
 
 def _copy_into(dst, src) -> None:
@@ -886,7 +903,7 @@ def _spec(t) -> Optional[tuple]:
 def _tensors(batch: Batch, masks: Optional[dict]) -> list:
     """The tensors of a prepared batch and its masks."""
     out = [t for a in batch.values()
-           for t in (a.value, a.ids, a.lengths, a.sparse_vals)
+           for t in (a.value, a.ids, a.lengths, a.sub_lengths, a.sparse_vals)
            if t is not None]
     return out + list((masks or {}).values())
 

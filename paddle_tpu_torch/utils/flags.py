@@ -176,5 +176,5 @@ define_flag("process_id", 0, "this process's id in the cluster")
 # flags whose feature the port has not ported yet (ROADMAP.md): the CLI
 # refuses a run that sets one away from its default
 NOT_PORTED = ("mesh_shape", "coordinator_address", "num_processes",
-              "process_id", "detect_nan", "profile_dir", "prev_batch_state",
+              "process_id", "detect_nan", "profile_dir",
               "check_sparse_distribution", "show_parameter_stats_period")

@@ -184,6 +184,73 @@ def _rc(argv) -> tuple:
 LM = "--config=demo/model_zoo/transformer_lm.py"
 
 
+# the sentiment provider's words through a forward LSTM, a GRU over it and
+# a reversed LSTM, trained by momentum SGD: --prev_batch_state carries the
+# forward layers' final states from batch to batch
+CARRY_CONFIG = """
+from paddle_tpu.dsl import *
+define_py_data_sources2(train_list="demo/sentiment/train.list",
+                        test_list="demo/sentiment/test.list",
+                        module="demo.sentiment.sentiment_provider",
+                        obj="process")
+settings(batch_size=256, learning_rate=0.05,
+         learning_method=MomentumOptimizer(momentum=0.9))
+word = data_layer(name="word", size=2000)
+emb = embedding_layer(input=word, size=16)
+lstm = lstmemory(input=fc_layer(input=emb, size=64, act=LinearActivation()),
+                 name="lstm")
+gru = grumemory(input=fc_layer(input=lstm, size=48, act=LinearActivation()),
+                name="gru")
+rev = lstmemory(input=fc_layer(input=emb, size=64, act=LinearActivation()),
+                reverse=True, name="rev")
+prob = fc_layer(input=[last_seq(input=gru), first_seq(input=rev)], size=2,
+                act=SoftmaxActivation())
+classification_cost(input=prob, label=data_layer(name="label", size=2))
+"""
+
+
+def test_prev_batch_state_run_equals_the_jax_cli(tmp_path):
+    """--prev_batch_state is accepted: a config of a forward LSTM, a GRU
+    and a reversed LSTM over the sentiment provider's words trains one
+    pass (8 batches of 256) from the JAX Trainer's initial parameters, the
+    forward layers booted from the previous batch's final states, as the
+    JAX CLI trains it: the pass and test costs within rtol 1e-4, the
+    parameters and the carried states in the checkpoints within 1e-5; the
+    reversed LSTM carries none."""
+    path = str(tmp_path / "carry.py")
+    with open(path, "w") as f:
+        f.write(CARRY_CONFIG)
+    init = JTrainer(jax_parse_config(path, ""), seed=1).save(
+        str(tmp_path / "init"))
+    common = [f"--config={path}", f"--init_model_path={init}",
+              "--num_passes=1", "--prev_batch_state"]
+    with logged("paddle_tpu.trainer") as jrec:
+        assert _jax_cli(common + [f"--save_dir={tmp_path}/jax"]) == 0
+    with logged("paddle_tpu_torch.trainer") as trec:
+        assert main(["train", *common, f"--save_dir={tmp_path}/port",
+                     "--use_gpu=false"]) == 0
+    assert not FLAGS.prev_batch_state          # reset after the run
+    want, got = _rows(tmp_path / "jax"), _rows(tmp_path / "port")
+    assert len(got) == len(want) == 1
+    assert got[0]["cost"] == pytest.approx(want[0]["cost"], rel=1e-4)
+    assert got[0]["batches"] == want[0]["batches"] == 8
+
+    def test_cost(records):
+        line = [r.getMessage() for r in records
+                if "test:" in r.getMessage()][0]
+        return float(line.split("cost=")[1].split()[0])
+    assert test_cost(trec) == pytest.approx(test_cost(jrec), rel=1e-4)
+    jp = ckpt.load_checkpoint(str(tmp_path / "jax" / "pass-00000"))
+    tp = ckpt.load_checkpoint(str(tmp_path / "port" / "pass-00000"))
+    for n, v in jp["params"].items():
+        np.testing.assert_allclose(tp["params"][n], v, rtol=0, atol=1e-5,
+                                   err_msg=n)
+    assert set(tp["net"]) == set(jp["net"]) == {"lstm:h", "lstm:c", "gru:h"}
+    for k, v in jp["net"].items():
+        np.testing.assert_allclose(tp["net"][k], v, rtol=0, atol=1e-5,
+                                   err_msg=k)
+
+
 @pytest.mark.parametrize("argv,match", [
     (["train", LM, "--job=test", "--use_gpu=false"], "no test data"),
     (["train", LM, "--job=time"], "--job=time is not ported"),
@@ -194,13 +261,11 @@ LM = "--config=demo/model_zoo/transformer_lm.py"
      "--coordinator_address, --num_processes: not ported"),
     (["train", LM, "--detect_nan"], "--detect_nan: not ported"),
     (["train", LM, "--profile_dir=/tmp/x"], "--profile_dir: not ported"),
-    (["train", LM, "--prev_batch_state"], "--prev_batch_state: not ported"),
     (["train", LM, "--use_tpu"], "unknown argument"),
     (["train", "--config=demo/no_such_config.py"], "failed to parse"),
     (["train", LM, "--config_args=heads=5"], "failed to parse"),
 ], ids=["test-without-source", "time", "checkgrad", "bogus-job", "mesh",
-        "cluster", "detect_nan", "profile_dir", "prev_batch_state",
-        "unknown-flag", "missing-config", "bad-config"])
+        "cluster", "detect_nan", "profile_dir", "unknown-flag", "missing-config", "bad-config"])
 def test_cli_refusals_exit_2(argv, match):
     before = FLAGS.as_dict()
     rc, text = _rc(argv)

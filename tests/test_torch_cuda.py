@@ -892,3 +892,39 @@ def test_fused_dispatch_recaptures_after_a_load(cuda, tmp_path):
     (ref, (sa, la)), (tr, (sb, lb)) = runs
     assert sa == sb and torch.equal(la, lb)
     assert training_state_differs(ref, tr) == []
+
+
+def test_nested_chunk_oracle_through_k3_and_k1(cuda, tmp_path):
+    """--prev_batch_state on the card (chip_smoke's chunk_oracle): two
+    chunks of T/2 booted from the carried state end where one T-step
+    forward ends, through K3 at [128, 100, 128] and K1 at [64, 30, 512],
+    each booted call held against the plain version."""
+    from chip_smoke import chunk_oracle
+    chunk_oracle(str(tmp_path))
+
+
+def test_carried_state_k4_equals_k1_across_a_batch_size_change(cuda):
+    """The stacked sentiment net (hidden 32 a K3 layer) with
+    --prev_batch_state, two passes of five batches of 16 rows and one of
+    12: the fused dispatch at k = 4 (an eager first step wherever the
+    carried state's shape changes) bit-identical to k = 1 after each
+    pass, the forward LSTMs' carried state included."""
+    from chip_smoke import carried_state
+    full = sentiment_batches(10, 16, 20, 500, seed=1, ragged=True)
+    small = {n: Argument(ids=a.ids[:12], lengths=None if a.lengths is None
+                         else a.lengths[:12])
+             for n, a in sentiment_batches(1, 16, 20, 500, seed=2)[0]
+             .items()}
+    with carried_state():
+        t1, t4 = (Trainer(stacked_lstm_net_config(500, 16, 128), seed=1)
+                  for _ in range(2))
+        for p in range(2):
+            batches = full[5 * p:5 * p + 5] + [small]
+            out = [pass_with_losses(tr, batches, k)
+                   for tr, k in ((t1, 1), (t4, 4))]
+            assert out[0][0] == out[1][0]
+            assert torch.equal(out[0][1], out[1][1])
+            assert training_state_differs(t1, t4) == []
+            assert {tuple(v.shape) for v in t4.net_state.values()} == \
+                {(12, 32)}
+    assert sum(graph_replays(t4).values()) > 0

@@ -304,11 +304,30 @@ def test_data_paths_that_refuse():
     shards.data_config.type = "ptsh"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(shards, device="cpu").train_one_pass()
-    ids = np.zeros((2, 4), np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.prepare_batch({
-            "tokens": Argument(ids=ids, lengths=np.array([4, 4], np.int32),
-                               sub_lengths=np.ones((2, 2), np.int32)),
-            "next_tokens": Argument(ids=ids,
-                                    lengths=np.array([4, 4], np.int32))})
+    # a nested feed is taken whole: the feeder's packing of sub-sequences
+    # is the JAX make_batch's, and prepare_batch moves it with its
+    # sub_lengths; sub_lengths without the sub-sequence counts raise
+    from paddle_tpu.data.feeder import make_batch as jmake_batch
+    from paddle_tpu_torch.data.feeder import make_batch
+    jprov = importlib.import_module("paddle_tpu.data.provider")
+    tprov = importlib.import_module("paddle_tpu_torch.data.provider")
+    docs = [([[1, 2, 3], [4]], [5, 6]), ([[7], [], [8, 9]], [1])]
+    names = ["tokens", "next_tokens"]
+    got = make_batch(docs, [tprov.integer_value_sub_sequence(64),
+                            tprov.integer_value_sequence(64)], names)
+    want = jmake_batch(docs, [jprov.integer_value_sub_sequence(64),
+                              jprov.integer_value_sequence(64)], names)
+    moved = tr.prepare_batch(got)
+    for name in names:
+        for field in ("ids", "lengths", "sub_lengths"):
+            w = getattr(want[name], field)
+            m = getattr(moved[name], field)
+            assert (w is None) == (m is None), (name, field)
+            if w is not None:
+                np.testing.assert_array_equal(m.numpy(), np.asarray(w))
+    assert moved["tokens"].ids.dtype == torch.int64
+    with pytest.raises(ValueError, match="sub-sequence counts"):
+        tr.prepare_batch({"tokens": Argument(
+            ids=got["tokens"].ids, sub_lengths=got["tokens"].sub_lengths),
+            "next_tokens": got["next_tokens"]})
     assert os.path.exists("demo/model_zoo/lm_train.list")

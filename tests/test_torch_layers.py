@@ -11,8 +11,7 @@ from paddle_tpu.config.parser import parse_config
 from paddle_tpu.ops import attention as jattn
 from paddle_tpu.parameter.argument import Argument as JArgument
 from paddle_tpu.trainer.trainer import Trainer
-from paddle_tpu_torch.config.schema import (LayerConfig, LayerInput,
-                                            SubModelConfig)
+from paddle_tpu_torch.config.schema import LayerConfig, LayerInput
 from paddle_tpu_torch.graph import GraphExecutor
 from paddle_tpu_torch.graph.context import ForwardContext
 from paddle_tpu_torch.graph.layers_misc import layer_norm_layer
@@ -137,11 +136,13 @@ def test_dense_attention_matches_jax(window):
 
 
 def test_unported_paths_raise():
-    """Blockwise attention, the context-parallel paths (ring, ulysses), the
-    dense per-request KV cache of lm_generate and recurrent groups nested
-    in a group are queued in ROADMAP.md: they raise.  The flash route
-    (auto at >= block_k_min keys, or pinned) and TRAIN mode run (tests/
-    test_torch_train.py holds them against the JAX package)."""
+    """Blockwise attention, the context-parallel paths (ring, ulysses) and
+    the dense per-request KV cache of lm_generate are queued in
+    ROADMAP.md: they raise.  The flash route (auto at >= block_k_min keys,
+    or pinned) and TRAIN mode run (tests/test_torch_train.py holds them
+    against the JAX package), and so does a recurrent group nested in a
+    group: tests/configs/sequence_nest_rnn.py's TEST forward gives the JAX
+    executor's costs (within 1e-5) on rows with an empty sub-sequence."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.parameter import init_params
     model = transformer_lm_config(61, 32, 1, 4, block_k_min=8)
@@ -163,12 +164,31 @@ def test_unported_paths_raise():
             "blk0_attn": {"k": torch.zeros(1, 8, 4, 8),
                           "v": torch.zeros(1, 8, 4, 8),
                           "pos": torch.zeros(1, dtype=torch.int32)}})
-    rnn = transformer_lm_config(61, 32, 1, 4)
-    rnn.sub_models.append(SubModelConfig(name="g",
-                                         is_recurrent_layer_group=True,
-                                         parent="outer"))
-    with pytest.raises(NotImplementedError, match="nested"):
-        GraphExecutor(rnn)
+    from paddle_tpu.graph.builder import GraphExecutor as JExecutor
+    from paddle_tpu_torch.config.schema import TrainerConfig
+    jcfg = parse_config("tests/configs/sequence_nest_rnn.py", "")
+    nested = TrainerConfig.from_json(jcfg.to_json()).model_config
+    assert any(sm.parent for sm in nested.sub_models)
+    jex = JExecutor(jcfg.model_config)
+    jparams = jex.init_params(jax.random.PRNGKey(3))
+    ids = np.random.default_rng(4).integers(0, 10, (2, 3, 4)).astype(
+        np.int32)
+    lens = np.array([2, 3], np.int32)
+    sub = np.array([[3, 2, 0], [2, 0, 4]], np.int32)
+    label = np.array([0, 2], np.int32)
+    _, want, _ = jex.forward(jparams, {
+        "word": JArgument(ids=jnp.asarray(ids), lengths=jnp.asarray(lens),
+                          sub_lengths=jnp.asarray(sub)),
+        "label": JArgument(ids=jnp.asarray(label))}, None, "test")
+    _, got, _ = GraphExecutor(nested).forward(
+        params_from_jax({k: np.asarray(v) for k, v in jparams.items()},
+                        device="cpu"),
+        {"word": Argument(ids=_t(ids).long(), lengths=_t(lens),
+                          sub_lengths=_t(sub)),
+         "label": Argument(ids=_t(label).long())})
+    assert set(got) == set(want)
+    for name, c in got.items():
+        np.testing.assert_allclose(c.numpy(), np.asarray(want[name]), **TOL)
 
 
 def test_bfloat16_compute_dtype_casts_params_and_keeps_norms_fp32():
@@ -262,13 +282,35 @@ def test_pooling_layers_match_jax(type_, fields):
 
 
 def test_pooling_layers_refuse_what_is_not_ported():
+    """Per-sub-sequence pooling (agg_level='seq') of a flat sequence raises
+    on both sides (it needs a nested input); of a nested input it gives the
+    JAX layer's [B, S, D] sequence; a non-sequence input raises."""
+    from paddle_tpu.config.schema import LayerConfig as JLayer
+    from paddle_tpu.config.schema import LayerInput as JInput
+    from paddle_tpu.graph.registry import get_layer_fn as jget
     from paddle_tpu_torch.graph.registry import get_layer_fn
     x, lens = _seq(1)
-    _, ctx = _both_contexts("test", x=(x, lens), flat=(x[:, 0], None))
-    with pytest.raises(NotImplementedError, match="nested"):
-        get_layer_fn("max")(ctx, LayerConfig(
-            name="p", type="max", trans_type="seq",
-            inputs=[LayerInput("x")]))
+    jctx, ctx = _both_contexts("test", x=(x, lens), flat=(x[:, 0], None))
+    spec = dict(name="p", type="max", trans_type="seq")
+    with pytest.raises(ValueError, match="NESTED"):
+        get_layer_fn("max")(ctx, LayerConfig(inputs=[LayerInput("x")],
+                                             **spec))
+    with pytest.raises(ValueError, match="NESTED"):
+        jget("max")(jctx, JLayer(inputs=[JInput("x")], **spec))
+    nested = x.reshape(4, 2, 3, 5)
+    sub = np.array([[3, 1], [1, 0], [2, 3], [0, 0]], np.int32)
+    n_sub = np.array([2, 1, 2, 0], np.int32)
+    jctx.outputs["n"] = JArgument(value=jnp.asarray(nested),
+                                  lengths=jnp.asarray(n_sub),
+                                  sub_lengths=jnp.asarray(sub))
+    ctx.outputs["n"] = Argument(value=_t(nested), lengths=_t(n_sub),
+                                sub_lengths=_t(sub))
+    want = jget("max")(jctx, JLayer(inputs=[JInput("n")], **spec))
+    got = get_layer_fn("max")(ctx, LayerConfig(inputs=[LayerInput("n")],
+                                               **spec))
+    np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
+                               **TOL)
+    assert torch.equal(got.lengths, _t(n_sub))
     with pytest.raises(ValueError, match="sequence input"):
         get_layer_fn("average")(ctx, LayerConfig(
             name="p", type="average", inputs=[LayerInput("flat")]))
@@ -438,16 +480,45 @@ def test_gated_recurrent_layer_matches_jax(reverse, act, bias):
 
 
 def test_gated_recurrent_refuses_prev_batch_state():
-    """Booting from the previous batch's final state (--prev_batch_state)
-    is not ported: handed such state, the layer raises."""
+    """--prev_batch_state: handed a carried state of its batch size, the
+    layer boots from it and hands on its final state, as the JAX layer
+    does (within 1e-5); a state of another batch size is ignored, and
+    without the flag the state is neither read nor written."""
+    from paddle_tpu.utils.flags import FLAGS as JFLAGS
+    from paddle_tpu_torch.utils.flags import FLAGS
     rng = np.random.default_rng(8)
     x = rng.standard_normal((2, 3, 12)).astype(np.float32)
-    _, ctx = _both_contexts("test", x=(x, np.array([3, 2], np.int32)))
-    ctx.params["w"] = torch.zeros(4, 12)
-    ctx.state_in["g:h"] = torch.zeros(2, 4)
-    _, run = _layer_pair("gated_recurrent", [("x", "w")], name="g", size=4)
-    with pytest.raises(NotImplementedError, match="prev_batch_state"):
-        run(ctx)
+    w = rng.standard_normal((4, 12)).astype(np.float32) * 0.5
+    h0 = rng.standard_normal((2, 4)).astype(np.float32)
+    jrun, run = _layer_pair("gated_recurrent", [("x", "w")], name="g",
+                            size=4, active_type="tanh",
+                            attrs={"active_gate_type": "sigmoid"})
+    saved = FLAGS.prev_batch_state, JFLAGS.prev_batch_state
+    FLAGS.prev_batch_state = JFLAGS.prev_batch_state = True
+    try:
+        outs = []
+        for carried in (h0, h0[:1]):
+            jctx, ctx = _both_contexts("test",
+                                       x=(x, np.array([3, 2], np.int32)))
+            _add_params(jctx, ctx, w=w)
+            jctx.state_in["g:h"] = jnp.asarray(carried)
+            ctx.state_in["g:h"] = _t(carried)
+            want, got = jrun(jctx), run(ctx)
+            np.testing.assert_allclose(got.value.numpy(),
+                                       np.asarray(want.value), **TOL)
+            np.testing.assert_allclose(ctx.state_out["g:h"].numpy(),
+                                       np.asarray(jctx.state_out["g:h"]),
+                                       **TOL)
+            outs.append(got.value)
+        assert not torch.equal(outs[0], outs[1])
+        FLAGS.prev_batch_state = False
+        _, ctx = _both_contexts("test", x=(x, np.array([3, 2], np.int32)))
+        ctx.params["w"] = _t(w)
+        ctx.state_in["g:h"] = _t(h0)
+        assert torch.equal(run(ctx).value, outs[1])
+        assert ctx.state_out == {}
+    finally:
+        FLAGS.prev_batch_state, JFLAGS.prev_batch_state = saved
 
 
 @pytest.mark.parametrize("act,bias", [("tanh", True), ("relu", False)],

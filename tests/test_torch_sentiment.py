@@ -289,13 +289,41 @@ def test_dropout_stream_follows_the_trainer_seed():
 
 def test_recurrent_layers_refuse_what_is_not_ported():
     """The carry-over of the final state into the next batch
-    (--prev_batch_state) raises when a caller hands the layer such state."""
-    _, build = NETS["stacked"]
-    tr = Trainer(build(), device="cpu")
-    feed = tr.prepare_batch(_tbatch(_batches(1)[0]))
-    with pytest.raises(NotImplementedError, match="prev_batch_state"):
-        tr.executor.forward(tr.params, feed, state={
-            "__lstmemory_0__:h": torch.zeros(BATCH, HID // 4)})
+    (--prev_batch_state): handed the forward LSTMs' states, the stacked
+    net's TEST forward boots them from it and hands on their final states,
+    as the JAX executor does (costs and states within 1e-5); the reversed
+    LSTMs carry none."""
+    from paddle_tpu.utils.flags import FLAGS as JFLAGS
+    from paddle_tpu_torch.utils.flags import FLAGS
+    jtr, ttr = _pair("stacked", 0)
+    b = _batches(1)[0]
+    feed = ttr.prepare_batch(_tbatch(b))
+    saved = FLAGS.prev_batch_state, JFLAGS.prev_batch_state
+    FLAGS.prev_batch_state = JFLAGS.prev_batch_state = True
+    try:
+        _, _, first = ttr.executor.forward(ttr.params, feed)
+        reversed_ = {l.name for l in ttr.model.layers if l.reversed}
+        assert first and not any(k.split(":")[0] in reversed_
+                                 for k in first)
+        rng = np.random.default_rng(3)
+        state = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32)
+                 for k, v in first.items()}
+        _, got, got_state = ttr.executor.forward(
+            ttr.params, feed, state={k: torch.from_numpy(v)
+                                     for k, v in state.items()})
+        _, want, want_state = jtr.executor.forward(
+            jtr.params, _jbatch(b), {k: jnp.asarray(v)
+                                     for k, v in state.items()}, "test")
+    finally:
+        FLAGS.prev_batch_state, JFLAGS.prev_batch_state = saved
+    for name, c in got.items():
+        np.testing.assert_allclose(c.numpy(), np.asarray(want[name]),
+                                   rtol=1e-5, atol=1e-5)
+    assert set(got_state) == set(want_state) == set(first)
+    for k, v in got_state.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(want_state[k]),
+                                   rtol=1e-5, atol=1e-5)
+        assert not torch.equal(v, first[k])
 
 
 def test_bfloat16_compute_dtype_runs_and_stays_close_to_jax():

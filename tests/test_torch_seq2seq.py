@@ -32,8 +32,8 @@ from paddle_tpu_torch.graph.generator import (BeamSearchControls, generate,
 from paddle_tpu_torch.models import seq2seq_trainer_config
 from paddle_tpu_torch.ops import additive_attention as aa
 from paddle_tpu_torch.ops import gru_fused as gf
-from paddle_tpu_torch.parameter import (Argument, init_params,
-                                        opt_state_from_jax, params_from_jax)
+from paddle_tpu_torch.parameter import (Argument, opt_state_from_jax,
+                                        params_from_jax)
 from paddle_tpu_torch.trainer import Trainer
 
 CONFIG = "demo/seqToseq/seqToseq_net.py"
@@ -338,6 +338,11 @@ classification_cost(input=prob, label=data_layer(name="label", size=3))
 '''
 
 
+def _executor_params(ex, params):
+    """A JAX executor's parameters as numpy, in its config's order."""
+    return {p.name: np.asarray(params[p.name]) for p in ex.model.parameters}
+
+
 def _group_config(path):
     cfg = parse_config(str(path), "")
     return cfg, TrainerConfig.from_json(cfg.to_json())
@@ -404,26 +409,59 @@ def test_recurrent_group_matches_jax(which, tmp_path):
 
 
 def test_group_paths_not_ported_raise():
-    """Groups nested in groups raise at construction, and a nested
-    (SubsequenceInput, [B, S, T, ...]) or sparse in-link raises when the
-    group runs — each naming ROADMAP.md, none giving a wrong answer.  The
-    GEN mode belongs to generate(), not to forward()."""
+    """Groups nested in groups, nested (SubsequenceInput, [B, S, T, ...])
+    in-links and sparse in-links run as the JAX executor runs them: the
+    nested config's out-link ([B, S, T, D] with the feed's sub_lengths) and
+    the flat group's output over sparse rows (the fc in its step gathering
+    the rows they touch) within 1e-5.  The GEN mode belongs to generate(),
+    not to forward()."""
+    from paddle_tpu.graph.context import ForwardContext as JContext
+    rng = np.random.default_rng(2)
     jcfg = parse_config("tests/configs/sequence_nest_rnn.py", "")
     nested = TrainerConfig.from_json(jcfg.to_json()).model_config
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraphExecutor(nested)
-    _, tcfg = _group_config("tests/configs/sequence_rnn.py")
+    jex = JExecutor(jcfg.model_config)
+    jparams = jex.init_params(jax.random.PRNGKey(1))
+    nparams = params_from_jax(_executor_params(jex, jparams), device="cpu")
+    ids = rng.integers(0, 10, (2, 2, 3)).astype(np.int32)
+    n_sub, sub = np.array([2, 1], np.int32), np.array([[3, 1], [2, 0]],
+                                                        np.int32)
+    want, _, _ = jex.forward(jparams, {"word": JArgument(
+        ids=jnp.asarray(ids), lengths=jnp.asarray(n_sub),
+        sub_lengths=jnp.asarray(sub))}, None, "test")
+    got, _, _ = GraphExecutor(nested).forward(nparams, {"word": Argument(
+        ids=torch.from_numpy(ids).long(), lengths=torch.from_numpy(n_sub),
+        sub_lengths=torch.from_numpy(sub))})
+    (outer,) = [sm for sm in nested.sub_models if not sm.parent]
+    name = outer.output_layer_names[0]
+    np.testing.assert_allclose(got[name].value.numpy(),
+                               np.asarray(want[name].value), rtol=1e-5,
+                               atol=1e-5)
+    assert got[name].value.shape == (2, 2, 3, 8)
+    assert torch.equal(got[name].sub_lengths, torch.from_numpy(sub))
+
+    jflat, tcfg = _group_config("tests/configs/sequence_rnn.py")
     ex = GraphExecutor(tcfg.model_config)
-    params = init_params(tcfg.model_config, seed=0, device="cpu")
+    jfex = JExecutor(jflat.model_config)
+    jfparams = jfex.init_params(jax.random.PRNGKey(0))
+    params = params_from_jax(_executor_params(jfex, jfparams), device="cpu")
     lens = torch.tensor([2, 1])
     (sm,) = ex.model.sub_models
-    for link in (Argument(ids=torch.zeros(2, 2, 3, dtype=torch.long),
-                          lengths=lens),
-                 Argument(value=torch.zeros(2, 2, 3, 8), lengths=lens)):
-        ctx = ForwardContext(model=ex.model, params=params, mode="test")
-        ctx.outputs[sm.in_links[0]] = link       # the embedding's output
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ex._run_scan(ctx, sm)
+    cols = rng.integers(0, 8, (2, 2, 3)).astype(np.int32)
+    vals = rng.standard_normal((2, 2, 3)).astype(np.float32)
+    ctx = ForwardContext(model=ex.model, params=params, mode="test")
+    ctx.outputs[sm.in_links[0]] = Argument(
+        ids=torch.from_numpy(cols).long(), sparse_vals=torch.from_numpy(vals),
+        sparse_dim=8, lengths=lens)
+    jctx = JContext(model=jfex.model, params=jfparams, mode="test")
+    jctx.outputs[sm.in_links[0]] = JArgument(
+        ids=jnp.asarray(cols), sparse_vals=jnp.asarray(vals), sparse_dim=8,
+        lengths=jnp.asarray(lens.numpy()))
+    ex._run_scan(ctx, sm)
+    jfex._run_scan(jctx, jfex._sub_by_name[sm.name])
+    out = sm.output_layer_names[0]
+    np.testing.assert_allclose(ctx.outputs[out].value.numpy(),
+                               np.asarray(jctx.outputs[out].value),
+                               rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="generator"):
         ex.forward(params, {"word": Argument(ids=torch.zeros(
             2, 2, dtype=torch.long), lengths=lens)}, mode="gen")

@@ -822,7 +822,8 @@ def test_lookup_rows_matches_the_gather_and_repeats_bit_for_bit():
 def test_prepare_batch_takes_sparse_rows_and_refuses_nested_feeds():
     """Trainer.prepare_batch moves sparse rows to the device as int64 ids
     with their values, range-checks the ids against the rows' width, and
-    still refuses a nested feed, naming the rest of Queue 1 item 5."""
+    takes a nested feed with its sub_lengths, as the JAX Trainer takes
+    it (its ids range-checked like a flat feed's)."""
     from paddle_tpu_torch.config.parser import parse_config
     from paddle_tpu_torch.trainer import Trainer
     tr = Trainer(parse_config("demo/sequence_tagging/linear_crf.py",
@@ -845,7 +846,14 @@ def test_prepare_batch_takes_sparse_rows_and_refuses_nested_feeds():
     with pytest.raises(ValueError, match="sparse row width 1024"):
         tr.prepare_batch(batch(feats + 1020))
     nested = batch(feats)
-    nested["word"] = Argument(ids=ids, lengths=lens,
-                              sub_lengths=np.ones((2, 2), np.int32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    sub = np.array([[2, 1], [3, 0]], np.int32)
+    nested["word"] = Argument(ids=np.zeros((2, 2, 3), np.int32),
+                              lengths=lens - 1, sub_lengths=sub)
+    got = tr.prepare_batch(nested)["word"]
+    assert torch.equal(got.sub_lengths, _t(sub))
+    assert torch.equal(got.lengths, _t(lens - 1))
+    assert got.ids.shape == (2, 2, 3) and got.ids.dtype == torch.int64
+    nested["word"] = nested["word"].replace(
+        ids=np.full((2, 2, 3), 10 ** 6, np.int32))
+    with pytest.raises(ValueError, match="out of range"):
         tr.prepare_batch(nested)
