@@ -26,9 +26,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
                rows, a row longer than
                a split beside splits without a live token, rep 1-8, D 32,
                33, 40, 64, 128, pages 2-48, contexts to 4096, decode rows
-               with row_slot given and None; two identical launches
-               bit-identical, a decode launch replayed from a CUDA graph
-               equal to eager bit for bit;
+               with row_slot given and None; rows whose table rows map
+               the same physical pages (k5_shared_case: a shared prefix, a
+               copy-on-write copy, two identical table rows); two
+               identical launches bit-identical, a decode launch replayed
+               from a CUDA graph equal to eager bit for bit;
   4. serve   — the serving path: the transformer LM at full width (vocab
                32000, dim 512, 8 layers, 8 heads, bfloat16, random weights
                from seed 1) serving 32 requests through ServingEngine; the
@@ -37,8 +39,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
                the requests (device busy share, top kernels, the kernel's
                share), and the kernel's time per launch, replayed at the
                launches the run made, over all of them and apart for the
-               decode and the mixed launches, each beside its memory bound
-               and with the split count pinned to 1, 2, 4, 8 (measurement),
+               decode and the mixed launches, each beside its memory bound,
+               at the engine's one split count (ServingEngine.splits: every
+               launch of an engine takes it, so a token's bits do not
+               depend on the step type that carried it), at the wrapper's
+               per-shape plan and with the split count pinned to 1, 2, 4, 8
+               (measurement),
                each timed in K5_ROUNDS rounds (median and range), beside
                the plain version's; then the same 32 requests on an engine
                with decode_steps=KSTEP (4: windows of 4 decode steps, each
@@ -50,7 +56,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
                share, kernels and host launch calls a step), in which the
                card launched the kernel once per layer per forward (the
                profiler's kernel events; window bodies included) and the
-               wrapper counted only the forwards outside the windows;
+               wrapper counted only the forwards outside the windows; the
+               engines of this phase keep the prefix cache off
+               (prefix_cache=False), as before it was ported;
+  4b. serve-prefix — the reference engine's default serving at the same
+               width: the repo's prefix-skew workload (PREFIX_WORKLOAD: 64
+               requests, 8 prefixes of 128 tokens drawn with Zipf exponent
+               1.0, suffixes of 16-64 tokens, max_new 64, every fourth
+               sampled) (1) with the prefix cache on and off, two rounds
+               in swapped order from a cold cache (hits, prefill tokens
+               saved, copy-on-write copies, tokens/s, ms/step) and a
+               profiled run of 8 requests each way; (2) on a pool of
+               PREFIX_PAGES - 1 = 128 real pages (preemptions replayed,
+               check_reclaimed before and after reset_prefix_cache); (3)
+               at decode_steps=KSTEP, cache on, its windows replayed from
+               CUDA graphs (K5's launches in them read from the profiler
+               over 8 requests); (4)
+               with three cancels at step 30 and deadlines at step 60 on
+               the step clock; (5) checkpoint_state taken mid-flight
+               (timed), save_state / load_state onto a fresh engine
+               (timed).  Every run's tokens equal the first cache-off
+               run's (an ended request's a prefix of them), K5 launches
+               once per attention layer per step and the plain version
+               never;
   5. routes  — float32, 2 layers at full width: the engine reading through
                the kernel against the engine reading through the page-table
                gather (attn_impl='dense'), lm_head rows at the first mixed
@@ -562,6 +590,36 @@ K5_EDGE = ([(8, h_kv, 64, ps, 768) for h_kv in (8, 4, 2, 1)
               (8, 8, 64, 2, 4096), (6, 2, 40, 48, 768), (3, 1, 33, 5, 770)])
 
 
+def k5_shared_case(g, *, dtype, H: int = 8, h_kv: int = 8, D: int = 64,
+                   ps: int = 16, dev="cuda"):
+    """Rows whose table rows map the same physical pages, as the prefix
+    cache leaves them: slots 0-2 share an 8-page prefix (slot 1 beside it
+    a copy of slot 0's boundary page, as copy-on-write makes it), slot 3
+    maps slot 0's whole table, slot 4 chunks a 64-token suffix after the
+    shared prefix; decode rows of slots 0-3, the chunk, 3 padding rows."""
+    S, maxp = 5, 16
+    P = 1 + 3 * maxp
+    k = torch.randn(P, ps, h_kv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(P, ps, h_kv, D, generator=g, device=dev).to(dtype)
+    table = torch.zeros(S + 1, maxp, dtype=torch.int32)
+    shared = torch.arange(1, 9, dtype=torch.int32)          # the prefix
+    own = iter(range(9, P))
+    lens = [8 * ps + 40, 8 * ps + 7, 8 * ps, 8 * ps + 40, 8 * ps + 64]
+    for s in (0, 1, 2, 4):
+        table[s, :8] = shared
+        for j in range(8, -(-lens[s] // ps)):
+            table[s, j] = next(own)
+    k[table[1, 8]] = k[table[0, 8]]                      # a COW'd copy
+    v[table[1, 8]] = v[table[0, 8]]
+    table[3] = table[0]
+    slots = [0, 1, 2, 3] + [4] * 64 + [S] * 3
+    lengths = lens[:4] + list(range(8 * ps + 1, 8 * ps + 65)) + [1] * 3
+    q = torch.randn(len(slots), H, D, generator=g, device=dev).to(dtype)
+    return (q, k, v, table.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev),
+            torch.tensor(slots, dtype=torch.int32, device=dev))
+
+
 def k5_repeat_and_graph() -> None:
     """Two identical launches at the serving run's mixed shape give the same
     bits; one decode launch captured in a CUDA graph replays equal to eager
@@ -656,6 +714,20 @@ def phase_kernel() -> float:
             f"layouts; rep 1-8; D 32, 33, 40, 64, 128; pages 2-48; contexts "
             f"to 4096) within atol {K5_ATOL[dtype]:g}; worst {mine[top]:.3e} "
             f"({top})")
+    # rows reading shared physical pages (the prefix cache)
+    for dtype, atol in K5_ATOL.items():
+        for H, h_kv in ((8, 8), (8, 2)):
+            err = k5_error(k5_shared_case(rng, dtype=dtype, H=H, h_kv=h_kv))
+            log(f"[kernel] {str(dtype)[6:]:8s} shared pages H={H} "
+                f"H_kv={h_kv}: 4 decode rows on one 8-page prefix (two on "
+                f"the same table), a 64-row chunk after it: max_abs_err "
+                f"{err:.3e} (atol {atol:g}) {'ok' if err <= atol else 'FAIL'}")
+            if err > atol:
+                raise AssertionError(f"paged_attention kernel disagrees with "
+                                     f"its plain version on shared pages: "
+                                     f"{err} > {atol}")
+            if dtype == torch.float32:
+                worst = max(worst, err)
     k5_repeat_and_graph()
     return worst
 
@@ -737,14 +809,15 @@ def k5_pinned(splits: int):
 K5_ROUNDS = 3
 
 
-def k5_serve_timings(parts: dict, smi: str) -> dict:
+def k5_serve_timings(parts: dict, smi: str, splits: int) -> dict:
     """K5 at the serving run's recorded layer-0 launches, per part (all,
-    decode, mixed): the plan's launch, the split count pinned to 1, 2, 4,
-    8, and the decode launches (row_slot None, as the engine passes it)
-    with an explicit row_slot of arange(R), the form the kernel's first
-    version was timed in; each variant K5_ROUNDS times.  Logs the median and the range
-    of each, and the bound; returns {part: (median ms of the plan's launch,
-    bound ms, bytes ms, flops ms)}."""
+    decode, mixed): the wrapper's shape plan, the split count pinned to 1,
+    2, 4, 8 (`splits` of them the engine's launches), and the decode
+    launches (row_slot None, as the engine passes it) with an explicit
+    row_slot of arange(R), the form the kernel's first version was timed
+    in; each variant K5_ROUNDS times.  Logs the median and the range of
+    each, and the bound; returns {part: (median ms of the engine's
+    launches, bound ms, bytes ms, flops ms)}."""
     from paddle_tpu_torch.ops import paged_attention as pa
     out = {}
     for what, launches_of in parts.items():
@@ -768,7 +841,8 @@ def k5_serve_timings(parts: dict, smi: str) -> dict:
         flops_ms = float(np.mean([f for _, f in bound])) / \
             PEAK_FLOPS[torch.bfloat16] * 1e3
         bound_ms = max(bytes_ms, flops_ms)
-        out[what] = (med["plan"], bound_ms, bytes_ms, flops_ms)
+        mine = med[f"splits {splits}"]
+        out[what] = (mine, bound_ms, bytes_ms, flops_ms)
         rows = sorted({a[0].shape[0] for a in launches_of})
         plans = sorted({(a[0].shape[0], a[3].shape[0],
                          pa.split_plan(a[0].shape[0], a[3].shape[0],
@@ -778,9 +852,10 @@ def k5_serve_timings(parts: dict, smi: str) -> dict:
             f"{what} launches (rows {rows[0]}..{rows[-1]}; (rows, table "
             f"rows, (splits, tokens)) "
             + ", ".join(str(p) for p in plans)
-            + f"): {med['plan'] * 1e3:.2f} us/launch; bound "
+            + f"): {mine * 1e3:.2f} us/launch at the engine's "
+            f"{splits} split(s); bound "
             f"{bound_ms * 1e3:.3f} us ({bytes_ms * 1e3:.3f} bytes, "
-            f"{flops_ms * 1e3:.4f} flops) = {bound_ms / med['plan']:.1%} of "
+            f"{flops_ms * 1e3:.4f} flops) = {bound_ms / mine:.1%} of "
             f"the bound [{smi}]")
         log(f"[serve]   {what}: median (min..max) of {K5_ROUNDS} rounds, "
             f"us/launch: "
@@ -803,7 +878,7 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
     ex = GraphExecutor(model, compute_dtype="bfloat16")
     params = init_params(model, seed=1)
     eng = ServingEngine(ex, params, num_slots=16, page_size=16,
-                        max_context=768)
+                        max_context=768, prefix_cache=False)
     assert (eng.prefill_chunk, eng.max_step_tokens) == (64, 80)
     # warm-up (library handles, allocator): not counted, not timed
     eng.run(serve_requests(4, vocab, seed=7, lo=8, hi=80, max_new=4,
@@ -822,9 +897,12 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
     wrapper = pa.paged_attention
 
     def recording(q, k_pages, v_pages, page_table, lengths, scale=None,
-                  row_slot=None):
+                  row_slot=None, splits=None):
+        if splits != eng.splits:
+            raise AssertionError(f"[serve] a launch with {splits} splits, "
+                                 f"the engine's are {eng.splits}")
         out = wrapper(q, k_pages, v_pages, page_table, lengths, scale,
-                      row_slot)
+                      row_slot, splits)
         if k_pages is eng.kv.pools[first]["k"]:
             recorded.append((q.clone(), k_pages, v_pages, page_table.clone(),
                              lengths.clone(),
@@ -878,7 +956,8 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
 
     # the same requests with multi-step decode (windows as CUDA graphs)
     engk = ServingEngine(ex, params, num_slots=16, page_size=16,
-                         max_context=768, decode_steps=KSTEP)
+                         max_context=768, decode_steps=KSTEP,
+                         prefix_cache=False)
     # warm-up: windows with a sampling slot, then all-greedy ones (each
     # variant's first window runs eagerly, its second is captured)
     engk.run(serve_requests(4, vocab, seed=7, lo=8, hi=80, max_new=12,
@@ -893,7 +972,7 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
     parts = {"all": recorded,
              "decode": [a for a in recorded if a[0].shape[0] <= a[3].shape[0]],
              "mixed": [a for a in recorded if a[0].shape[0] > a[3].shape[0]]}
-    times = k5_serve_timings(parts, smi)
+    times = k5_serve_timings(parts, smi, eng.splits)
     kern_ms, bound_ms, bytes_ms, flops_ms = times["all"]
     plain_ms = time_launches(pa.paged_attention_plain, recorded)
     log(f"[serve] kernel over all {len(recorded)} layer-0 launches "
@@ -944,6 +1023,8 @@ def device_rows(prof) -> tuple[list, int]:
         if getattr(e, "is_hidden_event", lambda: False)():
             continue
         if e.device_type() == DeviceType.CUDA:
+            if PAD_KERNEL.search(e.name()):
+                continue                    # profiled()'s pads
             row = by_name.setdefault(e.name(), [0, 0])
             row[0] += 1
             row[1] += e.duration_ns()
@@ -959,23 +1040,41 @@ def device_rows(prof) -> tuple[list, int]:
     return list(rows.values()), calls
 
 
+# spin kernels launched before and after every profiled run: the tracer
+# has dropped a kernel record at a session's start (a replay-held check
+# then failed: PERF.md §7); with the pads there, the records at a
+# session's edges are theirs.  device_rows leaves them out, profiled()
+# takes their launch calls off
+PROFILE_PADS = (64, 1024)
+PAD_KERNEL = re.compile(r"(?<!\w)spin_kernel(?!\w)")
+
+
+def spin_pad(n: int) -> None:
+    for _ in range(n):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
 def profiled(run):
     """run() under torch.profiler (host operators and the card's
-    activity): (what it returned, wall ms, the device events and the host
-    launch calls as `device_rows` sums them)."""
+    activity), between PROFILE_PADS spin kernels: (what it returned, wall
+    ms, the device events and the host launch calls as `device_rows` sums
+    them, the pads left out)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        spin_pad(PROFILE_PADS[0])
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        spin_pad(PROFILE_PADS[1])
     kernels, calls = device_rows(prof)
     PROFILER_SECONDS[0] += time.perf_counter() - start - wall_ms / 1e3
-    return out, wall_ms, kernels, calls
+    return out, wall_ms, kernels, calls - sum(PROFILE_PADS)
 
 
 # each hand-written kernel's symbol (paddle_tpu_torch/csrc/*.cu) and the
@@ -1414,6 +1513,397 @@ def kstep_alternating(tag: str, make, long_b: list, short_b: list,
     del t1, tk
     torch.cuda.empty_cache()
     return graphs
+
+
+# the repo's prefix-skew serving workload (tools/bench_serving.py
+# make_prefix_prompts as bench.py bench_serving_prefix sizes it): 64
+# requests, 8 shared prefixes of 128 tokens drawn with Zipf exponent 1.0,
+# unique suffixes of 16-64 tokens, 64 new tokens each
+PREFIX_WORKLOAD = dict(n=64, prefix_pool=8, prefix_len=128, prefix_skew=1.0,
+                       suffix_lo=16, suffix_hi=64, max_new=64)
+PREFIX_PAGES = 129      # [serve-prefix] run 2: 128 real pages, overcommitted
+
+
+def make_prefix_prompts(n: int, prefix_pool: int, prefix_len: int,
+                        prefix_skew: float, suffix_lo: int, suffix_hi: int,
+                        vocab: int, pool_seed: int = 0, seed: int = 0):
+    """Prompts of the prefix-skew workload: each draws one of
+    `prefix_pool` shared prefixes (rank k with probability proportional to
+    1 / (k + 1)^prefix_skew; the pool seeded by `pool_seed` alone) and
+    appends a unique suffix of suffix_lo..suffix_hi tokens."""
+    pool_rng = np.random.default_rng(pool_seed)
+    prefixes = [pool_rng.integers(2, vocab, prefix_len).astype(np.int32)
+                for _ in range(prefix_pool)]
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, prefix_pool + 1, dtype=np.float64) ** prefix_skew
+    w /= w.sum()
+    prompts = []
+    for _ in range(n):
+        k = int(rng.choice(prefix_pool, p=w))
+        s = int(rng.integers(suffix_lo, suffix_hi + 1))
+        prompts.append(np.concatenate(
+            [prefixes[k], rng.integers(2, vocab, s).astype(np.int32)]))
+    return prompts
+
+
+def prefix_requests(vocab: int, n: Optional[int] = None):
+    """The workload's requests (the first `n`), every fourth sampled."""
+    from paddle_tpu_torch.serving import Request
+    w = dict(PREFIX_WORKLOAD)
+    prompts = make_prefix_prompts(w.pop("n"), vocab=vocab, **{
+        k: w[k] for k in ("prefix_pool", "prefix_len", "prefix_skew",
+                          "suffix_lo", "suffix_hi")})
+    return [Request(i, p, max_new=w["max_new"],
+                    **(dict(temperature=0.8, top_k=50, top_p=0.9,
+                            seed=1000 + i) if i % 4 == 0 else {}))
+            for i, p in enumerate(prompts[:n])]
+
+
+ENGINE_COUNTERS = ("n_decode_steps", "n_mixed_steps", "n_prefill_chunks",
+                   "tokens_generated", "n_prefix_hits", "n_prefix_misses",
+                   "prefill_tokens_saved", "n_preemptions", "n_cancelled",
+                   "n_expired", "n_scan_flushes", "n_scan_steps")
+
+
+def engine_counters(eng) -> dict:
+    return {c: getattr(eng, c) for c in ENGINE_COUNTERS} | {
+        "n_cow": eng.kv.n_cow}
+
+
+def counter_moves(eng, before: dict) -> dict:
+    return {c: v - before[c] for c, v in engine_counters(eng).items()}
+
+
+def same_tokens(what: str, got: dict, want: dict) -> None:
+    bad = [i for i in want if i in got and not np.array_equal(got[i],
+                                                               want[i])]
+    if bad or not set(got) <= set(want):
+        raise AssertionError(f"{what}: tokens differ from the cache-off run "
+                             f"for requests {bad[:8]}")
+
+
+def check_k5_eager(what: str, layers: int, steps: int) -> int:
+    """An eager run's K5 launches, counted since reset_counts(): once per
+    attention layer per step, no plain version."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    if pa.counts.kernel != layers * steps or any(plain_calls().values()):
+        raise AssertionError(f"{what}: {pa.counts.kernel} K5 launches for "
+                             f"{steps} steps x {layers} layers, plain calls "
+                             f"{plain_calls()}")
+    return pa.counts.kernel
+
+
+def prefix_run(eng, reqs, layers: int, what: str, smi: str):
+    """Serve `reqs` on `eng` from a cold cache, timed; K5 held to one launch
+    per layer per step and every request to its full length.  Returns
+    (results, counter moves, wall s)."""
+    eng.reset_prefix_cache()
+    before = engine_counters(eng)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = counter_moves(eng, before)
+    launches = check_k5_eager(what, layers, d["n_decode_steps"])
+    want_len = {r.req_id: r.prompt_ids.size + r.max_new for r in reqs}
+    if {i: t.size for i, t in res.items()} != want_len:
+        raise AssertionError(f"{what}: requests missing or cut short")
+    seen = d["n_prefix_hits"] + d["n_prefix_misses"]
+    log(f"[serve-prefix] {what}: {len(res)} requests, "
+        f"{d['n_decode_steps']} steps ({d['n_mixed_steps']} mixed, "
+        f"{d['n_prefill_chunks']} chunks), {d['tokens_generated']} tokens in "
+        f"{wall:.3f}s = {d['tokens_generated'] / wall:.1f} tokens/s, "
+        f"{wall / d['n_decode_steps'] * 1e3:.2f} ms/step; prefix hits "
+        f"{d['n_prefix_hits']} of {seen} admissions"
+        + (f" ({d['n_prefix_hits'] / seen:.1%})" if seen else "")
+        + f", prefill tokens saved {d['prefill_tokens_saved']}, n_cow "
+        f"{d['n_cow']}, preemptions {d['n_preemptions']}; K5 launches "
+        f"{launches} = {layers} x {d['n_decode_steps']}, plain 0 [{smi}]")
+    return res, d, wall
+
+
+def prefix_on_off(c) -> None:
+    """[serve-prefix] 1: the workload with the cache on and off, two rounds
+    in swapped order, from a cold cache each; then a profiled run of 8
+    requests each way (the cache warm from the last round).  The first
+    run's tokens become c.want, which every later run must equal."""
+    engines = {on: c.engine(prefix_cache=on) for on in (True, False)}
+    for eng in engines.values():            # warm-up: not counted
+        eng.run(serve_requests(4, c.vocab, seed=7, lo=8, hi=80, max_new=4,
+                               sampled_every=2))
+    want = None
+    rows = {True: [], False: []}
+    for r in range(2):
+        for on in ((False, True) if r == 0 else (True, False)):
+            res, d, wall = prefix_run(
+                engines[on], prefix_requests(c.vocab), c.layers,
+                f"cache {'on' if on else 'off'} round {r + 1}", c.smi)
+            if want is None:
+                want = res
+            same_tokens(f"[serve-prefix] cache {'on' if on else 'off'}",
+                        res, want)
+            rows[on].append((d, wall))
+    if rows[True][0][0]["n_prefix_hits"] <= 0 or \
+            rows[False][0][0]["n_prefix_hits"]:
+        raise AssertionError("[serve-prefix] no prefix hit with the cache "
+                             "on, or one with it off")
+
+    def rates(on, f):
+        return " / ".join(f(d, w) for d, w in rows[on])
+
+    tok_s = lambda d, w: f"{d['tokens_generated'] / w:.1f}"  # noqa: E731
+    ms = lambda d, w: f"{w / d['n_decode_steps'] * 1e3:.2f}"  # noqa: E731
+    log(f"[serve-prefix] cache on against off: tokens equal request for "
+        f"request in all four runs; tokens/s on {rates(True, tok_s)}, off "
+        f"{rates(False, tok_s)}; ms/step on {rates(True, ms)}, off "
+        f"{rates(False, ms)} [{c.smi}]")
+    for on in (True, False):
+        eng = engines[on]
+        before = engine_counters(eng)
+        reset_counts()
+        out, pwall, kernels, calls = profiled(
+            lambda: eng.run(prefix_requests(c.vocab, 8)))
+        d = counter_moves(eng, before)
+        steps = d["n_decode_steps"]
+        same_tokens("[serve-prefix] profiled", out, want)
+        line = check_launches(
+            f"[serve-prefix] cache {'on' if on else 'off'}", kernels,
+            {"paged_attention_kernel": c.layers * steps}, False)
+        busy = sum(dev_us(e) for e in kernels) / 1e3
+        k5 = sum(dev_us(e) for e in kernels
+                 if "paged_attention" in e.key) / 1e3
+        log(f"[serve-prefix] profiled 8 requests, cache "
+            f"{'on' if on else 'off'} (warm): {steps} steps, prefix hits "
+            f"{d['n_prefix_hits']}, n_cow {d['n_cow']}, device "
+            f"{busy / steps:.2f} ms/step, busy {busy / pwall:.1%} of "
+            f"{pwall:.1f} ms, K5 {k5 / max(busy, 1e-9):.1%} of the device "
+            f"time, {sum(e.count for e in kernels) / steps:.0f} kernels and "
+            f"{calls / steps:.1f} host launch calls a step; {line} "
+            f"[{c.smi}]")
+    c.eng, c.want = engines[True], want
+
+
+def prefix_overcommit(c) -> None:
+    """[serve-prefix] 2: the workload on a pool of PREFIX_PAGES - 1 real
+    pages, half of what 16 slots of the longest request need."""
+    over = c.engine(prefix_cache=True, num_pages=PREFIX_PAGES)
+    res, d, _ = prefix_run(over, prefix_requests(c.vocab), c.layers,
+                           f"num_pages={PREFIX_PAGES}", c.smi)
+    same_tokens("[serve-prefix] overcommitted", res, c.want)
+    if d["n_preemptions"] <= 0:
+        raise AssertionError("[serve-prefix] the overcommitted pool never "
+                             "preempted")
+    over.kv.check_reclaimed()
+    over.reset_prefix_cache()
+    over.kv.check_reclaimed()
+    log(f"[serve-prefix] overcommitted: tokens equal, "
+        f"{d['n_preemptions']} preemptions replayed, check_reclaimed holds "
+        f"before and after reset_prefix_cache [{c.smi}]")
+
+
+def prefix_windows(c) -> None:
+    """[serve-prefix] 3: the workload at decode_steps=KSTEP, cache on, its
+    windows replayed from CUDA graphs (both variants captured by a
+    warm-up): timed, the wrapper counting K5 once per layer per step
+    outside the windows; then 8 requests profiled, K5's launches inside
+    the replays read from the profiler, as kstep_serving reads them."""
+    engk = c.engine(prefix_cache=True, decode_steps=KSTEP)
+    engk.run(serve_requests(4, c.vocab, seed=7, lo=8, hi=80, max_new=12,
+                            sampled_every=2))
+    engk.run(serve_requests(2, c.vocab, seed=8, lo=8, hi=80, max_new=12))
+    engk.reset_prefix_cache()
+    before = engine_counters(engk)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engk.run(prefix_requests(c.vocab))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = counter_moves(engk, before)
+    same_tokens(f"[serve-prefix] decode_steps={KSTEP}", res, c.want)
+    check_k5_eager(f"[serve-prefix] decode_steps={KSTEP}, outside the "
+                   f"windows", c.layers,
+                   d["n_decode_steps"] - d["n_scan_flushes"])
+    before = engine_counters(engk)
+    reset_counts()
+    out, pwall, kernels, calls = profiled(
+        lambda: engk.run(prefix_requests(c.vocab, 8)))
+    p = counter_moves(engk, before)
+    same_tokens(f"[serve-prefix] decode_steps={KSTEP} profiled", out,
+                c.want)
+    eager = p["n_decode_steps"] - p["n_scan_flushes"]
+    line = check_launches(
+        f"[serve-prefix] decode_steps={KSTEP}", kernels,
+        {"paged_attention_kernel": c.layers * (eager + p["n_scan_steps"])},
+        True, {"paged_attention_kernel": c.layers * eager})
+    replays = sum(g.replays for g in engk._windows[KSTEP].graphs.values()
+                  if g is not None)
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    log(f"[serve-prefix] decode_steps={KSTEP}, cache on: tokens equal; "
+        f"{d['n_decode_steps']} steps ({d['n_scan_flushes']} windows), "
+        f"{d['tokens_generated'] / wall:.1f} tokens/s, "
+        f"{wall / d['n_decode_steps'] * 1e3:.2f} ms/step, prefix hits "
+        f"{d['n_prefix_hits']}; profiled 8 requests (cache warm): "
+        f"{p['n_decode_steps']} steps ({p['n_scan_flushes']} windows), "
+        f"device {busy / p['n_decode_steps']:.2f} ms/step, busy "
+        f"{busy / pwall:.1%}, {calls / p['n_decode_steps']:.1f} host launch "
+        f"calls a step; window graphs replayed {replays} times; {line} "
+        f"[{c.smi}]")
+    if replays < 1:
+        raise AssertionError("[serve-prefix] no window replayed")
+
+
+PREFIX_CANCEL = (5, 6, 50)      # cancelled at step 30
+PREFIX_DEADLINE = 60.0          # for every eighth request from the fourth
+
+
+def prefix_cancel(c) -> None:
+    """[serve-prefix] 4: cancels and deadlines mid-flight on the clock
+    lambda: steps since the run began, cache on: the survivors' tokens
+    equal the uninterrupted run's, an ended request's are a prefix of
+    its uninterrupted run's."""
+    eng = c.eng
+    eng.reset_prefix_cache()
+    base = eng.n_decode_steps
+    eng.clock = lambda: eng.n_decode_steps - base
+    reqs = prefix_requests(c.vocab)
+    for r in reqs[3::8]:
+        r.deadline = PREFIX_DEADLINE
+    before = engine_counters(eng)
+    reset_counts()
+    for r in reqs:
+        eng.add_request(r)
+    while eng.step():
+        if eng.n_decode_steps - base == 30:
+            for i in PREFIX_CANCEL:
+                if not eng.cancel(i):
+                    raise AssertionError(f"[serve-prefix] cancel({i}): "
+                                         f"unknown or finished")
+    eng.clock = time.monotonic
+    d = counter_moves(eng, before)
+    check_k5_eager("[serve-prefix] cancel and deadlines", c.layers,
+                   d["n_decode_steps"])
+    res, why = eng.results, eng.finish_reasons
+    for i, toks in res.items():
+        if not np.array_equal(toks, c.want[i][:toks.size]) or (
+                why[i] == "length" and toks.size != c.want[i].size):
+            raise AssertionError(f"[serve-prefix] request {i} ({why[i]}) "
+                                 f"is not its uninterrupted run's prefix")
+    cancelled = sorted(i for i, w in why.items() if w == "cancelled")
+    expired = sorted(i for i, w in why.items() if w == "deadline")
+    if (cancelled != list(PREFIX_CANCEL) or not expired
+            or (d["n_cancelled"], d["n_expired"]) != (len(cancelled),
+                                                      len(expired))
+            or len(res) != len(reqs)):
+        raise AssertionError(f"[serve-prefix] cancel/deadline accounting: "
+                             f"{why}, counters {d}")
+    eng.kv.check_reclaimed()
+    log(f"[serve-prefix] cancel and deadlines: {len(cancelled)} cancelled "
+        f"at step 30, {len(expired)} of {len(reqs[3::8])} with deadline "
+        f"{PREFIX_DEADLINE:g} expired; the others' tokens equal the "
+        f"uninterrupted run, the ended ones' a prefix of it; "
+        f"{d['n_decode_steps']} steps [{c.smi}]")
+    eng.results.clear()
+    eng.finish_reasons.clear()
+
+
+def mid_flight(eng) -> bool:
+    """A slot decoding, a slot part way through its prompt, a request
+    queued."""
+    live = [sl for sl in eng.slots if sl is not None]
+    return (bool(eng.queue) and any(sl.gen >= 1 for sl in live)
+            and any(sl.gen == 0 and 0 < sl.pos < sl.req.prompt_ids.size
+                    for sl in live))
+
+
+def prefix_checkpoint(c) -> None:
+    """[serve-prefix] 5: checkpoint_state mid-flight (timed: the pools
+    copied to the host), save_state to a file and load_state onto a fresh
+    engine (each timed), which finishes with the uninterrupted tokens."""
+    import tempfile
+
+    eng = c.eng
+    eng.reset_prefix_cache()
+    for r in prefix_requests(c.vocab):
+        eng.add_request(r)
+    while not mid_flight(eng):
+        if not eng.step():
+            raise AssertionError("[serve-prefix] never reached a mid-flight "
+                                 "state to checkpoint")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = eng.checkpoint_state()
+    ckpt_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "engine.pkl")
+        t0 = time.perf_counter()
+        eng.save_state(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        res_a = eng.run()
+        fresh = c.engine(prefix_cache=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.load_state(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    before = engine_counters(fresh)
+    reset_counts()
+    res_b = fresh.run()
+    d = counter_moves(fresh, before)
+    check_k5_eager("[serve-prefix] restored", c.layers, d["n_decode_steps"])
+    done = dict(snap["results"])
+    same_tokens("[serve-prefix] uninterrupted", res_a, c.want)
+    same_tokens("[serve-prefix] restored", res_b | done, c.want)
+    if sorted(res_b | done) != sorted(c.want) or \
+            sorted(res_a) != sorted(res_b):
+        raise AssertionError("[serve-prefix] the restored engine did not "
+                             "finish every request")
+    fresh.kv.check_reclaimed()
+    slots = [x for x in snap["slots"] if x is not None]
+    log(f"[serve-prefix] checkpoint with {len(slots)} slots live "
+        f"({sum(x['gen'] == 0 for x in slots)} mid-prompt) and "
+        f"{len(snap['queue'])} queued: checkpoint_state "
+        f"{ckpt_s * 1e3:.1f} ms (pools {fresh.kv.pool_bytes / 1e6:.1f} MB "
+        f"to the host), save_state {save_s * 1e3:.1f} ms "
+        f"({size / 1e6:.1f} MB file), load_state {load_s * 1e3:.1f} ms; the "
+        f"fresh engine finished {len(res_b)} requests with the "
+        f"uninterrupted tokens [{c.smi}]")
+
+
+def phase_serve_prefix(smi: str) -> None:
+    """The reference engine's default serving on the card (module
+    docstring, phase 4b): the prefix-skew workload at [serve]'s width,
+    (1) cache on against off, (2) an overcommitted pool, (3) windows,
+    (4) cancels and deadlines, (5) a checkpoint restored mid-flight."""
+    from paddle_tpu_torch.graph import GraphExecutor
+    from paddle_tpu_torch.models import transformer_lm_config
+    from paddle_tpu_torch.parameter import init_params
+    from paddle_tpu_torch.serving import ServingEngine
+
+    vocab, layers = 32000, 8
+    model = transformer_lm_config(vocab=vocab, dim=512, layers=layers,
+                                  heads=8)
+    ex = GraphExecutor(model, compute_dtype="bfloat16")
+    params = init_params(model, seed=1)
+
+    def engine(**kw):
+        return ServingEngine(ex, params, num_slots=16, page_size=16,
+                             max_context=768, **kw)
+
+    # eng: the cache-on engine of (1), reused by (4) and (5); want: (1)'s
+    # tokens
+    c = types.SimpleNamespace(vocab=vocab, layers=layers, smi=smi,
+                              engine=engine, eng=None, want=None)
+    for n, fn in enumerate((prefix_on_off, prefix_overcommit, prefix_windows,
+                            prefix_cancel, prefix_checkpoint), 1):
+        start = time.perf_counter()
+        fn(c)
+        log(f"[serve-prefix] ({n}) {fn.__name__}: "
+            f"{time.perf_counter() - start:.1f} s [{smi}]")
+        torch.cuda.empty_cache()
 
 
 def phase_routes() -> None:
@@ -4814,6 +5304,7 @@ def main(argv=None) -> int:
     phase("build", phase_build)
     err = phase("kernel", phase_kernel)
     record = phase("serve", phase_serve, smi, err)
+    phase("serve-prefix", phase_serve_prefix, smi)
     phase("routes", phase_routes)
     phase("flash", phase_flash)
     flash = phase("train", phase_train, smi)

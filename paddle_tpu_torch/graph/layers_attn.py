@@ -137,7 +137,8 @@ def _paged_step(ctx: ForwardContext, cfg: LayerConfig, x_arg: Argument,
     """One decode micro-step: project each slot's single new token
     ([S, 1, model_dim]), write its K/V into the slot's current page, attend
     over the slot's paged context.  Emits the (in-place updated) pools
-    through ctx.state_out."""
+    through ctx.state_out.  cache["splits"], when given, pins the kernel's
+    split count."""
     x = x_arg.value
     S, Tn, model_dim = x.shape
     if Tn != 1:
@@ -151,7 +152,8 @@ def _paged_step(ctx: ForwardContext, cfg: LayerConfig, x_arg: Argument,
         q, k = rope(q, pos[:, None], theta), rope(k, pos[:, None], theta)
     out, ck, cv = paged_attention_step(
         q, k, v, cache["k_pages"], cache["v_pages"], cache["page_table"],
-        pos, window=_window(cfg), use_kernel=_paged_use_kernel(cfg))
+        pos, window=_window(cfg), use_kernel=_paged_use_kernel(cfg),
+        splits=cache.get("splits"))
     ctx.state_out[cfg.name] = {"k_pages": ck, "v_pages": cv,
                                "page_table": cache["page_table"],
                                "pos": pos + 1}
@@ -164,7 +166,8 @@ def _paged_ragged_step(ctx: ForwardContext, cfg: LayerConfig,
     """One mixed prefill/decode step: the input is a packed ragged token
     list [1, T, model_dim]; row r is one token of table row
     cache["row_slot"][r] at global position cache["row_pos"][r].  Emits the
-    (in-place updated) pools through ctx.state_out."""
+    (in-place updated) pools through ctx.state_out.  cache["splits"], when
+    given, pins the kernel's split count."""
     x = x_arg.value
     B, T, model_dim = x.shape
     if B != 1:
@@ -180,7 +183,7 @@ def _paged_ragged_step(ctx: ForwardContext, cfg: LayerConfig,
     out, ck, cv = ragged_paged_attention_step(
         q, k, v, cache["k_pages"], cache["v_pages"], cache["page_table"],
         cache["row_slot"], row_pos, window=_window(cfg),
-        use_kernel=_paged_use_kernel(cfg))
+        use_kernel=_paged_use_kernel(cfg), splits=cache.get("splits"))
     ctx.state_out[cfg.name] = {"k_pages": ck, "v_pages": cv,
                                "page_table": cache["page_table"],
                                "row_slot": cache["row_slot"],

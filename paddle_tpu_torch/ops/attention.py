@@ -124,7 +124,8 @@ def _gather_read(q, ck, cv, rows_table, row_pos, scale: float,
 def paged_attention_step(q_new, k_new, v_new, k_pages, v_pages, page_table,
                          pos, scale: Optional[float] = None,
                          window: Optional[int] = None,
-                         use_kernel: Optional[bool] = None):
+                         use_kernel: Optional[bool] = None,
+                         splits: Optional[int] = None):
     """One decode micro-step against the paged KV pool: slot s's new token
     (q/k/v_new [S, 1, H(_kv), D]) lands at logical position pos[s] —
     physical page page_table[s, pos[s] // page_size], offset
@@ -132,7 +133,8 @@ def paged_attention_step(q_new, k_new, v_new, k_pages, v_pages, page_table,
     logical pages are 0, the trash page.  Returns (out [S, 1, H, D],
     k_pages, v_pages) with the pools updated in place.  `use_kernel=None`
     routes the read through the kernel unless a window is set; False
-    forces the gather read."""
+    forces the gather read.  `splits` pins the kernel's split count
+    (ops/paged_attention.py)."""
     S, Tn, H, D = q_new.shape
     if Tn != 1:
         raise ValueError("paged decode feeds exactly one new token per slot")
@@ -153,7 +155,7 @@ def paged_attention_step(q_new, k_new, v_new, k_pages, v_pages, page_table,
                              "use_kernel=False or None")
         out = pa.paged_attention(q_new[:, 0].contiguous(), k_pages, v_pages,
                                  page_table, (pos + 1).to(torch.int32),
-                                 scale=scale)
+                                 scale=scale, splits=splits)
         return out[:, None], k_pages, v_pages
     out = _gather_read(q_new[:, 0], k_pages, v_pages, page_table, pos,
                        scale, window)
@@ -164,7 +166,8 @@ def ragged_paged_attention_step(q_new, k_new, v_new, k_pages, v_pages,
                                 page_table, row_slot, row_pos,
                                 scale: Optional[float] = None,
                                 window: Optional[int] = None,
-                                use_kernel: Optional[bool] = None):
+                                use_kernel: Optional[bool] = None,
+                                splits: Optional[int] = None):
     """The mixed prefill/decode step: packed query rows q/k/v_new
     [T, H(_kv), D], row r being one token of table row row_slot[r] at
     global position row_pos[r].  Every row's K/V is written first, so the
@@ -192,7 +195,8 @@ def ragged_paged_attention_step(q_new, k_new, v_new, k_pages, v_pages,
         out = pa.paged_attention(q_new.contiguous(), k_pages, v_pages,
                                  page_table, (rp + 1).to(torch.int32),
                                  scale=scale,
-                                 row_slot=row_slot.to(torch.int32))
+                                 row_slot=row_slot.to(torch.int32),
+                                 splits=splits)
         return out, k_pages, v_pages
     out = _gather_read(q_new, k_pages, v_pages, page_table[rs], rp, scale,
                        window)

@@ -14,7 +14,9 @@ rounds, the cluster's wait for its slowest split, the merge; PERF.md).  It
 splits each row's keys over a thread-block cluster of CTAs whose
 partial softmax states merge on chip (`split_plan` picks the split count
 from shapes alone, so the wrapper never reads row_slot or lengths on the
-host), gives each CTA the query heads of one kv head of one row, and
+host; a row's result depends on that count, so the serving engine pins
+one for all its launches), gives each CTA the query heads of one kv head
+of one row, and
 scores a block of staged keys with a lane per token, not a warp reduction
 per token.
 
@@ -204,26 +206,30 @@ def _check(q, k_pages, v_pages, page_table, lengths, row_slot) -> None:
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
                     lengths: torch.Tensor, scale: Optional[float] = None,
-                    row_slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    row_slot: Optional[torch.Tensor] = None,
+                    splits: Optional[int] = None) -> torch.Tensor:
     """Ragged paged attention -> [R, H, D].
 
     q [R, H, D]; pools [P, page_size, H_kv, D] (float32 or bfloat16, the
     same dtype as q); page_table [S, max_pages] int32 (0 = unmapped, the
     trash page); lengths [R] int32 tokens row r attends (its own included);
     row_slot [R] int32 table row of each query row (None: row r reads
-    table row r, one decode token per slot)."""
+    table row r, one decode token per slot).  `splits` pins the kernel's
+    split count (None: `split_plan`'s); a row's result depends on it, so
+    the serving engine pins one count for all its launches (the plain
+    version ignores it)."""
     if q.device.type == "cpu":
         _check(q, k_pages, v_pages, page_table, lengths, row_slot)
         return paged_attention_plain(q, k_pages, v_pages, page_table,
                                      lengths, scale, row_slot)
-    return _launch(q, k_pages, v_pages, page_table, lengths, scale, row_slot)
+    return _launch(q, k_pages, v_pages, page_table, lengths, scale, row_slot,
+                   splits)
 
 
 def _launch(q, k_pages, v_pages, page_table, lengths, scale=None,
             row_slot=None, splits: Optional[int] = None) -> torch.Tensor:
-    """The kernel launch behind `paged_attention` on CUDA tensors.  `splits`
-    pins the split count (the measurements and card tests call it so; the
-    wrapper takes `split_plan`'s)."""
+    """The kernel launch behind `paged_attention` on CUDA tensors, with
+    `splits` as `paged_attention` takes it."""
     R, H, D = q.shape
     if scale is None:
         scale = D ** -0.5

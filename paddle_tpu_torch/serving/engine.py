@@ -1,11 +1,13 @@
 """Continuous-batching LM serving engine — the counterpart of
-paddle_tpu/serving/engine.py's `ServingEngine` and `Request`.
+paddle_tpu/serving/engine.py's `ServingEngine` and `Request`, in the
+reference's default configuration: prefix cache on, the pool
+overcommittable.
 
 A fixed set of S decode SLOTS, each holding at most one in-flight request;
 KV context lives in the paged pool (serving/paged_kv.py) behind per-slot
-page tables.  Scheduling is a host loop over numpy metadata: admit from
-the FIFO queue into free slots, run one step over all slots, retire
-finished slots, repeat.
+page tables.  Scheduling is a host loop over numpy metadata: sweep
+deadlines, admit from the FIFO queue into free slots, run one step over
+all slots, retire finished slots, repeat.
 
 Prompts prefill in CHUNKS inside the regular step: a step with any slot
 mid-prefill is a MIXED step, where each decoding slot's one row and up to
@@ -15,6 +17,34 @@ S).  A slot whose final chunk ran samples its token 0 from the last prompt
 position; until then it emits nothing.  Steps with only decoding slots run
 the [S, 1] decode step.  Every attention layer of either step reads
 through the ragged paged-attention kernel (ops/paged_attention.py).
+
+Prefix cache (`prefix_cache=True`, serving/prefix_tree.py): a retiring,
+preempted or cancelled slot donates its fully committed pages to a radix
+index keyed on token-id runs; an admission walks it (up to the prompt's
+last token but one), maps the matched pages read-only, reserves the
+suffix's pages, copies a partially matched boundary page (copy-on-write)
+and starts its chunk cursor past the match.  All of it is host-side table
+state: a remap only changes `_d_table`'s contents, so no CUDA graph is
+captured anew.
+
+Overcommitted pool (`num_pages` below 1 + S * pages_per_slot): a decoding
+slot that cannot get its next page (after the index's LRU eviction) is
+PAUSED — left out of the step, its row staged at its own position, whose
+page is unmapped, so its write lands in trash page 0 — and resumes once a
+page frees.  When no decoding slot can run, the youngest slot is
+PREEMPTED: it donates its committed pages, releases the rest and goes
+back to the queue front; its replay prefix-hits its own donation and
+draws the same noise (token g of a request always samples with the noise
+of (request, g)), so preemption never shows in the tokens.  Preemption
+happens only between steps, so also only at a window boundary.
+
+Requests end by eos ("stop"), max_new ("length"), `cancel` ("cancelled")
+or their `deadline` on the engine's `clock` ("deadline"); `results` and
+`finish_reasons` hold them until run() pops them, and the `on_token` /
+`on_finish` hooks see every token and every end.  `checkpoint_state` /
+`restore_state` freeze an engine between steps (queued, decoding and
+mid-chunk requests) and resume it on a fresh engine of the same
+configuration bit for bit.
 
 Randomness: token g of a request samples with Gumbel noise drawn by the
 engine's `noise` source for (request, g) — by default from a torch
@@ -30,22 +60,26 @@ decode bodies on the device — per-slot token, position, generation count
 and run mask live in device tensors, a slot dropping out of the run mask
 at its eos or max_new exactly where `_bank_token` would retire it — and
 the host reads the [k, S] token block once and banks each slot's column up
-to its own end.  Every slot first gets pages for its whole window; a mixed
-step, or a window whose pages cannot be grown, runs the k = 1 step.  On
-the card the window is a CUDA graph captured once per (k, all-greedy or
-sampling) after the variant's first window ran eagerly; the noise for
-tokens gen .. gen + k - 1 of each sampling slot is drawn by `noise` into a
-fixed [k, S, V] buffer before the replay, the same noise k = 1 draws.
-Tokens are identical to k = 1.
+to its own end.  Every running slot first gets pages for its whole
+window; a mixed step, or a window whose pages cannot be grown, runs the
+k = 1 step.  On the card the window is a CUDA graph captured once per (k,
+all-greedy or sampling) after the variant's first window ran eagerly; the
+noise for tokens gen .. gen + k - 1 of each sampling slot is drawn by
+`noise` into a fixed [k, S, V] buffer before the replay, the same noise
+k = 1 draws.  Tokens are identical to k = 1.
 
-Not ported yet (ROADMAP.md): preemption of an overcommitted pool, prefix
-cache and copy-on-write, the host spill tier, speculative decode (and with
-it `decode_mode`), tensor parallelism, tracing, checkpoint/restore, and
-the legacy whole-prompt prefill (`prefill_chunk=None`).
+Refused with NotImplementedError (ROADMAP.md): the host spill tier
+(`spill_bytes_budget`), `export_prefix` / `import_prefix`, speculative
+decode (`spec_k`, `drafter`, `decode_mode` other than "auto"), tensor
+parallelism (`mesh`), tracing (`tracer`) and the legacy whole-prompt
+prefill (`prefill_chunk=None`).
 """
 
 from __future__ import annotations
 
+import os
+import pickle
+import time
 from collections import deque
 from typing import Callable, Optional
 
@@ -56,8 +90,10 @@ from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.graph.context import TEST
 from paddle_tpu_torch.graph.registry import (cost_layer_types,
                                              validation_layer_types)
+from paddle_tpu_torch.ops.paged_attention import split_plan
 from paddle_tpu_torch.parameter.argument import Argument
 from paddle_tpu_torch.serving.paged_kv import PagedKVCache
+from paddle_tpu_torch.serving.prefix_tree import PrefixTree
 from paddle_tpu_torch.serving.sampler import pick_next_per_slot
 from paddle_tpu_torch.utils.cuda_graphs import StepGraph, new_pool
 
@@ -65,14 +101,27 @@ from paddle_tpu_torch.utils.cuda_graphs import StepGraph, new_pool
 # the request's token g
 NoiseFn = Callable[["Request", int, int, torch.device], torch.Tensor]
 
+# engine counters a checkpoint carries
+_COUNTERS = ("_admit_seq", "n_decode_steps", "n_mixed_steps",
+             "n_prefill_chunks", "tokens_generated", "n_preemptions",
+             "n_cancelled", "n_expired", "n_prefix_hits", "n_prefix_misses",
+             "prefill_tokens_saved", "n_scan_flushes", "n_scan_steps")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                               f"Queue 1)")
+
 
 class Request:
-    """One generation request: prompt, length, sampling knobs, and the
-    seed of its noise (the JAX engine's `rng` key)."""
+    """One generation request: prompt, length, sampling knobs, the seed of
+    its noise (the JAX engine's `rng` key) and an optional `deadline` on
+    the engine's clock."""
 
     def __init__(self, req_id, prompt_ids, max_new: int = 32,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 0.0, eos_id: int = -1, seed: int = 0):
+                 top_p: float = 0.0, eos_id: int = -1, seed: int = 0,
+                 deadline: Optional[float] = None):
         self.req_id = req_id
         self.prompt_ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         self.max_new = int(max_new)
@@ -81,6 +130,11 @@ class Request:
         self.top_p = float(top_p)
         self.eos_id = int(eos_id)
         self.seed = int(seed)
+        self.deadline = None if deadline is None else float(deadline)
+        # the tokens it had emitted when it was last preempted: the replay
+        # re-emits them, and a cancel or deadline before it catches up
+        # still reports them (they were streamed already)
+        self._preempted_gen: Optional[list] = None
         if self.prompt_ids.size < 1:
             raise ValueError(f"request {req_id!r}: empty prompt")
         if self.temperature <= 0.0 and (self.top_k > 0 or
@@ -89,6 +143,25 @@ class Request:
                 f"top_k={self.top_k}/top_p={self.top_p} need temperature "
                 f"> 0 — temperature=0 means greedy argmax, which would "
                 f"silently ignore them")
+
+    def snapshot(self) -> dict:
+        return {"req_id": self.req_id, "prompt_ids": self.prompt_ids.copy(),
+                "max_new": self.max_new, "temperature": self.temperature,
+                "top_k": self.top_k, "top_p": self.top_p,
+                "eos_id": self.eos_id, "seed": self.seed,
+                "deadline": self.deadline,
+                "preempted_gen": (None if self._preempted_gen is None
+                                  else list(self._preempted_gen))}
+
+    @classmethod
+    def from_snapshot(cls, d: dict) -> "Request":
+        r = cls(d["req_id"], d["prompt_ids"], max_new=d["max_new"],
+                temperature=d["temperature"], top_k=d["top_k"],
+                top_p=d["top_p"], eos_id=d["eos_id"], seed=d["seed"],
+                deadline=d["deadline"])
+        r._preempted_gen = (None if d["preempted_gen"] is None
+                            else list(d["preempted_gen"]))
+        return r
 
 
 def _mix_seed(seed: int, g: int) -> int:
@@ -119,19 +192,19 @@ class PhiloxNoise:
 
 class _Slot:
     """Host state of one occupied slot.  `gen == 0` is PREFILL mode (`pos`
-    = prompt tokens committed so far); `gen >= 1` is DECODE mode (token 0
-    was sampled from the last prompt position; the slot advances one token
-    per step)."""
+    = prompt tokens committed so far, cached prefix included); `gen >= 1`
+    is DECODE mode (token 0 was sampled from the last prompt position; the
+    slot advances one token per step)."""
 
     __slots__ = ("req", "pos", "gen", "last_tok", "generated", "admit_seq")
 
-    def __init__(self, req: Request, admit_seq: int):
+    def __init__(self, req: Request, admit_seq: int, pos: int = 0):
         self.req = req
-        self.pos = 0              # tokens resident in the paged cache
+        self.pos = pos            # tokens resident in the paged cache
         self.gen = 0              # tokens emitted so far
         self.last_tok = -1        # emitted but not yet in the cache
         self.generated: list[int] = []
-        self.admit_seq = admit_seq
+        self.admit_seq = admit_seq  # preemption takes the youngest
 
 
 def _resolve_io_names(model):
@@ -143,7 +216,8 @@ def _resolve_io_names(model):
 
 
 class ServingEngine:
-    """Slot scheduler + paged KV + the decode and mixed steps.
+    """Slot scheduler + paged KV + prefix index + the decode and mixed
+    steps.
 
     >>> eng = ServingEngine(executor, params, num_slots=4)
     >>> results = eng.run([Request("a", prompt, max_new=16, eos_id=2)])
@@ -152,10 +226,25 @@ class ServingEngine:
 
     def __init__(self, executor, params: dict[str, torch.Tensor],
                  num_slots: int = 4, page_size: int = 16,
-                 max_context: int = 256, prefill_chunk: Optional[int] = -1,
+                 max_context: int = 256, num_pages: Optional[int] = None,
+                 prefix_cache: bool = True, prefill_chunk: Optional[int] = -1,
                  max_step_tokens: Optional[int] = None,
                  noise: Optional[NoiseFn] = None, device: DeviceLike = None,
-                 decode_steps: int = 1):
+                 decode_steps: int = 1, spill_bytes_budget: int = 0,
+                 spec_k: int = 0, drafter=None, decode_mode: str = "auto",
+                 mesh=None, tracer=None):
+        if spill_bytes_budget:
+            raise _not_ported("the host spill tier (spill_bytes_budget)")
+        if spec_k or drafter is not None or decode_mode != "auto":
+            raise _not_ported("speculative decode (spec_k, drafter, "
+                              "decode_mode)")
+        if mesh is not None:
+            raise _not_ported("tensor-parallel decode (mesh)")
+        if tracer is not None:
+            raise _not_ported("request tracing (tracer)")
+        if prefill_chunk is None:
+            raise _not_ported("prefill_chunk=None (whole-prompt prefill "
+                              "through the dense KV cache)")
         self.device = resolve_device(device)
         self.executor = executor
         self.input_name, self.logits_name = _resolve_io_names(executor.model)
@@ -168,16 +257,33 @@ class ServingEngine:
             {k: v.to(self.device) for k, v in params.items()}, {})
         pages_per_slot = -(-int(max_context) // int(page_size))
         self.kv = PagedKVCache(executor, num_slots, page_size,
-                               pages_per_slot, self.device)
+                               pages_per_slot, self.device, num_pages)
+        self.prefix: Optional[PrefixTree] = None
+        self.set_prefix_cache(prefix_cache)
         self.noise: NoiseFn = noise if noise is not None else PhiloxNoise()
         self.queue: deque[Request] = deque()
         self.slots: list[Optional[_Slot]] = [None] * num_slots
-        # finished-but-uncollected outputs; run() pops what it completed
+        # finished-but-uncollected outputs and why each ended ("stop",
+        # "length", "cancelled", "deadline"); run() pops what it completed
         self.results: dict = {}
+        self.finish_reasons: dict = {}
+        # on_token(req_id, token, index) for every emitted token (a replay
+        # after a preemption emits its tokens again from index 0);
+        # on_finish(req_id, tokens, reason) once per request
+        self.on_token = None
+        self.on_finish = None
+        # the deadline clock (tests inject lambda: eng.n_decode_steps)
+        self.clock = time.monotonic
         self.n_decode_steps = 0             # every step, decode or mixed
         self.n_mixed_steps = 0
         self.n_prefill_chunks = 0
         self.tokens_generated = 0
+        self.n_preemptions = 0
+        self.n_cancelled = 0
+        self.n_expired = 0
+        self.n_prefix_hits = 0
+        self.n_prefix_misses = 0
+        self.prefill_tokens_saved = 0
         self._admit_seq = 0
         self._table_version = -1
         # the device page table [S+1, pages_per_slot], one buffer for the
@@ -191,11 +297,6 @@ class ServingEngine:
         # the device state and graphs of the windows, by k
         self._windows: dict[int, _Window] = {}
         self._pool = new_pool(self.device)
-        if prefill_chunk is None:
-            raise NotImplementedError(
-                "prefill_chunk=None (whole-prompt prefill through the dense "
-                "KV cache and the flash kernel) is not ported yet "
-                "(ROADMAP.md)")
         chunk = 4 * self.kv.page_size if prefill_chunk == -1 \
             else int(prefill_chunk)
         if chunk <= 0:
@@ -209,6 +310,14 @@ class ServingEngine:
                 f"every decoding slot takes one row per step, and prefill "
                 f"chunks need at least one row to make progress")
         self.max_step_tokens = mst
+        # one paged-attention split count for every launch of this engine:
+        # a row's result depends on it, so a token's bits would otherwise
+        # depend on whether a decode or a mixed step carried it — on the
+        # schedule, which the prefix cache and preemption change.  The
+        # mixed launch's own plan (decode launches are the cheaper ones to
+        # move off theirs)
+        self.splits = split_plan(mst, num_slots + 1, self.kv.pages_per_slot,
+                                 self.kv.page_size)[0]
 
     # -- public API -------------------------------------------------------
     def validate(self, req: Request) -> None:
@@ -216,13 +325,25 @@ class ServingEngine:
         if req.max_new < 0:
             raise ValueError(
                 f"request {req.req_id!r}: max_new {req.max_new} is negative")
+        if req.max_new == 0:
+            return                       # answered with the prompt as is
         p = req.prompt_ids.size
         cap = self.kv.capacity_tokens
-        if req.max_new and p + req.max_new > cap:
+        if p + req.max_new > cap:
             raise ValueError(
                 f"request {req.req_id!r}: prompt {p} + max_new "
                 f"{req.max_new} exceeds the {cap}-token slot capacity "
                 f"(pages_per_slot * page_size) — raise max_context")
+        # the completion bound: the last decode step writes position
+        # p + max_new - 2, so a request that never meets eos needs pages
+        # for p + max_new - 1 tokens; a smaller pool would preempt and
+        # replay it forever once it is alone
+        need = self.kv.pages_for(max(p + req.max_new - 1, p))
+        if need > self.kv.num_pages - 1:
+            raise ValueError(
+                f"request {req.req_id!r} needs up to {need} pages to "
+                f"complete but the pool holds {self.kv.num_pages - 1} — "
+                f"raise num_pages")
         if int(req.prompt_ids.min()) < 0 or \
                 int(req.prompt_ids.max()) >= self.vocab:
             raise ValueError(f"request {req.req_id!r}: prompt ids outside "
@@ -232,77 +353,373 @@ class ServingEngine:
         """Enqueue; admission happens inside step()/run()."""
         self.validate(req)
         if req.max_new == 0:
-            self.results[req.req_id] = req.prompt_ids.copy()
+            self._finish(req.req_id, req.prompt_ids.copy(), "length")
             return
         self.queue.append(req)
+
+    def cancel(self, request_id, reason: str = "cancelled") -> bool:
+        """End a queued or in-flight request now: its slot and pages return
+        to the pool (its committed pages donated to the prefix index), and
+        its tokens so far land in `results` with `reason`.  False when the
+        id is unknown or already finished."""
+        for i, r in enumerate(self.queue):
+            if r.req_id == request_id:
+                del self.queue[i]
+                self._count_abort(reason)
+                stash = r._preempted_gen or []
+                # the preemption took these back on the promise of a
+                # replay; they were emitted, so count them again
+                self.tokens_generated += len(stash)
+                self._finish(request_id, np.concatenate(
+                    [r.prompt_ids, np.asarray(stash, np.int32)]), reason)
+                return True
+        for s, sl in enumerate(self.slots):
+            if sl is not None and sl.req.req_id == request_id:
+                gen = sl.generated
+                stash = sl.req._preempted_gen or []
+                if len(stash) > len(gen):
+                    # mid-replay: report what was already emitted (the
+                    # replay is a prefix of it) and count the rest again
+                    self.tokens_generated += len(stash) - len(gen)
+                    gen = stash
+                toks = np.concatenate([sl.req.prompt_ids,
+                                       np.asarray(gen, np.int32)])
+                self._donate(s)
+                self.kv.release(s)
+                self.slots[s] = None
+                self._count_abort(reason)
+                self._finish(request_id, toks, reason)
+                return True
+        return False
 
     def set_decode_steps(self, decode_steps: int) -> None:
         """Multi-step decode: up to `decode_steps` tokens per slot in one
         window whenever the engine is pure-decode (1 = off).  Tokens are
         the same either way.  Only on an idle engine (a live slot's host
         state must be at a window boundary)."""
-        if any(sl is not None for sl in self.slots) or self.queue:
-            raise RuntimeError("set_decode_steps requires an idle engine")
+        self._require_idle("set_decode_steps")
         decode_steps = int(decode_steps)
         if decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1 (1 = multi-step "
                              f"off), got {decode_steps}")
         self.decode_steps = decode_steps
 
+    def set_prefix_cache(self, enabled: bool) -> None:
+        """Attach a fresh empty prefix index, or detach and empty it: every
+        node's page drops its retention (pages live slots map stay with
+        them)."""
+        if enabled == (self.prefix is not None):
+            return
+        if enabled:
+            self.prefix = PrefixTree(self.kv)
+            self.kv.on_page_pressure = self.prefix.evict_for
+            return
+        stack = list(self.prefix.root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            self.kv.uncache_page(node.page)
+        self.prefix = None
+        self.kv.on_page_pressure = None
+
+    def reset_prefix_cache(self) -> None:
+        """Cold start of an idle engine's allocator: every mapping and all
+        prefix retention dropped, the free list in canonical order, the
+        index empty — page placement afterwards equals a fresh engine's."""
+        self._require_idle("reset_prefix_cache")
+        self.kv.reset()
+        if self.prefix is not None:
+            self.prefix.clear()
+
+    def export_prefix(self, tokens):
+        raise _not_ported("export_prefix (page export for disaggregated "
+                          "serving)")
+
+    def import_prefix(self, tokens, meta, payload):
+        raise _not_ported("import_prefix (page import for disaggregated "
+                          "serving)")
+
     def step(self) -> bool:
-        """One scheduler iteration: admit -> one step over all slots ->
-        retire.  Returns False when idle (nothing in flight or queued)."""
+        """One scheduler iteration: sweep deadlines -> admit -> one step
+        over all slots -> retire.  Returns False when idle (nothing in
+        flight and nothing admittable)."""
+        self._sweep_deadlines()
         self._admit_from_queue()
         live = [s for s, sl in enumerate(self.slots) if sl is not None]
         if not live:
             return False
-        decoding = [s for s in live if self.slots[s].gen > 0]
-        filling = [s for s in live if self.slots[s].gen == 0]
-        for s in decoding:
-            if not self.kv.try_grow(s, self.slots[s].pos + 1):
-                # the pool holds every slot's whole context, so this is a
-                # broken invariant, not page pressure
-                raise RuntimeError(f"slot {s}: page pool exhausted")
+        while True:
+            # decoding slots need their next page; filling slots had their
+            # prompt's pages reserved at admission
+            decoding = [s for s in live if self.slots[s].gen > 0]
+            filling = [s for s in live if self.slots[s].gen == 0]
+            runnable = [s for s in decoding
+                        if self.kv.try_grow(s, self.slots[s].pos + 1)]
+            # chunk-only steps count as progress only while nothing
+            # decodes: page-starved decoders must not wait behind a
+            # filler's remaining chunks
+            if runnable or (filling and not decoding):
+                break
+            # wedged: preempt the youngest slot (usually the filler holding
+            # its reserved pages)
+            victim = max(live, key=lambda s: self.slots[s].admit_seq)
+            self._preempt(victim)
+            live.remove(victim)
+            if not live:
+                return True            # pages freed; the next step admits
         if filling:
             # an admission never waits behind a window: mixed load runs the
             # k = 1 mixed step
-            self._run_mixed_step(decoding, filling)
+            self._run_mixed_step(runnable, filling)
         elif self.decode_steps > 1 and self._scan_window_ok(
-                decoding, self.decode_steps):
-            self._run_scan_step(decoding, self.decode_steps)
+                runnable, self.decode_steps):
+            self._run_scan_step(runnable, self.decode_steps)
         else:
-            self._run_decode_step(decoding)
+            self._run_decode_step(runnable)
         return True
 
     def run(self, requests=()) -> dict:
         """Add `requests`, drive step() to completion, and pop
-        {req_id: np.int32 prompt + generated tokens} for everything that
-        completed during this call."""
+        {req_id: np.int32 prompt + generated tokens} (and their finish
+        reasons) for everything that completed during this call."""
         done_before = set(self.results)
         for r in requests:
             self.add_request(r)
         while self.step():
             pass
-        return {k: self.results.pop(k) for k in list(self.results)
-                if k not in done_before}
+        out = {k: self.results.pop(k) for k in list(self.results)
+               if k not in done_before}
+        for k in out:
+            self.finish_reasons.pop(k, None)
+        return out
+
+    # -- checkpoints ------------------------------------------------------
+    def _config(self) -> dict:
+        """What a checkpoint must match (decode_steps is left out: a
+        snapshot taken at one k resumes at any other)."""
+        kv = self.kv
+        some = next(iter(kv.pools.values()))["k"]
+        return {"num_slots": len(self.slots), "page_size": kv.page_size,
+                "pages_per_slot": kv.pages_per_slot,
+                "num_pages": kv.num_pages,
+                "prefill_chunk": self.prefill_chunk,
+                "max_step_tokens": self.max_step_tokens,
+                "prefix_cache": self.prefix is not None,
+                "layer_specs": dict(kv.layer_specs),
+                "dtype": str(some.dtype)}
+
+    def checkpoint_state(self) -> dict:
+        """The whole serving state between steps, as one picklable dict:
+        the pools as host copies, the allocator (table, refcounts, cached
+        marks, free-list order), the prefix index with its LRU clock, the
+        slots, the queue (each request with its preempted stash), the
+        counters and the uncollected results.  A fresh engine of the same
+        configuration restored from it finishes bit for bit what this one
+        would (a window is atomic inside step(), so there is no mid-window
+        state)."""
+        kv = self.kv
+        return {
+            "config": self._config(),
+            "pools": {name: {p: t.detach().to("cpu", copy=True)
+                             for p, t in pool.items()}
+                      for name, pool in kv.pools.items()},
+            "kv": {"table": kv.table.copy(), "free": list(kv._free),
+                   "n_pages": kv._n_pages.copy(), "ref": kv._ref.copy(),
+                   "cached": kv._cached.copy(), "n_cow": kv.n_cow},
+            "slots": [None if sl is None else
+                      {"req": sl.req.snapshot(), "pos": sl.pos,
+                       "gen": sl.gen, "last_tok": sl.last_tok,
+                       "generated": list(sl.generated),
+                       "admit_seq": sl.admit_seq}
+                      for sl in self.slots],
+            "queue": [r.snapshot() for r in self.queue],
+            "prefix": None if self.prefix is None else self.prefix.snapshot(),
+            "counters": {k: getattr(self, k) for k in _COUNTERS},
+            "results": {k: np.asarray(v).copy()
+                        for k, v in self.results.items()},
+            "finish_reasons": dict(self.finish_reasons),
+        }
+
+    def restore_state(self, snap: dict) -> None:
+        """Resume a `checkpoint_state()` snapshot on this engine, which
+        must be idle and of the same configuration (ValueError otherwise:
+        a mismatch would corrupt the page accounting).  The pools are
+        written in place, so window graphs stay valid."""
+        mine = self._config()
+        if snap["config"] != mine:
+            diff = {k: (snap["config"].get(k), mine[k]) for k in mine
+                    if snap["config"].get(k) != mine[k]}
+            raise ValueError(f"restore_state: engine configuration mismatch "
+                             f"(snapshot vs this engine): {diff}")
+        if any(sl is not None for sl in self.slots) or self.queue:
+            raise ValueError("restore_state requires an idle engine — it "
+                             "replaces every slot and queue entry")
+        kv = self.kv
+        for name, pool in kv.pools.items():
+            for p, t in pool.items():
+                t.copy_(snap["pools"][name][p])
+        kv.table[:, :] = snap["kv"]["table"]
+        kv._free = list(snap["kv"]["free"])
+        kv._n_pages[:] = snap["kv"]["n_pages"]
+        kv._ref[:] = snap["kv"]["ref"]
+        kv._cached[:] = snap["kv"]["cached"]
+        kv.n_cow = snap["kv"]["n_cow"]
+        kv.version += 1
+        self.slots = [None] * len(self.slots)
+        for s, d in enumerate(snap["slots"]):
+            if d is None:
+                continue
+            sl = self.slots[s] = _Slot(Request.from_snapshot(d["req"]),
+                                       d["admit_seq"], d["pos"])
+            sl.gen, sl.last_tok = d["gen"], d["last_tok"]
+            sl.generated = list(d["generated"])
+        self.queue = deque(Request.from_snapshot(d) for d in snap["queue"])
+        if self.prefix is not None:
+            self.prefix.restore(snap["prefix"])
+        for k, v in snap["counters"].items():
+            setattr(self, k, v)
+        self.results = {k: np.asarray(v).copy()
+                        for k, v in snap["results"].items()}
+        self.finish_reasons = dict(snap["finish_reasons"])
+        kv.check()
+
+    def save_state(self, path: str) -> None:
+        """checkpoint_state() to `path`, written to a temporary file,
+        synced and renamed over it, so a crash leaves the previous file
+        whole."""
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(self.checkpoint_state(), f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def load_state(self, path: str) -> None:
+        """restore_state() from a file save_state() wrote."""
+        with open(path, "rb") as f:
+            self.restore_state(pickle.load(f))
 
     # -- scheduling -------------------------------------------------------
+    def _require_idle(self, what: str) -> None:
+        if any(sl is not None for sl in self.slots) or self.queue:
+            raise RuntimeError(f"{what} requires an idle engine")
+
+    def _count_abort(self, reason: str) -> None:
+        if reason == "deadline":
+            self.n_expired += 1
+        else:
+            self.n_cancelled += 1
+
+    def _sweep_deadlines(self) -> None:
+        """Expire every queued or in-flight request whose deadline passed
+        on the engine clock — before admission, so an expired request
+        never takes a slot and its pages serve this step's admissions."""
+        now = self.clock()
+        expired = [r.req_id for r in self.queue
+                   if r.deadline is not None and r.deadline <= now]
+        expired += [sl.req.req_id for sl in self.slots
+                    if sl is not None and sl.req.deadline is not None
+                    and sl.req.deadline <= now]
+        for rid in expired:
+            self.cancel(rid, reason="deadline")
+
     def _admit_from_queue(self) -> None:
-        """FIFO admission into free slots.  Chunk-granular: the slot enters
-        prefill mode with its whole prompt's pages reserved, and the prompt
-        commits in chunk rows inside the next mixed steps."""
+        """FIFO admission into free slots; a page-starved queue head waits
+        (its reservation already rolled the slot back to empty)."""
         for s in range(len(self.slots)):
             if not self.queue:
                 return
             if self.slots[s] is not None:
                 continue
             req = self.queue[0]
-            if not self.kv.try_grow(s, req.prompt_ids.size):
-                self.kv.release(s)
+            res = self._reserve(s, req)
+            if res is None:
                 return
             self.queue.popleft()
-            self._admit_seq += 1
-            self.slots[s] = _Slot(req, self._admit_seq)
+            self._admit_chunked(s, req, res)
+
+    def _reserve(self, s: int, req: Request) -> Optional[int]:
+        """Map the cached prefix of `req`'s prompt into empty slot `s` and
+        reserve pages for the whole prompt; returns the matched tokens C,
+        or None when the pool is dry (the slot rolled back to empty).
+
+        The walk stops at the prompt's last token but one: token 0 needs
+        the last prompt position's logits.  A partially matched boundary
+        page is copied only after the suffix's pages are secured, so a
+        starved retry pays no copy.  A reservation that cannot complete
+        with the prefix mapped rolls back and tries cold: the unmapped
+        prefix pages drop to refcount 0, and the cold attempt's eviction
+        may take them."""
+        p = req.prompt_ids.size
+        if self.prefix is not None:
+            pages, partial = self.prefix.match(req.prompt_ids[:p - 1])
+            mapped = pages + ([partial[0]] if partial is not None else [])
+            if mapped:
+                self.kv.map_shared(s, mapped)
+                ok = self.kv.try_grow(s, p)
+                if ok and partial is not None:
+                    ok = self.kv.ensure_writable(s, len(mapped) - 1) \
+                        is not None
+                if ok:
+                    return len(pages) * self.kv.page_size + \
+                        (partial[1] if partial is not None else 0)
+                self.kv.release(s)
+        if self.kv.try_grow(s, p):
+            return 0
+        self.kv.release(s)
+        return None
+
+    def _admit_chunked(self, s: int, req: Request, C: int) -> None:
+        """The slot enters prefill mode with its prompt's pages reserved
+        and its chunk cursor at C, past the cached prefix; the prompt
+        commits in chunk rows inside the next mixed steps."""
+        if self.prefix is not None:
+            if C > 0:
+                self.n_prefix_hits += 1
+                self.prefill_tokens_saved += C
+            else:
+                self.n_prefix_misses += 1
+        self._admit_seq += 1
+        self.slots[s] = _Slot(req, self._admit_seq, pos=C)
+
+    def _preempt(self, s: int) -> None:
+        """Requeue slot `s`'s request at the queue front: its committed
+        pages go to the prefix index (its replay hits them), the rest
+        free; its tokens are taken back until the replay emits them
+        again."""
+        sl = self.slots[s]
+        self.queue.appendleft(sl.req)
+        if len(sl.generated) >= len(sl.req._preempted_gen or []):
+            sl.req._preempted_gen = list(sl.generated)
+        self.tokens_generated -= sl.gen
+        self.n_preemptions += 1
+        self._donate(s)
+        self.kv.release(s)
+        self.slots[s] = None
+
+    def _donate(self, s: int) -> None:
+        """Offer slot `s`'s whole pages strictly below `pos` (every
+        position in them committed) to the prefix index; the boundary page
+        stays private and frees with the release that follows."""
+        if self.prefix is None:
+            return
+        sl = self.slots[s]
+        full = int(sl.pos) // self.kv.page_size
+        if full <= 0:
+            return
+        seq = np.concatenate([sl.req.prompt_ids,
+                              np.asarray(sl.generated, np.int32)])
+        self.prefix.insert(seq[:full * self.kv.page_size],
+                           [int(self.kv.table[s, j]) for j in range(full)])
+
+    def _writable(self, s: int, first: int, last: int) -> None:
+        """Tripwire: the pages holding positions first..last of slot `s`
+        are private (admission's copy-on-write guarantees it; a refcount
+        fault would otherwise corrupt a cached prefix)."""
+        ps = self.kv.page_size
+        for j in range(first // ps, last // ps + 1):
+            assert self.kv.page_writable(int(self.kv.table[s, j])), \
+                f"slot {s} would write shared page {int(self.kv.table[s, j])}"
 
     def _sync_table(self) -> torch.Tensor:
         """The device page table [S+1, pages_per_slot] — row S is the
@@ -343,18 +760,23 @@ class ServingEngine:
         return nxt.cpu().numpy()
 
     def _run_decode_step(self, runnable) -> None:
-        """The [S, 1] decode step: every slot feeds its last token at its
-        position (empty slots feed token 0 at position 0 of trash page 0)."""
+        """The [S, 1] decode step over the running slots.  Every live slot
+        feeds its last token at its own position: a paused slot's page
+        there is unmapped, so its write lands in trash page 0 (as do empty
+        slots' writes at position 0 of their all-zero table rows)."""
         S = len(self.slots)
         toks = np.zeros((S, 1), np.int64)
         pos = np.zeros(S, np.int32)
+        for s, sl in enumerate(self.slots):
+            if sl is not None:
+                toks[s, 0], pos[s] = sl.last_tok, sl.pos
         for s in runnable:
-            toks[s, 0] = self.slots[s].last_tok
-            pos[s] = self.slots[s].pos
+            self._writable(s, pos[s], pos[s])
         table = self._sync_table()[:S]
         d_pos = self._to_device(pos)
         state = {name: {"k_pages": p["k"], "v_pages": p["v"],
-                        "page_table": table, "pos": d_pos}
+                        "page_table": table, "pos": d_pos,
+                        "splits": self.splits}
                  for name, p in self.kv.pools.items()}
         feed = {self.input_name: Argument(
             ids=self._to_device(toks),
@@ -369,8 +791,7 @@ class ServingEngine:
     def _scan_window_ok(self, runnable, k: int) -> bool:
         """Pages for one window: every runnable slot gets pages up to pos +
         min(k, tokens it may still emit).  False (the caller runs the k = 1
-        step) when the free list runs dry; pages taken stay with the
-        slot."""
+        step) when the pool runs dry; pages taken stay with the slot."""
         ok = True
         for s in runnable:
             sl = self.slots[s]
@@ -382,7 +803,9 @@ class ServingEngine:
     def _run_scan_step(self, runnable, k: int) -> None:
         """One window of k decode bodies (module docstring): stage the
         slots' state and noise, run or replay the window, read the [k, S]
-        token block once, bank each slot's column up to its eos/max_new."""
+        token block once, bank each running slot's column up to its
+        eos/max_new.  A paused slot is staged at its own position with the
+        run mask off, so its frozen writes land in trash page 0."""
         S = len(self.slots)
         win = self._windows.get(k)
         if win is None:
@@ -390,13 +813,19 @@ class ServingEngine:
         ints = np.zeros((7, S), np.int64)       # tok pos gen run eos max topk
         floats = np.zeros((2, S), np.float32)   # temperature, top_p
         sampling = []
-        for s in runnable:
-            sl, req = self.slots[s], self.slots[s].req
-            ints[:, s] = (sl.last_tok, sl.pos, sl.gen, 1, req.eos_id,
+        for s, sl in enumerate(self.slots):
+            if sl is None:
+                continue
+            req = sl.req
+            run = s in runnable
+            ints[:, s] = (sl.last_tok, sl.pos, sl.gen, run, req.eos_id,
                           req.max_new, req.top_k)
             floats[:, s] = (req.temperature, req.top_p)
-            if req.temperature > 0.0:
-                sampling.append(s)
+            if run:
+                self._writable(s, sl.pos, sl.pos + min(k, req.max_new
+                                                       - sl.gen) - 1)
+                if req.temperature > 0.0:
+                    sampling.append(s)
         self._sync_table()
         win.ints.copy_(torch.from_numpy(ints))
         win.floats.copy_(torch.from_numpy(floats))
@@ -434,11 +863,11 @@ class ServingEngine:
                 self._bank_token(s, t)
 
     def _run_mixed_step(self, runnable, filling) -> None:
-        """One mixed prefill/decode step: each decoding slot's row first,
-        then up to `prefill_chunk` prompt rows per filling slot (admission
-        order) within the `max_step_tokens` budget; padding rows fill the
-        rest.  Decoding slots bank a token; a slot whose final chunk ran
-        emits token 0."""
+        """One mixed prefill/decode step: each running decoding slot's row
+        first, then up to `prefill_chunk` prompt rows per filling slot
+        (admission order) within the `max_step_tokens` budget; padding
+        rows fill the rest.  Decoding slots bank a token; a slot whose
+        final chunk ran emits token 0.  Paused slots have no row."""
         S = len(self.slots)
         T = self.max_step_tokens
         row_ids = np.zeros(T, np.int64)
@@ -448,6 +877,7 @@ class ServingEngine:
         r = 0
         for s in runnable:
             sl = self.slots[s]
+            self._writable(s, sl.pos, sl.pos)
             row_ids[r], row_slot[r], row_pos[r] = sl.last_tok, s, sl.pos
             sample_row[s] = r
             r += 1
@@ -459,6 +889,7 @@ class ServingEngine:
             sl = self.slots[s]
             p = sl.req.prompt_ids.size
             n = min(p - sl.pos, self.prefill_chunk, budget)
+            self._writable(s, sl.pos, sl.pos + n - 1)
             row_ids[r:r + n] = sl.req.prompt_ids[sl.pos:sl.pos + n]
             row_slot[r:r + n] = s
             row_pos[r:r + n] = np.arange(sl.pos, sl.pos + n)
@@ -473,7 +904,7 @@ class ServingEngine:
         d_slot, d_pos = self._to_device(row_slot), self._to_device(row_pos)
         state = {name: {"k_pages": p["k"], "v_pages": p["v"],
                         "page_table": table, "row_slot": d_slot,
-                        "row_pos": d_pos}
+                        "row_pos": d_pos, "splits": self.splits}
                  for name, p in self.kv.pools.items()}
         feed = {self.input_name: Argument(
             ids=self._to_device(row_ids[None, :]),
@@ -500,6 +931,8 @@ class ServingEngine:
         sl.gen += 1
         sl.last_tok = tok
         self.tokens_generated += 1
+        if self.on_token is not None:
+            self.on_token(sl.req.req_id, tok, sl.gen - 1)
         if tok == sl.req.eos_id or sl.gen >= sl.req.max_new:
             self._retire(s)
 
@@ -511,15 +944,26 @@ class ServingEngine:
         sl.last_tok = tok0
         sl.generated = [tok0]
         self.tokens_generated += 1
+        if self.on_token is not None:
+            self.on_token(sl.req.req_id, tok0, 0)
         if tok0 == sl.req.eos_id or sl.req.max_new == 1:
             self._retire(s)
 
     def _retire(self, s: int) -> None:
         sl = self.slots[s]
-        self.results[sl.req.req_id] = np.concatenate(
-            [sl.req.prompt_ids, np.asarray(sl.generated, np.int32)])
+        toks = np.concatenate([sl.req.prompt_ids,
+                               np.asarray(sl.generated, np.int32)])
+        reason = "stop" if sl.last_tok == sl.req.eos_id else "length"
+        self._donate(s)
         self.kv.release(s)
         self.slots[s] = None
+        self._finish(sl.req.req_id, toks, reason)
+
+    def _finish(self, req_id, toks: np.ndarray, reason: str) -> None:
+        self.results[req_id] = toks
+        self.finish_reasons[req_id] = reason
+        if self.on_finish is not None:
+            self.on_finish(req_id, toks, reason)
 
 
 class _Window:
@@ -546,9 +990,10 @@ class _Window:
         """k decode steps on the device, no host read: each the k = 1 decode
         step's forward and sampler over all S slots, then the running slots
         advance and a slot leaves the run mask at its eos or max_new.  A
-        stopped slot recomputes its frozen row; its K/V write lands one
-        position past its last token (in its own pages or the trash page),
-        where nothing reads it."""
+        stopped or paused slot recomputes its frozen row; its K/V write
+        lands at its own position (one past a stopped slot's last token, in
+        its own pages or the trash page; a paused slot's unmapped page, so
+        the trash page), where nothing reads it."""
         eng = self.eng
         S = self.ints.shape[1]
         tok, pos, gen, run, eos, max_new, top_k = self.ints
@@ -556,7 +1001,8 @@ class _Window:
         table = eng._d_table[:S]
         for i in range(self.k):
             state = {name: {"k_pages": p["k"], "v_pages": p["v"],
-                            "page_table": table, "pos": pos}
+                            "page_table": table, "pos": pos,
+                            "splits": eng.splits}
                      for name, p in eng.kv.pools.items()}
             feed = {eng.input_name: Argument(ids=tok[:, None],
                                              lengths=self.ones)}

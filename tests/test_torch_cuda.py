@@ -21,7 +21,8 @@ from chip_smoke import (ADD_CASES, ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL,
                         flash_repeats, flash_route, graph_replays,
                         graph_replay_equal, gru_compare, gru_inputs,
                         gru_move_off_relu_kink, gru_repeat_and_graph,
-                        image_batches, image_pair, k5_case, k5_error, k5_repeat_and_graph,
+                        image_batches, image_pair, k5_case, k5_error,
+                        k5_repeat_and_graph, k5_shared_case,
                         kstep_alternating, lm_batches, lstm_compare,
                         lstm_inputs, lstm_repeat_and_graph,
                         move_off_relu_kink, o_limit_share, pass_with_losses,
@@ -119,6 +120,19 @@ def test_kernel_pinned_splits_match_plain_version(cuda, splits):
         assert k5_error(args, splits=splits) <= K5_ATOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h_kv", [8, 2])
+def test_kernel_on_shared_pages_matches_plain_version(cuda, dtype, h_kv):
+    """Rows whose table rows map the same physical pages, as the prefix
+    cache leaves them: three slots on one 8-page prefix (one with a
+    copy-on-write copy of the boundary page), two identical table rows,
+    a 64-row chunk after the shared prefix, padding rows."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    args = k5_shared_case(g, dtype=dtype, h_kv=h_kv)
+    assert k5_error(args) <= K5_ATOL[dtype]
+
+
 def test_kernel_repeats_bit_for_bit_and_replays_in_a_cuda_graph(cuda):
     k5_repeat_and_graph()
 
@@ -151,6 +165,37 @@ def test_engine_on_cuda_matches_cpu(cuda):
         pa.counts.plain == 0
     for i, _, _ in reqs:
         np.testing.assert_array_equal(out["cuda"][i], out["cpu"][i])
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_engine_prefix_cache_and_overcommit_on_cuda_match_cpu(cuda, k):
+    """Float32 serving of requests sharing two prefixes on an
+    overcommitted pool (prefix hits, copy-on-write, preemptions) on the
+    card — windows replayed from CUDA graphs at k = 4 — gives the CPU
+    engine's tokens, counters and allocator state."""
+    model = transformer_lm_config(vocab=97, dim=64, layers=2, heads=4)
+    ex = GraphExecutor(model)
+    params = init_params(model, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    bases = [rng.integers(2, 97, n) for n in (21, 30)]
+    reqs = [(i, np.concatenate([bases[i % 2], rng.integers(2, 97, 1 + i)]),
+             8 + i % 5) for i in range(12)]
+    runs = []
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(ex, params, num_slots=4, page_size=8,
+                            max_context=64, num_pages=15, decode_steps=k,
+                            device=dev)
+        for _ in range(2):
+            eng.reset_prefix_cache()
+            out = eng.run([Request(i, p, max_new=m) for i, p, m in reqs])
+        runs.append((out, eng.n_prefix_hits, eng.kv.n_cow,
+                     eng.n_preemptions, eng.kv.table.tolist(),
+                     list(eng.kv._free)))
+        eng.kv.check_reclaimed()
+    (a, *rest_a), (b, *rest_b) = runs
+    assert rest_a == rest_b and rest_a[0] > 0 and rest_a[2] > 0
+    for i, _, _ in reqs:
+        np.testing.assert_array_equal(b[i], a[i])
 
 
 # (B, Tq, Tk, H, H_kv, D, causal, window, q_offset, k_offset, ragged keys)

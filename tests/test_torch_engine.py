@@ -59,7 +59,8 @@ def _run_both(extra, specs, noise=None, **eng_kw):
             k = jax.random.split(keys[req.req_id], req.max_new)[g]
             return torch.tensor(np.asarray(jax.random.gumbel(k, (1, vocab)))
                                 [0], device=device)
-    eng = ServingEngine(ex, params, device="cpu", noise=noise, **eng_kw)
+    eng = ServingEngine(ex, params, device="cpu", noise=noise,
+                        prefix_cache=False, **eng_kw)
     res = eng.run([Request(i, p, **kw) for i, (p, kw) in enumerate(specs)])
     return jeng, eng, jres, res
 

@@ -71,7 +71,7 @@ def _serve(model, specs, k, jax_side=False, **eng_kw):
                               decode_steps=k, **eng_kw)
         jres = jeng.run(jreqs)
     eng = ServingEngine(ex, params, device="cpu", noise=_jax_noise(jreqs),
-                        decode_steps=k, **eng_kw)
+                        decode_steps=k, prefix_cache=False, **eng_kw)
     res = eng.run([Request(i, p, **kw) for i, (p, kw) in enumerate(specs)])
     return eng, res, jeng, jres
 
@@ -182,7 +182,8 @@ def test_windows_without_pages_run_the_k1_step(model, monkeypatch):
     specs = [(p, dict(max_new=9)) for p in _prompts((4, 7), seed=5)]
     kw = dict(num_slots=2, page_size=4, max_context=32)
     _, res_1, _, _ = _serve(model, specs, 1, **kw)
-    eng = ServingEngine(ex, params, device="cpu", decode_steps=4, **kw)
+    eng = ServingEngine(ex, params, device="cpu", decode_steps=4,
+                        prefix_cache=False, **kw)
     grow, denied = eng.kv.try_grow, []
 
     def try_grow(slot, n_tokens):
