@@ -79,6 +79,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
                run's (an ended request's a prefix of them), K5 launches
                once per attention layer per step and the plain version
                never;
+  4c. serve-spec — speculative decode at the same width: the repo's
+               repetitive workload (SPEC_WORKLOAD: 64 requests whose
+               prompts of 32-256 tokens tile a motif of 4-12 tokens, 64
+               new tokens each, eos off, greedy) on one engine with the
+               budget pinned to SPEC_BUDGET = 144 rows (chunk 64 + 16 slots
+               x (SPEC_K + 1)), from a cold cache each run: (1) spec off,
+               then spec_k=4 with the n-gram drafter, K5's layer-0 launch
+               in a verify step with drafts held against its plain version,
+               both again in the other order, and both on an engine with
+               the defaulted budget (80 rows off, 144 on); (2) the target
+               drafting for itself over 64 tokens
+               (ModelDrafter.from_target); (3) dynamic depth; (4) the
+               target drafting at dynamic depth with decode_steps=KSTEP
+               under decode_mode "auto" (windows where no slot drafts) and
+               "static" (no window);
+               (5) every fourth request sampled ([serve-prefix]'s knobs),
+               spec off and on; (6) spec on over PREFIX_PAGES - 1 = 128
+               real pages (preemptions, check_reclaimed); (7) a
+               checkpoint mid-flight with spec on, restored on a fresh
+               engine.  Every arm's tokens equal its spec-off run's, every
+               chain banks its accepted drafts and one sampled token (spec
+               tokens = accepted + chains), K5 launches once per layer per
+               eager step, verify steps included, the plain version never;
+               each arm logs steps (verify, mixed, windows), tokens/s, the
+               accept rate, draft ms a pass and a profiled run of 8 of its
+               requests (device ms/step, busy share, kernels and host
+               launch calls a step, K5 on the card as the route says);
   5. routes  — float32, 2 layers at full width: the engine reading through
                the kernel against the engine reading through the page-table
                gather (attn_impl='dense'), lm_head rows at the first mixed
@@ -1904,6 +1931,349 @@ def phase_serve_prefix(smi: str) -> None:
         log(f"[serve-prefix] ({n}) {fn.__name__}: "
             f"{time.perf_counter() - start:.1f} s [{smi}]")
         torch.cuda.empty_cache()
+
+
+# the repo's speculative-decode workload (tools/bench_serving.py
+# make_repetitive_requests at bench.py bench_serving_spec's sizes): 64
+# requests whose prompts of 32-256 tokens tile a random motif of 4-12
+# tokens, 64 new tokens each, eos off, greedy; depth 4 over a budget
+# pinned to one chunk plus a full chain per slot (measure_spec's pin)
+SPEC_WORKLOAD = dict(n=64, prompt_lo=32, prompt_hi=256, max_new=64)
+SPEC_K = 4
+SPEC_BUDGET = 64 + 16 * (SPEC_K + 1)
+SPEC_COUNTERS = ("n_spec_steps", "n_spec_chains", "n_spec_drafted",
+                 "n_spec_accepted", "n_spec_tokens", "n_draft_steps")
+
+
+def make_repetitive_requests(n: int, prompt_lo: int, prompt_hi: int,
+                             max_new: int, vocab: int, seed: int = 0,
+                             motif_lo: int = 4, motif_hi: int = 12,
+                             sampled_every: int = 0):
+    """Locally repetitive prompts: each tiles a random motif of
+    motif_lo..motif_hi tokens to prompt_lo..prompt_hi tokens; eos off;
+    every `sampled_every`-th request (from the first) samples with
+    [serve-prefix]'s knobs, the others are greedy."""
+    from paddle_tpu_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        m = int(rng.integers(motif_lo, motif_hi + 1))
+        p = int(rng.integers(prompt_lo, prompt_hi + 1))
+        motif = rng.integers(2, vocab, m).astype(np.int32)
+        kw = {}
+        if sampled_every and i % sampled_every == 0:
+            kw = dict(temperature=0.8, top_k=50, top_p=0.9, seed=1000 + i)
+        reqs.append(Request(f"s{seed}_{i}", np.tile(motif, -(-p // m))[:p],
+                            max_new=max_new, **kw))
+    return reqs
+
+
+def spec_counters(eng) -> dict:
+    return engine_counters(eng) | {c: getattr(eng, c) for c in SPEC_COUNTERS}
+
+
+def spec_moves(eng, before: dict) -> dict:
+    return {c: v - before[c] for c, v in spec_counters(eng).items()}
+
+
+class SpecProbe:
+    """Measurement on one [serve-spec] engine, outside the port: the
+    wrapper's K5 launches inside verify steps, each draft pass that
+    proposed timed, and, while `armed`, layer 0's K5 arguments in the first
+    verify step with drafts (for the comparison with the plain version)."""
+
+    def __init__(self, eng):
+        from paddle_tpu_torch.ops import paged_attention as pa
+        self.eng, self.verify_launches, self.draft_s = eng, 0, []
+        self.armed, self.capture, self.recorded = False, False, None
+        run_spec, propose = eng._run_spec_step, eng._propose_drafts
+
+        def spec_step(runnable, filling, drafts):
+            k0 = pa.counts.kernel
+            self.capture = self.armed and bool(drafts) and \
+                self.recorded is None
+            try:
+                run_spec(runnable, filling, drafts)
+            finally:
+                self.capture = False
+            self.verify_launches += pa.counts.kernel - k0
+
+        def timed(runnable):
+            t0 = time.perf_counter()
+            out = propose(runnable)
+            if out:
+                self.draft_s.append(time.perf_counter() - t0)
+            return out
+
+        eng._run_spec_step, eng._propose_drafts = spec_step, timed
+
+    @contextlib.contextmanager
+    def recording(self, layer0: str):
+        """Arm the recording of layer `layer0`'s launch in a verify step."""
+        import paddle_tpu_torch.ops.attention as attn_ops
+        wrapper = attn_ops.pa.paged_attention
+
+        def record(q, k_pages, v_pages, page_table, lengths, scale=None,
+                   row_slot=None, splits=None):
+            if self.capture and k_pages is self.eng.kv.pools[layer0]["k"]:
+                self.recorded = (q.clone(), k_pages.clone(), v_pages.clone(),
+                                 page_table.clone(), lengths.clone(),
+                                 row_slot.clone())
+                self.capture = False
+            return wrapper(q, k_pages, v_pages, page_table, lengths, scale,
+                           row_slot, splits)
+
+        attn_ops.pa.paged_attention, self.armed = record, True
+        try:
+            yield
+        finally:
+            attn_ops.pa.paged_attention, self.armed = wrapper, False
+
+
+def spec_run(c, eng, reqs, what: str, want: Optional[dict]):
+    """Serve `reqs` on `eng` from a cold prefix cache, timed: every request
+    runs to its full length, its tokens equal `want`'s (when given), K5
+    launches once per attention layer per eager step (verify steps
+    included: counted inside them too), no plain version, and with eos
+    off every chain banks its accepted drafts and one sampled token.
+    Logs the arm's numbers; returns (results, counter moves)."""
+    probe = c.probes[id(eng)]
+    eng.reset_prefix_cache()
+    before = spec_counters(eng)
+    v0, n0 = probe.verify_launches, len(probe.draft_s)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = spec_moves(eng, before)
+    eager = d["n_decode_steps"] - d["n_scan_flushes"]
+    launches = check_k5_eager(f"[serve-spec] {what}", c.layers, eager)
+    verify = probe.verify_launches - v0
+    draft = probe.draft_s[n0:]
+    if verify != c.layers * d["n_spec_steps"]:
+        raise AssertionError(f"[serve-spec] {what}: {verify} K5 launches in "
+                             f"{d['n_spec_steps']} verify steps")
+    if {r.req_id: r.prompt_ids.size + r.max_new for r in reqs} != \
+            {i: t.size for i, t in res.items()}:
+        raise AssertionError(f"[serve-spec] {what}: requests missing or "
+                             f"cut short")
+    if d["n_spec_tokens"] != d["n_spec_accepted"] + d["n_spec_chains"]:
+        raise AssertionError(f"[serve-spec] {what}: spec tokens "
+                             f"{d['n_spec_tokens']} != accepted + chains")
+    if want is not None:
+        same_tokens(f"[serve-spec] {what}", res, want)
+    rate = d["n_spec_accepted"] / max(d["n_spec_drafted"], 1)
+    log(f"[serve-spec] {what}: {len(res)} requests"
+        + (", tokens equal spec off's" if want is not None else "")
+        + f"; {d['n_decode_steps']} steps ({d['n_spec_steps']} verify, "
+        f"{d['n_mixed_steps']} mixed, {d['n_scan_flushes']} windows), "
+        f"{d['tokens_generated']} tokens in {wall:.3f}s = "
+        f"{d['tokens_generated'] / wall:.1f} tokens/s, "
+        f"{wall / d['n_decode_steps'] * 1e3:.2f} ms/step; accept rate "
+        f"{rate:.4f}: drafted {d['n_spec_drafted']}, accepted "
+        f"{d['n_spec_accepted']}, chains {d['n_spec_chains']}, spec tokens "
+        f"{d['n_spec_tokens']} = accepted + chains; {len(draft)} draft "
+        f"passes, "
+        + (f"{np.mean(draft) * 1e3:.3f} ms a pass" if draft else "none")
+        + f"; K5 launches {launches} = {c.layers} x {eager} eager steps, "
+        f"{verify} of them in the verify steps, plain 0; preemptions "
+        f"{d['n_preemptions']} [{c.smi}]")
+    return res, d
+
+
+def spec_profile(c, eng, reqs, what: str, want: dict) -> None:
+    """`reqs` once more under the profiler, from a cold cache: device
+    ms/step, busy share, kernels and host launch calls a step; K5 launched
+    on the card once per layer per forward (window bodies included), the
+    wrapper counting the eager ones."""
+    eng.reset_prefix_cache()
+    before = spec_counters(eng)
+    reset_counts()
+    out, pwall, kernels, calls = profiled(lambda: eng.run(reqs))
+    p = spec_moves(eng, before)
+    same_tokens(f"[serve-spec] {what} profiled", out, want)
+    steps = p["n_decode_steps"]
+    eager = steps - p["n_scan_flushes"]
+    sym = "paged_attention_kernel"
+    line = check_launches(f"[serve-spec] {what}", kernels,
+                          {sym: c.layers * (eager + p["n_scan_steps"])},
+                          p["n_scan_flushes"] > 0, {sym: c.layers * eager})
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    log(f"[serve-spec] {what}, profiled {len(reqs)} requests: {steps} steps "
+        f"({p['n_spec_steps']} verify, {p['n_scan_flushes']} windows), "
+        f"device {busy / steps:.2f} ms/step, busy {busy / pwall:.1%} of "
+        f"{pwall:.1f} ms, {sum(e.count for e in kernels) / steps:.0f} "
+        f"kernels and {calls / steps:.1f} host launch calls a step; {line} "
+        f"[{c.smi}]")
+
+
+def spec_requests(c, sampled: int = 0) -> list:
+    return make_repetitive_requests(vocab=c.vocab, seed=1,
+                                    sampled_every=sampled, **SPEC_WORKLOAD)
+
+
+def spec_arm(c, eng, what: str, want: Optional[dict], sampled: int = 0):
+    """One arm: the workload timed, then 8 of its requests profiled."""
+    res, d = spec_run(c, eng, spec_requests(c, sampled), what, want)
+    spec_profile(c, eng, spec_requests(c, sampled)[:8], what, res)
+    return res, d
+
+
+def spec_k5(c, probe) -> None:
+    """K5 against its plain version on the recorded verify step's rows."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    if probe.recorded is None:
+        raise AssertionError("[serve-spec] no verify step with drafts was "
+                             "recorded")
+    q, _, _, _, lengths, row_slot = probe.recorded
+    err = k5_error(probe.recorded, splits=probe.eng.splits)
+    real = int((row_slot < len(probe.eng.slots)).sum())
+    log(f"[serve-spec] K5 on a verify step's layer-0 rows ({q.shape[0]} "
+        f"rows, {real} real, lengths up to {int(lengths.max())}, the "
+        f"engine's {probe.eng.splits} split(s)) against its plain version "
+        f"in float32: max abs err {err:.3e} (limit "
+        f"{K5_ATOL[torch.bfloat16]:g}); plain calls {pa.counts.plain} "
+        f"[{c.smi}]")
+    if not err <= K5_ATOL[torch.bfloat16]:
+        raise AssertionError(f"[serve-spec] K5 on a verify step: {err}")
+
+
+def spec_checkpoint(c, eng) -> None:
+    """checkpoint_state mid-flight with speculation on; a fresh engine
+    restored from it finishes with spec off's tokens."""
+    for r in spec_requests(c):
+        eng.add_request(r)
+    while not mid_flight(eng):
+        if not eng.step():
+            raise AssertionError("[serve-spec] never reached a mid-flight "
+                                 "state to checkpoint")
+    snap = eng.checkpoint_state()
+    res_a = eng.run()
+    fresh = c.engine(spec_k=SPEC_K)
+    fresh.restore_state(snap)
+    before = spec_counters(fresh)
+    reset_counts()
+    res_b = fresh.run()
+    d = spec_moves(fresh, before)
+    check_k5_eager("[serve-spec] restored", c.layers, d["n_decode_steps"])
+    done = dict(snap["results"])
+    same_tokens("[serve-spec] uninterrupted", res_a, c.want)
+    same_tokens("[serve-spec] restored", res_b | done, c.want)
+    if sorted(res_b | done) != sorted(c.want):
+        raise AssertionError("[serve-spec] the restored engine did not "
+                             "finish every request")
+    fresh.kv.check_reclaimed()
+    slots = [x for x in snap["slots"] if x is not None]
+    log(f"[serve-spec] checkpoint with speculation on, {len(slots)} slots "
+        f"live ({sum(x['gen'] == 0 for x in slots)} mid-prompt), "
+        f"{len(snap['queue'])} queued: the fresh engine finished "
+        f"{len(res_b)} requests with spec off's tokens in "
+        f"{d['n_decode_steps']} steps ({d['n_spec_steps']} verify) "
+        f"[{c.smi}]")
+
+
+def phase_serve_spec(smi: str) -> None:
+    """Speculative decode on the card (module docstring, phase 4c): the
+    repetitive workload at [serve]'s width on one engine with the budget
+    pinned to SPEC_BUDGET, (1) spec off, then spec_k=SPEC_K with the
+    n-gram drafter (K5 held on a verify step's rows), both again in the
+    other order; on an engine with the defaulted budget, spec off and on;
+    (2) the target as its own model drafter, (3) dynamic depth, (4) the
+    model drafter at dynamic depth with decode_steps=KSTEP under
+    decode_mode "auto" (windows where no slot drafts) and "static" (none),
+    (5) every fourth request sampled, spec off and on, (6) an
+    overcommitted pool, (7) a checkpoint mid-flight restored on a fresh
+    engine.  Every arm's tokens equal spec off's."""
+    from paddle_tpu_torch.graph import GraphExecutor
+    from paddle_tpu_torch.models import transformer_lm_config
+    from paddle_tpu_torch.parameter import init_params
+    from paddle_tpu_torch.serving import (ModelDrafter, NgramDrafter,
+                                          ServingEngine)
+
+    vocab, layers = 32000, 8
+    model = transformer_lm_config(vocab=vocab, dim=512, layers=layers,
+                                  heads=8)
+    ex = GraphExecutor(model, compute_dtype="bfloat16")
+    params = init_params(model, seed=1)
+    c = types.SimpleNamespace(vocab=vocab, layers=layers, smi=smi, want=None,
+                              probes={})
+
+    def engine(budget: Optional[int] = SPEC_BUDGET, **kw):
+        eng = ServingEngine(ex, params, num_slots=16, page_size=16,
+                            max_context=768, max_step_tokens=budget, **kw)
+        c.probes[id(eng)] = SpecProbe(eng)
+        return eng
+
+    c.engine = engine
+    eng = engine()
+    assert (eng.prefill_chunk, eng.max_step_tokens) == (64, SPEC_BUDGET)
+    for k in (0, SPEC_K, 0):                # warm-up: not counted
+        eng.set_speculation(k)
+        eng.run(make_repetitive_requests(n=4, prompt_lo=8, prompt_hi=80,
+                                         max_new=8, vocab=vocab, seed=0))
+    start = time.perf_counter()
+    c.want, _ = spec_arm(c, eng, "(1) spec off", None)
+    ngram = NgramDrafter()
+    eng.set_speculation(SPEC_K, ngram)
+    probe = c.probes[id(eng)]
+    with probe.recording(model.layers[3].name):
+        spec_arm(c, eng, f"(1) spec_k={SPEC_K}, n-gram drafter", c.want)
+    spec_k5(c, probe)
+    # the same two runs in the other order: how far the host's pace drifts
+    spec_run(c, eng, spec_requests(c), f"(1) again: spec_k={SPEC_K}, "
+             f"n-gram drafter", c.want)
+    eng.set_speculation(0)
+    spec_run(c, eng, spec_requests(c), "(1) again: spec off", c.want)
+    dflt = engine(budget=None)
+    spec_run(c, dflt, spec_requests(c), f"(1) defaulted budget "
+             f"{dflt.max_step_tokens}, spec off", c.want)
+    dflt.set_speculation(SPEC_K)
+    assert (dflt.max_step_tokens, dflt.splits) == (SPEC_BUDGET, eng.splits)
+    spec_run(c, dflt, spec_requests(c), f"(1) defaulted budget "
+             f"{dflt.max_step_tokens}, spec_k={SPEC_K}", c.want)
+    del dflt
+    model_drafter = ModelDrafter.from_target(ex, params, window=64)
+    eng.set_speculation(SPEC_K, model_drafter)
+    spec_arm(c, eng, f"(2) spec_k={SPEC_K}, the target drafting over 64 "
+             f"tokens", c.want)
+    eng.set_speculation(SPEC_K, ngram, dynamic=True)
+    spec_arm(c, eng, f"(3) spec_k={SPEC_K}, n-gram, dynamic depth", c.want)
+    # a window's first run is eager and its second captured: both before
+    # the timed runs (greedy requests, the all-greedy variant)
+    eng.set_speculation(0)
+    eng.set_decode_steps(KSTEP)
+    eng.run(make_repetitive_requests(n=2, prompt_lo=8, prompt_hi=80,
+                                     max_new=12, vocab=vocab, seed=0))
+    eng.set_speculation(SPEC_K, model_drafter, dynamic=True)
+    for mode in ("auto", "static"):
+        eng.set_decode_mode(mode)
+        _, d = spec_arm(c, eng, f"(4) spec_k={SPEC_K}, the target drafting, "
+                        f"dynamic depth, decode_steps={KSTEP}, decode_mode "
+                        f"{mode}", c.want)
+        if (d["n_scan_flushes"] > 0) != (mode == "auto"):
+            raise AssertionError(f"[serve-spec] decode_mode {mode}: "
+                                 f"{d['n_scan_flushes']} windows")
+    eng.set_decode_steps(1)
+    eng.set_decode_mode("auto")
+    eng.set_speculation(0, ngram, dynamic=False)
+    want_s, _ = spec_arm(c, eng, "(5) every fourth sampled, spec off", None,
+                         sampled=4)
+    eng.set_speculation(SPEC_K)
+    spec_arm(c, eng, f"(5) every fourth sampled, spec_k={SPEC_K}", want_s,
+             sampled=4)
+    over = engine(num_pages=PREFIX_PAGES, spec_k=SPEC_K)
+    _, d = spec_arm(c, over, f"(6) spec_k={SPEC_K} on {PREFIX_PAGES - 1} "
+                    f"real pages", c.want)
+    over.kv.check_reclaimed()
+    if d["n_preemptions"] <= 0:
+        raise AssertionError("[serve-spec] the overcommitted pool never "
+                             "preempted")
+    del over
+    spec_checkpoint(c, eng)
+    log(f"[serve-spec] all arms: {time.perf_counter() - start:.1f} s "
+        f"[{smi}]")
 
 
 def phase_routes() -> None:
@@ -5305,6 +5675,7 @@ def main(argv=None) -> int:
     err = phase("kernel", phase_kernel)
     record = phase("serve", phase_serve, smi, err)
     phase("serve-prefix", phase_serve_prefix, smi)
+    phase("serve-spec", phase_serve_spec, smi)
     phase("routes", phase_routes)
     phase("flash", phase_flash)
     flash = phase("train", phase_train, smi)

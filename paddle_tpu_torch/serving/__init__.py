@@ -1,3 +1,8 @@
+from paddle_tpu_torch.serving.drafter import (  # noqa: F401
+    ModelDrafter,
+    NgramDrafter,
+    clamp_proposal,
+)
 from paddle_tpu_torch.serving.engine import (  # noqa: F401
     PhiloxNoise,
     Request,

@@ -68,15 +68,29 @@ noise for tokens gen .. gen + k - 1 of each sampling slot is drawn by
 `noise` into a fixed [k, S, V] buffer before the replay, the same noise
 k = 1 draws.  Tokens are identical to k = 1.
 
+Speculative decode (`spec_k > 0`, the reference's verify step): between
+steps a DRAFTER (serving/drafter.py: prompt lookup by default, or a draft
+LM's batched greedy rollout) proposes up to k tokens per decoding slot,
+and one ragged forward scores each slot's CHAIN — its base row at `pos`
+plus its drafts at pos+1.. in its own pages — beside any prompt chunks.
+Chain position i samples with the noise of generation gen + i, so it is
+the token the sequential engine would emit there; the slot commits the
+leading run of drafts the target agrees with plus one sampled token,
+and `kv.uncommit_tail` hands back the pages the rejected tail grew.
+Speculation changes how many steps the tokens take, never the tokens.
+`spec_dynamic=True` steers each slot's depth by an EWMA of its accept
+rate.  `decode_mode` "auto" lets a draft-free pure-decode step take the
+window; "static" keeps windows off while speculation is on.
+
 Refused with NotImplementedError (ROADMAP.md): the host spill tier
-(`spill_bytes_budget`), `export_prefix` / `import_prefix`, speculative
-decode (`spec_k`, `drafter`, `decode_mode` other than "auto"), tensor
+(`spill_bytes_budget`), `export_prefix` / `import_prefix`, tensor
 parallelism (`mesh`), tracing (`tracer`) and the legacy whole-prompt
 prefill (`prefill_chunk=None`).
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 import pickle
 import time
@@ -88,13 +102,14 @@ import torch
 
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.graph.context import TEST
-from paddle_tpu_torch.graph.registry import (cost_layer_types,
-                                             validation_layer_types)
+from paddle_tpu_torch.graph.lm_decode import _is_probs, _resolve_io_names
 from paddle_tpu_torch.ops.paged_attention import split_plan
 from paddle_tpu_torch.parameter.argument import Argument
+from paddle_tpu_torch.serving.drafter import NgramDrafter
 from paddle_tpu_torch.serving.paged_kv import PagedKVCache
 from paddle_tpu_torch.serving.prefix_tree import PrefixTree
-from paddle_tpu_torch.serving.sampler import pick_next_per_slot
+from paddle_tpu_torch.serving.sampler import (pick_next_chain,
+                                              pick_next_per_slot)
 from paddle_tpu_torch.utils.cuda_graphs import StepGraph, new_pool
 
 # noise(request, g, vocab, device) -> [vocab] float32 Gumbel noise for
@@ -105,7 +120,16 @@ NoiseFn = Callable[["Request", int, int, torch.device], torch.Tensor]
 _COUNTERS = ("_admit_seq", "n_decode_steps", "n_mixed_steps",
              "n_prefill_chunks", "tokens_generated", "n_preemptions",
              "n_cancelled", "n_expired", "n_prefix_hits", "n_prefix_misses",
-             "prefill_tokens_saved", "n_scan_flushes", "n_scan_steps")
+             "prefill_tokens_saved", "n_scan_flushes", "n_scan_steps",
+             "n_spec_steps", "n_spec_chains", "n_spec_drafted",
+             "n_spec_accepted", "n_spec_tokens", "n_draft_steps")
+
+# dynamic speculation (ServingEngine._dyn_k): the weight of a chain's accept
+# rate in its slot's running estimate (adapts within ~4 chains without
+# thrashing on one unlucky draft), and how often a slot whose depth decayed
+# to 0 re-probes with one draft
+_EWMA_ALPHA = 0.25
+_PROBE_EVERY = 16
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -196,7 +220,8 @@ class _Slot:
     is DECODE mode (token 0 was sampled from the last prompt position; the
     slot advances one token per step)."""
 
-    __slots__ = ("req", "pos", "gen", "last_tok", "generated", "admit_seq")
+    __slots__ = ("req", "pos", "gen", "last_tok", "generated", "admit_seq",
+                 "accept_ewma", "probe_tick")
 
     def __init__(self, req: Request, admit_seq: int, pos: int = 0):
         self.req = req
@@ -205,14 +230,11 @@ class _Slot:
         self.last_tok = -1        # emitted but not yet in the cache
         self.generated: list[int] = []
         self.admit_seq = admit_seq  # preemption takes the youngest
-
-
-def _resolve_io_names(model):
-    """Input = the first data layer; logits = the last layer that is not
-    data, a cost or a validation layer."""
-    skip = cost_layer_types | validation_layer_types | {"data"}
-    return (model.input_layer_names[0],
-            [l.name for l in model.layers if l.type not in skip][-1])
+        # dynamic speculation: the EWMA of this slot's per-chain accept rate
+        # (None until a chain with drafts verified) and the windows since
+        # its last re-probe at depth 0
+        self.accept_ewma: Optional[float] = None
+        self.probe_tick = 0
 
 
 class ServingEngine:
@@ -231,27 +253,19 @@ class ServingEngine:
                  max_step_tokens: Optional[int] = None,
                  noise: Optional[NoiseFn] = None, device: DeviceLike = None,
                  decode_steps: int = 1, spill_bytes_budget: int = 0,
-                 spec_k: int = 0, drafter=None, decode_mode: str = "auto",
-                 mesh=None, tracer=None):
+                 spec_k: int = 0, drafter=None, spec_dynamic: bool = False,
+                 decode_mode: str = "auto", mesh=None, tracer=None):
         if spill_bytes_budget:
             raise _not_ported("the host spill tier (spill_bytes_budget)")
-        if spec_k or drafter is not None or decode_mode != "auto":
-            raise _not_ported("speculative decode (spec_k, drafter, "
-                              "decode_mode)")
         if mesh is not None:
             raise _not_ported("tensor-parallel decode (mesh)")
         if tracer is not None:
             raise _not_ported("request tracing (tracer)")
-        if prefill_chunk is None:
-            raise _not_ported("prefill_chunk=None (whole-prompt prefill "
-                              "through the dense KV cache)")
         self.device = resolve_device(device)
         self.executor = executor
         self.input_name, self.logits_name = _resolve_io_names(executor.model)
-        logits_cfg = executor.model.layer(self.logits_name)
-        self.vocab = int(logits_cfg.size)
-        self._probs = logits_cfg.active_type in ("softmax",
-                                                 "sequence_softmax")
+        self.vocab = int(executor.model.layer(self.logits_name).size)
+        self._probs = _is_probs(executor.model, self.logits_name)
         # cast once: the per-step prepare() is then a no-op
         self.params, _ = executor.prepare(
             {k: v.to(self.device) for k, v in params.items()}, {})
@@ -293,31 +307,27 @@ class ServingEngine:
             device=self.device)
         self.n_scan_flushes = 0             # multi-step windows run
         self.n_scan_steps = 0               # decode bodies in them (k each)
-        self.set_decode_steps(decode_steps)
+        self.n_spec_steps = 0               # verify steps run
+        self.n_spec_chains = 0              # chains verified (slot, step)
+        self.n_spec_drafted = 0             # draft tokens scored
+        self.n_spec_accepted = 0            # draft tokens accepted
+        self.n_spec_tokens = 0              # tokens banked through chains:
+                                            # accepted + chains unless an
+                                            # eos cut a chain
+        self.n_draft_steps = 0              # draft passes that proposed
         # the device state and graphs of the windows, by k
         self._windows: dict[int, _Window] = {}
         self._pool = new_pool(self.device)
-        chunk = 4 * self.kv.page_size if prefill_chunk == -1 \
-            else int(prefill_chunk)
-        if chunk <= 0:
-            raise ValueError(f"prefill_chunk must be positive, got {chunk}")
-        self.prefill_chunk = min(chunk, self.kv.capacity_tokens)
-        mst = self.prefill_chunk + num_slots if max_step_tokens is None \
-            else int(max_step_tokens)
-        if mst <= num_slots:
-            raise ValueError(
-                f"max_step_tokens {mst} must exceed num_slots {num_slots}: "
-                f"every decoding slot takes one row per step, and prefill "
-                f"chunks need at least one row to make progress")
-        self.max_step_tokens = mst
-        # one paged-attention split count for every launch of this engine:
-        # a row's result depends on it, so a token's bits would otherwise
-        # depend on whether a decode or a mixed step carried it — on the
-        # schedule, which the prefix cache and preemption change.  The
-        # mixed launch's own plan (decode launches are the cheaper ones to
-        # move off theirs)
-        self.splits = split_plan(mst, num_slots + 1, self.kv.pages_per_slot,
-                                 self.kv.page_size)[0]
+        self.splits = 0
+        self.spec_k = 0
+        self.drafter = None
+        self.spec_dynamic = False
+        self._drafter_takes_eos = False
+        self.set_chunking(4 * self.kv.page_size if prefill_chunk == -1
+                          else prefill_chunk, max_step_tokens)
+        self.set_speculation(spec_k, drafter, dynamic=spec_dynamic)
+        self.set_decode_steps(decode_steps)
+        self.set_decode_mode(decode_mode)
 
     # -- public API -------------------------------------------------------
     def validate(self, req: Request) -> None:
@@ -404,6 +414,111 @@ class ServingEngine:
                              f"off), got {decode_steps}")
         self.decode_steps = decode_steps
 
+    def set_chunking(self, prefill_chunk: Optional[int],
+                     max_step_tokens: Optional[int] = None) -> None:
+        """Prompts commit in chunks of up to `prefill_chunk` rows inside
+        steps of at most `max_step_tokens` rows (default
+        `_default_budget`: one chunk plus a full chain per slot).  Only on
+        an idle engine (a live slot may be mid-chunk)."""
+        self._require_idle("set_chunking")
+        if prefill_chunk is None:
+            raise _not_ported("prefill_chunk=None (whole-prompt prefill "
+                              "through the dense KV cache)")
+        prefill_chunk = int(prefill_chunk)
+        if prefill_chunk <= 0:
+            raise ValueError(f"prefill_chunk must be positive, got "
+                             f"{prefill_chunk}")
+        prefill_chunk = min(prefill_chunk, self.kv.capacity_tokens)
+        S = len(self.slots)
+        self._mst_explicit = max_step_tokens is not None
+        mst = self._default_budget(prefill_chunk) \
+            if max_step_tokens is None else int(max_step_tokens)
+        if mst <= S:
+            raise ValueError(
+                f"max_step_tokens {mst} must exceed num_slots {S}: every "
+                f"decoding slot takes one row per step, and prefill chunks "
+                f"need at least one row to make progress")
+        self.prefill_chunk = prefill_chunk
+        self._set_budget(mst)
+
+    def _default_budget(self, prefill_chunk: int) -> int:
+        """One chunk of prefill headroom plus a full chain per slot: chunk
+        + S with speculation off, chunk + S * (spec_k + 1) with it on."""
+        return prefill_chunk + len(self.slots) * (self.spec_k + 1)
+
+    def _set_budget(self, mst: int) -> None:
+        """The step's row budget and, from it, the engine's one
+        paged-attention split count: a row's result depends on the count,
+        so every launch of the engine takes the same one, or a token's bits
+        would depend on which step type carried it — on the schedule, which
+        the prefix cache, preemption and speculation change.  It is the
+        budget launch's own plan (decode launches are the cheaper ones to
+        move off theirs).  Window graphs captured at another count are
+        dropped."""
+        self.max_step_tokens = mst
+        splits = split_plan(mst, len(self.slots) + 1,
+                            self.kv.pages_per_slot, self.kv.page_size)[0]
+        if splits != self.splits:
+            self._windows.clear()
+        self.splits = splits
+
+    def set_speculation(self, spec_k: int, drafter=None,
+                        dynamic: Optional[bool] = None) -> None:
+        """Speculative decode with up to `spec_k` drafts per decoding slot
+        and step (0 = off), drafted by `drafter` (anything with
+        `.propose(ctx, k)`; `propose_batch` is used where it exists), by
+        default the prompt-lookup `NgramDrafter`.  `dynamic` turns the
+        per-slot accept-rate depth policy on or off (None keeps it).  A
+        defaulted budget follows the depth.  Tokens are the same either
+        way.  Only on an idle engine."""
+        self._require_idle("set_speculation")
+        spec_k = int(spec_k)
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0 (0 = speculation off), "
+                             f"got {spec_k}")
+        self.spec_k = spec_k
+        if dynamic is not None:
+            self.spec_dynamic = bool(dynamic)
+        if not self._mst_explicit:
+            self._set_budget(self._default_budget(self.prefill_chunk))
+        if drafter is not None:
+            self.drafter = drafter
+        elif self.drafter is None and spec_k > 0:
+            self.drafter = NgramDrafter()
+        # drafters whose propose takes no eos_id get no eos clamp request
+        self._drafter_takes_eos = False
+        if self.drafter is not None and \
+                not hasattr(self.drafter, "propose_batch"):
+            try:
+                self._drafter_takes_eos = "eos_id" in \
+                    inspect.signature(self.drafter.propose).parameters
+            except (TypeError, ValueError):
+                self._drafter_takes_eos = False
+
+    @property
+    def drafter_kind(self) -> Optional[str]:
+        """The drafter's declared kind ("ngram", "model", ...) or None."""
+        return getattr(self.drafter, "kind", None) \
+            if self.drafter is not None else None
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Accepted / drafted over the engine's life (0.0 before any draft
+        was scored)."""
+        return (self.n_spec_accepted / self.n_spec_drafted
+                if self.n_spec_drafted else 0.0)
+
+    def set_decode_mode(self, mode: str) -> None:
+        """The step dispatch policy: "auto" lets a draft-free pure-decode
+        step run a window while speculation is on; "static" keeps windows
+        off whenever spec_k > 0.  Tokens are the same either way.  Only on
+        an idle engine."""
+        self._require_idle("set_decode_mode")
+        if mode not in ("auto", "static"):
+            raise ValueError(f"decode_mode must be 'auto' or 'static', got "
+                             f"{mode!r}")
+        self.decode_mode = mode
+
     def set_prefix_cache(self, enabled: bool) -> None:
         """Attach a fresh empty prefix index, or detach and empty it: every
         node's page drops its retention (pages live slots map stay with
@@ -467,12 +582,21 @@ class ServingEngine:
             live.remove(victim)
             if not live:
                 return True            # pages freed; the next step admits
-        if filling:
+        if self.spec_k > 0:
+            # drafts, or prompt chunks, go to the verify step; a draft-free
+            # pure-decode step takes the window ("auto") or the k = 1 step
+            drafts = self._propose_drafts(runnable)
+            if drafts or filling:
+                self._run_spec_step(runnable, filling, drafts)
+                return True
+        elif filling:
             # an admission never waits behind a window: mixed load runs the
             # k = 1 mixed step
             self._run_mixed_step(runnable, filling)
-        elif self.decode_steps > 1 and self._scan_window_ok(
-                runnable, self.decode_steps):
+            return True
+        if self.decode_steps > 1 and (self.spec_k == 0 or
+                                      self.decode_mode == "auto") \
+                and self._scan_window_ok(runnable, self.decode_steps):
             self._run_scan_step(runnable, self.decode_steps)
         else:
             self._run_decode_step(runnable)
@@ -495,8 +619,8 @@ class ServingEngine:
 
     # -- checkpoints ------------------------------------------------------
     def _config(self) -> dict:
-        """What a checkpoint must match (decode_steps is left out: a
-        snapshot taken at one k resumes at any other)."""
+        """What a checkpoint must match (decode_steps, decode_mode and the
+        drafter are left out: a snapshot resumes under any of them)."""
         kv = self.kv
         some = next(iter(kv.pools.values()))["k"]
         return {"num_slots": len(self.slots), "page_size": kv.page_size,
@@ -504,6 +628,7 @@ class ServingEngine:
                 "num_pages": kv.num_pages,
                 "prefill_chunk": self.prefill_chunk,
                 "max_step_tokens": self.max_step_tokens,
+                "spec_k": self.spec_k,
                 "prefix_cache": self.prefix is not None,
                 "layer_specs": dict(kv.layer_specs),
                 "dtype": str(some.dtype)}
@@ -530,7 +655,10 @@ class ServingEngine:
                       {"req": sl.req.snapshot(), "pos": sl.pos,
                        "gen": sl.gen, "last_tok": sl.last_tok,
                        "generated": list(sl.generated),
-                       "admit_seq": sl.admit_seq}
+                       "admit_seq": sl.admit_seq,
+                       # a restored slot keeps its learned draft depth
+                       "accept_ewma": sl.accept_ewma,
+                       "probe_tick": sl.probe_tick}
                       for sl in self.slots],
             "queue": [r.snapshot() for r in self.queue],
             "prefix": None if self.prefix is None else self.prefix.snapshot(),
@@ -573,6 +701,7 @@ class ServingEngine:
                                        d["admit_seq"], d["pos"])
             sl.gen, sl.last_tok = d["gen"], d["last_tok"]
             sl.generated = list(d["generated"])
+            sl.accept_ewma, sl.probe_tick = d["accept_ewma"], d["probe_tick"]
         self.queue = deque(Request.from_snapshot(d) for d in snap["queue"])
         if self.prefix is not None:
             self.prefix.restore(snap["prefix"])
@@ -733,10 +862,14 @@ class ServingEngine:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _sample(self, last: torch.Tensor, emitting: list[int]) -> np.ndarray:
-        """Sample one token per slot from `last` [S, V]; only the emitting
-        slots' knobs (and noise) are used, the other rows are discarded."""
-        S = len(self.slots)
+    def _sample(self, scores: torch.Tensor, emitting: list[int],
+                depth: Optional[dict] = None) -> np.ndarray:
+        """Sample each slot's chain of scores [S, K, V] -> [S, K] tokens;
+        only the emitting slots' knobs (and noise) are used, the other rows
+        are discarded.  Chain position i of a sampling slot samples with
+        the noise of its generation gen + i, drawn for i up to
+        `depth[s]` (0 without it); later positions are never read."""
+        S, K, V = scores.shape
         temp = np.zeros(S, np.float32)
         top_k = np.zeros(S, np.int64)
         top_p = np.zeros(S, np.float32)
@@ -747,16 +880,17 @@ class ServingEngine:
                 req.top_p
         sampling = [s for s in emitting if temp[s] > 0.0]
         if sampling:
-            noise = torch.zeros((S, self.vocab), dtype=torch.float32,
+            noise = torch.zeros((S, K, V), dtype=torch.float32,
                                 device=self.device)
             for s in sampling:
                 sl = self.slots[s]
-                noise[s] = self.noise(sl.req, sl.gen, self.vocab,
-                                      self.device)
-        nxt = pick_next_per_slot(last, noise, self._to_device(temp),
-                                 self._to_device(top_k),
-                                 self._to_device(top_p), is_probs=self._probs,
-                                 any_sampling=bool(sampling))
+                for i in range((depth or {}).get(s, 0) + 1):
+                    noise[s, i] = self.noise(sl.req, sl.gen + i, V,
+                                             self.device)
+        nxt = pick_next_chain(scores, noise, self._to_device(temp),
+                              self._to_device(top_k), self._to_device(top_p),
+                              is_probs=self._probs,
+                              any_sampling=bool(sampling))
         return nxt.cpu().numpy()
 
     def _run_decode_step(self, runnable) -> None:
@@ -782,8 +916,7 @@ class ServingEngine:
             ids=self._to_device(toks),
             lengths=torch.ones(S, dtype=torch.int32, device=self.device))}
         outputs, _, _ = self.executor.forward(self.params, feed, state, TEST)
-        nxt = self._sample(outputs[self.logits_name].value[:, 0, :],
-                           runnable)
+        nxt = self._sample(outputs[self.logits_name].value, runnable)[:, 0]
         self.n_decode_steps += 1
         for s in runnable:
             self._bank_token(s, int(nxt[s]))
@@ -881,25 +1014,63 @@ class ServingEngine:
             row_ids[r], row_slot[r], row_pos[r] = sl.last_tok, s, sl.pos
             sample_row[s] = r
             r += 1
-        advanced = []                          # (slot, rows, final)
-        budget = T - r
+        advanced, r = self._pack_chunk_rows(filling, row_ids, row_slot,
+                                            row_pos, sample_row, r, T - r)
+        logits = self._ragged_forward(row_ids, row_slot, row_pos)
+        emitting = list(runnable) + [s for s, _, final in advanced if final]
+        nxt = self._sample(logits[self._to_device(sample_row)][:, None],
+                           emitting)[:, 0]
+        self.n_decode_steps += 1
+        self.n_mixed_steps += 1
+        for s in runnable:
+            self._bank_token(s, int(nxt[s]))
+        self._advance_chunks(advanced, lambda s: int(nxt[s]))
+
+    def _chunk_rows_for(self, s: int, budget: int) -> int:
+        """Rows slot `s`'s next prompt chunk takes under `budget`: the one
+        formula the packing and the verify step's chunk reserve share."""
+        sl = self.slots[s]
+        return min(sl.req.prompt_ids.size - sl.pos, self.prefill_chunk,
+                   budget)
+
+    def _pack_chunk_rows(self, filling, row_ids, row_slot, row_pos,
+                         sample_row, r: int, budget: int):
+        """Pack up to `prefill_chunk` prompt rows per filling slot
+        (admission order) from row `r`, at most `budget` rows in all —
+        shared by the mixed and the verify step.  A slot whose final chunk
+        lands gets `sample_row[s]` at its last prompt row.  Returns
+        ([(slot, rows, final)], the next free row)."""
+        advanced = []
         for s in sorted(filling, key=lambda s: self.slots[s].admit_seq):
             if budget <= 0:
                 break
             sl = self.slots[s]
-            p = sl.req.prompt_ids.size
-            n = min(p - sl.pos, self.prefill_chunk, budget)
+            n = self._chunk_rows_for(s, budget)
             self._writable(s, sl.pos, sl.pos + n - 1)
             row_ids[r:r + n] = sl.req.prompt_ids[sl.pos:sl.pos + n]
             row_slot[r:r + n] = s
             row_pos[r:r + n] = np.arange(sl.pos, sl.pos + n)
-            final = sl.pos + n == p
+            final = sl.pos + n == sl.req.prompt_ids.size
             if final:
                 sample_row[s] = r + n - 1
             advanced.append((s, n, final))
             self.n_prefill_chunks += 1
             budget -= n
             r += n
+        return advanced, r
+
+    def _advance_chunks(self, advanced, tok0_of) -> None:
+        """After a mixed or verify step: move each chunked slot's cursor,
+        and emit token 0 (`tok0_of(s)`) where the final chunk ran."""
+        for s, n, final in advanced:
+            self.slots[s].pos += n
+            if final:
+                self._emit_first(s, tok0_of(s))
+
+    def _ragged_forward(self, row_ids, row_slot, row_pos) -> torch.Tensor:
+        """The packed rows [T] through the model, every attention layer
+        reading through the ragged paged-attention kernel at the engine's
+        split count; returns the logits [T, V]."""
         table = self._sync_table()
         d_slot, d_pos = self._to_device(row_slot), self._to_device(row_pos)
         state = {name: {"k_pages": p["k"], "v_pages": p["v"],
@@ -908,20 +1079,200 @@ class ServingEngine:
                  for name, p in self.kv.pools.items()}
         feed = {self.input_name: Argument(
             ids=self._to_device(row_ids[None, :]),
-            lengths=torch.full((1,), T, dtype=torch.int32,
+            lengths=torch.full((1,), row_ids.size, dtype=torch.int32,
                                device=self.device))}
         outputs, _, _ = self.executor.forward(self.params, feed, state, TEST)
-        logits = outputs[self.logits_name].value[0]            # [T, V]
-        emitting = list(runnable) + [s for s, _, final in advanced if final]
-        nxt = self._sample(logits[self._to_device(sample_row)], emitting)
-        self.n_decode_steps += 1
-        self.n_mixed_steps += 1
+        return outputs[self.logits_name].value[0]
+
+    # -- speculative decode -------------------------------------------------
+    def _dyn_k(self, sl: _Slot) -> int:
+        """Slot `sl`'s draft depth this step: spec_k, or with
+        `spec_dynamic` its accept-rate EWMA times spec_k — one draft for a
+        cold slot, 0 (plain decode) for a slot whose rate decayed, with a
+        one-draft re-probe every `_PROBE_EVERY` steps, so a workload that
+        turns repetitive climbs back."""
+        if not self.spec_dynamic:
+            return self.spec_k
+        if sl.accept_ewma is None:
+            return min(1, self.spec_k)
+        k = int(round(sl.accept_ewma * self.spec_k))
+        if k <= 0:
+            sl.probe_tick += 1
+            if sl.probe_tick >= _PROBE_EVERY:
+                sl.probe_tick = 0
+                return 1
+            return 0
+        return min(k, self.spec_k)
+
+    def _draft_ctx(self, s: int, W: int) -> np.ndarray:
+        """Slot `s`'s most recent W tokens of prompt + generated, newest
+        last."""
+        sl = self.slots[s]
+        gen_tail = sl.generated[-W:]
+        need = W - len(gen_tail)
+        if need > 0:
+            return np.concatenate([sl.req.prompt_ids[-need:],
+                                   np.asarray(gen_tail, np.int32)])
+        return np.asarray(gen_tail, np.int32)
+
+    def _propose_drafts(self, runnable) -> dict:
+        """{slot: draft tokens} for the decoding slots the drafter proposes
+        for.  A slot's depth is capped so its chain emits no more tokens
+        than it may (max_new - gen - 1 drafts) and writes no position past
+        its capacity.  A drafter returning more than asked trips an
+        assertion: the clamp is the drafter's contract, and truncating
+        here would hide its fault as a low accept rate."""
+        out = {}
+        if not runnable:
+            return out
+        cap = self.kv.capacity_tokens
+        W = int(getattr(self.drafter, "window", 0)) or cap
+        want = {}
         for s in runnable:
-            self._bank_token(s, int(nxt[s]))
-        for s, n, final in advanced:
-            self.slots[s].pos += n
-            if final:
-                self._emit_first(s, int(nxt[s]))
+            sl = self.slots[s]
+            k = min(self._dyn_k(sl), sl.req.max_new - sl.gen - 1,
+                    cap - 1 - sl.pos)
+            if k > 0:
+                want[s] = k
+        if not want:
+            return out
+        if hasattr(self.drafter, "propose_batch"):
+            out = self._propose_batched(want, W)
+        else:
+            for s, k in want.items():
+                ctx = self._draft_ctx(s, W)
+                if self._drafter_takes_eos:
+                    d = self.drafter.propose(
+                        ctx, k, eos_id=self.slots[s].req.eos_id)
+                else:
+                    d = self.drafter.propose(ctx, k)
+                d = np.asarray(d, np.int32).reshape(-1)
+                assert d.size <= k, \
+                    f"drafter returned {d.size} tokens for k={k}: the " \
+                    f"clamp contract is the drafter's (serving/drafter.py)"
+                if d.size:
+                    out[s] = d
+        if out:
+            self.n_draft_steps += 1
+        return out
+
+    def _propose_batched(self, want: dict, W: int) -> dict:
+        """One `propose_batch` call at depth spec_k for every slot: the
+        [S, W] context matrix (slots not drafting ride as length-1 zero
+        rows), each drafting slot's row then cut to its own depth and at
+        the -1 padding after its eos."""
+        S = len(self.slots)
+        ctx = np.zeros((S, W), np.int32)
+        lens = np.ones(S, np.int32)
+        eos = np.full(S, -1, np.int32)
+        for s in want:
+            c = self._draft_ctx(s, W)
+            ctx[s, :c.size] = c[-W:]
+            lens[s] = max(int(c.size), 1)
+            eos[s] = self.slots[s].req.eos_id
+        props = np.asarray(self.drafter.propose_batch(ctx, lens, self.spec_k,
+                                                      eos_ids=eos))
+        out = {}
+        for s, k in want.items():
+            row = np.asarray(props[s, :k], np.int32).reshape(-1)
+            stop = np.flatnonzero(row < 0)
+            if stop.size:
+                row = row[:int(stop[0])]
+            if row.size:
+                out[s] = row
+        return out
+
+    def _run_spec_step(self, runnable, filling, drafts: dict) -> None:
+        """One verify step: every running decoding slot packs a CHAIN — its
+        base row at `pos` and up to k draft rows at pos+1.. — and filling
+        slots their prompt chunks, in one ragged forward.  Budget order:
+        the base rows first (every decoder advances), then the chunks'
+        reserve (what the mixed step would schedule them), and drafts
+        spend what is left.  A chain whose pages cannot grow without
+        evicting a cached prefix verifies fewer drafts.  The forward writes
+        every row's K/V before any row reads, so draft row i attends the
+        context plus drafts before it, causally.
+
+        Chain position i samples with the noise of generation gen + i;
+        the slot accepts the leading run of drafts equal to their
+        position's sample, commits it plus the next sample, hands back the
+        pages the rejected tail grew (before banking, which may retire the
+        slot) and banks the tokens, cut at an eos."""
+        S = len(self.slots)
+        K = self.spec_k
+        T = self.max_step_tokens
+        ps = self.kv.page_size
+        row_ids = np.zeros(T, np.int64)
+        row_slot = np.full(T, S, np.int32)     # S = the all-zero table row
+        row_pos = np.zeros(T, np.int32)
+        first_row = np.zeros(S, np.int64)
+        n_draft = np.zeros(S, np.int64)
+        draft_toks = np.zeros((S, K), np.int64)
+        budget = T - len(runnable)
+        assert budget >= 0, "max_step_tokens below the decoding slots"
+        for s in sorted(filling, key=lambda s: self.slots[s].admit_seq):
+            if budget <= 0:
+                break
+            budget -= self._chunk_rows_for(s, budget)  # the chunks' reserve
+        r = 0
+        for s in runnable:
+            sl = self.slots[s]
+            d = drafts.get(s)
+            nd = 0 if d is None else min(int(d.size), budget)
+            if nd > 0 and not self.kv.try_grow(s, sl.pos + nd + 1,
+                                               evict=False):
+                # page-starved: verify what the slot's pages cover (pages
+                # taken stay; the rollback returns what acceptance leaves
+                # unjustified)
+                nd = min(nd, max(0, int(self.kv._n_pages[s]) * ps
+                                 - sl.pos - 1))
+            self._writable(s, sl.pos, sl.pos + nd)
+            row_ids[r], row_slot[r], row_pos[r] = sl.last_tok, s, sl.pos
+            first_row[s] = r
+            r += 1
+            if nd > 0:
+                row_ids[r:r + nd] = d[:nd]
+                row_slot[r:r + nd] = s
+                row_pos[r:r + nd] = np.arange(sl.pos + 1, sl.pos + 1 + nd)
+                draft_toks[s, :nd] = d[:nd]
+                n_draft[s] = nd
+                self.n_spec_drafted += nd
+                budget -= nd
+                r += nd
+        # chunks take their reserve plus what the drafts left
+        advanced, r = self._pack_chunk_rows(filling, row_ids, row_slot,
+                                            row_pos, first_row, r, T - r)
+        logits = self._ragged_forward(row_ids, row_slot, row_pos)
+        idx = np.minimum(first_row[:, None] + np.arange(K + 1)[None, :],
+                         T - 1)
+        emitting = list(runnable) + [s for s, _, final in advanced if final]
+        sampled = self._sample(logits[self._to_device(idx)], emitting,
+                               {s: int(n_draft[s]) for s in runnable})
+        ok = (sampled[:, :K] == draft_toks) & \
+            (np.arange(K)[None, :] < n_draft[:, None])
+        acc = np.cumprod(ok, axis=1).sum(axis=1)
+        self.n_decode_steps += 1
+        self.n_spec_steps += 1
+        if advanced:
+            self.n_mixed_steps += 1
+        for s in runnable:
+            sl = self.slots[s]
+            a, nd = int(acc[s]), int(n_draft[s])
+            self.n_spec_accepted += a
+            self.n_spec_chains += 1
+            if self.spec_dynamic and nd:
+                # before banking may retire the slot; a draft-free chain
+                # carries no signal
+                rate = a / nd
+                sl.accept_ewma = rate if sl.accept_ewma is None else \
+                    (1.0 - _EWMA_ALPHA) * sl.accept_ewma + _EWMA_ALPHA * rate
+            self.kv.uncommit_tail(s, sl.pos + a + 1)
+            for i in range(a + 1):
+                self._bank_token(s, int(sampled[s, i]))
+                self.n_spec_tokens += 1
+                if self.slots[s] is None:      # retired mid-chain (eos)
+                    break
+        self._advance_chunks(advanced, lambda s: int(sampled[s, 0]))
 
     def _bank_token(self, s: int, tok: int) -> None:
         """Record one decoded token of slot `s`; retire on eos/max_new."""

@@ -241,6 +241,31 @@ class PagedKVCache:
         self._n_pages[slot] = 0
         self.version += 1
 
+    def uncommit_tail(self, slot: int, n_tokens: int) -> int:
+        """Release the slot's trailing pages beyond `pages_for(n_tokens)` —
+        the speculative verify step's page rollback: draft K/V was written
+        into pages grown past the slot's committed length, and a rejected
+        suffix leaves them holding only positions no query will attend
+        before they are written again.  Tail pages are private (drafts
+        never write shared pages; growth allocates fresh ones), which is
+        asserted: releasing a shared page here would corrupt a cached
+        prefix.  Returns the number of pages released."""
+        keep = self.pages_for(n_tokens)
+        freed = 0
+        while int(self._n_pages[slot]) > keep:
+            j = int(self._n_pages[slot]) - 1
+            page = int(self.table[slot, j])
+            assert self.page_writable(page), \
+                f"slot {slot}: uncommit_tail hit shared page {page} at " \
+                f"logical index {j}"
+            self.table[slot, j] = 0
+            self._n_pages[slot] -= 1
+            self._unref(page)
+            freed += 1
+        if freed:
+            self.version += 1
+        return freed
+
     def reset(self) -> None:
         """Release every slot, forget all prefix retention and rebuild the
         free list in canonical order, so page placement afterwards is

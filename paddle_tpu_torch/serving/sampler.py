@@ -72,3 +72,23 @@ def pick_next_per_slot(last: torch.Tensor, noise: Optional[torch.Tensor],
 
     sampled = torch.argmax(scaled + noise.float(), dim=-1).to(torch.int32)
     return torch.where(sampling, sampled, greedy)
+
+
+def pick_next_chain(last: torch.Tensor, noise: Optional[torch.Tensor],
+                    temperature: torch.Tensor, top_k: torch.Tensor,
+                    top_p: torch.Tensor, is_probs: bool = False,
+                    any_sampling: Optional[bool] = None) -> torch.Tensor:
+    """[S, K, V] chain scores + [S, K, V] Gumbel noise + per-slot knobs [S]
+    -> [S, K] int32: the speculative verify step's picks.  Position (s, i)
+    holds the scores at the slot's generation gen[s] + i and its noise is
+    that generation's, so entry (s, i) is the token `pick_next_per_slot`
+    would give slot s at generation gen[s] + i.  Rows are independent, so
+    the chain is flattened and sampled as S * K slots."""
+    S, K, V = last.shape
+    flat = pick_next_per_slot(
+        last.reshape(S * K, V),
+        None if noise is None else noise.reshape(S * K, V),
+        temperature.repeat_interleave(K), top_k.repeat_interleave(K),
+        top_p.repeat_interleave(K), is_probs=is_probs,
+        any_sampling=any_sampling)
+    return flat.reshape(S, K)

@@ -25,6 +25,7 @@ from chip_smoke import (ADD_CASES, ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL,
                         k5_repeat_and_graph, k5_shared_case,
                         kstep_alternating, lm_batches, lstm_compare,
                         lstm_inputs, lstm_repeat_and_graph,
+                        make_repetitive_requests,
                         move_off_relu_kink, o_limit_share, pass_with_losses,
                         profiled, reset_counts, route_total,
                         sentiment_batches, seq2seq_batches, seq2seq_route,
@@ -43,7 +44,7 @@ from paddle_tpu_torch.ops import lstm_fused as lf
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import rnn as rnnops
 from paddle_tpu_torch.parameter import Argument, init_params
-from paddle_tpu_torch.serving import Request, ServingEngine
+from paddle_tpu_torch.serving import ModelDrafter, Request, ServingEngine
 from paddle_tpu_torch.trainer import Trainer
 
 pytestmark = pytest.mark.cuda
@@ -918,6 +919,61 @@ def test_engine_windows_from_cuda_graphs_equal_k1(cuda):
         assert sorted(res) == sorted(runs[1][0])
         for i, toks in runs[1][0].items():
             np.testing.assert_array_equal(res[i], toks)
+
+
+def test_speculative_decode_on_cuda_matches_spec_off_and_cpu(cuda):
+    """Repetitive prompts, every fourth sampled, more than the slots, at a
+    pinned budget: the card's tokens with spec_k = 3 (the n-gram drafter,
+    then the target drafting for itself, with dynamic depth) equal the
+    card's with speculation off, and the greedy requests' equal the CPU
+    engine's; drafts were accepted; every verify step launched the
+    paged-attention kernel once per attention layer and the plain
+    version never ran."""
+    model = transformer_lm_config(vocab=97, dim=64, layers=2, heads=4,
+                                  kv_heads=2)
+    ex = GraphExecutor(model)
+    params = init_params(model, seed=0, device="cpu")
+
+    def reqs():
+        return make_repetitive_requests(10, 5, 40, 12, 97, seed=3,
+                                        sampled_every=4)
+
+    greedy = [r.req_id for r in reqs() if r.temperature == 0.0]
+
+    def engine(dev, **kw):
+        return ServingEngine(ex, params, num_slots=4, page_size=8,
+                             max_context=64, max_step_tokens=48, device=dev,
+                             **kw)
+
+    cpu = engine("cpu").run(reqs())
+    eng = engine(cuda)
+    off = eng.run(reqs())
+    for i in greedy:
+        np.testing.assert_array_equal(off[i], cpu[i])
+    for drafter, dynamic in ((None, False),
+                             (ModelDrafter.from_target(ex, params,
+                                                       window=16), True)):
+        eng.set_speculation(3, drafter, dynamic=dynamic)
+        verify = []
+        run_spec = eng._run_spec_step
+
+        def counted(*a):
+            k0 = pa.counts.kernel
+            run_spec(*a)
+            verify.append(pa.counts.kernel - k0)
+
+        eng._run_spec_step = counted
+        reset_counts()
+        a0 = (eng.n_spec_accepted, eng.n_decode_steps)
+        on = eng.run(reqs())
+        del eng._run_spec_step
+        assert eng.n_spec_accepted > a0[0]
+        assert verify and set(verify) == {2} and pa.counts.plain == 0
+        assert pa.counts.kernel == 2 * (eng.n_decode_steps - a0[1])
+        assert sorted(on) == sorted(off)
+        for i, toks in off.items():
+            np.testing.assert_array_equal(on[i], toks)
+    eng.kv.check_reclaimed()
 
 
 def test_fused_dispatch_recaptures_after_a_load(cuda, tmp_path):

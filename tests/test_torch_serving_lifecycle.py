@@ -373,20 +373,21 @@ def test_every_paged_attention_call_carries_the_engines_split_count(
 
 
 def test_features_not_ported_are_refused():
-    """The spill tier, page export / import, speculative decode, a mesh,
-    tracing and the whole-prompt prefill raise NotImplementedError
-    naming ROADMAP.md; decode_mode="auto" (the reference's default, which
-    only speculation reads) is taken."""
+    """The spill tier, page export / import, a mesh, tracing and the
+    whole-prompt prefill (also through set_chunking) raise
+    NotImplementedError naming ROADMAP.md; speculative decode and
+    decode_mode="static" are taken (tests/test_torch_spec_decode.py)."""
     from paddle_tpu_torch.serving import ServingEngine
     from test_torch_prefix_cache import lm
     _, ex, params = lm(*M11)
-    for kw in (dict(spill_bytes_budget=1 << 20), dict(spec_k=2),
-               dict(drafter=object()), dict(decode_mode="static"),
-               dict(mesh=object()), dict(tracer=object()),
-               dict(prefill_chunk=None)):
+    for kw in (dict(spill_bytes_budget=1 << 20), dict(mesh=object()),
+               dict(tracer=object()), dict(prefill_chunk=None)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServingEngine(ex, params, device="cpu", **kw)
-    eng = ServingEngine(ex, params, device="cpu", decode_mode="auto")
+    eng = ServingEngine(ex, params, device="cpu", spec_k=2,
+                        decode_mode="static")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        eng.set_chunking(None)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng.export_prefix([3, 4, 5])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
