@@ -87,13 +87,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
                x (SPEC_K + 1)), from a cold cache each run: (1) spec off,
                then spec_k=4 with the n-gram drafter, K5's layer-0 launch
                in a verify step with drafts held against its plain version,
-               both again in the other order, and both on an engine with
-               the defaulted budget (80 rows off, 144 on); (2) the target
-               drafting for itself over 64 tokens
-               (ModelDrafter.from_target); (3) dynamic depth; (4) the
-               target drafting at dynamic depth with decode_steps=KSTEP
+               and both on an engine with the defaulted budget (80 rows
+               off, 144 on); (2) the target drafting for itself over 64
+               tokens (ModelDrafter.from_target), on the first
+               SPEC_MODEL_REQUESTS = 16 requests; (3) dynamic depth; (4)
+               the target drafting at dynamic depth with decode_steps=KSTEP
                under decode_mode "auto" (windows where no slot drafts) and
-               "static" (no window);
+               "static" (no window), on 16 requests;
                (5) every fourth request sampled ([serve-prefix]'s knobs),
                spec off and on; (6) spec on over PREFIX_PAGES - 1 = 128
                real pages (preemptions, check_reclaimed); (7) a
@@ -104,8 +104,46 @@ Phases, in order; any failure raises and the exit code is non-zero:
                eager step, verify steps included, the plain version never;
                each arm logs steps (verify, mixed, windows), tokens/s, the
                accept rate, draft ms a pass and a profiled run of 8 of its
-               requests (device ms/step, busy share, kernels and host
-               launch calls a step, K5 on the card as the route says);
+               requests (4 in (2) and (4): SPEC_MODEL_PROFILED; device
+               ms/step, busy share, kernels and host launch calls a step,
+               K5 on the card as the route says);
+  4d. decode — the dense decode path at the same width (bfloat16 unless
+               said, random weights from seed 1), at tools/bench_lm.py's
+               decode defaults (batch 32, 64 new tokens; one warm call,
+               then DECODE_REPS = 2 timed, one for the re-forward and
+               fp32 arms, whose warm call a teacher-forced forward of
+               their shape made, decode tokens/s = 32 x 64 / median; each
+               arm's profiled call makes DECODE_PROFILE_NEW = 8 new
+               tokens):
+               (1) lm_generate(use_cache=True) at contexts 512, 1024 and
+               4096 (prompt = context - 64) and once on ragged prompts of
+               2,049-4,032 tokens: the prefill runs K4's bf16 forward once
+               per layer (prompts of >= 2048 tokens), held against its
+               plain version on the path's recorded inputs within
+               [flash]'s o limit; (2) use_cache=False (re-forward) at 512
+               and 1024; (3) float32 (TF32 off) at 1024, both modes; (4)
+               lm_beam_generate, batch 8, beam 4, prompt 448: beam 1 equals
+               greedy cached decoding, scores best-first; every greedy run's
+               tokens held by GREEDY_MARGIN (each token's teacher-forced
+               probability within 5% (bf16) / 1e-4 (fp32) of its
+               position's best, a whole-sequence forward over the run's
+               tokens), the launches of every call held (K4 as the prompt
+               length says, K5 never, no plain version), a profiled call
+               each; (5) ServingEngine(prefill_chunk=None) on bench.py
+               bench_serving_chunked's heavy-tail workload (HEAVY: 64
+               requests, prompts 32-703, 16 slots, pages of 16, context
+               768) beside the same engine chunked (chunk 64): steps,
+               tokens/s, first-token p50/p99, K5 once per layer per step,
+               both held by the teacher-forced margin, a profiled run of
+               HEAVY_PROFILED = 4 whole-prompt requests; then on 24 of
+               them decode_steps=KSTEP
+               windows, spec_k=SPEC_K and a checkpoint restored mid-flight
+               on a fresh engine, each with the straight run's tokens;
+               then 8 requests at context 4096 (HEAVY_LONG) whose
+               whole-prompt buckets of >= 2048 tokens launch K4 once per
+               layer, held against its plain version on the recorded
+               [1, bucket] inputs; K4 timed at the prefill's
+               [32, 4032, 8, 64] (the kernels line's record);
   5. routes  — float32, 2 layers at full width: the engine reading through
                the kernel against the engine reading through the page-table
                gather (attn_impl='dense'), lm_head rows at the first mixed
@@ -1941,6 +1979,11 @@ def phase_serve_prefix(smi: str) -> None:
 SPEC_WORKLOAD = dict(n=64, prompt_lo=32, prompt_hi=256, max_new=64)
 SPEC_K = 4
 SPEC_BUDGET = 64 + 16 * (SPEC_K + 1)
+# requests of the arms where the target drafts for itself (its k draft
+# forwards a pass make them the phase's slowest), and of their profiled
+# passes (~3,600 kernels a step for the profiler to sum)
+SPEC_MODEL_REQUESTS = 16
+SPEC_MODEL_PROFILED = 4
 SPEC_COUNTERS = ("n_spec_steps", "n_spec_chains", "n_spec_drafted",
                  "n_spec_accepted", "n_spec_tokens", "n_draft_steps")
 
@@ -2109,15 +2152,19 @@ def spec_profile(c, eng, reqs, what: str, want: dict) -> None:
         f"[{c.smi}]")
 
 
-def spec_requests(c, sampled: int = 0) -> list:
+def spec_requests(c, sampled: int = 0, n: Optional[int] = None) -> list:
+    """The workload's requests (the first `n`)."""
     return make_repetitive_requests(vocab=c.vocab, seed=1,
-                                    sampled_every=sampled, **SPEC_WORKLOAD)
+                                    sampled_every=sampled,
+                                    **SPEC_WORKLOAD)[:n]
 
 
-def spec_arm(c, eng, what: str, want: Optional[dict], sampled: int = 0):
-    """One arm: the workload timed, then 8 of its requests profiled."""
-    res, d = spec_run(c, eng, spec_requests(c, sampled), what, want)
-    spec_profile(c, eng, spec_requests(c, sampled)[:8], what, res)
+def spec_arm(c, eng, what: str, want: Optional[dict], sampled: int = 0,
+             n: Optional[int] = None, profiled_n: int = 8):
+    """One arm: the workload (its first `n` requests) timed, then
+    `profiled_n` of its requests profiled."""
+    res, d = spec_run(c, eng, spec_requests(c, sampled, n), what, want)
+    spec_profile(c, eng, spec_requests(c, sampled)[:profiled_n], what, res)
     return res, d
 
 
@@ -2221,11 +2268,6 @@ def phase_serve_spec(smi: str) -> None:
     with probe.recording(model.layers[3].name):
         spec_arm(c, eng, f"(1) spec_k={SPEC_K}, n-gram drafter", c.want)
     spec_k5(c, probe)
-    # the same two runs in the other order: how far the host's pace drifts
-    spec_run(c, eng, spec_requests(c), f"(1) again: spec_k={SPEC_K}, "
-             f"n-gram drafter", c.want)
-    eng.set_speculation(0)
-    spec_run(c, eng, spec_requests(c), "(1) again: spec off", c.want)
     dflt = engine(budget=None)
     spec_run(c, dflt, spec_requests(c), f"(1) defaulted budget "
              f"{dflt.max_step_tokens}, spec off", c.want)
@@ -2237,7 +2279,8 @@ def phase_serve_spec(smi: str) -> None:
     model_drafter = ModelDrafter.from_target(ex, params, window=64)
     eng.set_speculation(SPEC_K, model_drafter)
     spec_arm(c, eng, f"(2) spec_k={SPEC_K}, the target drafting over 64 "
-             f"tokens", c.want)
+             f"tokens, {SPEC_MODEL_REQUESTS} requests", c.want,
+             n=SPEC_MODEL_REQUESTS, profiled_n=SPEC_MODEL_PROFILED)
     eng.set_speculation(SPEC_K, ngram, dynamic=True)
     spec_arm(c, eng, f"(3) spec_k={SPEC_K}, n-gram, dynamic depth", c.want)
     # a window's first run is eager and its second captured: both before
@@ -2251,7 +2294,9 @@ def phase_serve_spec(smi: str) -> None:
         eng.set_decode_mode(mode)
         _, d = spec_arm(c, eng, f"(4) spec_k={SPEC_K}, the target drafting, "
                         f"dynamic depth, decode_steps={KSTEP}, decode_mode "
-                        f"{mode}", c.want)
+                        f"{mode}, {SPEC_MODEL_REQUESTS} requests", c.want,
+                        n=SPEC_MODEL_REQUESTS,
+                        profiled_n=SPEC_MODEL_PROFILED)
         if (d["n_scan_flushes"] > 0) != (mode == "auto"):
             raise AssertionError(f"[serve-spec] decode_mode {mode}: "
                                  f"{d['n_scan_flushes']} windows")
@@ -2274,6 +2319,572 @@ def phase_serve_spec(smi: str) -> None:
     spec_checkpoint(c, eng)
     log(f"[serve-spec] all arms: {time.perf_counter() - start:.1f} s "
         f"[{smi}]")
+
+
+# tools/bench_lm.py's decode defaults: batch 32, 64 new tokens; the
+# contexts of its sweep (prompt = context - 64); reps after one warm call
+DECODE_MODEL = dict(vocab=32000, dim=512, layers=8, heads=8)
+DECODE_B, DECODE_NEW = 32, 64
+DECODE_CONTEXTS = (512, 1024, 4096)
+DECODE_REFORWARD = (512, 1024)      # bench_lm skips re-forward above 2048
+DECODE_RAGGED = (2049, 4032)        # the ragged call's prompt lengths
+DECODE_FP32 = 1024                  # the float32 arm's context
+DECODE_BEAM = (8, 4, 448)           # batch, beam, prompt
+DECODE_REPS = 2
+DECODE_PROFILE_NEW = 8              # new tokens of an arm's profiled call
+# a greedy token's teacher-forced score: (max p - p[token]) / max p at its
+# position of a whole-sequence forward over the run's tokens, at most this
+# (decided before the first run: bf16 rounds p and the activations at
+# 2^-8, a few roundings deep; float32 sums in another order only)
+GREEDY_MARGIN = {torch.bfloat16: 0.05, torch.float32: 1e-4}
+# bench.py bench_serving_chunked's heavy-tail workload (64 requests,
+# prompts 32..703, 64 new tokens, 16 slots, pages of 16, context 768), and
+# 8 requests at context 4096 whose prompt body sits at 2048 tokens, so
+# whole-prompt buckets of 2048 and more run K4
+HEAVY = dict(n=64, prompt_lo=32, prompt_hi=703, max_new=64)
+HEAVY_LONG = dict(n=8, prompt_lo=2048, prompt_hi=4031, max_new=64)
+LONG_CONTEXT = 4096
+HEAVY_SUBSET = 24       # requests of the windows / spec / checkpoint runs
+HEAVY_PROFILED = 4      # requests of the heavy-tail profiled pass
+
+
+def make_heavytail_requests(n: int, prompt_lo: int, prompt_hi: int,
+                            max_new: int, vocab: int, seed: int = 0,
+                            eos_id: int = -1, tail_frac: float = 0.1):
+    """tools/bench_serving.py's heavy-tail workload: most prompts drawn
+    lognormal around prompt_lo, `tail_frac` of them from a Pareto tail
+    reaching prompt_hi; lengths clipped to [2, prompt_hi]; greedy."""
+    from paddle_tpu_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        if rng.random() < tail_frac:
+            p = prompt_lo * (1.0 + rng.pareto(1.1))
+        else:
+            p = rng.lognormal(np.log(max(prompt_lo, 2)), 0.5)
+        p = int(np.clip(p, 2, prompt_hi))
+        prompt = rng.integers(2, vocab, p).astype(np.int32)
+        reqs.append(Request(f"h{seed}_{i}", prompt, max_new=max_new,
+                            eos_id=eos_id))
+    return reqs
+
+
+def greedy_margin(ex, params, toks, start, stop) -> float:
+    """The worst teacher-forced margin of a greedy run's tokens: one
+    whole-sequence forward of `toks` [B, T] (row b valid to stop[b]); for
+    each generated token (positions start[b]..stop[b] - 1) the share
+    (max p - p[token]) / max p of the probabilities at the position before
+    it (GREEDY_MARGIN)."""
+    from paddle_tpu_torch.parameter import Argument
+    dev = toks.device
+    stop = torch.as_tensor(stop, device=dev).to(torch.int32)
+    start = torch.as_tensor(start, device=dev).long()
+    out, _, _ = ex.forward(params, {"tokens": Argument(
+        ids=toks.long(), lengths=stop)})
+    p = out["lm_head"].value[:, :-1]                     # [B, T-1, V]
+    pmax = p.amax(dim=-1).float()
+    ptok = torch.gather(p, 2, toks[:, 1:].long()[..., None])[..., 0].float()
+    t = torch.arange(p.shape[1], device=dev)[None]
+    gen = (t >= start[:, None] - 1) & (t < stop.long()[:, None] - 1)
+    share = torch.where(gen, (pmax - ptok) / pmax, torch.zeros((), device=dev))
+    del out, p
+    return float(share.max())
+
+
+def prefill_flash_check(args, kw, what: str, smi: str) -> float:
+    """K4's forward on a cached prefill's recorded inputs against its plain
+    version in float32 (four batch rows at a time: the plain version
+    holds [rows, H, T, T] scores): o per element within [flash]'s limit of
+    q's dtype, lse within 2e-5 where finite.  Returns the max abs error of
+    o."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v = args
+    kvm = kw["k_valid"]
+    mask = dict(causal=bool(kw.get("causal", False)), window=kw.get("window"))
+    o, lse = fa.flash_attention_fwd(q, k, v, kvm, **mask)
+    errs, shares, lse_err = [], [], 0.0
+    for b in range(0, q.shape[0], 4):
+        sl = slice(b, b + 4)
+        want_o, want_lse = fa.flash_attention_plain(
+            q[sl].float(), k[sl].float(), v[sl].float(), kvm[sl], **mask)
+        errs.append(float((o[sl].float() - want_o).abs().max()))
+        shares.append(o_limit_share(o[sl], want_o, q.dtype))
+        fin = torch.isfinite(want_lse)
+        if not torch.equal(torch.isfinite(lse[sl]), fin):
+            raise AssertionError(f"[decode] {what}: K4's lse is finite "
+                                 f"where the plain version's is not")
+        lse_err = max(lse_err, float((lse[sl][fin] - want_lse[fin])
+                                     .abs().max()))
+        del want_o, want_lse
+    rtol, atol = O_LIMIT[q.dtype]
+    n = kvm.sum(dim=1)
+    log(f"[decode] {what}: K4 at the path's recorded {list(q.shape)} "
+        f"{str(q.dtype)[6:]} causal={mask['causal']} window="
+        f"{mask['window']} (valid keys {int(n.min())}..{int(n.max())}) "
+        f"against its plain version: o {max(errs):.2e} = "
+        f"{max(shares):.3f} of its limit ({rtol:g}|ref| + {atol:g}), lse "
+        f"{lse_err:.2e} (2e-05) [{smi}]")
+    if not (max(shares) <= 1 and lse_err <= 2e-5):
+        raise AssertionError(f"[decode] {what}: K4 disagrees with its plain "
+                             f"version on the path's inputs")
+    return max(errs)
+
+
+def flash_held(calls: dict, what: str, smi: str) -> list:
+    """prefill_flash_check on each recorded flash_attention signature;
+    the flash wrapper must have been called."""
+    errs = [prefill_flash_check(args, kw, what, smi)
+            for (attr, _, _), (args, kw) in calls.items()
+            if attr == "flash_attention"]
+    if not errs:
+        raise AssertionError(f"[decode] {what}: no flash call recorded")
+    return errs
+
+
+def decode_launches(what: str, want_k4: int) -> str:
+    """The counts since reset_counts(): K4's bf16 / fp32 forward as the
+    path says, nothing else of flash attention, K5 never, no plain
+    version."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    got = (fa.counts.fwd_tc + fa.counts.fwd, pa.counts.kernel)
+    other = (fa.counts.bwd_dq_tc + fa.counts.bwd_dkv_tc + fa.counts.bwd_dq
+             + fa.counts.bwd_dkv)
+    if got != (want_k4, 0) or other or any(plain_calls().values()):
+        raise AssertionError(f"[decode] {what}: K4 forward / K5 launches "
+                             f"{got}, want ({want_k4}, 0); backward "
+                             f"{other}; plain calls {plain_calls()}")
+    return f"K4 forward launches {want_k4}, K5 0, plain versions 0"
+
+
+def profiled_line(kernels, pwall: float, steps: int) -> str:
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    on_card = device_launches(kernels, ("flash_fwd_tc_kernel",
+                                        "flash_fwd_kernel",
+                                        "paged_attention_kernel"))
+    return (f"device {busy:.1f} ms = {busy / steps:.3f} ms/step, busy "
+            f"{busy / pwall:.1%} of {pwall:.1f} ms, "
+            f"{sum(e.count for e in kernels) / steps:.0f} kernels a step; "
+            f"on the card K4 {on_card['flash_fwd_tc_kernel']} (bf16) + "
+            f"{on_card['flash_fwd_kernel']} (fp32), K5 "
+            f"{on_card['paged_attention_kernel']}")
+
+
+def decode_arm(c, ex, ids, lens, what: str, use_cache: bool,
+               k4_per_call: int, limit_dtype, reps: int = DECODE_REPS,
+               warm: bool = True):
+    """lm_generate timed as tools/bench_lm.py's time_decode times it (one
+    warm call unless `warm` is False, then `reps`; decode tokens/s = B *
+    max_new / median), the launches held over all those calls, one
+    profiled call of DECODE_PROFILE_NEW new tokens (the prefill and the
+    first steps: its events are what the profiler has to sum), and the
+    run's tokens held by the teacher-forced margin.  Returns the
+    tokens."""
+    from paddle_tpu_torch.graph.lm_decode import lm_generate
+
+    def run(max_new: int = DECODE_NEW):
+        return lm_generate(ex, c.params, ids, prompt_lengths=lens,
+                           max_new=max_new, use_cache=use_cache)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    if warm:
+        run()[0].cpu()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        toks, out_lens = run()
+        toks.cpu()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    line = decode_launches(what, k4_per_call * (reps + warm))
+    reset_counts()
+    steps = DECODE_PROFILE_NEW      # forwards of the call, in either mode
+    _, pwall, kernels, _ = profiled(lambda: run(steps))
+    decode_launches(what + " profiled", k4_per_call)
+    B, P = ids.shape
+    start = torch.as_tensor(P if lens is None else lens)
+    start = start.expand(B) if start.dim() == 0 else start
+    margin = greedy_margin(ex, c.params, toks, start, out_lens)
+    lim = GREEDY_MARGIN[limit_dtype]
+    med = float(np.median(times))
+    log(f"[decode] {what}: B {B}, prompt {P}"
+        + ("" if lens is None else f" (ragged {int(min(lens))}.."
+           f"{int(max(lens))})")
+        + f", {DECODE_NEW} new: {B * DECODE_NEW / med:.1f} decode tokens/s "
+        f"(median of {reps}{'' if warm else ', no warm call'}: "
+        f"{', '.join(f'{t:.3f}' for t in times)} s a call, {DECODE_NEW} "
+        f"forwards each); {line}; peak device memory {peak:.1f} GiB; "
+        f"profiled call of {steps} new tokens: "
+        f"{profiled_line(kernels, pwall, steps)}; teacher-forced margin "
+        f"{margin:.2e} (limit {lim:g}) [{c.smi}]")
+    if not margin <= lim:
+        raise AssertionError(f"[decode] {what}: a greedy token is "
+                             f"{margin:.3g} below its position's best "
+                             f"teacher-forced score (limit {lim:g})")
+    return toks, out_lens
+
+
+def heavy_engine(c, chunk, context: int = 768, **kw):
+    from paddle_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(c.ex, c.params, num_slots=16, page_size=16,
+                        max_context=context, prefill_chunk=chunk, **kw)
+    eng.buckets = []
+    prefill = eng._prefill_prompt
+
+    def recorded(prompt, Lb):      # measurement: the cold prefills' buckets
+        eng.buckets.append(Lb)
+        return prefill(prompt, Lb)
+    eng._prefill_prompt = recorded
+    return eng
+
+
+def heavy_run(c, eng, reqs, what: str, want=None):
+    """Serve `reqs` from a cold cache, timed, with each request's
+    first-token latency (on_token, from the run's start; all requests
+    queued at once): every request to its full length, its tokens equal
+    `want`'s where given, K5 once per layer per step, K4's forward 8 times
+    per whole-prompt bucket of >= 2048 tokens, no plain version.  Returns
+    (results, counter moves, wall s, first-token ms p50 / p99)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    eng.reset_prefix_cache()
+    eng.buckets.clear()
+    before = engine_counters(eng)
+    first: dict = {}
+    t0 = [0.0]
+
+    def on_token(rid, tok, i):
+        if i == 0 and rid not in first:
+            first[rid] = time.perf_counter() - t0[0]
+    eng.on_token = on_token
+    reset_counts()
+    torch.cuda.synchronize()
+    t0[0] = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0[0]
+    eng.on_token = None
+    d = counter_moves(eng, before)
+    eager = d["n_decode_steps"] - d["n_scan_flushes"]
+    if d["n_scan_flushes"]:
+        k5 = "windows replayed"
+    else:
+        k5 = check_k5_eager(f"[decode] {what}", c.layers, eager)
+    long = sum(Lb >= c.block_k_min for Lb in eng.buckets)
+    if fa.counts.fwd_tc != c.layers * long or any(plain_calls().values()):
+        raise AssertionError(f"[decode] {what}: {fa.counts.fwd_tc} K4 "
+                             f"launches for {long} prefills of >= "
+                             f"{c.block_k_min} tokens; plain calls "
+                             f"{plain_calls()}")
+    if {r.req_id: r.prompt_ids.size + r.max_new for r in reqs} != \
+            {i: t.size for i, t in res.items()}:
+        raise AssertionError(f"[decode] {what}: requests missing or cut "
+                             f"short")
+    if want is not None:
+        same_tokens(f"[decode] {what}", res, want)
+    ft = np.percentile(list(first.values()), [50, 99]) * 1e3
+    log(f"[decode] {what}: {len(res)} requests"
+        + (", tokens equal the straight run's" if want is not None else "")
+        + f"; {d['n_decode_steps']} steps ({d['n_mixed_steps']} mixed, "
+        f"{d['n_prefill_chunks']} chunks, {d['n_scan_flushes']} windows), "
+        f"{len(eng.buckets)} whole-prompt prefills (buckets "
+        f"{sorted(set(eng.buckets))}), {d['tokens_generated']} tokens in "
+        f"{wall:.3f}s = {d['tokens_generated'] / wall:.1f} tokens/s, "
+        f"{wall / d['n_decode_steps'] * 1e3:.2f} ms/step; first token "
+        f"p50 {ft[0]:.1f} ms, p99 {ft[1]:.1f} ms; K5 launches {k5}, K4 "
+        f"forward {fa.counts.fwd_tc} = {c.layers} x {long} prefills of "
+        f">= {c.block_k_min}, plain 0 [{c.smi}]")
+    return res, d, wall, ft
+
+
+def heavy_profile(c, eng, reqs, what: str, want: dict) -> None:
+    """`reqs` once more under the profiler from a cold cache: K5 and K4 on
+    the card as the wrappers counted them (eager steps), device ms/step,
+    busy share."""
+    eng.reset_prefix_cache()
+    eng.buckets.clear()
+    before = engine_counters(eng)
+    reset_counts()
+    out, pwall, kernels, _ = profiled(lambda: eng.run(reqs))
+    d = counter_moves(eng, before)
+    same_tokens(f"[decode] {what} profiled", out, want)
+    long = sum(Lb >= c.block_k_min for Lb in eng.buckets)
+    line = check_launches(
+        f"[decode] {what}", kernels,
+        {"paged_attention_kernel": c.layers * d["n_decode_steps"],
+         "flash_fwd_tc_kernel": c.layers * long}, False)
+    log(f"[decode] {what}, profiled {len(reqs)} requests: "
+        f"{d['n_decode_steps']} steps, "
+        f"{profiled_line(kernels, pwall, d['n_decode_steps'])}; {line} "
+        f"[{c.smi}]")
+
+
+def heavy_margin(c, res: dict, reqs, what: str) -> float:
+    """greedy_margin over a serving run's requests, 16 at a time."""
+    worst = 0.0
+    for b in range(0, len(reqs), 16):
+        part = reqs[b:b + 16]
+        T = max(res[r.req_id].size for r in part)
+        toks = torch.zeros((len(part), T), dtype=torch.int64,
+                           device=c.params[next(iter(c.params))].device)
+        for i, r in enumerate(part):
+            toks[i, :res[r.req_id].size] = torch.from_numpy(
+                res[r.req_id].astype(np.int64))
+        worst = max(worst, greedy_margin(
+            c.ex, c.params, toks, [r.prompt_ids.size for r in part],
+            [res[r.req_id].size for r in part]))
+    lim = GREEDY_MARGIN[torch.bfloat16]
+    log(f"[decode] {what}: teacher-forced margin {worst:.2e} (limit "
+        f"{lim:g})")
+    if not worst <= lim:
+        raise AssertionError(f"[decode] {what}: margin {worst:.3g}")
+    return worst
+
+
+def decode_flash_record(calls: dict, launches: int, err: float,
+                        smi: str) -> dict:
+    """K4's bf16 forward at the cached prefill's shape [32, 4032, 8, 64]
+    (all prompts full, causal) from the path's recorded inputs: timed
+    beside its bound, its plain version (four batch rows at a time, summed)
+    and scaled_dot_product_attention's forward (a yardstick, never called
+    by the port)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+    (args, kw), = [v for (a, _, _), v in calls.items()
+                   if a == "flash_attention"]
+    q, k, v = args
+    kvm = kw["k_valid"].to(torch.uint8)
+    B, T, H, D = q.shape
+    ms = time_call(lambda: fa.flash_attention_fwd(q, k, v, kvm, True), 10)
+
+    def plain():
+        for b in range(0, B, 4):
+            fa.flash_attention_plain(q[b:b + 4], k[b:b + 4], v[b:b + 4],
+                                     kvm[b:b + 4], True)
+    plain_ms = time_call(plain, 1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = time_call(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 10)
+    pairs = B * H * T * (T + 1) / 2
+    nbytes = 4 * B * T * H * D * q.element_size() + B * T + B * H * T * 4
+    flops = 4 * D * pairs
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    log(f"[decode] flash_fwd_tc at the prefill's [{B}, {T}, {H}, {D}] bf16 "
+        f"causal: {ms * 1e3:.1f} us/launch; bound {bound_ms * 1e3:.1f} us "
+        f"({'operations' if flops_ms >= bytes_ms else 'bytes'}; "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) = "
+        f"{bound_ms / ms:.1%} of the bound; plain version "
+        f"{plain_ms * 1e3:.1f} us (four rows at a time); "
+        f"scaled_dot_product_attention forward {lib_ms * 1e3:.1f} us "
+        f"[{smi}]")
+    return {"name": f"flash_fwd_tc [{B}, {T}, {H}, {D}]", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
+            "replaces": "paddle_tpu/ops/pallas_attention.py:113",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms}
+
+
+def prefill_call(P: int):
+    """recorded_inputs' filter: flash calls of P query rows (a prefill's,
+    not the teacher-forced forward's)."""
+    return lambda attr, args, kw: args[0].shape[1] == P
+
+
+def decode_lm_arms(c) -> dict:
+    """Arms (1)-(4) of [decode]: lm_generate cached and re-forward, fp32,
+    beam search.  Returns the K4 record."""
+    from paddle_tpu_torch.graph import GraphExecutor
+    from paddle_tpu_torch.graph.lm_decode import (lm_beam_generate,
+                                                  lm_generate)
+    rng = np.random.default_rng(0)
+    record = None
+    for ctx in DECODE_CONTEXTS:
+        ids = rng.integers(2, c.vocab, (DECODE_B, ctx - DECODE_NEW))
+        k4 = c.layers if ctx - DECODE_NEW >= c.block_k_min else 0
+        with recorded_inputs(prefill_call(ctx - DECODE_NEW)) as calls:
+            toks, lens = decode_arm(c, c.ex, ids, None, f"(1) cached, "
+                                    f"context {ctx}", True, k4,
+                                    torch.bfloat16)
+        if k4:
+            err = max(flash_held(calls, f"(1) cached, context {ctx}",
+                                 c.smi))
+            record = decode_flash_record(calls, k4, err, c.smi)
+        if ctx in DECODE_REFORWARD:
+            # the cached arm's teacher-forced forward ran the re-forward's
+            # [B, ctx] shapes: no warm call
+            again, _ = decode_arm(c, c.ex, ids, None, f"(2) re-forward, "
+                                  f"context {ctx}", False, 0, torch.bfloat16,
+                                  reps=1, warm=False)
+            same = (again == toks).all(dim=1).float().mean()
+            log(f"[decode] context {ctx}: {float(same):.1%} of the rows "
+                f"decode the same tokens cached and re-forward (bf16; each "
+                f"held by its teacher-forced margin)")
+    lo, hi = DECODE_RAGGED
+    ids = rng.integers(2, c.vocab, (DECODE_B, hi))
+    lens = np.sort(rng.integers(lo, hi + 1, DECODE_B))
+    lens[-1] = hi
+    with recorded_inputs(prefill_call(hi)) as calls:
+        decode_arm(c, c.ex, ids, lens, "(1) cached, ragged prompts",
+                   True, c.layers, torch.bfloat16, reps=1)
+    flash_held(calls, "(1) cached, ragged prompts", c.smi)
+    # (3) float32 (TF32 off)
+    ex32 = GraphExecutor(c.model)
+    ids = rng.integers(2, c.vocab, (DECODE_B, DECODE_FP32 - DECODE_NEW))
+    cached, _ = decode_arm(c, ex32, ids, None, f"(3) fp32 cached, context "
+                           f"{DECODE_FP32}", True, 0, torch.float32, reps=1)
+    # the cached arm's teacher-forced forward ran the re-forward's shapes
+    reforward, _ = decode_arm(c, ex32, ids, None, f"(3) fp32 re-forward, "
+                              f"context {DECODE_FP32}", False, 0,
+                              torch.float32, reps=1, warm=False)
+    same = float((cached == reforward).all(dim=1).float().mean())
+    log(f"[decode] (3) fp32: {same:.1%} of the rows decode the same tokens "
+        f"cached and re-forward; both held within the fp32 margin "
+        f"{GREEDY_MARGIN[torch.float32]:g} [{c.smi}]")
+    # (4) beam search: B 8, beam 4, prompt 448, 64 new
+    Bb, Kb, Pb = DECODE_BEAM
+    ids = rng.integers(2, c.vocab, (Bb, Pb))
+
+    def beam(K, max_new=DECODE_NEW):
+        return lm_beam_generate(c.ex, c.params, ids, beam_size=K,
+                                max_new=max_new)
+    reset_counts()
+    beam(Kb)[0].cpu()
+    times = []
+    for _ in range(DECODE_REPS):
+        t0 = time.perf_counter()
+        toks, blens, scores = beam(Kb)
+        toks.cpu()
+        times.append(time.perf_counter() - t0)
+    line = decode_launches("(4) beam", 0)
+    (_, pwall, kernels, _) = profiled(lambda: beam(Kb, DECODE_PROFILE_NEW))
+    one = beam(1)[0][:, 0]
+    greedy = lm_generate(c.ex, c.params, ids, max_new=DECODE_NEW,
+                         use_cache=True)[0]
+    if not torch.equal(one, greedy):
+        raise AssertionError("[decode] (4) beam 1 differs from greedy "
+                             "cached decoding")
+    sc = scores.cpu()
+    if not (bool(torch.isfinite(sc).all())
+            and bool((sc[:, 1:] <= sc[:, :-1]).all())):
+        raise AssertionError("[decode] (4) beam scores not finite and "
+                             "best-first")
+    med = float(np.median(times))
+    log(f"[decode] (4) beam: B {Bb}, beam {Kb}, prompt {Pb}, {DECODE_NEW} "
+        f"new: {Bb * Kb * DECODE_NEW / med:.1f} beam tokens/s "
+        f"({Bb * DECODE_NEW / med:.1f} best-beam tokens/s; median of "
+        f"{DECODE_REPS}: "
+        f"{', '.join(f'{t:.3f}' for t in times)} s a call, {DECODE_NEW} "
+        f"forwards each); {line}; profiled call of {DECODE_PROFILE_NEW} new "
+        f"tokens: {profiled_line(kernels, pwall, DECODE_PROFILE_NEW)}; "
+        f"beam 1 equals "
+        f"greedy cached decoding; scores best-first [{c.smi}]")
+    return record
+
+
+def decode_engine_arms(c) -> None:
+    """Arm (5) of [decode]: ServingEngine(prefill_chunk=None) beside the
+    chunked engine on the heavy-tail workload, then its windows,
+    speculation and a restored checkpoint against the straight run (same
+    arithmetic: tokens equal), then 8 requests at context 4096."""
+    eng = heavy_engine(c, None)
+    for chunk in (64, None):                   # warm-up: not counted
+        eng.set_chunking(chunk)
+        eng.run(make_heavytail_requests(n=4, prompt_lo=32, prompt_hi=200,
+                                        max_new=8, vocab=c.vocab, seed=0))
+    reqs = lambda: make_heavytail_requests(vocab=c.vocab, seed=1,  # noqa
+                                           **HEAVY)
+    want, d, _, _ = heavy_run(c, eng, reqs(), "(5) whole-prompt prefill "
+                              "(prefill_chunk=None)")
+    eng.set_chunking(64)
+    chunked, dc, _, _ = heavy_run(c, eng, reqs(), f"(5) chunked prefill "
+                                  f"(chunk 64, budget "
+                                  f"{eng.max_step_tokens})")
+    same = np.mean([np.array_equal(want[i], chunked[i]) for i in want])
+    log(f"[decode] (5) {same:.1%} of the requests decode the same tokens "
+        f"whole-prompt and chunked (bf16; each held by its teacher-forced "
+        f"margin)")
+    heavy_margin(c, want, reqs(), "(5) whole-prompt")
+    heavy_margin(c, chunked, reqs(), "(5) chunked")
+    eng.set_chunking(None)
+    heavy_profile(c, eng, reqs()[:HEAVY_PROFILED], "(5) whole-prompt", want)
+    sub = reqs()[:HEAVY_SUBSET]
+    eng.set_decode_steps(KSTEP)
+    heavy_run(c, eng, sub, f"(5) whole-prompt, decode_steps={KSTEP}", want)
+    eng.set_decode_steps(1)
+    eng.set_speculation(SPEC_K)
+    _, d, _, _ = heavy_run(c, eng, sub, f"(5) whole-prompt, "
+                           f"spec_k={SPEC_K}", want)
+    log(f"[decode] (5) spec_k={SPEC_K}: {d['n_decode_steps']} steps, rows "
+        f"{len(eng.slots) * (SPEC_K + 1)} a verify step, the engine's "
+        f"{eng.splits} K5 split(s)")
+    eng.set_speculation(0)
+    for r in sub:
+        eng.add_request(r)
+    while not (eng.queue and any(sl is not None and sl.gen > 1
+                                 for sl in eng.slots)):
+        if not eng.step():
+            raise AssertionError("[decode] never reached a mid-flight state")
+    snap = eng.checkpoint_state()
+    same_tokens("[decode] (5) uninterrupted", eng.run(), want)
+    fresh = heavy_engine(c, None)
+    fresh.restore_state(snap)
+    reset_counts()
+    steps0 = fresh.n_decode_steps
+    res = fresh.run() | dict(snap["results"])
+    check_k5_eager("[decode] restored", c.layers,
+                   fresh.n_decode_steps - steps0)
+    same_tokens("[decode] (5) restored checkpoint", res, want)
+    if sorted(res) != sorted(r.req_id for r in sub):
+        raise AssertionError("[decode] the restored engine did not finish "
+                             "every request")
+    fresh.kv.check_reclaimed()
+    log(f"[decode] (5) checkpoint mid-flight ({sum(sl is not None for sl in snap['slots'])} "
+        f"slots live, {len(snap['queue'])} queued) restored on a fresh "
+        f"engine: its tokens equal the straight run's [{c.smi}]")
+    del fresh, eng
+    # 8 requests at context 4096: whole-prompt buckets of >= 2048 run K4
+    long = heavy_engine(c, None, context=LONG_CONTEXT)
+    lreqs = lambda: make_heavytail_requests(vocab=c.vocab, seed=2,  # noqa
+                                            **HEAVY_LONG)
+    with recorded_inputs() as calls:
+        res, _, _, _ = heavy_run(c, long, lreqs(), f"(5) whole-prompt, "
+                                 f"context {LONG_CONTEXT}")
+    if not any(Lb >= c.block_k_min for Lb in long.buckets):
+        raise AssertionError(f"[decode] no whole-prompt bucket of >= "
+                             f"{c.block_k_min} tokens at context "
+                             f"{LONG_CONTEXT}")
+    flash_held(calls, "(5) whole-prompt bucket prefill", c.smi)
+    heavy_margin(c, res, lreqs(), f"(5) context {LONG_CONTEXT}")
+    heavy_profile(c, long, lreqs(), f"(5) whole-prompt, context "
+                  f"{LONG_CONTEXT}", res)
+
+
+def phase_decode(smi: str) -> list:
+    """The dense decode path at [serve]'s width (module docstring, phase
+    4d); returns K4's record at the cached prefill's shape."""
+    from paddle_tpu_torch.graph import GraphExecutor
+    from paddle_tpu_torch.models import transformer_lm_config
+    from paddle_tpu_torch.parameter import init_params
+    model = transformer_lm_config(**DECODE_MODEL)
+    c = types.SimpleNamespace(vocab=DECODE_MODEL["vocab"],
+                              layers=DECODE_MODEL["layers"], smi=smi,
+                              model=model, params=init_params(model, seed=1),
+                              ex=GraphExecutor(model,
+                                               compute_dtype="bfloat16"),
+                              block_k_min=int(DECODE_MODEL.get(
+                                  "block_k_min", 0) or 2048))
+    start = time.perf_counter()
+    record = decode_lm_arms(c)
+    lm_s = time.perf_counter() - start
+    decode_engine_arms(c)
+    log(f"[decode] all arms: {time.perf_counter() - start:.1f} s "
+        f"(lm_generate and beam {lm_s:.1f} s) [{smi}]")
+    return [record]
 
 
 def phase_routes() -> None:
@@ -5676,6 +6287,7 @@ def main(argv=None) -> int:
     record = phase("serve", phase_serve, smi, err)
     phase("serve-prefix", phase_serve_prefix, smi)
     phase("serve-spec", phase_serve_spec, smi)
+    decode = phase("decode", phase_decode, smi)
     phase("routes", phase_routes)
     phase("flash", phase_flash)
     flash = phase("train", phase_train, smi)
@@ -5695,7 +6307,7 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - t0:.1f}s: "
         + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
         + f"; the profiler around its runs {PROFILER_SECONDS[0]:.1f}")
-    print(json.dumps({"kernels": [record] + flash + lstm + seq2seq
+    print(json.dumps({"kernels": [record] + flash + decode + lstm + seq2seq
                       + tagging}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

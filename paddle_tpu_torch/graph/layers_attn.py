@@ -2,12 +2,19 @@
 for the serving and training slices (`multi_head_attention`) and the
 seq2seq decoder (`additive_attention_step`).
 
-Three cases:
-  * full sequence (no paged state): `attn_impl` 'auto' runs dense attention
+Four cases:
+  * full sequence (no state): `attn_impl` 'auto' runs dense attention
     below `block_k_min` (default 2048) keys and the flash-attention kernels
     (ops/flash_attention.py, K4) at or above it, as does a layer pinned to
-    'flash'; 'dense' pins dense attention.  The blockwise, ring and ulysses
-    paths are not ported yet and raise (ROADMAP.md);
+    'flash'; 'dense' pins dense attention, 'blockwise' the online-softmax
+    loop over key blocks of `block_k` (default 512).  The context-parallel
+    paths (ring, ulysses) are not ported yet and raise (ROADMAP.md);
+  * `_cached_step`: new tokens against the dense per-request KV cache of
+    graph/lm_decode.py and the serving engine's whole-prompt prefill — a
+    multi-token call on an empty cache (the prefill) through the
+    implementation the layer selects, flash (K4) for long prompts; one
+    token, or a state marked "cont" (a prefix-seeded cache), through
+    `cached_attention_step`;
   * `_paged_step`: one decode token per slot against the serving engine's
     paged KV pool;
   * `_paged_ragged_step`: the mixed prefill/decode step, packed query rows
@@ -19,6 +26,8 @@ to attn_impl 'dense'/'blockwise' — the JAX package's routing.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from paddle_tpu_torch.config.schema import LayerConfig
@@ -28,6 +37,8 @@ from paddle_tpu_torch.graph.registry import register_layer
 from paddle_tpu_torch.ops import additive_attention as additive_ops
 from paddle_tpu_torch.ops.attention import (
     additive_attention_step,
+    blockwise_attention,
+    cached_attention_step,
     dot_product_attention,
     paged_attention_step,
     ragged_paged_attention_step,
@@ -80,23 +91,30 @@ def multi_head_attention_layer(ctx: ForwardContext,
         return _paged_step(ctx, cfg, q_arg, w_q, w_k, w_v, w_o, num_heads,
                            cache)
     if isinstance(cache, dict) and "k" in cache:
-        raise NotImplementedError(
-            f"layer {cfg.name!r}: the dense per-request KV cache "
-            f"(lm_generate) is not ported yet (ROADMAP.md)")
+        if not causal:
+            raise ValueError(f"layer {cfg.name!r}: KV-cache decode requires "
+                             f"causal attention")
+        return _cached_step(ctx, cfg, q_arg, w_q, w_k, w_v, w_o, num_heads,
+                            cache)
 
     impl = _impl(cfg)
     if impl == "auto":
         long_keys = k_arg.max_len >= int(cfg.attrs.get("block_k_min",
                                                        _BLOCKWISE_MIN_KEYS))
         impl = "flash" if long_keys else "dense"
-    if impl not in ("dense", "flash"):
+    if impl in ("ring", "ulysses"):
         raise NotImplementedError(
-            f"layer {cfg.name!r}: attn_impl {impl!r} (blockwise attention "
-            f"and the context-parallel paths) is not ported yet (ROADMAP.md)")
+            f"layer {cfg.name!r}: attn_impl {impl!r} (the context-parallel "
+            f"paths) is not ported yet (ROADMAP.md)")
     # the block_q/block_k attrs (and PADDLE_TPU_FLASH_BLOCK_Q/K) tune the
-    # TPU kernel's tiles; the CUDA kernels have fixed 64 x 64 tiles and
-    # ignore them, and no result depends on them
-    attn_fn = flash_attention if impl == "flash" else dot_product_attention
+    # TPU flash kernel's tiles; the CUDA kernels have fixed 64 x 64 tiles
+    # and ignore them (block_k still sizes blockwise attention's blocks)
+    if impl == "blockwise":
+        attn_fn = functools.partial(
+            blockwise_attention, block_k=int(cfg.attrs.get("block_k", 512)))
+    else:
+        attn_fn = flash_attention if impl == "flash" \
+            else dot_product_attention
 
     B, Tq, _ = q_arg.value.shape
     Tk = k_arg.value.shape[1]
@@ -130,6 +148,63 @@ def _out_proj(ctx: ForwardContext, cfg: LayerConfig, out, w_o, x_arg):
     if bias is not None:
         o = o + bias
     return finish_layer(ctx, cfg, o, like=x_arg)
+
+
+def _prefill_attn(cfg: LayerConfig, Tn: int):
+    """The attention of a cached prefill of Tn tokens: a pinned 'flash',
+    'blockwise' (its default blocks) or 'dense', else (auto, and the
+    context-parallel impls, which have no cached analog) flash at Tn >=
+    block_k_min, dense below."""
+    impl = _impl(cfg)
+    if impl == "blockwise":
+        return blockwise_attention
+    if impl == "dense":
+        return dot_product_attention
+    if impl == "flash" or Tn >= int(cfg.attrs.get("block_k_min",
+                                                  _BLOCKWISE_MIN_KEYS)):
+        return flash_attention
+    return dot_product_attention
+
+
+def _cached_step(ctx: ForwardContext, cfg: LayerConfig, x_arg: Argument,
+                 w_q, w_k, w_v, w_o, num_heads: int, cache: dict) -> Argument:
+    """New tokens x [B, Tn, model_dim] against this layer's dense KV cache
+    {"k", "v" [B, Tmax, H_kv, D], "pos" [B]}: row b's valid tokens are its
+    first x_arg.lengths[b] (all Tn without lengths), at global positions
+    pos[b] + i.  A multi-token call on a state without "cont" is the
+    PREFILL: the cache is empty, so attention is causal self-attention over
+    the new tokens (`_prefill_attn`, valid rows and keys as the lengths
+    say) and their K/V land in cache[:, :Tn].  One token, or a state
+    carrying "cont" (the serving engine's prefix-seeded cache, continued
+    from pos), goes through `cached_attention_step`.  Emits {"k", "v",
+    "pos"} (the caches written in place, pos advanced by the lengths)
+    through ctx.state_out."""
+    x = x_arg.value
+    B, Tn, _ = x.shape
+    model_dim = w_q.shape[1]
+    h_kv = int(cfg.attrs.get("num_kv_heads", 0) or num_heads)
+    pos = cache["pos"]
+    q, k, v = _project(x, w_q, w_k, w_v, num_heads, h_kv)
+    if bool(cfg.attrs.get("use_rope", False)):
+        qpos = pos[:, None] + torch.arange(Tn, device=x.device)[None, :]
+        theta = float(cfg.attrs.get("rope_theta", 10000.0))
+        q, k = rope(q, qpos, theta), rope(k, qpos, theta)
+    n_new = (x_arg.lengths.to(torch.int32) if x_arg.lengths is not None
+             else torch.full((B,), Tn, dtype=torch.int32, device=x.device))
+    if Tn > 1 and "cont" not in cache:
+        valid = torch.arange(Tn, device=x.device)[None, :] < n_new[:, None]
+        out = _prefill_attn(cfg, Tn)(
+            q.contiguous(), k.contiguous(), v.contiguous(), q_valid=valid,
+            k_valid=valid, causal=True, window=_window(cfg))
+        ck, cv = cache["k"], cache["v"]
+        ck[:, :Tn] = k.to(ck.dtype)
+        cv[:, :Tn] = v.to(cv.dtype)
+        newpos = pos + n_new
+    else:
+        out, ck, cv, newpos = cached_attention_step(
+            q, k, v, cache["k"], cache["v"], pos, n_new, window=_window(cfg))
+    ctx.state_out[cfg.name] = {"k": ck, "v": cv, "pos": newpos}
+    return _out_proj(ctx, cfg, out.reshape(B, Tn, model_dim), w_o, x_arg)
 
 
 def _paged_step(ctx: ForwardContext, cfg: LayerConfig, x_arg: Argument,

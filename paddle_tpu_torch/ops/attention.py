@@ -1,14 +1,18 @@
 """Attention ops — counterparts of paddle_tpu/ops/attention.py: those of
-the transformer LM, and the seq2seq decoder's dense additive-attention step.
+the transformer LM (dense, blockwise and cached-decode attention, the paged
+serving steps), and the seq2seq decoder's dense additive-attention step.
 
 Layouts are the JAX package's: q/k/v [..., T, H, D] (heads before the head
 dim), page pools [P, page_size, H_kv, D], page tables
 [S(+1), pages_per_slot] int32.  The paged steps write the new K/V into the
 pools IN PLACE (`index_put_`) and return the same pool tensors — where the
-JAX side gets the same effect from buffer donation.  The read goes
-through the ragged paged-attention kernel (ops/paged_attention.py), or
-through a page-table gather for sliding-window configs and for layers
+JAX side gets the same effect from buffer donation; `cached_attention_step`
+writes its dense per-request cache in place the same way.  The paged read
+goes through the ragged paged-attention kernel (ops/paged_attention.py),
+or through a page-table gather for sliding-window configs and for layers
 pinned to attn_impl 'dense'/'blockwise', as the JAX package routes it.
+`blockwise_attention` and `cached_attention_step` are plain PyTorch, as
+their JAX counterparts are jnp (no Pallas kernel behind either).
 """
 
 from __future__ import annotations
@@ -16,8 +20,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch.ops import paged_attention as pa
+from paddle_tpu_torch.utils.dtypes import promote_compute
 
 _NEG_INF = -1e30
 
@@ -96,6 +102,105 @@ def dot_product_attention(q, k, v, q_valid=None, k_valid=None,
         p = torch.where(mask.any(dim=-1, keepdim=True), p,
                         torch.zeros((), dtype=p.dtype, device=dev))
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _online_block(acc, q, k_blk, v_blk, q_pos, k_pos, q_valid, k_valid_blk,
+                  causal: bool, scale: float, window: Optional[int]):
+    """Fold one key/value block into the online-softmax accumulator
+    acc = (o [B, Tq, H, D] float32, m [B, H, Tq] running max, l [B, H, Tq]
+    running sum)."""
+    o, m, l = acc
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k_blk) * scale
+    mask = _score_mask(q_pos, k_pos, q_valid, k_valid_blk, causal, window)
+    if mask is not None:
+        s = torch.where(mask, s, _NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1).float())
+    p = torch.exp(s - m_new[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros((), dtype=p.dtype,
+                                             device=p.device))
+    corr = torch.exp(m - m_new)
+    l_new = corr * l + p.sum(dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v_blk.to(p.dtype))
+    return o * corr.transpose(1, 2)[..., None] + pv, m_new, l_new
+
+
+def blockwise_attention(q, k, v, q_valid=None, k_valid=None,
+                        causal: bool = False,
+                        scale: Optional[float] = None, block_k: int = 512,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Online-softmax attention over key blocks of `block_k` (the last one
+    shorter when block_k does not divide Tk): the (o, m, l) accumulator
+    instead of the [Tq, Tk] score matrix.  The math of
+    `dot_product_attention` (grouped kv heads, sliding window, rows with
+    no valid key give 0).  Under autograd each block is recomputed in the
+    backward (`torch.utils.checkpoint`), so the saved state stays O(T), as
+    the JAX version remats its scan body."""
+    B, Tq, H, D = q.shape
+    k, v = _expand_kv_heads(k, v, H)
+    Tk = k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    dev = q.device
+    q_pos = torch.arange(Tq, device=dev)
+    acc = (torch.zeros((B, Tq, H, D), dtype=torch.float32, device=dev),
+           torch.full((B, H, Tq), _NEG_INF, dtype=torch.float32, device=dev),
+           torch.zeros((B, H, Tq), dtype=torch.float32, device=dev))
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    for start in range(0, Tk, max(1, min(int(block_k), Tk))):
+        stop = min(start + int(block_k), Tk)
+        args = (q, k[:, start:stop], v[:, start:stop], q_pos,
+                torch.arange(start, stop, device=dev), q_valid,
+                None if k_valid is None else k_valid[:, start:stop])
+        if remat:
+            acc = checkpoint(_online_block, acc, *args, causal, scale,
+                             window, use_reentrant=False)
+        else:
+            acc = _online_block(acc, *args, causal, scale, window)
+    o, _, l = acc
+    denom = l.transpose(1, 2)[..., None]
+    return torch.where(denom > 0, o / denom.clamp_min(1e-30),
+                       torch.zeros((), device=dev)).to(q.dtype)
+
+
+def cached_attention_step(q_new, k_new, v_new, cache_k, cache_v, pos, n_new,
+                          scale: Optional[float] = None,
+                          window: Optional[int] = None):
+    """Incremental causal attention against a dense per-request KV cache:
+    row b's Tn new tokens (q/k/v_new [B, Tn, H(_kv), D]) land at cache
+    positions pos[b] .. pos[b] + Tn - 1 of cache_k/v [B, Tmax, H_kv, D]
+    and attend over every position up to their own (and inside the window)
+    on global positions; scores in at least float32 (promote_compute), the
+    probabilities cast to the cache dtype for the value sum.  The write is
+    an index write into the caches, in place — the values of the JAX
+    version's one-hot product, without reading and writing the whole cache.
+    Positions past pos + n_new hold whatever padded tokens wrote there;
+    causality keeps every valid query off them and the next call
+    overwrites them.  Every written position must lie inside the cache
+    (an index past it raises; the JAX version drops such writes, and no
+    caller makes them).  Returns (out [B, Tn, H, D], cache_k, cache_v,
+    pos + n_new)."""
+    B, Tn, H, D = q_new.shape
+    Tmax = cache_k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    dev = q_new.device
+    qpos = pos.long()[:, None] + torch.arange(Tn, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)[:, None].expand(B, Tn)
+    cache_k.index_put_((rows, qpos), k_new.to(cache_k.dtype))
+    cache_v.index_put_((rows, qpos), v_new.to(cache_v.dtype))
+    t = torch.arange(Tmax, device=dev)
+    mask = t[None, None, :] <= qpos[:, :, None]                # [B, Tn, Tmax]
+    if window is not None:
+        mask = mask & (t[None, None, :] > qpos[:, :, None] - window)
+    k_full, v_full = _expand_kv_heads(cache_k, cache_v, H)
+    s = promote_compute(torch.einsum("bqhd,bkhd->bhqk", q_new, k_full)
+                        * scale)
+    s = torch.where(mask[:, None], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_full.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v_full)
+    return out, cache_k, cache_v, pos + n_new
 
 
 def _gather_read(q, ck, cv, rows_table, row_pos, scale: float,

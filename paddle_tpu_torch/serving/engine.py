@@ -18,6 +18,16 @@ position; until then it emits nothing.  Steps with only decoding slots run
 the [S, 1] decode step.  Every attention layer of either step reads
 through the ragged paged-attention kernel (ops/paged_attention.py).
 
+`prefill_chunk=None` is the reference's whole-prompt prefill, the
+baseline of its chunked-prefill A/B: an admission runs the whole prompt
+through the model at once (`_admit`), padded to its length bucket
+(`bucket_for`, the feeder's buckets page-aligned) on a fresh dense KV
+cache (graph/lm_decode.py `init_kv_caches`: flash attention, K4, for a
+bucket of at least `block_k_min` tokens), writes its K/V into the slot's
+pages and emits token 0 at once; a prefix hit seeds the dense cache from
+its matched pages and runs only the suffix (the cache's "cont" path).
+Steps then only decode (or verify, S * (spec_k + 1) rows).
+
 Prefix cache (`prefix_cache=True`, serving/prefix_tree.py): a retiring,
 preempted or cancelled slot donates its fully committed pages to a radix
 index keyed on token-id runs; an admission walks it (up to the prompt's
@@ -84,8 +94,7 @@ window; "static" keeps windows off while speculation is on.
 
 Refused with NotImplementedError (ROADMAP.md): the host spill tier
 (`spill_bytes_budget`), `export_prefix` / `import_prefix`, tensor
-parallelism (`mesh`), tracing (`tracer`) and the legacy whole-prompt
-prefill (`prefill_chunk=None`).
+parallelism (`mesh`) and tracing (`tracer`).
 """
 
 from __future__ import annotations
@@ -100,9 +109,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from paddle_tpu_torch.data.feeder import _bucket_len
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.graph.context import TEST
-from paddle_tpu_torch.graph.lm_decode import _is_probs, _resolve_io_names
+from paddle_tpu_torch.graph.lm_decode import (_is_probs, _resolve_io_names,
+                                              gumbel_noise, init_kv_caches,
+                                              pick_next)
 from paddle_tpu_torch.ops.paged_attention import split_plan
 from paddle_tpu_torch.parameter.argument import Argument
 from paddle_tpu_torch.serving.drafter import NgramDrafter
@@ -188,30 +200,14 @@ class Request:
         return r
 
 
-def _mix_seed(seed: int, g: int) -> int:
-    """A 64-bit generator seed from (request seed, token index), every bit
-    depending on both (the CPU generator reads only the low 32 bits)."""
-    mask = (1 << 64) - 1
-    x = (int(seed) * 0x9E3779B97F4A7C15 + (int(g) + 1) * 0xBF58476D1CE4E5B9) \
-        & mask
-    x ^= x >> 31
-    x = (x * 0x94D049BB133111EB) & mask
-    return x ^ (x >> 29)
-
-
 class PhiloxNoise:
     """The default noise source: Gumbel noise for token g of a request,
     drawn from a torch.Generator on the device (Philox on CUDA) seeded
-    from (request.seed, g), in the form -log(-log(u)) with u uniform in
-    [tiny, 1), as jax.random.gumbel draws it."""
+    from (request.seed, g) (graph/lm_decode.py `gumbel_noise`)."""
 
     def __call__(self, req: Request, g: int, vocab: int,
                  device: torch.device) -> torch.Tensor:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(_mix_seed(req.seed, g))
-        u = torch.rand(vocab, generator=gen, device=device)
-        u = u.clamp_min(torch.finfo(torch.float32).tiny)
-        return -torch.log(-torch.log(u))
+        return gumbel_noise(req.seed, g, (vocab,), device)
 
 
 class _Slot:
@@ -418,12 +414,15 @@ class ServingEngine:
                      max_step_tokens: Optional[int] = None) -> None:
         """Prompts commit in chunks of up to `prefill_chunk` rows inside
         steps of at most `max_step_tokens` rows (default
-        `_default_budget`: one chunk plus a full chain per slot).  Only on
-        an idle engine (a live slot may be mid-chunk)."""
+        `_default_budget`: one chunk plus a full chain per slot); None
+        prefills each prompt whole at admission (module docstring;
+        max_step_tokens is then 0).  Only on an idle engine (a live slot
+        may be mid-chunk)."""
         self._require_idle("set_chunking")
         if prefill_chunk is None:
-            raise _not_ported("prefill_chunk=None (whole-prompt prefill "
-                              "through the dense KV cache)")
+            self.prefill_chunk = None
+            self._set_budget(0)
+            return
         prefill_chunk = int(prefill_chunk)
         if prefill_chunk <= 0:
             raise ValueError(f"prefill_chunk must be positive, got "
@@ -452,12 +451,17 @@ class ServingEngine:
         so every launch of the engine takes the same one, or a token's bits
         would depend on which step type carried it — on the schedule, which
         the prefix cache, preemption and speculation change.  It is the
-        budget launch's own plan (decode launches are the cheaper ones to
-        move off theirs).  Window graphs captured at another count are
+        plan of the engine's largest launch: the budget launch, or without
+        chunking the verify step's S * (spec_k + 1) rows (S rows with
+        speculation off) — the other launches are the cheaper ones to move
+        off theirs.  Window graphs captured at another count are
         dropped."""
         self.max_step_tokens = mst
-        splits = split_plan(mst, len(self.slots) + 1,
-                            self.kv.pages_per_slot, self.kv.page_size)[0]
+        S = len(self.slots)
+        rows = mst if self.prefill_chunk is not None else \
+            S * (self.spec_k + 1)
+        splits = split_plan(rows, S + 1, self.kv.pages_per_slot,
+                            self.kv.page_size)[0]
         if splits != self.splits:
             self._windows.clear()
         self.splits = splits
@@ -479,7 +483,9 @@ class ServingEngine:
         self.spec_k = spec_k
         if dynamic is not None:
             self.spec_dynamic = bool(dynamic)
-        if not self._mst_explicit:
+        if self.prefill_chunk is None:
+            self._set_budget(0)             # the split count follows spec_k
+        elif not self._mst_explicit:
             self._set_budget(self._default_budget(self.prefill_chunk))
         if drafter is not None:
             self.drafter = drafter
@@ -765,12 +771,24 @@ class ServingEngine:
             if res is None:
                 return
             self.queue.popleft()
-            self._admit_chunked(s, req, res)
+            if self.prefill_chunk is None:
+                self._admit(s, req, *res)
+            else:
+                self._admit_chunked(s, req, res[0])
 
-    def _reserve(self, s: int, req: Request) -> Optional[int]:
+    def bucket_for(self, prompt_len: int) -> int:
+        """The whole-prompt prefill's padded length for a prompt: the
+        feeder's bucket (data/feeder.py `_bucket_len`) rounded up to whole
+        pages, at most the slot capacity — one prefill shape per bucket."""
+        ps = self.kv.page_size
+        return min(-(-_bucket_len(int(prompt_len)) // ps) * ps,
+                   self.kv.capacity_tokens)
+
+    def _reserve(self, s: int, req: Request) -> Optional[tuple[int, int]]:
         """Map the cached prefix of `req`'s prompt into empty slot `s` and
-        reserve pages for the whole prompt; returns the matched tokens C,
-        or None when the pool is dry (the slot rolled back to empty).
+        reserve pages for the whole prompt; returns (matched tokens C,
+        mapped pages), or None when the pool is dry (the slot rolled back
+        to empty).
 
         The walk stops at the prompt's last token but one: token 0 needs
         the last prompt position's logits.  A partially matched boundary
@@ -790,26 +808,128 @@ class ServingEngine:
                     ok = self.kv.ensure_writable(s, len(mapped) - 1) \
                         is not None
                 if ok:
-                    return len(pages) * self.kv.page_size + \
-                        (partial[1] if partial is not None else 0)
+                    return (len(pages) * self.kv.page_size
+                            + (partial[1] if partial is not None else 0),
+                            len(mapped))
                 self.kv.release(s)
         if self.kv.try_grow(s, p):
-            return 0
+            return 0, 0
         self.kv.release(s)
         return None
+
+    def _count_prefix(self, C: int) -> None:
+        """An admission's prefix-index hit (C matched tokens) or miss."""
+        if self.prefix is None:
+            return
+        if C > 0:
+            self.n_prefix_hits += 1
+            self.prefill_tokens_saved += C
+        else:
+            self.n_prefix_misses += 1
 
     def _admit_chunked(self, s: int, req: Request, C: int) -> None:
         """The slot enters prefill mode with its prompt's pages reserved
         and its chunk cursor at C, past the cached prefix; the prompt
         commits in chunk rows inside the next mixed steps."""
-        if self.prefix is not None:
-            if C > 0:
-                self.n_prefix_hits += 1
-                self.prefill_tokens_saved += C
-            else:
-                self.n_prefix_misses += 1
+        self._count_prefix(C)
         self._admit_seq += 1
         self.slots[s] = _Slot(req, self._admit_seq, pos=C)
+
+    def _admit(self, s: int, req: Request, C: int, n_pp: int) -> None:
+        """The whole-prompt admission: prefill the prompt — on a prefix hit
+        only its suffix past the C tokens mapped across the slot's first
+        n_pp pages — at a bucket length, write its K/V into the slot's
+        pages, sample token 0 from the last prompt position with
+        generation 0's noise and emit it (`_emit_first`)."""
+        p = req.prompt_ids.size
+        self._count_prefix(C)
+        if C > 0:
+            ps = self.kv.page_size
+            Lb = min(-(-_bucket_len(p - C) // ps) * ps,
+                     self.kv.capacity_tokens - C)
+            last, kv_new = self._prefill_suffix(s, req.prompt_ids[C:], Lb,
+                                                C, n_pp)
+        else:
+            last, kv_new = self._prefill_prompt(req.prompt_ids,
+                                                self.bucket_for(p))
+        noise = None
+        if req.temperature > 0.0:
+            noise = self.noise(req, 0, self.vocab, self.device)[None]
+        tok0 = int(pick_next(last, noise, req.temperature, req.top_k,
+                             req.top_p, is_probs=self._probs)[0])
+        self._pack(s, kv_new, C, p)
+        self._admit_seq += 1
+        self.slots[s] = _Slot(req, self._admit_seq, pos=p)
+        self._emit_first(s, tok0)
+
+    def _prefill_prompt(self, prompt: np.ndarray, Lb: int):
+        """The prompt padded to Lb tokens through the model on a fresh
+        [1, Lb] dense cache: (the last prompt position's logits [1, V],
+        {layer: (k, v) [1, Lb, H_kv, D]})."""
+        n = prompt.size
+        ids = np.zeros((1, Lb), np.int64)
+        ids[0, :n] = prompt
+        state = init_kv_caches(self.executor, 1, Lb, self.device)
+        return self._prefill_forward(ids, n, state, 0)
+
+    def _prefill_suffix(self, s: int, suffix: np.ndarray, Lb: int, C: int,
+                        n_pp: int):
+        """A prefix hit's suffix padded to Lb tokens, continued from
+        position C of a dense cache seeded with the slot's first n_pp
+        pages (positions C..n_pp * page_size - 1 of it hold the boundary
+        page's tokens past the match: the suffix's writes replace them
+        before any read, and causality keeps the queries off the rest):
+        (the last suffix position's logits [1, V], {layer: (k, v) of
+        positions C..C + Lb - 1})."""
+        n = suffix.size
+        ids = np.zeros((1, Lb), np.int64)
+        ids[0, :n] = suffix
+        Cpad = n_pp * self.kv.page_size
+        ctx_pages = self._to_device(self.kv.table[s, :n_pp].astype(np.int64))
+        state = init_kv_caches(self.executor, 1, Cpad + Lb, self.device)
+        for name, st in state.items():
+            pool = self.kv.pools[name]
+            for part in ("k", "v"):
+                st[part][0, :Cpad] = pool[part][ctx_pages].reshape(
+                    Cpad, *pool[part].shape[2:])
+            st["pos"].fill_(C)
+            st["cont"] = True
+        return self._prefill_forward(ids, n, state, C)
+
+    def _prefill_forward(self, ids: np.ndarray, n: int, state: dict,
+                         start: int):
+        """One eager forward of the padded tokens `ids` [1, Lb] (n valid)
+        on the dense caches `state`; returns the logits at position n - 1
+        and each layer's K/V at cache positions start..start + Lb - 1."""
+        Lb = ids.shape[1]
+        feed = {self.input_name: Argument(
+            ids=self._to_device(ids),
+            lengths=torch.full((1,), n, dtype=torch.int32,
+                               device=self.device))}
+        outputs, _, state = self.executor.forward(self.params, feed, state,
+                                                  TEST)
+        last = outputs[self.logits_name].value[:, n - 1]
+        return last, {name: (st["k"][0, start:start + Lb],
+                             st["v"][0, start:start + Lb])
+                      for name, st in state.items()}
+
+    def _pack(self, s: int, kv_new: dict, C: int, p: int) -> None:
+        """Write a prefill's K/V (cache positions C.. of its prompt, padding
+        included) into slot `s`'s pages: every position from C up to the
+        end of the prompt's last page (padded tokens past the prompt land
+        in that page's tail, overwritten before any read), the positions
+        in pages the slot does not map dropped (the reference sends them to
+        trash page 0)."""
+        ps = self.kv.page_size
+        Lb = next(iter(kv_new.values()))[0].shape[0]
+        t = np.arange(C, min(C + Lb, self.kv.pages_for(p) * ps))
+        self._writable(s, int(t[0]), int(t[-1]))
+        phys = self._to_device(self.kv.table[s, t // ps].astype(np.int64))
+        off = self._to_device((t % ps).astype(np.int64))
+        for name, (k, v) in kv_new.items():
+            pool = self.kv.pools[name]
+            pool["k"].index_put_((phys, off), k[:t.size].to(pool["k"].dtype))
+            pool["v"].index_put_((phys, off), v[:t.size].to(pool["v"].dtype))
 
     def _preempt(self, s: int) -> None:
         """Requeue slot `s`'s request at the queue front: its committed
@@ -1200,7 +1320,8 @@ class ServingEngine:
         slot) and banks the tokens, cut at an eos."""
         S = len(self.slots)
         K = self.spec_k
-        T = self.max_step_tokens
+        T = self.max_step_tokens if self.prefill_chunk is not None \
+            else S * (K + 1)
         ps = self.kv.page_size
         row_ids = np.zeros(T, np.int64)
         row_slot = np.full(T, S, np.int32)     # S = the all-zero table row
@@ -1288,7 +1409,8 @@ class ServingEngine:
             self._retire(s)
 
     def _emit_first(self, s: int, tok0: int) -> None:
-        """Final-chunk emission: the whole prompt is committed and `tok0`
+        """Token 0's emission: the whole prompt is committed (its final
+        chunk ran, or the whole-prompt admission prefilled it) and `tok0`
         came from its last position.  The slot flips to decode mode."""
         sl = self.slots[s]
         sl.gen = 1

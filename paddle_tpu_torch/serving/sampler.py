@@ -8,7 +8,8 @@ with the noise gumbel(key, (1, V)).  Fed the same noise, the two
 samplers pick the same tokens; the tie order of the filters is kept:
   * top-k ranks by value descending, ties by index ascending (lax.top_k);
   * the nucleus cut orders by a stable ascending sort flipped, so ties
-    come out index-descending (argsort(...)[:, ::-1]);
+    come out index-descending (argsort(...)[:, ::-1];
+    graph/lm_decode.py `nucleus_filter`);
   * greedy is argmax, first maximal index.
 """
 
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from paddle_tpu_torch.graph.lm_decode import nucleus_filter
 
 
 def greedy_next(last: torch.Tensor) -> torch.Tensor:
@@ -61,12 +64,7 @@ def pick_next_per_slot(last: torch.Tensor, noise: Optional[torch.Tensor],
         1, idxs, torch.where(keep, vals, neg_inf))
     scaled = torch.where((top_k > 0)[:, None], filtered, scaled)
 
-    order = torch.argsort(scaled, dim=-1, stable=True).flip(-1)
-    srt = torch.gather(scaled, 1, order)
-    probs = torch.softmax(srt, dim=-1)
-    keep_p = torch.cumsum(probs, dim=-1) - probs < top_p[:, None]
-    nuc = torch.full_like(scaled, float("-inf")).scatter(
-        1, order, torch.where(keep_p, srt, neg_inf))
+    nuc = nucleus_filter(scaled, top_p)
     apply_p = (top_p > 0.0) & (top_p < 1.0)
     scaled = torch.where(apply_p[:, None], nuc, scaled)
 

@@ -1,7 +1,8 @@
 """PyTorch port on the card: the CUDA paged-attention, flash-attention,
 fused-LSTM, fused-GRU and additive-attention kernels against their plain
 versions, the engine on CUDA against the engine on the CPU, and training
-steps and the beam search on CUDA against the same on the CPU.
+steps, the beam searches and lm_generate on CUDA against the same on the
+CPU.
 
 These need an NVIDIA GPU and nvcc, and import nothing of JAX, so they run
 on a machine without it:
@@ -25,13 +26,14 @@ from chip_smoke import (ADD_CASES, ADD_LIMIT_BF16, ADD_TOL_F32, GRAD_TOL,
                         k5_repeat_and_graph, k5_shared_case,
                         kstep_alternating, lm_batches, lstm_compare,
                         lstm_inputs, lstm_repeat_and_graph,
-                        make_repetitive_requests,
+                        make_heavytail_requests, make_repetitive_requests,
                         move_off_relu_kink, o_limit_share, pass_with_losses,
                         profiled, reset_counts, route_total,
                         sentiment_batches, seq2seq_batches, seq2seq_route,
                         serve_requests, training_state_differs)
 from paddle_tpu_torch.graph import GraphExecutor
 from paddle_tpu_torch.graph.generator import generate
+from paddle_tpu_torch.graph.lm_decode import lm_beam_generate, lm_generate
 from paddle_tpu_torch.models import (seq2seq_trainer_config,
                                      stacked_lstm_net_config,
                                      transformer_lm_config,
@@ -1029,3 +1031,104 @@ def test_carried_state_k4_equals_k1_across_a_batch_size_change(cuda):
             assert {tuple(v.shape) for v in t4.net_state.values()} == \
                 {(12, 32)}
     assert sum(graph_replays(t4).values()) > 0
+
+
+def test_lm_generate_and_beam_on_cuda_match_cpu(cuda):
+    """float32 at a small width, ragged prompts of up to 20 tokens with
+    block_k_min 16: lm_generate in both modes and lm_beam_generate give
+    the CPU's tokens and lengths on the card (beam scores within 1e-4).
+    The cached prefill launched the fp32 K4 forward once per layer, each
+    re-forward step once per layer (28 keys >= 16), the plain version
+    never."""
+    model = transformer_lm_config(vocab=97, dim=64, layers=2, heads=4,
+                                  kv_heads=2, block_k_min=16)
+    ex = GraphExecutor(model)
+    params = init_params(model, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    ids = rng.integers(2, 97, (4, 20))
+    lens = np.array([20, 17, 9, 20], np.int32)
+    for use_cache, k4 in ((True, 2), (False, 2 * 8)):
+        want = lm_generate(ex, params, ids, prompt_lengths=lens, max_new=8,
+                           use_cache=use_cache, device="cpu")
+        reset_counts()
+        got = lm_generate(ex, params, ids, prompt_lengths=lens, max_new=8,
+                          use_cache=use_cache, device=cuda)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+        assert (fa.counts.fwd, fa.counts.fwd_tc, fa.counts.plain,
+                pa.counts.kernel) == (k4, 0, 0, 0)
+    want = lm_beam_generate(ex, params, ids, prompt_lengths=lens,
+                            beam_size=3, max_new=6, device="cpu")
+    got = lm_beam_generate(ex, params, ids, prompt_lengths=lens,
+                           beam_size=3, max_new=6, device=cuda)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    np.testing.assert_allclose(got[2].cpu().numpy(), want[2].numpy(),
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_at_an_odd_length_matches_plain(cuda, dtype):
+    """K4's forward as the cached prefill calls it (q_valid = k_valid =
+    each row's prompt, causal) at 2,100 tokens (not a multiple of the
+    64-row tile), ragged rows, a window of 256: one launch of dtype's
+    kernel, o within [flash]'s limit of the plain version (rows past a
+    prompt zero)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, T, H, D = 3, 2100, 8, 64
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    valid = torch.arange(T, device=cuda)[None] < torch.tensor(
+        [[2100], [2049], [1000]], device=cuda)
+    reset_counts()
+    o = fa.flash_attention(q, k, v, q_valid=valid, k_valid=valid,
+                           causal=True, window=256)
+    torch.cuda.synchronize()
+    route = (0, 1) if dtype == torch.bfloat16 else (1, 0)
+    assert (fa.counts.fwd, fa.counts.fwd_tc, fa.counts.plain) == route + (0,)
+    want, _ = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                       valid, causal=True, window=256)
+    want = want * valid[:, :, None, None]
+    assert o_limit_share(o, want, dtype) <= 1
+    assert not o[2, 1000:].any()
+
+
+def test_whole_prompt_engine_on_cuda_matches_cpu(cuda):
+    """ServingEngine(prefill_chunk=None) in float32 at a small width with
+    block_k_min 32: heavy-tail prompts, run twice (the second run's
+    admissions hit the first's donated prefixes and prefill their suffixes
+    on the cache's "cont" path): the card's tokens equal the CPU's; K5
+    launched once per layer per step, K4's fp32 forward once per layer per
+    cold bucket of >= 32 tokens, the plain versions never."""
+    model = transformer_lm_config(vocab=97, dim=64, layers=2, heads=4,
+                                  kv_heads=2, block_k_min=32)
+    ex = GraphExecutor(model)
+    params = init_params(model, seed=0, device="cpu")
+
+    def reqs():
+        return make_heavytail_requests(10, 12, 90, 10, 97, seed=4)
+
+    def engine(dev):
+        return ServingEngine(ex, params, num_slots=3, page_size=8,
+                             max_context=112, prefill_chunk=None,
+                             device=dev)
+
+    cpu = engine("cpu")
+    want = [cpu.run(reqs()), cpu.run(reqs())]
+    eng = engine(cuda)
+    buckets = []
+    prefill = eng._prefill_prompt
+    eng._prefill_prompt = lambda p, Lb: buckets.append(Lb) or prefill(p, Lb)
+    for w in want:
+        buckets.clear()
+        reset_counts()
+        s0 = eng.n_decode_steps
+        got = eng.run(reqs())
+        assert sorted(got) == sorted(w)
+        for i in w:
+            np.testing.assert_array_equal(got[i], w[i])
+        assert pa.counts.kernel == 2 * (eng.n_decode_steps - s0)
+        assert fa.counts.fwd == 2 * sum(Lb >= 32 for Lb in buckets)
+        assert fa.counts.plain == pa.counts.plain == 0
+    assert eng.n_prefix_hits == cpu.n_prefix_hits > 0
+    eng.kv.check_reclaimed()

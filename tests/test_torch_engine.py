@@ -171,8 +171,12 @@ def test_engine_validation_and_device_policy():
         eng.add_request(Request("oov", [3, 61], max_new=2))
     with pytest.raises(ValueError, match="temperature"):
         Request("k", [3], top_k=4)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(ex, params, prefill_chunk=None, device="cpu")
+    # the whole-prompt prefill serves (tests/test_torch_legacy_prefill.py
+    # holds it against the JAX engine)
+    legacy = ServingEngine(ex, params, num_slots=2, page_size=8,
+                           max_context=16, prefill_chunk=None, device="cpu")
+    assert legacy.max_step_tokens == 0
+    assert legacy.run([Request("w", [3, 4, 5], max_new=2)])["w"].size == 5
     with pytest.raises(ValueError, match="max_step_tokens"):
         ServingEngine(ex, params, num_slots=4, max_step_tokens=4,
                       device="cpu")

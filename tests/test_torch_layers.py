@@ -136,10 +136,14 @@ def test_dense_attention_matches_jax(window):
 
 
 def test_unported_paths_raise():
-    """Blockwise attention, the context-parallel paths (ring, ulysses) and
-    the dense per-request KV cache of lm_generate are queued in
-    ROADMAP.md: they raise.  The flash route (auto at >= block_k_min keys,
-    or pinned) and TRAIN mode run (tests/test_torch_train.py holds them
+    """The context-parallel paths (ring, ulysses) are queued in
+    ROADMAP.md: they raise.  Blockwise attention runs and gives the dense
+    route's probabilities (within 1e-5), and the dense per-request KV
+    cache of lm_generate takes an 8-token prefill (flash at block_k_min
+    8) with the full forward's probabilities, writing the cache and
+    advancing pos (tests/test_torch_lm_decode.py holds both against the
+    JAX package).  The flash route (auto at >= block_k_min keys, or
+    pinned) and TRAIN mode run (tests/test_torch_train.py holds them
     against the JAX package), and so does a recurrent group nested in a
     group: tests/configs/sequence_nest_rnn.py's TEST forward gives the JAX
     executor's costs (within 1e-5) on rows with an empty sub-sequence."""
@@ -154,16 +158,29 @@ def test_unported_paths_raise():
     out, _, _ = GraphExecutor(model).forward(leaves, feed, mode="train")
     assert out["lm_head"].value.shape == (1, 8, 61)
     assert out["lm_head"].value.requires_grad and fa.counts.plain == 1
-    for impl in ("blockwise", "ring", "ulysses"):
+    for impl in ("ring", "ulysses"):
         ex = GraphExecutor(transformer_lm_config(61, 32, 1, 4,
                                                  attn_impl=impl))
         with pytest.raises(NotImplementedError, match="not ported"):
             ex.forward(params, feed)
-    with pytest.raises(NotImplementedError, match="lm_generate"):
-        GraphExecutor(model).forward(params, feed, state={
-            "blk0_attn": {"k": torch.zeros(1, 8, 4, 8),
-                          "v": torch.zeros(1, 8, 4, 8),
-                          "pos": torch.zeros(1, dtype=torch.int32)}})
+    ids = torch.randint(0, 61, (1, 8), generator=torch.Generator()
+                        .manual_seed(1))
+    feed = {"tokens": Argument(ids=ids, lengths=torch.tensor([8]))}
+    dense, _, _ = GraphExecutor(transformer_lm_config(
+        61, 32, 1, 4, attn_impl="dense")).forward(params, feed)
+    block, _, _ = GraphExecutor(transformer_lm_config(
+        61, 32, 1, 4, attn_impl="blockwise")).forward(params, feed)
+    np.testing.assert_allclose(block["lm_head"].value.numpy(),
+                               dense["lm_head"].value.numpy(), **TOL)
+    cache = {"k": torch.zeros(1, 10, 4, 8), "v": torch.zeros(1, 10, 4, 8),
+             "pos": torch.zeros(1, dtype=torch.int32)}
+    fa.counts.reset()
+    out, _, state = GraphExecutor(model).forward(params, feed,
+                                                 state={"blk0_attn": cache})
+    assert fa.counts.plain == 1 and int(state["blk0_attn"]["pos"]) == 8
+    assert cache["k"][:, :8].abs().sum() > 0 and not cache["k"][:, 8:].any()
+    np.testing.assert_allclose(out["lm_head"].value.numpy(),
+                               dense["lm_head"].value.numpy(), **TOL)
     from paddle_tpu.graph.builder import GraphExecutor as JExecutor
     from paddle_tpu_torch.config.schema import TrainerConfig
     jcfg = parse_config("tests/configs/sequence_nest_rnn.py", "")

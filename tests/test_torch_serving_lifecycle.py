@@ -373,21 +373,26 @@ def test_every_paged_attention_call_carries_the_engines_split_count(
 
 
 def test_features_not_ported_are_refused():
-    """The spill tier, page export / import, a mesh, tracing and the
-    whole-prompt prefill (also through set_chunking) raise
+    """The spill tier, page export / import, a mesh and tracing raise
     NotImplementedError naming ROADMAP.md; speculative decode and
-    decode_mode="static" are taken (tests/test_torch_spec_decode.py)."""
-    from paddle_tpu_torch.serving import ServingEngine
+    decode_mode="static" are taken (tests/test_torch_spec_decode.py), and
+    so is the whole-prompt prefill, at construction and through
+    set_chunking (tests/test_torch_legacy_prefill.py): both serve."""
+    from paddle_tpu_torch.serving import Request, ServingEngine
     from test_torch_prefix_cache import lm
     _, ex, params = lm(*M11)
     for kw in (dict(spill_bytes_budget=1 << 20), dict(mesh=object()),
-               dict(tracer=object()), dict(prefill_chunk=None)):
+               dict(tracer=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServingEngine(ex, params, device="cpu", **kw)
+    legacy = ServingEngine(ex, params, device="cpu", prefill_chunk=None)
     eng = ServingEngine(ex, params, device="cpu", spec_k=2,
                         decode_mode="static")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.set_chunking(None)
+    eng.set_chunking(None)
+    for e in (legacy, eng):
+        assert e.prefill_chunk is None
+        out = e.run([Request("a", [3, 4, 5, 6], max_new=3)])
+        assert out["a"].size == 7 and e.n_prefill_chunks == 0
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng.export_prefix([3, 4, 5])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
