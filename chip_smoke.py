@@ -104,9 +104,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
                eager step, verify steps included, the plain version never;
                each arm logs steps (verify, mixed, windows), tokens/s, the
                accept rate, draft ms a pass and a profiled run of 8 of its
-               requests (4 in (2) and (4): SPEC_MODEL_PROFILED; device
-               ms/step, busy share, kernels and host launch calls a step,
-               K5 on the card as the route says);
+               requests (4 in (2) and (4): SPEC_MODEL_PROFILED; none in
+               (3) and (6), whose steps are (1)'s shapes; device ms/step,
+               busy share, kernels and host launch calls a step, K5 on the
+               card as the route says);
   4d. decode — the dense decode path at the same width (bfloat16 unless
                said, random weights from seed 1), at tools/bench_lm.py's
                decode defaults (batch 32, 64 new tokens; one warm call,
@@ -144,6 +145,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
                layer, held against its plain version on the recorded
                [1, bucket] inputs; K4 timed at the prefill's
                [32, 4032, 8, 64] (the kernels line's record);
+  4e. serve-spill — the rest of the engine at the same width, on
+               bench.py bench_serving_spill's configuration (SPILL_ENGINE:
+               4 slots, pages of 16, context 768, 96 pages, below the
+               working set; SPILL_BUDGET 64 MiB of host tier) and the
+               prefix-skew workload greedy: (1) an engine with the prefix
+               cache off, then one engine with the spill tier off and on
+               (set_spill_budget, reset_prefix_cache before each arm): the
+               tokens equal request for request, the on arm spills and
+               restores pages and hits more often, restored tokens within
+               restored pages x 16, each engine site's signature count
+               unchanged between the arms, K5 once per layer per step and
+               the plain version never; hit rates, tokens saved, tokens/s,
+               first-token p50, ms a spilled and a restored page, and the
+               D2H / H2D rates of pageable and pinned memory (measurement
+               only); K5 held against its plain version on the first
+               launch that read a restored page and timed over the on
+               arm's layer-0 launches (the kernels line's record);
+               (2) the on arm at decode_steps=KSTEP: windows replayed from
+               CUDA graphs beside restores, the k = 1 tokens; (3) a cached
+               prefix exported and imported into a second engine (its
+               pools' addresses unchanged), whose admission of the prompt
+               hits with the cold run's tokens, ms a page each way; (4)
+               SPILL_TRACED requests with the tracer on and off, two
+               rounds: the tokens equal, ms/step each way, every request
+               lane queued -> prefill -> decode -> done, the Chrome trace
+               written and read back, a flight bundle dumped and read
+               back;
   5. routes  — float32, 2 layers at full width: the engine reading through
                the kernel against the engine reading through the page-table
                gather (attn_impl='dense'), lm_head rows at the first mixed
@@ -2031,12 +2059,12 @@ class SpecProbe:
         self.armed, self.capture, self.recorded = False, False, None
         run_spec, propose = eng._run_spec_step, eng._propose_drafts
 
-        def spec_step(runnable, filling, drafts):
+        def spec_step(*args):              # (live, runnable, filling, drafts)
             k0 = pa.counts.kernel
-            self.capture = self.armed and bool(drafts) and \
+            self.capture = self.armed and bool(args[-1]) and \
                 self.recorded is None
             try:
-                run_spec(runnable, filling, drafts)
+                run_spec(*args)
             finally:
                 self.capture = False
             self.verify_launches += pa.counts.kernel - k0
@@ -2162,9 +2190,11 @@ def spec_requests(c, sampled: int = 0, n: Optional[int] = None) -> list:
 def spec_arm(c, eng, what: str, want: Optional[dict], sampled: int = 0,
              n: Optional[int] = None, profiled_n: int = 8):
     """One arm: the workload (its first `n` requests) timed, then
-    `profiled_n` of its requests profiled."""
+    `profiled_n` of its requests profiled (none at 0)."""
     res, d = spec_run(c, eng, spec_requests(c, sampled, n), what, want)
-    spec_profile(c, eng, spec_requests(c, sampled)[:profiled_n], what, res)
+    if profiled_n:
+        spec_profile(c, eng, spec_requests(c, sampled)[:profiled_n], what,
+                     res)
     return res, d
 
 
@@ -2282,7 +2312,8 @@ def phase_serve_spec(smi: str) -> None:
              f"tokens, {SPEC_MODEL_REQUESTS} requests", c.want,
              n=SPEC_MODEL_REQUESTS, profiled_n=SPEC_MODEL_PROFILED)
     eng.set_speculation(SPEC_K, ngram, dynamic=True)
-    spec_arm(c, eng, f"(3) spec_k={SPEC_K}, n-gram, dynamic depth", c.want)
+    spec_arm(c, eng, f"(3) spec_k={SPEC_K}, n-gram, dynamic depth", c.want,
+             profiled_n=0)
     # a window's first run is eager and its second captured: both before
     # the timed runs (greedy requests, the all-greedy variant)
     eng.set_speculation(0)
@@ -2310,7 +2341,7 @@ def phase_serve_spec(smi: str) -> None:
              sampled=4)
     over = engine(num_pages=PREFIX_PAGES, spec_k=SPEC_K)
     _, d = spec_arm(c, over, f"(6) spec_k={SPEC_K} on {PREFIX_PAGES - 1} "
-                    f"real pages", c.want)
+                    f"real pages", c.want, profiled_n=0)
     over.kv.check_reclaimed()
     if d["n_preemptions"] <= 0:
         raise AssertionError("[serve-spec] the overcommitted pool never "
@@ -2885,6 +2916,432 @@ def phase_decode(smi: str) -> list:
     log(f"[decode] all arms: {time.perf_counter() - start:.1f} s "
         f"(lm_generate and beam {lm_s:.1f} s) [{smi}]")
     return [record]
+
+
+# [serve-spill]: bench.py bench_serving_spill's configuration at [serve]'s
+# width: 4 slots, pages of 16, context 768, a pool of 96 pages (below the
+# prefix-skew workload's working set) and a 64 MiB host tier; the
+# workload is tools/bench_serving.py's prefix skew, greedy (its
+# make_prefix_requests)
+SPILL_ENGINE = dict(num_slots=4, page_size=16, max_context=768,
+                    num_pages=96)
+SPILL_BUDGET = 64 << 20
+SPILL_TRACED = 8                # requests of the tracing on/off runs
+
+
+def spill_requests(vocab: int, n: Optional[int] = None) -> list:
+    from paddle_tpu_torch.serving import Request
+    w = dict(PREFIX_WORKLOAD)
+    prompts = make_prefix_prompts(w.pop("n"), vocab=vocab, **{
+        k: w[k] for k in ("prefix_pool", "prefix_len", "prefix_skew",
+                          "suffix_lo", "suffix_hi")})
+    return [Request(i, p, max_new=w["max_new"])
+            for i, p in enumerate(prompts[:n])]
+
+
+def spill_timers(eng) -> dict:
+    """Wrap the engine's allocator's spill and restore (measurement only:
+    the engine calls them through these instance attributes) to sum their
+    wall time, the card synchronized around each restore, and to keep the
+    restored pages; returns the running sums."""
+    kv = eng.kv
+    t = {"spill_s": 0.0, "spilled": 0, "restore_s": 0.0, "restored": 0,
+         "pages": set()}
+    spill, restore = kv.spill_page, kv.restore_pages
+
+    def timed_spill(page):
+        t0 = time.perf_counter()
+        hid = spill(page)
+        if hid is not None:
+            t["spill_s"] += time.perf_counter() - t0
+            t["spilled"] += 1
+        return hid
+
+    def timed_restore(hids, pages):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore(hids, pages)
+        torch.cuda.synchronize()
+        t["restore_s"] += time.perf_counter() - t0
+        t["restored"] += len(pages)
+        t["pages"].update(int(p) for p in pages)
+
+    kv.spill_page, kv.restore_pages = timed_spill, timed_restore
+    return t
+
+
+def copy_rates() -> str:
+    """Device-to-host and host-to-device rates of 64 pages' worth of bytes
+    (16 MiB) to and from pageable and pinned host memory (measurement
+    only: the engine's tier copies to pageable memory, one page a copy)."""
+    n = 64 * 262144
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    out = []
+    for kind in ("pageable", "pinned"):
+        host = torch.empty(n, dtype=torch.uint8,
+                           pin_memory=kind == "pinned")
+        for what, fn in (("D2H", lambda: host.copy_(dev)),
+                         ("H2D", lambda: dev.copy_(host))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            rate = 5 * n / (time.perf_counter() - t0) / 1e9
+            out.append(f"{what} {kind} {rate:.2f} GB/s")
+    return ", ".join(out)
+
+
+def spill_arm(c, eng, what: str, reqs, record: bool = False):
+    """Serve `reqs` on `eng` from a cold cache, timed: (results, counter
+    moves, wall s, first-token p50 ms, spill/restore sums, recorded
+    layer-0 K5 launches)."""
+    import paddle_tpu_torch.ops.attention as attn_ops
+    from paddle_tpu_torch.ops import paged_attention as pa
+    eng.reset_prefix_cache()
+    before = engine_counters(eng) | {
+        a: getattr(eng, a) for a in ("n_restore_hits",
+                                     "restore_tokens_saved")}
+    kv0 = (eng.kv.n_spilled, eng.kv.n_restored)
+    timers = spill_timers(eng)
+    first, recorded = {}, []
+    wrapper = pa.paged_attention
+    layer0 = next(iter(eng.kv.pools))
+
+    def recording(q, k_pages, v_pages, page_table, lengths, scale=None,
+                  row_slot=None, splits=None):
+        out = wrapper(q, k_pages, v_pages, page_table, lengths, scale,
+                      row_slot, splits)
+        if k_pages is eng.kv.pools[layer0]["k"]:
+            # the first launch whose slots map a restored page (read off
+            # the host table: no sync) keeps layer 0's pools as it read
+            # them
+            fresh = not recorded or recorded[0][6] is None
+            fresh = fresh and bool(timers["pages"].intersection(
+                eng.kv.table.ravel().tolist()))
+            recorded.append((q.clone(), k_pages, v_pages, page_table.clone(),
+                             lengths.clone(),
+                             None if row_slot is None else row_slot.clone(),
+                             (k_pages.clone(), v_pages.clone())
+                             if fresh else None))
+            if fresh:                       # the probe goes first
+                recorded.insert(0, recorded.pop())
+        return out
+
+    eng.on_token = lambda rid, tok, i: first.setdefault(
+        rid, time.perf_counter()) if i == 0 else None
+    if record:
+        attn_ops.pa.paged_attention = recording
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        attn_ops.pa.paged_attention = wrapper
+        eng.on_token = None
+        del eng.kv.spill_page, eng.kv.restore_pages
+    d = {k: v - before[k] for k, v in (engine_counters(eng) | {
+        a: getattr(eng, a) for a in ("n_restore_hits",
+                                     "restore_tokens_saved")}).items()}
+    d["spilled"] = eng.kv.n_spilled - kv0[0]
+    d["restored"] = eng.kv.n_restored - kv0[1]
+    eager = d["n_decode_steps"] - d["n_scan_flushes"]
+    check_k5_eager(f"[serve-spill] {what}", c.layers, eager)
+    want_len = {r.req_id: r.prompt_ids.size + r.max_new for r in reqs}
+    if {i: t.size for i, t in res.items()} != want_len:
+        raise AssertionError(f"[serve-spill] {what}: requests missing or "
+                             f"cut short")
+    seen = d["n_prefix_hits"] + d["n_prefix_misses"]
+    d["hit_rate"] = d["n_prefix_hits"] / seen if seen else 0.0
+    p50 = float(np.median([first[r.req_id] - t0 for r in reqs])) * 1e3
+    log(f"[serve-spill] {what}: {len(res)} requests, {d['n_decode_steps']} "
+        f"steps ({d['n_mixed_steps']} mixed, {d['n_scan_flushes']} "
+        f"windows), {d['tokens_generated'] / wall:.1f} tokens/s, "
+        f"{wall / d['n_decode_steps'] * 1e3:.2f} ms/step, first token p50 "
+        f"{p50:.1f} ms; prefix hits {d['n_prefix_hits']} of {seen} "
+        f"({d['hit_rate']:.1%}), prefill tokens saved "
+        f"{d['prefill_tokens_saved']}; pages spilled {d['spilled']}, "
+        f"restored {d['restored']} in {d['n_restore_hits']} restore hits "
+        f"saving {d['restore_tokens_saved']} tokens; K5 launches "
+        f"{c.layers} x {eager} eager steps, plain 0 [{c.smi}]")
+    return res, d, wall, p50, timers, recorded
+
+
+def site_signatures() -> dict:
+    from paddle_tpu_torch.obs import get_compile_watch
+    return {s: st["signatures"] for s, st in
+            get_compile_watch().snapshot().items()
+            if s.startswith("serving.") and s != "serving.spill_restore"}
+
+
+def spill_on_off(c) -> None:
+    """[serve-spill] 1: the workload on one engine, spill tier off, then
+    on (set_spill_budget; reset_prefix_cache before each), and on an
+    engine with the prefix cache off: tokens equal request for request;
+    the on arm spills and restores pages and hits more often than the off
+    arm; restored tokens within restored pages x 16; the engine sites'
+    signature counts unchanged between the arms; K5 once per layer per
+    step, the plain version never.  K5 at the on arm's recorded layer-0
+    launches: its error on the first launch reading a restored page, its
+    time, the plain version's and the bound (the kernels line's
+    record)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    cold = c.engine(prefix_cache=False)
+    cold.run(serve_requests(4, c.vocab, seed=7, lo=8, hi=80, max_new=4))
+    c.want, _, _, _, _, _ = spill_arm(c, cold, "cache off",
+                                      spill_requests(c.vocab))
+    del cold
+    eng = c.eng = c.engine(prefix_cache=True)
+    eng.run(serve_requests(4, c.vocab, seed=7, lo=8, hi=80, max_new=4))
+    arms = {}
+    for label, budget in (("off", 0), ("on", SPILL_BUDGET)):
+        eng.set_spill_budget(budget)
+        sig0 = site_signatures()
+        arms[label] = spill_arm(c, eng, f"spill {label}",
+                                spill_requests(c.vocab), record=True)
+        same_tokens(f"[serve-spill] spill {label}", arms[label][0], c.want)
+        if label == "on" and site_signatures() != sig0:
+            raise AssertionError(f"[serve-spill] the engine sites' "
+                                 f"signatures moved between the arms: "
+                                 f"{sig0} -> {site_signatures()}")
+        eng.kv.check()
+    (_, off, off_wall, off_p50, _, _), (_, on, on_wall, on_p50, t,
+                                        recorded) = arms["off"], arms["on"]
+    if not (on["spilled"] > 0 and on["restored"] > 0
+            and on["hit_rate"] > off["hit_rate"]
+            and 0 < on["restore_tokens_saved"]
+            <= on["restored"] * eng.kv.page_size):
+        raise AssertionError(f"[serve-spill] the on arm: {on}; off {off}")
+    log(f"[serve-spill] spill on against off: tokens equal request for "
+        f"request (and the cache-off run's); hit rate {on['hit_rate']:.1%} "
+        f"against {off['hit_rate']:.1%}, prefill tokens saved "
+        f"{on['prefill_tokens_saved']} against "
+        f"{off['prefill_tokens_saved']}, tokens/s "
+        f"{on['tokens_generated'] / on_wall:.1f} against "
+        f"{off['tokens_generated'] / off_wall:.1f}, first token p50 "
+        f"{on_p50:.1f} ms against {off_p50:.1f} ms; spill "
+        f"{t['spill_s'] / t['spilled'] * 1e3:.3f} ms/page over "
+        f"{t['spilled']} pages, restore "
+        f"{t['restore_s'] / t['restored'] * 1e3:.3f} ms/page over "
+        f"{t['restored']} pages ({eng.kv.page_nbytes} B a page); the "
+        f"sites' signatures unchanged {site_signatures()} [{c.smi}]")
+    log(f"[serve-spill] copy rates of 16 MiB: {copy_rates()} [{c.smi}]")
+    probe = recorded[0] if recorded and recorded[0][6] is not None else None
+    if probe is None:
+        raise AssertionError("[serve-spill] no recorded launch read a "
+                             "restored page")
+    q, _, _, table, lengths, row_slot, (k0, v0) = probe
+    err = k5_error((q, k0, v0, table, lengths, row_slot), splits=eng.splits)
+    if not err <= K5_ATOL[torch.bfloat16]:
+        raise AssertionError(f"[serve-spill] K5 over restored pages: {err}")
+    launches = [r[:6] for r in recorded[:512]]
+    kern_ms = time_launches(pa.paged_attention, launches)
+    plain_ms = time_launches(pa.paged_attention_plain, launches)
+    bound = [launch_bytes_flops(a, 2) for a in launches]
+    bytes_ms = float(np.mean([b for b, _ in bound])) / HBM_BYTES_PER_S * 1e3
+    flops_ms = float(np.mean([f for _, f in bound])) / \
+        PEAK_FLOPS[torch.bfloat16] * 1e3
+    log(f"[serve-spill] K5 on a launch reading restored pages ({q.shape[0]} "
+        f"rows, the engine's {eng.splits} split(s)) against its plain "
+        f"version in float32: max abs err {err:.3e} (limit "
+        f"{K5_ATOL[torch.bfloat16]:g}); over {len(launches)} of the on "
+        f"arm's layer-0 launches {kern_ms * 1e3:.2f} us/launch, plain "
+        f"{plain_ms * 1e3:.2f} us, bound "
+        f"{max(bytes_ms, flops_ms) * 1e3:.3f} us [{c.smi}]")
+    c.record = {"name": "paged_attention [serve-spill]", "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+                "replaces": "paddle_tpu/ops/pallas_paged.py:104",
+                "launches": c.layers * (on["n_decode_steps"]
+                                        - on["n_scan_flushes"]),
+                "max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, flops_ms),
+                "bound_by": "bytes" if bytes_ms >= flops_ms
+                else "operations", "library_ms": None}
+
+
+def spill_windows(c) -> None:
+    """[serve-spill] 2: the on arm at decode_steps=KSTEP (both window
+    variants captured by a warm-up): the same tokens as k = 1, windows
+    replayed from CUDA graphs over the restored pages."""
+    eng = c.eng
+    eng.set_decode_steps(KSTEP)
+    eng.run(serve_requests(4, c.vocab, seed=7, lo=8, hi=80, max_new=12,
+                           sampled_every=2))
+    eng.run(serve_requests(2, c.vocab, seed=8, lo=8, hi=80, max_new=12))
+    replays0 = sum(g.replays for g in eng._windows[KSTEP].graphs.values()
+                   if g is not None)
+    res, d, _, _, _, _ = spill_arm(c, eng, f"spill on, decode_steps={KSTEP}",
+                                   spill_requests(c.vocab))
+    same_tokens(f"[serve-spill] decode_steps={KSTEP}", res, c.want)
+    replays = sum(g.replays for g in eng._windows[KSTEP].graphs.values()
+                  if g is not None) - replays0
+    if replays < 1 or d["restored"] < 1:
+        raise AssertionError(f"[serve-spill] decode_steps={KSTEP}: "
+                             f"{replays} replays, {d['restored']} pages "
+                             f"restored")
+    log(f"[serve-spill] decode_steps={KSTEP}: tokens equal k = 1; "
+        f"{replays} window replays beside {d['restored']} restored pages "
+        f"[{c.smi}]")
+    eng.set_decode_steps(1)
+
+
+def spill_transfer(c) -> None:
+    """[serve-spill] 3: a cached prefix exported from the engine and
+    imported into a second engine of the same weights: the next admission
+    of its prompt is a prefix hit with the cold run's tokens."""
+    eng = c.eng
+    eng.reset_prefix_cache()
+    reqs = spill_requests(c.vocab)
+    eng.run(reqs[:8])
+    for r in reversed(reqs[:8]):
+        exp = eng.export_prefix(r.prompt_ids)
+        if exp is not None and exp[1]["n_pages"] >= 8:
+            break
+    else:
+        raise AssertionError("[serve-spill] nothing to export")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp = eng.export_prefix(r.prompt_ids)           # timed: the second call
+    export_s = time.perf_counter() - t0
+    toks, meta, payload = exp
+    other = c.engine(prefix_cache=True)
+    ptrs = {(n, p): t.data_ptr() for n, pool in other.kv.pools.items()
+            for p, t in pool.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    added = other.import_prefix(toks, meta, payload)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    if ptrs != {(n, p): t.data_ptr() for n, pool in other.kv.pools.items()
+                for p, t in pool.items()}:
+        raise AssertionError("[serve-spill] an import moved a pool")
+    reset_counts()
+    again = next(x for x in spill_requests(c.vocab) if x.req_id == r.req_id)
+    res = other.run([again])
+    check_k5_eager("[serve-spill] imported", c.layers, other.n_decode_steps)
+    same_tokens("[serve-spill] imported", res, c.want)
+    if other.n_prefix_hits != 1 or \
+            other.prefill_tokens_saved < toks.size - eng.kv.page_size:
+        raise AssertionError("[serve-spill] the imported prefix was not hit")
+    n = meta["n_pages"]
+    log(f"[serve-spill] export of request {r.req_id}'s {n}-page prefix "
+        f"({len(payload)} B, dtype {meta['layers'][0]['dtype']}) "
+        f"{export_s / n * 1e3:.3f} ms/page, import {import_s / n * 1e3:.3f} "
+        f"ms/page ({added} nodes); the importer's admission hit "
+        f"{other.prefill_tokens_saved} tokens with the cold run's tokens "
+        f"[{c.smi}]")
+    del other
+
+
+def spill_tracing(c) -> None:
+    """[serve-spill] 4: SPILL_TRACED requests with the tracer on and off,
+    two rounds: equal tokens, ms/step each way, every request lane's
+    phases in order, the Chrome trace written and read back; a flight
+    bundle dumped and read back."""
+    import tempfile
+
+    from paddle_tpu_torch.obs import (Tracer, get_flight_recorder,
+                                      load_bundle, spans_to_chrome)
+    eng = c.eng
+    tracer = Tracer(capacity=1 << 18)
+    eng.tracer = tracer
+    flight = get_flight_recorder()
+    flight.clear()
+    flight.enabled = True
+    ms = {True: [], False: []}
+    try:
+        for rnd in range(2):
+            for on in ((False, True) if rnd == 0 else (True, False)):
+                tracer.clear()
+                tracer.enabled = on
+                eng.reset_prefix_cache()
+                steps0 = eng.n_decode_steps
+                reqs = spill_requests(c.vocab, SPILL_TRACED)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = eng.run(reqs)
+                torch.cuda.synchronize()
+                ms[on].append((time.perf_counter() - t0) * 1e3
+                              / (eng.n_decode_steps - steps0))
+                same_tokens(f"[serve-spill] tracer {on}", res, c.want)
+                if on:
+                    spans = tracer.snapshot()
+                elif tracer.recorded:
+                    raise AssertionError("[serve-spill] a disabled tracer "
+                                         "recorded spans")
+        for r in reqs:
+            ph = [s["name"] for s in spans if s["track"] == f"req:{r.req_id}"
+                  and not s.get("instant")]
+            ends = [s["name"] for s in spans
+                    if s["track"] == f"req:{r.req_id}" and s.get("instant")]
+            if ph[:2] != ["queued", "prefill"] or ph[2] not in (
+                    "decode", "replay") or ends[-1] != "done":
+                raise AssertionError(f"[serve-spill] request {r.req_id}'s "
+                                     f"phases {ph} {ends}")
+        steps = [s for s in spans if s["track"] == "engine"]
+        with tempfile.TemporaryDirectory() as root:
+            path = os.path.join(root, "trace.json")
+            with open(path, "w") as f:
+                json.dump(spans_to_chrome(spans), f)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            bundle = load_bundle(flight.dump(root, "serve-spill",
+                                             spans=spans))
+        kinds = {e["kind"] for e in bundle["events"]}
+        if not {"queued", "admit", "finish"} <= kinds or \
+                len(events) < len(spans):
+            raise AssertionError(f"[serve-spill] trace {len(events)} "
+                                 f"events, bundle kinds {kinds}")
+    finally:
+        flight.enabled = False
+        flight.clear()
+        tracer.enabled = False
+    log(f"[serve-spill] tracing: {SPILL_TRACED} requests, ms/step tracer on "
+        f"{' / '.join(f'{x:.2f}' for x in ms[True])}, off "
+        f"{' / '.join(f'{x:.2f}' for x in ms[False])}; tokens equal; "
+        f"{len(spans)} spans ({len(steps)} on the engine lane), every "
+        f"request lane queued -> prefill -> decode -> done; Chrome trace of "
+        f"{len(events)} events read back; a flight bundle of "
+        f"{len(bundle['events'])} events ({len(kinds)} kinds) read back "
+        f"[{c.smi}]")
+
+
+def phase_serve_spill(smi: str) -> list:
+    """The rest of the engine on the card (module docstring, phase 4e):
+    bench_serving_spill's configuration at [serve]'s width, (1) the spill
+    tier off and on, (2) windows over restored pages, (3) a prefix export
+    / import, (4) tracing on and off; returns K5's record at the spill-on
+    arm's launches."""
+    from paddle_tpu_torch.graph import GraphExecutor
+    from paddle_tpu_torch.models import transformer_lm_config
+    from paddle_tpu_torch.parameter import init_params
+    from paddle_tpu_torch.serving import ServingEngine
+
+    vocab, layers = 32000, 8
+    model = transformer_lm_config(vocab=vocab, dim=512, layers=layers,
+                                  heads=8)
+    ex = GraphExecutor(model, compute_dtype="bfloat16")
+    params = init_params(model, seed=1)
+
+    def engine(**kw):
+        return ServingEngine(ex, params, **SPILL_ENGINE, **kw)
+
+    c = types.SimpleNamespace(vocab=vocab, layers=layers, smi=smi,
+                              engine=engine, eng=None, want=None,
+                              record=None)
+    for n, fn in enumerate((spill_on_off, spill_windows, spill_transfer,
+                            spill_tracing), 1):
+        start = time.perf_counter()
+        fn(c)
+        log(f"[serve-spill] ({n}) {fn.__name__}: "
+            f"{time.perf_counter() - start:.1f} s [{smi}]")
+    c.eng = None
+    torch.cuda.empty_cache()
+    return [c.record]
 
 
 def phase_routes() -> None:
@@ -6288,6 +6745,7 @@ def main(argv=None) -> int:
     phase("serve-prefix", phase_serve_prefix, smi)
     phase("serve-spec", phase_serve_spec, smi)
     decode = phase("decode", phase_decode, smi)
+    spill = phase("serve-spill", phase_serve_spill, smi)
     phase("routes", phase_routes)
     phase("flash", phase_flash)
     flash = phase("train", phase_train, smi)
@@ -6307,8 +6765,8 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - t0:.1f}s: "
         + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
         + f"; the profiler around its runs {PROFILER_SECONDS[0]:.1f}")
-    print(json.dumps({"kernels": [record] + flash + decode + lstm + seq2seq
-                      + tagging}))
+    print(json.dumps({"kernels": [record] + flash + decode + spill + lstm
+                      + seq2seq + tagging}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

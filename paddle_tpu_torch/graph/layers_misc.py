@@ -5,6 +5,7 @@ ROADMAP.md."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.config.schema import LayerConfig
 from paddle_tpu_torch.graph.common import finish_layer
@@ -17,13 +18,19 @@ from paddle_tpu_torch.parameter.argument import Argument
 def layer_norm_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     """Last-dim layer normalization with learned [1, D] scale and bias.
     Statistics in float32 with the population variance and
-    rsqrt(var + 1e-6) — not F.layer_norm's 1e-5 — and the result cast
-    back to the input dtype."""
+    rsqrt(var + 1e-6) — not F.layer_norm's default 1e-5 — and the result
+    cast back to the input dtype.
+
+    The statistics come from F.layer_norm's kernel, a block per row on the
+    card: a row's result does not depend on how many rows the call holds.
+    The generic mean / var reductions pick their thread layout by the
+    number of rows, and their sums' order with it, so the serving engine's
+    decode step ([S, 1]) and mixed step ([1, T]) normalized the same row
+    to bfloat16 results 1 ulp apart now and then, and a served token
+    could follow the schedule."""
     x = ctx.get_input(cfg, 0)
     v32 = x.value.float()
-    mean = v32.mean(dim=-1, keepdim=True)
-    var = v32.var(dim=-1, keepdim=True, unbiased=False)
-    normed = (v32 - mean) * torch.rsqrt(var + 1e-6)
+    normed = F.layer_norm(v32, v32.shape[-1:], eps=1e-6)
     scale = ctx.param_of(cfg, 0)
     if scale is not None:
         normed = normed * scale.float().reshape(-1)

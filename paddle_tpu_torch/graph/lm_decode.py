@@ -37,6 +37,7 @@ from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.graph.context import TEST
 from paddle_tpu_torch.graph.registry import (cost_layer_types,
                                              validation_layer_types)
+from paddle_tpu_torch.obs.compile_watch import get_compile_watch
 from paddle_tpu_torch.parameter.argument import Argument
 from paddle_tpu_torch.parameter.init import torch_dtype
 
@@ -244,24 +245,35 @@ def lm_generate(executor, params: dict, prompt_ids, prompt_lengths=None,
         return buf, lengths, done
 
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    # the reference's compile site: a call with a new (model, B, P,
+    # max_new, path, knobs) key records a compile event timed over the
+    # whole call (obs/compile_watch.py)
+    cw = get_compile_watch().watch(
+        "lm_decode.generate",
+        (id(executor), B, P, int(max_new), bool(use_cache),
+         int(early_exit_chunk), float(temperature), int(top_k),
+         float(top_p), int(eos_id)))
     if use_cache:
-        state, last = _prefill(executor, params, input_name, logits_name,
-                               prompt_ids, lengths, total)
-        buf, lengths, done = advance(buf, lengths, done, sample(last, 0))
-        ones = torch.ones((B,), dtype=torch.int32, device=dev)
+        with cw:
+            state, last = _prefill(executor, params, input_name,
+                                   logits_name, prompt_ids, lengths, total)
+            buf, lengths, done = advance(buf, lengths, done,
+                                         sample(last, 0))
+            ones = torch.ones((B,), dtype=torch.int32, device=dev)
 
-        def step_cached(carry, i):
-            buf, lengths, done, state = carry
-            tok = buf[rows, (lengths.long() - 1).clamp(0, total - 1)]
-            outputs, _, state = executor.forward(
-                params, {input_name: Argument(ids=tok[:, None],
-                                              lengths=ones)}, state, TEST)
-            nxt = sample(outputs[logits_name].value[:, 0, :], i)
-            return advance(buf, lengths, done, nxt) + (state,)
+            def step_cached(carry, i):
+                buf, lengths, done, state = carry
+                tok = buf[rows, (lengths.long() - 1).clamp(0, total - 1)]
+                outputs, _, state = executor.forward(
+                    params, {input_name: Argument(ids=tok[:, None],
+                                                  lengths=ones)}, state,
+                    TEST)
+                nxt = sample(outputs[logits_name].value[:, 0, :], i)
+                return advance(buf, lengths, done, nxt) + (state,)
 
-        buf, lengths, _, _ = _chunked_scan(
-            step_cached, (buf, lengths, done, state), range(1, max_new),
-            early_exit_chunk, done_of=lambda c: c[2])
+            buf, lengths, _, _ = _chunked_scan(
+                step_cached, (buf, lengths, done, state), range(1, max_new),
+                early_exit_chunk, done_of=lambda c: c[2])
         return buf.to(torch.int32), lengths
 
     def step(carry, i):
@@ -273,9 +285,10 @@ def lm_generate(executor, params: dict, prompt_ids, prompt_lengths=None,
         nxt = sample(logits[rows, lengths.long() - 1], i)
         return advance(buf, lengths, done, nxt)
 
-    buf, lengths, _ = _chunked_scan(step, (buf, lengths, done),
-                                    range(max_new), early_exit_chunk,
-                                    done_of=lambda c: c[2])
+    with cw:
+        buf, lengths, _ = _chunked_scan(step, (buf, lengths, done),
+                                        range(max_new), early_exit_chunk,
+                                        done_of=lambda c: c[2])
     return buf.to(torch.int32), lengths
 
 

@@ -30,6 +30,7 @@ import torch
 
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.graph.lm_decode import build_draft_roll
+from paddle_tpu_torch.obs.compile_watch import get_compile_watch
 
 
 def clamp_proposal(d, k: int, eos_id: int = -1) -> np.ndarray:
@@ -160,8 +161,10 @@ class ModelDrafter:
         buf = np.zeros((S, W + k), np.int64)
         buf[:, :W] = ctx
         lens = np.clip(np.asarray(lens, np.int32), 1, W)
-        out = self._roll(self.params, torch.from_numpy(buf).to(self.device),
-                         torch.from_numpy(lens).to(self.device), k)
+        with get_compile_watch().observe("serving.draft_step", buf, k):
+            out = self._roll(self.params,
+                             torch.from_numpy(buf).to(self.device),
+                             torch.from_numpy(lens).to(self.device), k)
         out = out.cpu().numpy()
         if eos_ids is not None:
             eos = np.asarray(eos_ids, np.int32)[:, None]

@@ -92,9 +92,31 @@ Speculation changes how many steps the tokens take, never the tokens.
 rate.  `decode_mode` "auto" lets a draft-free pure-decode step take the
 window; "static" keeps windows off while speculation is on.
 
-Refused with NotImplementedError (ROADMAP.md): the host spill tier
-(`spill_bytes_budget`), `export_prefix` / `import_prefix`, tensor
-parallelism (`mesh`) and tracing (`tracer`).
+Host spill tier (`spill_bytes_budget` > 0, `set_spill_budget`): a cold
+cached page the prefix index would destroy under page pressure is copied
+to host memory instead (serving/paged_kv.py, prefix_tree.py), and an
+admission that hits a spilled run restores its pages into fresh device
+pages — written in place, so captured windows stay valid — before it maps
+them like any cached prefix.  `export_prefix` / `import_prefix` carry a
+cached prefix's pages to another engine in the reference's wire layout;
+the importer's next admission of that prompt is a prefix hit.  A restored
+or imported page is an ordinary page to the paged-attention kernel, so
+tokens do not depend on where a page has been.
+
+Observability (obs/): every request's lifecycle runs through phases
+queued -> prefill -> decode (-> preempt -> queued -> prefill -> replay)
+-> done on the `tracer`'s lane `req:<id>`, and each step is a span on the
+`engine` lane (`decode_step`, `scan_step`, `draft_step`) — recorded only
+while the tracer is enabled, on host clocks, with no tensor read.  The
+per-phase wall times are kept always and land in `finish_timing`.  The
+flight recorder (obs/flight.py) gets the state transitions, the step
+histograms (`step_tokens_hist`, `decode_gap_hist`, `draft_ms_hist`,
+`spec_k_hist`) the per-step host numbers, and the compile watch
+(obs/compile_watch.py) each site's new shape signatures and graph
+captures, under the reference's site names.
+
+Refused with NotImplementedError (ROADMAP.md): tensor parallelism
+(`mesh`).
 """
 
 from __future__ import annotations
@@ -102,6 +124,7 @@ from __future__ import annotations
 import inspect
 import os
 import pickle
+import threading
 import time
 from collections import deque
 from typing import Callable, Optional
@@ -115,6 +138,11 @@ from paddle_tpu_torch.graph.context import TEST
 from paddle_tpu_torch.graph.lm_decode import (_is_probs, _resolve_io_names,
                                               gumbel_noise, init_kv_caches,
                                               pick_next)
+from paddle_tpu_torch.obs.compile_watch import (get_compile_watch,
+                                                signature_of)
+from paddle_tpu_torch.obs.flight import get_flight_recorder
+from paddle_tpu_torch.obs.metrics import Histogram
+from paddle_tpu_torch.obs.trace import get_tracer
 from paddle_tpu_torch.ops.paged_attention import split_plan
 from paddle_tpu_torch.parameter.argument import Argument
 from paddle_tpu_torch.serving.drafter import NgramDrafter
@@ -134,7 +162,8 @@ _COUNTERS = ("_admit_seq", "n_decode_steps", "n_mixed_steps",
              "n_cancelled", "n_expired", "n_prefix_hits", "n_prefix_misses",
              "prefill_tokens_saved", "n_scan_flushes", "n_scan_steps",
              "n_spec_steps", "n_spec_chains", "n_spec_drafted",
-             "n_spec_accepted", "n_spec_tokens", "n_draft_steps")
+             "n_spec_accepted", "n_spec_tokens", "n_draft_steps",
+             "occupancy_sum", "n_restore_hits", "restore_tokens_saved")
 
 # dynamic speculation (ServingEngine._dyn_k): the weight of a chain's accept
 # rate in its slot's running estimate (adapts within ~4 chains without
@@ -151,14 +180,17 @@ def _not_ported(what: str) -> NotImplementedError:
 
 class Request:
     """One generation request: prompt, length, sampling knobs, the seed of
-    its noise (the JAX engine's `rng` key) and an optional `deadline` on
-    the engine's clock."""
+    its noise (the JAX engine's `rng` key), an optional `deadline` on the
+    engine's clock and an inbound trace context (`{"trace_id", "parent"}`,
+    carried as attrs of the request's spans)."""
 
     def __init__(self, req_id, prompt_ids, max_new: int = 32,
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 0.0, eos_id: int = -1, seed: int = 0,
-                 deadline: Optional[float] = None):
+                 deadline: Optional[float] = None,
+                 trace: Optional[dict] = None):
         self.req_id = req_id
+        self.trace = dict(trace) if trace else None
         self.prompt_ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         self.max_new = int(max_new)
         self.temperature = float(temperature)
@@ -185,7 +217,7 @@ class Request:
                 "max_new": self.max_new, "temperature": self.temperature,
                 "top_k": self.top_k, "top_p": self.top_p,
                 "eos_id": self.eos_id, "seed": self.seed,
-                "deadline": self.deadline,
+                "deadline": self.deadline, "trace": self.trace,
                 "preempted_gen": (None if self._preempted_gen is None
                                   else list(self._preempted_gen))}
 
@@ -194,7 +226,7 @@ class Request:
         r = cls(d["req_id"], d["prompt_ids"], max_new=d["max_new"],
                 temperature=d["temperature"], top_k=d["top_k"],
                 top_p=d["top_p"], eos_id=d["eos_id"], seed=d["seed"],
-                deadline=d["deadline"])
+                deadline=d["deadline"], trace=d.get("trace"))
         r._preempted_gen = (None if d["preempted_gen"] is None
                             else list(d["preempted_gen"]))
         return r
@@ -217,7 +249,7 @@ class _Slot:
     slot advances one token per step)."""
 
     __slots__ = ("req", "pos", "gen", "last_tok", "generated", "admit_seq",
-                 "accept_ewma", "probe_tick")
+                 "replay_until", "accept_ewma", "probe_tick")
 
     def __init__(self, req: Request, admit_seq: int, pos: int = 0):
         self.req = req
@@ -226,6 +258,10 @@ class _Slot:
         self.last_tok = -1        # emitted but not yet in the cache
         self.generated: list[int] = []
         self.admit_seq = admit_seq  # preemption takes the youngest
+        # generations below this re-emit tokens a preemption took back: the
+        # trace's `replay` phase, flipping to `decode` at the first fresh
+        # one (0: never preempted, or caught up)
+        self.replay_until = 0
         # dynamic speculation: the EWMA of this slot's per-chain accept rate
         # (None until a chain with drafts verified) and the windows since
         # its last re-probe at depth 0
@@ -251,12 +287,8 @@ class ServingEngine:
                  decode_steps: int = 1, spill_bytes_budget: int = 0,
                  spec_k: int = 0, drafter=None, spec_dynamic: bool = False,
                  decode_mode: str = "auto", mesh=None, tracer=None):
-        if spill_bytes_budget:
-            raise _not_ported("the host spill tier (spill_bytes_budget)")
         if mesh is not None:
             raise _not_ported("tensor-parallel decode (mesh)")
-        if tracer is not None:
-            raise _not_ported("request tracing (tracer)")
         self.device = resolve_device(device)
         self.executor = executor
         self.input_name, self.logits_name = _resolve_io_names(executor.model)
@@ -267,7 +299,8 @@ class ServingEngine:
             {k: v.to(self.device) for k, v in params.items()}, {})
         pages_per_slot = -(-int(max_context) // int(page_size))
         self.kv = PagedKVCache(executor, num_slots, page_size,
-                               pages_per_slot, self.device, num_pages)
+                               pages_per_slot, self.device, num_pages,
+                               spill_bytes_budget=spill_bytes_budget)
         self.prefix: Optional[PrefixTree] = None
         self.set_prefix_cache(prefix_cache)
         self.noise: NoiseFn = noise if noise is not None else PhiloxNoise()
@@ -284,6 +317,26 @@ class ServingEngine:
         self.on_finish = None
         # the deadline clock (tests inject lambda: eng.n_decode_steps)
         self.clock = time.monotonic
+        # request-lifecycle spans, recorded only while tracer.enabled (each
+        # engine may have its own ring); at most one phase open per request
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self._obs_open: dict = {}       # req_id -> open span
+        self._req_trace: dict = {}      # req_id -> inbound trace context
+        # per-request phase wall times, kept always (a few clock reads per
+        # lifecycle transition): the open phase, the per-phase sums and
+        # counts, folded into finish_timing[req_id] at the finish
+        self._req_phase: dict = {}
+        self._req_attr: dict = {}
+        self.finish_timing: dict = {}
+        self.flight = get_flight_recorder()
+        self.occupancy_sum = 0.0            # sum of live / S over steps
+        # hits whose prefix needed a restore from the host tier, and the
+        # prompt tokens of those hits served from restored pages
+        self.n_restore_hits = 0
+        self.restore_tokens_saved = 0
+        # import_prefix calls and the pages they brought
+        self.n_kv_mounts = 0
+        self.kv_pages_mounted = 0
         self.n_decode_steps = 0             # every step, decode or mixed
         self.n_mixed_steps = 0
         self.n_prefill_chunks = 0
@@ -324,6 +377,108 @@ class ServingEngine:
         self.set_speculation(spec_k, drafter, dynamic=spec_dynamic)
         self.set_decode_steps(decode_steps)
         self.set_decode_mode(decode_mode)
+        # per-step host numbers (the reference's buckets): rows a step
+        # scheduled, the gap between steps that advanced decode rows, ms a
+        # draft pass, and the draft depth chosen per slot and step
+        self.step_tokens_hist = Histogram(
+            "serving_step_tokens", "", (), threading.Lock(),
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048))
+        self.decode_gap_hist = Histogram(
+            "serving_decode_gap_ms", "", (), threading.Lock(),
+            buckets=(0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000,
+                     2500, 5000))
+        self.draft_ms_hist = Histogram(
+            "serving_draft_ms", "", (), threading.Lock(),
+            buckets=(0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100,
+                     250))
+        self.spec_k_hist = Histogram(
+            "serving_spec_k_effective", "", (), threading.Lock(),
+            buckets=(0, 1, 2, 3, 4, 6, 8, 12, 16, 24, 32))
+        self._t_prev_decode: Optional[float] = None
+
+    # -- lifecycle tracing ------------------------------------------------
+    def _tr_on(self) -> bool:
+        t = self.tracer
+        return t is not None and t.enabled
+
+    def _trace_attrs(self, req_id, attrs: dict) -> dict:
+        """Span attrs with the request's inbound trace context merged in."""
+        tc = self._req_trace.get(req_id)
+        if tc:
+            attrs = dict(attrs)
+            attrs.setdefault("trace_id", tc.get("trace_id"))
+            if tc.get("parent"):
+                attrs.setdefault("parent", tc["parent"])
+        return attrs
+
+    def _tr_begin(self, req_id, phase: str, **attrs) -> None:
+        """Open the request's next phase (queued, prefill, decode, replay);
+        the previous one was closed by _tr_end.  The phase clock runs
+        always; the span records only while the tracer is enabled."""
+        now = time.perf_counter()
+        self._req_phase[req_id] = (phase, now)
+        if self._tr_on():
+            self._obs_open[req_id] = [
+                phase, f"req:{req_id}", now,
+                self._trace_attrs(req_id, attrs) or None]
+
+    def _tr_end(self, req_id, **attrs) -> None:
+        now = time.perf_counter()
+        ph = self._req_phase.pop(req_id, None)
+        if ph is not None:
+            a = self._req_attr.setdefault(req_id, {})
+            a[ph[0]] = a.get(ph[0], 0.0) + (now - ph[1])
+        h = self._obs_open.pop(req_id, None)
+        if h is not None:
+            name, track, t0, sattrs = h
+            if attrs:
+                sattrs = dict(sattrs or (), **attrs)
+            self.tracer.add(name, t0, now - t0, track=track, attrs=sattrs)
+
+    def _tr_instant(self, req_id, name: str, **attrs) -> None:
+        if self._tr_on():
+            self.tracer.instant(name, track=f"req:{req_id}",
+                                **self._trace_attrs(req_id, attrs))
+
+    def _bump_attr(self, req_id, key: str, by: int = 1) -> None:
+        """An occurrence count of the timing breakdown (preempts, chunks,
+        drafted and accepted drafts)."""
+        a = self._req_attr.setdefault(req_id, {})
+        a[key] = a.get(key, 0) + by
+
+    def _finish_timing(self, req_id) -> dict:
+        """The request's `timing` breakdown: wall ms per phase (contiguous,
+        so total_ms is the engine-side request time) and the nonzero
+        occurrence counts."""
+        self._req_phase.pop(req_id, None)
+        a = self._req_attr.pop(req_id, {})
+        ms = {k: round(a.get(p, 0.0) * 1e3, 3) for k, p in
+              (("queue_ms", "queued"), ("prefill_ms", "prefill"),
+               ("decode_ms", "decode"), ("replay_ms", "replay"))}
+        ms["total_ms"] = round(sum(ms.values()), 3)
+        for k, src in (("prefill_chunks", "chunks"),
+                       ("preempts", "preempts"),
+                       ("spec_drafted", "spec_drafted"),
+                       ("spec_accepted", "spec_accepted")):
+            if a.get(src):
+                ms[k] = int(a[src])
+        return ms
+
+    def _engine_span(self, name: str, t0: float, **attrs) -> None:
+        """One span on the `engine` lane from t0 to now (tracer enabled)."""
+        self.tracer.add(name, t0, time.perf_counter() - t0, track="engine",
+                        attrs=attrs)
+
+    def _note_step_metrics(self, n_tokens: int, decoded: bool) -> None:
+        """The step's scheduled rows, and the gap since the last step that
+        advanced decode rows."""
+        self.step_tokens_hist.observe(float(n_tokens))
+        if decoded:
+            now = time.perf_counter()
+            if self._t_prev_decode is not None:
+                self.decode_gap_hist.observe(
+                    (now - self._t_prev_decode) * 1e3)
+            self._t_prev_decode = now
 
     # -- public API -------------------------------------------------------
     def validate(self, req: Request) -> None:
@@ -358,9 +513,17 @@ class ServingEngine:
     def add_request(self, req: Request) -> None:
         """Enqueue; admission happens inside step()/run()."""
         self.validate(req)
+        if req.trace:
+            self._req_trace[req.req_id] = req.trace
         if req.max_new == 0:
             self._finish(req.req_id, req.prompt_ids.copy(), "length")
             return
+        self._tr_begin(req.req_id, "queued",
+                       prompt_len=int(req.prompt_ids.size),
+                       max_new=req.max_new)
+        self.flight.record("queued", req=str(req.req_id),
+                           prompt_len=int(req.prompt_ids.size),
+                           max_new=req.max_new)
         self.queue.append(req)
 
     def cancel(self, request_id, reason: str = "cancelled") -> bool:
@@ -528,7 +691,7 @@ class ServingEngine:
     def set_prefix_cache(self, enabled: bool) -> None:
         """Attach a fresh empty prefix index, or detach and empty it: every
         node's page drops its retention (pages live slots map stay with
-        them)."""
+        them), and spilled nodes drain the host tier."""
         if enabled == (self.prefix is not None):
             return
         if enabled:
@@ -539,26 +702,81 @@ class ServingEngine:
         while stack:
             node = stack.pop()
             stack.extend(node.children.values())
-            self.kv.uncache_page(node.page)
+            if node.host_id is not None:
+                self.kv.drop_host_page(node.host_id, reason="drain")
+                node.host_id = None
+            else:
+                self.kv.uncache_page(node.page)
         self.prefix = None
         self.kv.on_page_pressure = None
 
+    def set_spill_budget(self, spill_bytes_budget: int) -> None:
+        """The host tier's byte budget (0 = off).  Shrinking it below what
+        the tier holds drops least recently used HOST leaves until it
+        fits; device state is never touched.  Only on an idle engine."""
+        self._require_idle("set_spill_budget")
+        self.kv.spill_bytes_budget = int(spill_bytes_budget or 0)
+        while self.prefix is not None and \
+                self.kv.host_bytes > self.kv.spill_bytes_budget:
+            leaves = self.prefix._host_leaves()
+            assert leaves, "host tier non-empty but no HOST leaf found"
+            self.prefix._drop_host_node(
+                min(leaves, key=lambda n: n.last_use))
+
     def reset_prefix_cache(self) -> None:
         """Cold start of an idle engine's allocator: every mapping and all
-        prefix retention dropped, the free list in canonical order, the
-        index empty — page placement afterwards equals a fresh engine's."""
+        prefix retention dropped, the host tier drained, the free list in
+        canonical order, the index empty — page placement afterwards
+        equals a fresh engine's."""
         self._require_idle("reset_prefix_cache")
         self.kv.reset()
         if self.prefix is not None:
             self.prefix.clear()
 
     def export_prefix(self, tokens):
-        raise _not_ported("export_prefix (page export for disaggregated "
-                          "serving)")
+        """The longest DEVICE-resident whole-page cached prefix of
+        `tokens`, serialized for another engine: (covered tokens, meta,
+        payload), or None when nothing is cached.  Between steps only."""
+        if self.prefix is None:
+            return None
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        pages, _ = self.prefix.match(toks)
+        if not pages:
+            return None
+        n_tok = len(pages) * self.kv.page_size
+        meta, payload = self.kv.export_pages(pages)
+        return toks[:n_tok], meta, payload
 
-    def import_prefix(self, tokens, meta, payload):
-        raise _not_ported("import_prefix (page import for disaggregated "
-                          "serving)")
+    def import_prefix(self, tokens, meta: dict, payload: bytes) -> int:
+        """Mount an export_prefix blob into the prefix index: take fresh
+        pages, write the payload into them in place, adopt and insert them,
+        so the next admission of the prompt is a prefix hit.  Raises
+        ValueError, the allocator rolled back exactly, on a malformed blob
+        or a dry pool; returns the nodes added.  Between steps only."""
+        if self.prefix is None:
+            raise ValueError("kv import: prefix cache is disabled")
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        n = int(meta.get("n_pages", 0))
+        ps = self.kv.page_size
+        if n <= 0 or toks.size != n * ps:
+            raise ValueError(
+                f"kv import: {toks.size} tokens do not cover "
+                f"{n} pages x {ps}")
+        pages = self.kv.take_pages(n)
+        if pages is None:
+            raise ValueError(
+                f"kv import: pool cannot cover {n} fresh pages")
+        try:
+            self.kv.import_pages(meta, payload, pages)
+        except (ValueError, AssertionError):
+            self.kv.untake_pages(pages)
+            raise
+        self.kv.adopt_restored(pages)
+        added = self.prefix.insert(toks, pages, adopted=True)
+        self.n_kv_mounts += 1
+        self.kv_pages_mounted += n
+        self.flight.record("kv_recv", pages=n, mounted=added)
+        return added
 
     def step(self) -> bool:
         """One scheduler iteration: sweep deadlines -> admit -> one step
@@ -568,6 +786,7 @@ class ServingEngine:
         self._admit_from_queue()
         live = [s for s, sl in enumerate(self.slots) if sl is not None]
         if not live:
+            self._t_prev_decode = None      # idle: no gap to charge
             return False
         while True:
             # decoding slots need their next page; filling slots had their
@@ -593,19 +812,19 @@ class ServingEngine:
             # pure-decode step takes the window ("auto") or the k = 1 step
             drafts = self._propose_drafts(runnable)
             if drafts or filling:
-                self._run_spec_step(runnable, filling, drafts)
+                self._run_spec_step(live, runnable, filling, drafts)
                 return True
         elif filling:
             # an admission never waits behind a window: mixed load runs the
             # k = 1 mixed step
-            self._run_mixed_step(runnable, filling)
+            self._run_mixed_step(live, runnable, filling)
             return True
         if self.decode_steps > 1 and (self.spec_k == 0 or
                                       self.decode_mode == "auto") \
                 and self._scan_window_ok(runnable, self.decode_steps):
-            self._run_scan_step(runnable, self.decode_steps)
+            self._run_scan_step(live, runnable, self.decode_steps)
         else:
-            self._run_decode_step(runnable)
+            self._run_decode_step(live, runnable)
         return True
 
     def run(self, requests=()) -> dict:
@@ -621,6 +840,7 @@ class ServingEngine:
                if k not in done_before}
         for k in out:
             self.finish_reasons.pop(k, None)
+            self.finish_timing.pop(k, None)
         return out
 
     # -- checkpoints ------------------------------------------------------
@@ -636,15 +856,17 @@ class ServingEngine:
                 "max_step_tokens": self.max_step_tokens,
                 "spec_k": self.spec_k,
                 "prefix_cache": self.prefix is not None,
+                "spill_bytes_budget": kv.spill_bytes_budget,
                 "layer_specs": dict(kv.layer_specs),
                 "dtype": str(some.dtype)}
 
     def checkpoint_state(self) -> dict:
         """The whole serving state between steps, as one picklable dict:
         the pools as host copies, the allocator (table, refcounts, cached
-        marks, free-list order), the prefix index with its LRU clock, the
-        slots, the queue (each request with its preempted stash), the
-        counters and the uncollected results.  A fresh engine of the same
+        marks, free-list order), the host tier's pages, the prefix index
+        with its LRU clock and host nodes, the slots, the queue (each
+        request with its preempted stash), the counters and the
+        uncollected results.  A fresh engine of the same
         configuration restored from it finishes bit for bit what this one
         would (a window is atomic inside step(), so there is no mid-window
         state)."""
@@ -656,12 +878,23 @@ class ServingEngine:
                       for name, pool in kv.pools.items()},
             "kv": {"table": kv.table.copy(), "free": list(kv._free),
                    "n_pages": kv._n_pages.copy(), "ref": kv._ref.copy(),
-                   "cached": kv._cached.copy(), "n_cow": kv.n_cow},
+                   "cached": kv._cached.copy(), "n_cow": kv.n_cow,
+                   # the host tier goes into the snapshot (a migrated
+                   # engine keeps its whole cache); generations re-stamp
+                   # on restore
+                   "host": {hid: {"nbytes": e["nbytes"],
+                                  "flat": e["flat"].clone()}
+                            for hid, e in kv._host.items()},
+                   "next_hid": kv._next_hid,
+                   "spill_counters": (kv.n_spilled, kv.n_restored,
+                                      kv.n_host_evicted,
+                                      kv._host_drained)},
             "slots": [None if sl is None else
                       {"req": sl.req.snapshot(), "pos": sl.pos,
                        "gen": sl.gen, "last_tok": sl.last_tok,
                        "generated": list(sl.generated),
                        "admit_seq": sl.admit_seq,
+                       "replay_until": sl.replay_until,
                        # a restored slot keeps its learned draft depth
                        "accept_ewma": sl.accept_ewma,
                        "probe_tick": sl.probe_tick}
@@ -678,7 +911,9 @@ class ServingEngine:
         """Resume a `checkpoint_state()` snapshot on this engine, which
         must be idle and of the same configuration (ValueError otherwise:
         a mismatch would corrupt the page accounting).  The pools are
-        written in place, so window graphs stay valid."""
+        written in place, so window graphs stay valid.  Host-tier entries
+        take this engine's generation; each live request's current phase
+        reopens now (the donor's clock does not carry over)."""
         mine = self._config()
         if snap["config"] != mine:
             diff = {k: (snap["config"].get(k), mine[k]) for k in mine
@@ -698,6 +933,17 @@ class ServingEngine:
         kv._ref[:] = snap["kv"]["ref"]
         kv._cached[:] = snap["kv"]["cached"]
         kv.n_cow = snap["kv"]["n_cow"]
+        if self.prefix is not None:
+            self.prefix.clear()             # drains the old tree's entries
+        kv._host_drained += len(kv._host)
+        kv._host = {int(hid): {"gen": kv._host_gen,
+                               "nbytes": int(e["nbytes"]),
+                               "flat": e["flat"].clone()}
+                    for hid, e in snap["kv"]["host"].items()}
+        kv._host_bytes = sum(e["nbytes"] for e in kv._host.values())
+        kv._next_hid = int(snap["kv"]["next_hid"])
+        (kv.n_spilled, kv.n_restored, kv.n_host_evicted,
+         kv._host_drained) = snap["kv"]["spill_counters"]
         kv.version += 1
         self.slots = [None] * len(self.slots)
         for s, d in enumerate(snap["slots"]):
@@ -707,6 +953,7 @@ class ServingEngine:
                                        d["admit_seq"], d["pos"])
             sl.gen, sl.last_tok = d["gen"], d["last_tok"]
             sl.generated = list(d["generated"])
+            sl.replay_until = d["replay_until"]
             sl.accept_ewma, sl.probe_tick = d["accept_ewma"], d["probe_tick"]
         self.queue = deque(Request.from_snapshot(d) for d in snap["queue"])
         if self.prefix is not None:
@@ -716,7 +963,26 @@ class ServingEngine:
         self.results = {k: np.asarray(v).copy()
                         for k, v in snap["results"].items()}
         self.finish_reasons = dict(snap["finish_reasons"])
+        self._t_prev_decode = None
+        now = time.perf_counter()
+        self._req_phase, self._req_attr, self._req_trace = {}, {}, {}
+        for r in self.queue:
+            self._req_phase[r.req_id] = ("queued", now)
+            if r.trace:
+                self._req_trace[r.req_id] = r.trace
+        for sl in self.slots:
+            if sl is None:
+                continue
+            phase = ("prefill" if sl.gen == 0 else
+                     "replay" if sl.replay_until and
+                     sl.gen < sl.replay_until else "decode")
+            self._req_phase[sl.req.req_id] = (phase, now)
+            if sl.req.trace:
+                self._req_trace[sl.req.req_id] = sl.req.trace
         kv.check()
+        self.flight.record("restore", slots=sum(
+            1 for sl in self.slots if sl is not None),
+            queued=len(self.queue))
 
     def save_state(self, path: str) -> None:
         """checkpoint_state() to `path`, written to a temporary file,
@@ -774,7 +1040,7 @@ class ServingEngine:
             if self.prefill_chunk is None:
                 self._admit(s, req, *res)
             else:
-                self._admit_chunked(s, req, res[0])
+                self._admit_chunked(s, req, *res)
 
     def bucket_for(self, prompt_len: int) -> int:
         """The whole-prompt prefill's padded length for a prompt: the
@@ -796,44 +1062,117 @@ class ServingEngine:
         starved retry pays no copy.  A reservation that cannot complete
         with the prefix mapped rolls back and tries cold: the unmapped
         prefix pages drop to refcount 0, and the cold attempt's eviction
-        may take them."""
+        may take them.
+
+        A matched path that ends in spilled (HOST) runs is restored first
+        (`_restore_spilled`); a restore that cannot complete rolls back
+        and the admission goes cold."""
         p = req.prompt_ids.size
         if self.prefix is not None:
-            pages, partial = self.prefix.match(req.prompt_ids[:p - 1])
-            mapped = pages + ([partial[0]] if partial is not None else [])
-            if mapped:
+            nodes, partial = self.prefix.match_nodes(req.prompt_ids[:p - 1])
+            path = list(nodes) + ([partial[0]] if partial is not None
+                                  else [])
+            host_tail = [nd for nd in path if nd.host_id is not None]
+            if host_tail and not self._restore_spilled(req, path, host_tail):
+                path, partial = [], None        # rolled back: admit cold
+            if path:
+                mapped = [nd.page for nd in path]
                 self.kv.map_shared(s, mapped)
+                C = len(nodes) * self.kv.page_size + \
+                    (partial[1] if partial is not None else 0)
                 ok = self.kv.try_grow(s, p)
                 if ok and partial is not None:
-                    ok = self.kv.ensure_writable(s, len(mapped) - 1) \
-                        is not None
+                    cow = self.kv.ensure_writable(s, len(mapped) - 1)
+                    ok = cow is not None
+                    if cow:
+                        self.flight.record("prefix_cow",
+                                           req=str(req.req_id),
+                                           page=int(mapped[-1]),
+                                           matched_in_page=int(partial[1]))
                 if ok:
-                    return (len(pages) * self.kv.page_size
-                            + (partial[1] if partial is not None else 0),
-                            len(mapped))
+                    if host_tail:
+                        # the tokens of C served from restored pages: all
+                        # but the device-resident whole runs
+                        self.n_restore_hits += 1
+                        dev_full = sum(1 for nd in nodes
+                                       if nd not in host_tail)
+                        self.restore_tokens_saved += \
+                            C - dev_full * self.kv.page_size
+                    return C, len(mapped)
                 self.kv.release(s)
         if self.kv.try_grow(s, p):
             return 0, 0
         self.kv.release(s)
         return None
 
-    def _count_prefix(self, C: int) -> None:
-        """An admission's prefix-index hit (C matched tokens) or miss."""
+    def _restore_spilled(self, req: Request, path, host_tail) -> bool:
+        """Bring a matched path's spilled tail back to the device: take
+        fresh pages with spilling inhibited (so the host entries being
+        restored stay put under the allocation's own pressure evictions),
+        scatter the host copies into them in place, re-mark them cached
+        and promote their nodes.  False after a full rollback: an entry of
+        a dead generation (its subtree dropped), a dry pool, or a matched
+        device node the allocation evicted."""
+        kv, tree = self.kv, self.prefix
+        if not all(kv.host_entry_live(nd.host_id) for nd in host_tail):
+            tree.drop_host_subtree(host_tail[0])
+            return False
+        dev_nodes = [nd for nd in path if nd.host_id is None]
+        tree._spill_inhibit = True
+        try:
+            pages = kv.take_pages(len(host_tail))
+        finally:
+            tree._spill_inhibit = False
+        if pages is None:
+            return False
+        if any(nd.page <= 0 or nd.host_id is not None
+               for nd in dev_nodes) or \
+                not all(kv.host_entry_live(nd.host_id)
+                        for nd in host_tail):
+            kv.untake_pages(pages)
+            return False
+        kv.restore_pages([nd.host_id for nd in host_tail], pages)
+        kv.adopt_restored(pages)
+        tree.promote(host_tail, pages)
+        self.flight.record("restore", req=str(req.req_id),
+                           pages=len(pages),
+                           host_pages=kv.host_page_count)
+        return True
+
+    def _count_prefix(self, req: Request, C: int, n_pp: int, p: int) -> None:
+        """An admission's prefix-index hit (C matched tokens over n_pp
+        pages) or miss."""
         if self.prefix is None:
             return
         if C > 0:
             self.n_prefix_hits += 1
             self.prefill_tokens_saved += C
+            self._tr_instant(req.req_id, "prefix_hit", n_pages=n_pp,
+                             tokens=C)
+            self.flight.record("prefix_hit", req=str(req.req_id),
+                               pages=n_pp, tokens=C, suffix=p - C)
         else:
             self.n_prefix_misses += 1
+            self.flight.record("prefix_miss", req=str(req.req_id),
+                               prompt_len=int(p))
 
-    def _admit_chunked(self, s: int, req: Request, C: int) -> None:
+    def _admit_chunked(self, s: int, req: Request, C: int,
+                       n_pp: int) -> None:
         """The slot enters prefill mode with its prompt's pages reserved
         and its chunk cursor at C, past the cached prefix; the prompt
         commits in chunk rows inside the next mixed steps."""
-        self._count_prefix(C)
+        self._tr_end(req.req_id)                       # queued ends here
+        p = req.prompt_ids.size
+        self._count_prefix(req, C, n_pp, p)
         self._admit_seq += 1
         self.slots[s] = _Slot(req, self._admit_seq, pos=C)
+        self._tr_begin(req.req_id, "prefill",
+                       chunk=int(self.prefill_chunk), prompt_len=p,
+                       prefix_tokens=C)
+        self.flight.record("admit", req=str(req.req_id), slot=s,
+                           prompt_len=p, chunk=int(self.prefill_chunk),
+                           prefix_tokens=C,
+                           pages=int(self.kv.pages_for(p)))
 
     def _admit(self, s: int, req: Request, C: int, n_pp: int) -> None:
         """The whole-prompt admission: prefill the prompt — on a prefix hit
@@ -841,17 +1180,21 @@ class ServingEngine:
         n_pp pages — at a bucket length, write its K/V into the slot's
         pages, sample token 0 from the last prompt position with
         generation 0's noise and emit it (`_emit_first`)."""
+        self._tr_end(req.req_id)                       # queued ends here
         p = req.prompt_ids.size
-        self._count_prefix(C)
+        self._count_prefix(req, C, n_pp, p)
         if C > 0:
             ps = self.kv.page_size
             Lb = min(-(-_bucket_len(p - C) // ps) * ps,
                      self.kv.capacity_tokens - C)
+            self._tr_begin(req.req_id, "prefill", bucket=Lb,
+                           prefix_tokens=C)
             last, kv_new = self._prefill_suffix(s, req.prompt_ids[C:], Lb,
                                                 C, n_pp)
         else:
-            last, kv_new = self._prefill_prompt(req.prompt_ids,
-                                                self.bucket_for(p))
+            Lb = self.bucket_for(p)
+            self._tr_begin(req.req_id, "prefill", bucket=Lb)
+            last, kv_new = self._prefill_prompt(req.prompt_ids, Lb)
         noise = None
         if req.temperature > 0.0:
             noise = self.noise(req, 0, self.vocab, self.device)[None]
@@ -860,6 +1203,9 @@ class ServingEngine:
         self._pack(s, kv_new, C, p)
         self._admit_seq += 1
         self.slots[s] = _Slot(req, self._admit_seq, pos=p)
+        self.flight.record("admit", req=str(req.req_id), slot=s,
+                           bucket=Lb, prompt_len=p,
+                           pages=int(self.kv.pages_for(p)))
         self._emit_first(s, tok0)
 
     def _prefill_prompt(self, prompt: np.ndarray, Lb: int):
@@ -869,8 +1215,9 @@ class ServingEngine:
         n = prompt.size
         ids = np.zeros((1, Lb), np.int64)
         ids[0, :n] = prompt
-        state = init_kv_caches(self.executor, 1, Lb, self.device)
-        return self._prefill_forward(ids, n, state, 0)
+        with get_compile_watch().observe("serving.prefill", ids):
+            state = init_kv_caches(self.executor, 1, Lb, self.device)
+            return self._prefill_forward(ids, n, state, 0)
 
     def _prefill_suffix(self, s: int, suffix: np.ndarray, Lb: int, C: int,
                         n_pp: int):
@@ -885,16 +1232,19 @@ class ServingEngine:
         ids = np.zeros((1, Lb), np.int64)
         ids[0, :n] = suffix
         Cpad = n_pp * self.kv.page_size
-        ctx_pages = self._to_device(self.kv.table[s, :n_pp].astype(np.int64))
-        state = init_kv_caches(self.executor, 1, Cpad + Lb, self.device)
-        for name, st in state.items():
-            pool = self.kv.pools[name]
-            for part in ("k", "v"):
-                st[part][0, :Cpad] = pool[part][ctx_pages].reshape(
-                    Cpad, *pool[part].shape[2:])
-            st["pos"].fill_(C)
-            st["cont"] = True
-        return self._prefill_forward(ids, n, state, C)
+        ctx_pages = self.kv.table[s, :n_pp].astype(np.int64)
+        with get_compile_watch().observe("serving.prefix_prefill",
+                                         ctx_pages, ids):
+            ctx_pages = self._to_device(ctx_pages)
+            state = init_kv_caches(self.executor, 1, Cpad + Lb, self.device)
+            for name, st in state.items():
+                pool = self.kv.pools[name]
+                for part in ("k", "v"):
+                    st[part][0, :Cpad] = pool[part][ctx_pages].reshape(
+                        Cpad, *pool[part].shape[2:])
+                st["pos"].fill_(C)
+                st["cont"] = True
+            return self._prefill_forward(ids, n, state, C)
 
     def _prefill_forward(self, ids: np.ndarray, n: int, state: dict,
                          start: int):
@@ -924,12 +1274,19 @@ class ServingEngine:
         Lb = next(iter(kv_new.values()))[0].shape[0]
         t = np.arange(C, min(C + Lb, self.kv.pages_for(p) * ps))
         self._writable(s, int(t[0]), int(t[-1]))
-        phys = self._to_device(self.kv.table[s, t // ps].astype(np.int64))
-        off = self._to_device((t % ps).astype(np.int64))
-        for name, (k, v) in kv_new.items():
-            pool = self.kv.pools[name]
-            pool["k"].index_put_((phys, off), k[:t.size].to(pool["k"].dtype))
-            pool["v"].index_put_((phys, off), v[:t.size].to(pool["v"].dtype))
+        # the reference's sites: a cold prompt's pack (by bucket) and a
+        # prefix hit's offset pack of its suffix (by suffix bucket)
+        with get_compile_watch().observe(
+                "serving.prefix_pack" if C > 0 else "serving.pack", Lb):
+            phys = self._to_device(self.kv.table[s, t // ps].astype(
+                np.int64))
+            off = self._to_device((t % ps).astype(np.int64))
+            for name, (k, v) in kv_new.items():
+                pool = self.kv.pools[name]
+                pool["k"].index_put_((phys, off),
+                                     k[:t.size].to(pool["k"].dtype))
+                pool["v"].index_put_((phys, off),
+                                     v[:t.size].to(pool["v"].dtype))
 
     def _preempt(self, s: int) -> None:
         """Requeue slot `s`'s request at the queue front: its committed
@@ -937,11 +1294,18 @@ class ServingEngine:
         free; its tokens are taken back until the replay emits them
         again."""
         sl = self.slots[s]
+        rid = sl.req.req_id
+        self._tr_end(rid, tokens=sl.gen)          # decode/replay ends here
+        self._tr_instant(rid, "preempt")
+        self._tr_begin(rid, "queued", requeued=True)
         self.queue.appendleft(sl.req)
         if len(sl.generated) >= len(sl.req._preempted_gen or []):
             sl.req._preempted_gen = list(sl.generated)
         self.tokens_generated -= sl.gen
+        self._bump_attr(rid, "preempts")
         self.n_preemptions += 1
+        self.flight.record("preempt", req=str(rid), slot=s, tokens=sl.gen,
+                           free_pages=int(self.kv.free_page_count))
         self._donate(s)
         self.kv.release(s)
         self.slots[s] = None
@@ -1013,11 +1377,13 @@ class ServingEngine:
                               any_sampling=bool(sampling))
         return nxt.cpu().numpy()
 
-    def _run_decode_step(self, runnable) -> None:
+    def _run_decode_step(self, live, runnable) -> None:
         """The [S, 1] decode step over the running slots.  Every live slot
         feeds its last token at its own position: a paused slot's page
         there is unmapped, so its write lands in trash page 0 (as do empty
         slots' writes at position 0 of their all-zero table rows)."""
+        traced = self._tr_on()
+        t_step = time.perf_counter() if traced else 0.0
         S = len(self.slots)
         toks = np.zeros((S, 1), np.int64)
         pos = np.zeros(S, np.int32)
@@ -1035,9 +1401,18 @@ class ServingEngine:
         feed = {self.input_name: Argument(
             ids=self._to_device(toks),
             lengths=torch.ones(S, dtype=torch.int32, device=self.device))}
-        outputs, _, _ = self.executor.forward(self.params, feed, state, TEST)
-        nxt = self._sample(outputs[self.logits_name].value, runnable)[:, 0]
+        with get_compile_watch().observe("serving.decode_step", toks, pos,
+                                         self.splits):
+            outputs, _, _ = self.executor.forward(self.params, feed, state,
+                                                  TEST)
+            nxt = self._sample(outputs[self.logits_name].value,
+                               runnable)[:, 0]
         self.n_decode_steps += 1
+        self.occupancy_sum += len(live) / S
+        self._note_step_metrics(len(runnable), decoded=True)
+        if traced:
+            self._engine_span("decode_step", t_step, live=len(live),
+                              step=self.n_decode_steps)
         for s in runnable:
             self._bank_token(s, int(nxt[s]))
 
@@ -1053,12 +1428,14 @@ class ServingEngine:
                 ok = False
         return ok
 
-    def _run_scan_step(self, runnable, k: int) -> None:
+    def _run_scan_step(self, live, runnable, k: int) -> None:
         """One window of k decode bodies (module docstring): stage the
         slots' state and noise, run or replay the window, read the [k, S]
         token block once, bank each running slot's column up to its
         eos/max_new.  A paused slot is staged at its own position with the
         run mask off, so its frozen writes land in trash page 0."""
+        traced = self._tr_on()
+        t_step = time.perf_counter() if traced else 0.0
         S = len(self.slots)
         win = self._windows.get(k)
         if win is None:
@@ -1088,21 +1465,34 @@ class ServingEngine:
                 win.noise[i, s] = self.noise(sl.req, sl.gen + i, self.vocab,
                                              self.device)
         sampled = bool(sampling)
+        cw = get_compile_watch()
+        sig = (k, win.ints, self.splits)
         if self.device.type != "cuda" or sampled not in win.graphs:
             # the CPU's mode, and a variant's first window on the card,
             # after which the variant is captured
-            win.body(sampled)
+            with cw.observe("serving.scan_step", *sig):
+                win.body(sampled)
             if self.device.type == "cuda":
                 win.graphs[sampled] = None
         else:
             if win.graphs[sampled] is None:
+                t0 = time.perf_counter()
                 graph = win.graphs[sampled] = StepGraph(self._pool)
                 graph.capture(lambda: win.body(sampled))
+                cw.record("serving.scan_step", signature_of(sig, {}),
+                          time.perf_counter() - t0, t0=t0)
             win.graphs[sampled].replay()
         blk = win.block.cpu().numpy()                   # [k, S]
         self.n_decode_steps += 1
         self.n_scan_flushes += 1
         self.n_scan_steps += k
+        self.occupancy_sum += len(live) / S
+        self._note_step_metrics(len(runnable), decoded=True)
+        if traced:
+            self._engine_span("scan_step", t_step, live=len(live), k=k,
+                              step=self.n_decode_steps)
+        # one event a window, never per token
+        self.flight.record("scan_flush", k=k, slots=len(runnable))
         for s in runnable:
             sl = self.slots[s]
             burst = []
@@ -1115,12 +1505,14 @@ class ServingEngine:
             for t in burst:
                 self._bank_token(s, t)
 
-    def _run_mixed_step(self, runnable, filling) -> None:
+    def _run_mixed_step(self, live, runnable, filling) -> None:
         """One mixed prefill/decode step: each running decoding slot's row
         first, then up to `prefill_chunk` prompt rows per filling slot
         (admission order) within the `max_step_tokens` budget; padding
         rows fill the rest.  Decoding slots bank a token; a slot whose
         final chunk ran emits token 0.  Paused slots have no row."""
+        traced = self._tr_on()
+        t_step = time.perf_counter() if traced else 0.0
         S = len(self.slots)
         T = self.max_step_tokens
         row_ids = np.zeros(T, np.int64)
@@ -1136,12 +1528,21 @@ class ServingEngine:
             r += 1
         advanced, r = self._pack_chunk_rows(filling, row_ids, row_slot,
                                             row_pos, sample_row, r, T - r)
-        logits = self._ragged_forward(row_ids, row_slot, row_pos)
-        emitting = list(runnable) + [s for s, _, final in advanced if final]
-        nxt = self._sample(logits[self._to_device(sample_row)][:, None],
-                           emitting)[:, 0]
+        with get_compile_watch().observe("serving.mixed_step", row_ids,
+                                         self.splits):
+            logits = self._ragged_forward(row_ids, row_slot, row_pos)
+            emitting = list(runnable) + [s for s, _, final in advanced
+                                         if final]
+            nxt = self._sample(logits[self._to_device(sample_row)][:, None],
+                               emitting)[:, 0]
         self.n_decode_steps += 1
         self.n_mixed_steps += 1
+        self.occupancy_sum += len(live) / S
+        self._note_step_metrics(r, decoded=bool(runnable))
+        if traced:
+            self._engine_span("decode_step", t_step, live=len(live),
+                              step=self.n_decode_steps, mixed=True, rows=r,
+                              decode_rows=len(runnable))
         for s in runnable:
             self._bank_token(s, int(nxt[s]))
         self._advance_chunks(advanced, lambda s: int(nxt[s]))
@@ -1175,6 +1576,10 @@ class ServingEngine:
                 sample_row[s] = r + n - 1
             advanced.append((s, n, final))
             self.n_prefill_chunks += 1
+            self._bump_attr(sl.req.req_id, "chunks")
+            self.flight.record("chunk_sched", req=str(sl.req.req_id),
+                               slot=s, start=int(sl.pos), tokens=int(n),
+                               final=final)
             budget -= n
             r += n
         return advanced, r
@@ -1252,10 +1657,13 @@ class ServingEngine:
             sl = self.slots[s]
             k = min(self._dyn_k(sl), sl.req.max_new - sl.gen - 1,
                     cap - 1 - sl.pos)
+            self.spec_k_hist.observe(float(max(k, 0)))
             if k > 0:
                 want[s] = k
         if not want:
             return out
+        traced = self._tr_on()
+        t0 = time.perf_counter()
         if hasattr(self.drafter, "propose_batch"):
             out = self._propose_batched(want, W)
         else:
@@ -1272,8 +1680,17 @@ class ServingEngine:
                     f"clamp contract is the drafter's (serving/drafter.py)"
                 if d.size:
                     out[s] = d
+        dt = time.perf_counter() - t0
+        self.draft_ms_hist.observe(dt * 1e3)
         if out:
             self.n_draft_steps += 1
+            self.flight.record("draft_step", slots=len(out),
+                               drafter=self.drafter_kind,
+                               ms=round(dt * 1e3, 3))
+            if traced:
+                self.tracer.add("draft_step", t0, dt, track="engine",
+                                attrs={"slots": len(out), "k": self.spec_k,
+                                       "drafter": self.drafter_kind})
         return out
 
     def _propose_batched(self, want: dict, W: int) -> dict:
@@ -1302,7 +1719,7 @@ class ServingEngine:
                 out[s] = row
         return out
 
-    def _run_spec_step(self, runnable, filling, drafts: dict) -> None:
+    def _run_spec_step(self, live, runnable, filling, drafts: dict) -> None:
         """One verify step: every running decoding slot packs a CHAIN — its
         base row at `pos` and up to k draft rows at pos+1.. — and filling
         slots their prompt chunks, in one ragged forward.  Budget order:
@@ -1318,6 +1735,8 @@ class ServingEngine:
         position's sample, commits it plus the next sample, hands back the
         pages the rejected tail grew (before banking, which may retire the
         slot) and banks the tokens, cut at an eos."""
+        traced = self._tr_on()
+        t_step = time.perf_counter() if traced else 0.0
         S = len(self.slots)
         K = self.spec_k
         T = self.max_step_tokens if self.prefill_chunk is not None \
@@ -1358,17 +1777,23 @@ class ServingEngine:
                 draft_toks[s, :nd] = d[:nd]
                 n_draft[s] = nd
                 self.n_spec_drafted += nd
+                self.flight.record("spec_propose",
+                                   req=str(sl.req.req_id), slot=s,
+                                   k=int(nd), pos=int(sl.pos))
                 budget -= nd
                 r += nd
         # chunks take their reserve plus what the drafts left
         advanced, r = self._pack_chunk_rows(filling, row_ids, row_slot,
                                             row_pos, first_row, r, T - r)
-        logits = self._ragged_forward(row_ids, row_slot, row_pos)
-        idx = np.minimum(first_row[:, None] + np.arange(K + 1)[None, :],
-                         T - 1)
-        emitting = list(runnable) + [s for s, _, final in advanced if final]
-        sampled = self._sample(logits[self._to_device(idx)], emitting,
-                               {s: int(n_draft[s]) for s in runnable})
+        with get_compile_watch().observe("serving.spec_step", row_ids,
+                                         draft_toks, self.splits):
+            logits = self._ragged_forward(row_ids, row_slot, row_pos)
+            idx = np.minimum(first_row[:, None] + np.arange(K + 1)[None, :],
+                             T - 1)
+            emitting = list(runnable) + [s for s, _, final in advanced
+                                         if final]
+            sampled = self._sample(logits[self._to_device(idx)], emitting,
+                                   {s: int(n_draft[s]) for s in runnable})
         ok = (sampled[:, :K] == draft_toks) & \
             (np.arange(K)[None, :] < n_draft[:, None])
         acc = np.cumprod(ok, axis=1).sum(axis=1)
@@ -1376,6 +1801,12 @@ class ServingEngine:
         self.n_spec_steps += 1
         if advanced:
             self.n_mixed_steps += 1
+        self.occupancy_sum += len(live) / S
+        self._note_step_metrics(r, decoded=bool(runnable))
+        if traced:
+            self._engine_span("decode_step", t_step, live=len(live),
+                              step=self.n_decode_steps, spec=True, rows=r,
+                              decode_rows=len(runnable))
         for s in runnable:
             sl = self.slots[s]
             a, nd = int(acc[s]), int(n_draft[s])
@@ -1387,6 +1818,16 @@ class ServingEngine:
                 rate = a / nd
                 sl.accept_ewma = rate if sl.accept_ewma is None else \
                     (1.0 - _EWMA_ALPHA) * sl.accept_ewma + _EWMA_ALPHA * rate
+            if nd:
+                rid = str(sl.req.req_id)
+                self._bump_attr(sl.req.req_id, "spec_drafted", nd)
+                if a:
+                    self._bump_attr(sl.req.req_id, "spec_accepted", a)
+                    self.flight.record("spec_accept", req=rid, slot=s,
+                                       accepted=a, drafted=nd)
+                if nd > a:
+                    self.flight.record("spec_reject", req=rid, slot=s,
+                                       rejected=nd - a, drafted=nd)
             self.kv.uncommit_tail(s, sl.pos + a + 1)
             for i in range(a + 1):
                 self._bank_token(s, int(sampled[s, i]))
@@ -1396,8 +1837,14 @@ class ServingEngine:
         self._advance_chunks(advanced, lambda s: int(sampled[s, 0]))
 
     def _bank_token(self, s: int, tok: int) -> None:
-        """Record one decoded token of slot `s`; retire on eos/max_new."""
+        """Record one decoded token of slot `s`; retire on eos/max_new.  The
+        first fresh token after a preemption's replay flips the request's
+        phase from replay to decode."""
         sl = self.slots[s]
+        if sl.replay_until and sl.gen >= sl.replay_until:
+            sl.replay_until = 0
+            self._tr_end(sl.req.req_id)
+            self._tr_begin(sl.req.req_id, "decode")
         sl.generated.append(tok)
         sl.pos += 1
         sl.gen += 1
@@ -1411,15 +1858,25 @@ class ServingEngine:
     def _emit_first(self, s: int, tok0: int) -> None:
         """Token 0's emission: the whole prompt is committed (its final
         chunk ran, or the whole-prompt admission prefilled it) and `tok0`
-        came from its last position.  The slot flips to decode mode."""
+        came from its last position.  The slot flips to decode mode — the
+        prefill phase ends, and decode begins, or replay where a
+        preemption took tokens back."""
         sl = self.slots[s]
+        req = sl.req
         sl.gen = 1
         sl.last_tok = tok0
         sl.generated = [tok0]
+        self._tr_end(req.req_id)                  # prefill ends here
+        stash = req._preempted_gen or []
+        if stash:
+            sl.replay_until = len(stash)
+            self._tr_begin(req.req_id, "replay", replays=len(stash))
+        else:
+            self._tr_begin(req.req_id, "decode")
         self.tokens_generated += 1
         if self.on_token is not None:
-            self.on_token(sl.req.req_id, tok0, 0)
-        if tok0 == sl.req.eos_id or sl.req.max_new == 1:
+            self.on_token(req.req_id, tok0, 0)
+        if tok0 == req.eos_id or req.max_new == 1:
             self._retire(s)
 
     def _retire(self, s: int) -> None:
@@ -1433,6 +1890,16 @@ class ServingEngine:
         self._finish(sl.req.req_id, toks, reason)
 
     def _finish(self, req_id, toks: np.ndarray, reason: str) -> None:
+        # close the open phase (queued for a waiter, decode or replay in a
+        # slot) and mark the terminal event
+        self._tr_end(req_id, reason=reason)
+        self._tr_instant(req_id,
+                         "done" if reason in ("stop", "length") else reason,
+                         reason=reason, tokens=int(toks.size))
+        self.flight.record("finish", req=str(req_id), reason=reason,
+                           tokens=int(toks.size))
+        self.finish_timing[req_id] = self._finish_timing(req_id)
+        self._req_trace.pop(req_id, None)
         self.results[req_id] = toks
         self.finish_reasons[req_id] = reason
         if self.on_finish is not None:

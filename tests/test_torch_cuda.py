@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA paged-attention, flash-attention,
 fused-LSTM, fused-GRU and additive-attention kernels against their plain
-versions, the engine on CUDA against the engine on the CPU, and training
+versions, the engine on CUDA against the engine on the CPU (its host
+spill tier and page import included), and training
 steps, the beam searches and lm_generate on CUDA against the same on the
 CPU.
 
@@ -199,6 +200,116 @@ def test_engine_prefix_cache_and_overcommit_on_cuda_match_cpu(cuda, k):
     assert rest_a == rest_b and rest_a[0] > 0 and rest_a[2] > 0
     for i, _, _ in reqs:
         np.testing.assert_array_equal(b[i], a[i])
+
+
+# a pool below the working set with the host spill tier on: 8 usable
+# pages of 8 tokens, 31-token sequences donating 3 pages each
+SPILL_ENGINE = dict(num_slots=2, page_size=8, max_context=64, num_pages=9,
+                    spill_bytes_budget=1 << 24)
+
+
+def spill_workload(eng) -> dict:
+    """Four sequences one at a time (the third spills the first's pages to
+    the host), then four requests on their prefixes at once, which
+    restore the spilled pages."""
+    rng = np.random.default_rng(3)
+    out = {}
+    for i in range(4):
+        out.update(eng.run([Request(i, rng.integers(2, 97, 21),
+                                    max_new=10)]))
+    out.update(eng.run([Request(10 + i, np.asarray(out[i][:25]), max_new=8)
+                        for i in range(4)]))
+    return out
+
+
+def pool_ptrs(eng) -> dict:
+    return {(n, p): t.data_ptr() for n, pool in eng.kv.pools.items()
+            for p, t in pool.items()}
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_engine_spill_tier_on_cuda_matches_cpu(cuda, k):
+    """Float32 serving over the host spill tier on the card: pages spill
+    and restore, and the tokens, counters and allocator state equal the
+    CPU engine's at k = 1 — also at k = 4, where windows replayed from
+    CUDA graphs read the restored pages.  The restores write the pools in
+    place (their storage addresses never move), and at k = 1 the kernel
+    ran once per attention layer per step, the plain version never."""
+    model = transformer_lm_config(vocab=97, dim=64, layers=2, heads=4)
+    ex = GraphExecutor(model)
+    params = init_params(model, seed=0, device="cpu")
+    runs = {}
+    for dev, kk in (("cpu", 1), (cuda, k)):
+        eng = ServingEngine(ex, params, decode_steps=kk, device=dev,
+                            **SPILL_ENGINE)
+        ptrs = pool_ptrs(eng)
+        pa.counts.reset()
+        out = spill_workload(eng)
+        assert pool_ptrs(eng) == ptrs
+        runs[str(dev)] = (out, eng.kv.n_spilled, eng.kv.n_restored,
+                          eng.n_restore_hits, eng.restore_tokens_saved,
+                          eng.kv.table.tolist(), list(eng.kv._free))
+        eng.kv.check_reclaimed()
+    (a, *rest_a), (b, *rest_b) = runs["cpu"], runs["cuda"]
+    assert rest_b == rest_a and rest_a[0] > 0 and rest_a[2] > 0
+    for i in a:
+        np.testing.assert_array_equal(b[i], a[i])
+    assert pa.counts.plain == 0
+    if k == 1:
+        assert pa.counts.kernel == 2 * eng.n_decode_steps
+    else:
+        assert eng.n_scan_flushes > 0 and any(
+            g is not None and g.replays > 0
+            for g in eng._windows[k].graphs.values())
+
+
+def test_import_then_hit_on_cuda_equals_the_cold_run(cuda):
+    """A prefix exported by one engine on the card and imported by
+    another (pools written in place): the importer's admission of the
+    prompt is a prefix hit whose tokens equal the cold run's."""
+    model = transformer_lm_config(vocab=97, dim=64, layers=2, heads=4)
+    ex = GraphExecutor(model)
+    params = init_params(model, seed=0, device="cpu")
+    prompt = np.random.default_rng(4).integers(2, 97, 29)
+    src, dst = (ServingEngine(ex, params, num_slots=2, page_size=8,
+                              max_context=64, device=cuda)
+                for _ in range(2))
+    cold = src.run([Request("a", prompt, max_new=12)])["a"]
+    toks, meta, payload = src.export_prefix(prompt)
+    assert meta["layers"][0]["dtype"] == "float32" and toks.size == 24
+    ptrs = pool_ptrs(dst)
+    assert dst.import_prefix(toks, meta, payload) == 3
+    assert pool_ptrs(dst) == ptrs
+    got = dst.run([Request("b", prompt, max_new=12)])["b"]
+    assert dst.n_prefix_hits == 1 and dst.prefill_tokens_saved == 24
+    np.testing.assert_array_equal(got, cold)
+    dst.kv.check_reclaimed()
+
+
+def test_layer_norm_rows_do_not_depend_on_the_row_count(cuda):
+    """A row's layer norm is the same bits in a call of 4 rows ([S, 1, D],
+    the decode step) and in one of 68 ([1, T, D], the mixed step), bf16
+    at the LM's width: the engine's tokens must not follow the schedule
+    (ROADMAP.md Queue 3, PR 18)."""
+    from paddle_tpu_torch.graph.context import ForwardContext
+    from paddle_tpu_torch.graph.layers_misc import layer_norm_layer
+    model = transformer_lm_config(vocab=97, dim=512, layers=1, heads=8)
+    params = {n: v.to(cuda, torch.bfloat16)
+              for n, v in init_params(model, seed=0, device="cpu").items()}
+    cfg = next(l for l in model.layers if l.type == "layer_norm")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(68 * 64, 512, generator=g, device=cuda).bfloat16() * 3
+
+    def ln(v):
+        ctx = ForwardContext(model=model, params=params)
+        ctx.outputs[cfg.inputs[0].input_layer_name] = Argument(value=v)
+        return layer_norm_layer(ctx, cfg).value
+
+    few = torch.cat([ln(x[i:i + 4, None])[:, 0]
+                     for i in range(0, x.shape[0], 4)])
+    many = torch.cat([ln(x[None, i:i + 68])[0]
+                      for i in range(0, x.shape[0], 68)])
+    assert torch.equal(few, many)
 
 
 # (B, Tq, Tk, H, H_kv, D, causal, window, q_offset, k_offset, ragged keys)

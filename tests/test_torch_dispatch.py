@@ -16,6 +16,8 @@ rtol 1e-5 and the classification error within 1e-12, the tolerances of
 tests/test_torch_train.py; the sentiment net fed the masks the JAX
 Trainer draws for each step."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -139,13 +141,21 @@ def _assert_same_state(a, b):
     assert torch.equal(ga, gb)
 
 
-@pytest.mark.parametrize("k", [1, 2, 4])
-@pytest.mark.parametrize("model", sorted(MODELS))
-def test_fused_passes_equal_the_k1_loop(model, k):
-    """Two passes of train_one_pass(steps_per_dispatch=k) against the same
-    batches fed one train_one_batch at a time: equal pass statistics
-    (cost, classification error, counts), parameters, optimizer slots and
-    counters, and dropout generator state, bit for bit."""
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Many small ops: two torch threads keep them from spinning against
+    the other test workers' threads (tests/test_torch_image.py's rule)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def k1_loop(model: str):
+    """Two passes of the model's batches fed one train_one_batch at a time
+    from seed 5, once per model for every k: (the batches, each pass's
+    (cost, evaluator results), the state left behind as host copies)."""
     _, _, build, make = MODELS[model]
     batches = [_tbatch(b) for b in make(len(PATTERN), seed=3)]
     ref = Trainer(build(), device="cpu", seed=5)
@@ -158,15 +168,28 @@ def test_fused_passes_equal_the_k1_loop(model, k):
         ref.pass_id += 1
         ref_stats.append((float(torch.stack(losses).numpy().sum())
                           / len(batches), stats))
-    tr = Trainer(build(), device="cpu", seed=5)
+    assert ref.pass_id == 2
+    return batches, ref_stats, _state(ref)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_fused_passes_equal_the_k1_loop(model, k):
+    """Two passes of train_one_pass(steps_per_dispatch=k) against the same
+    batches fed one train_one_batch at a time (`k1_loop`, run once per
+    model): equal pass statistics (cost, classification error, counts),
+    parameters, optimizer slots and counters, and dropout generator state,
+    bit for bit."""
+    batches, ref_stats, ref_state = k1_loop(model)
+    tr = Trainer(MODELS[model][2](), device="cpu", seed=5)
     for want_cost, want_eval in ref_stats:
         got = tr.train_one_pass(batches, steps_per_dispatch=k)
         assert got["cost"] == want_cost
         assert {n: got[n] for n in want_eval} == want_eval
         assert (got["batches"], got["samples"]) == (len(batches),
                                                     B * len(batches))
-    _assert_same_state(_state(ref), _state(tr))
-    assert tr.pass_id == ref.pass_id == 2
+    _assert_same_state(ref_state, _state(tr))
+    assert tr.pass_id == 2
 
 
 @pytest.mark.parametrize("k", [2, 4])

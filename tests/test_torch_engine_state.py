@@ -9,6 +9,11 @@ and index state of the uninterrupted engine — itself equal to the JAX
 engine — also when the snapshot's decode_steps and the restoring
 engine's differ (k = 1 and k = 4); a snapshot refuses an engine of
 another configuration or a busy one (tests/test_engine_state.py:150-214).
+The snapshot carries the counters occupancy_sum, n_restore_hits and
+restore_tokens_saved, and the host spill tier's pages with the index's
+HOST nodes; a restore takes them under the restoring engine's generation
+(tests/test_kv_spill.py:345-390, the checkpoint half of
+tests/test_engine_state.py).
 Windows of k = 4 equal k = 1 and the JAX engine at k = 4 under prefix
 hits with copy-on-write, preempt-replay on an overcommitted pool and
 chunked prefill (tests/test_multi_step.py:251-390).
@@ -64,7 +69,8 @@ def finish(eng) -> dict:
             "counters": {c: getattr(eng, c) for c in (
                 "n_decode_steps", "n_mixed_steps", "n_prefill_chunks",
                 "tokens_generated", "n_preemptions", "n_prefix_hits",
-                "n_prefix_misses", "prefill_tokens_saved")},
+                "n_prefix_misses", "prefill_tokens_saved", "occupancy_sum",
+                "n_restore_hits", "restore_tokens_saved")},
             "kv": alloc_state(eng.kv), "n_cow": eng.kv.n_cow,
             "tree": tree_state(eng.prefix)}
 
@@ -130,6 +136,58 @@ def test_restore_refuses_another_configuration_or_a_busy_engine(pairs):
     with pytest.raises(ValueError, match="idle"):
         busy.restore_state(busy.checkpoint_state())
     pair.run()
+
+
+SPILL = dict(num_slots=2, page_size=4, max_context=16, num_pages=6,
+             spill_bytes_budget=1 << 20)
+
+
+def test_checkpoint_carries_the_host_tier_and_the_restore_counters(
+        pairs, tmp_path):
+    """A snapshot taken mid-flight with pages on the host: the counters
+    (occupancy_sum, n_restore_hits, restore_tokens_saved among them)
+    equal the JAX engine's at that point, and a fresh engine loaded from
+    it — its own generation stamped on the host entries — restores from
+    the migrated bytes and finishes as the uninterrupted engine, itself
+    equal to JAX's, with the same counters, spill ledger and state."""
+    pair = pairs(model=M23, **SPILL)
+    rng = np.random.default_rng(21)
+    done = {}
+    for n in ("a", "b", "b2"):
+        done.update(pair.run([(n, rng.integers(2, 23, 7).astype(np.int32),
+                               dict(max_new=5))]))
+    seq_a = np.asarray(done["a"]).astype(np.int32)
+    pair.add([("c", seq_a[:9].copy(), dict(max_new=5)),
+              ("d", seq_a[:6].copy(), dict(max_new=4, rng=9, **KNOBS[1])),
+              ("e", rng.integers(2, 23, 6).astype(np.int32),
+               dict(max_new=5))])
+    assert pair.step()
+    assert pair.eng.kv.host_page_count > 0
+    for c in ("occupancy_sum", "n_restore_hits", "restore_tokens_saved"):
+        assert getattr(pair.eng, c) == getattr(pair.jeng, c), c
+    path = str(tmp_path / "engine_state.pkl")
+    pair.eng.save_state(path)
+    snap = pair.eng.checkpoint_state()
+    assert snap["kv"]["host"] and all(
+        k in snap["counters"] for k in ("occupancy_sum", "n_restore_hits",
+                                        "restore_tokens_saved"))
+    while pair.step():
+        pair.check()
+    want = finish(pair.eng)
+    assert pair.eng.n_restore_hits > 0
+    _, ex, params = lm(*M23)
+    eng = ServingEngine(ex, params, device="cpu", noise=pair._noise,
+                        **SPILL)
+    eng.kv._host_gen = 5                  # another engine's generation
+    eng.load_state(path)
+    assert all(e["gen"] == 5 for e in eng.kv._host.values())
+    assert sorted(eng.kv._host) == sorted(snap["kv"]["host"])
+    got = finish(eng)
+    assert got == want
+    for a in ("n_spilled", "n_restored", "n_host_evicted", "_host_drained",
+              "host_bytes"):
+        assert getattr(eng.kv, a) == getattr(pair.jeng.kv, a), a
+    eng.kv.check_reclaimed()
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,16 @@ from paddle_tpu_torch.parameter import params_from_jax
 TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Many small ops: two torch threads keep them from spinning against
+    the other test workers' threads (tests/test_torch_image.py's rule)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def lm(vocab: int, dim: int, layers: int, heads: int, **kw):
     """(JAX trainer, port executor, the trainer's parameters carried

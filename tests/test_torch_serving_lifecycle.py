@@ -373,18 +373,19 @@ def test_every_paged_attention_call_carries_the_engines_split_count(
 
 
 def test_features_not_ported_are_refused():
-    """The spill tier, page export / import, a mesh and tracing raise
-    NotImplementedError naming ROADMAP.md; speculative decode and
-    decode_mode="static" are taken (tests/test_torch_spec_decode.py), and
-    so is the whole-prompt prefill, at construction and through
-    set_chunking (tests/test_torch_legacy_prefill.py): both serve."""
+    """A mesh raises NotImplementedError naming ROADMAP.md.  The spill
+    tier, a tracer and page export / import serve (tests/
+    test_torch_kv_spill.py, test_torch_kv_xfer.py, test_torch_obs.py), as
+    do speculative decode and decode_mode="static"
+    (tests/test_torch_spec_decode.py) and the whole-prompt prefill, at
+    construction and through set_chunking
+    (tests/test_torch_legacy_prefill.py)."""
+    from paddle_tpu_torch.obs import Tracer
     from paddle_tpu_torch.serving import Request, ServingEngine
     from test_torch_prefix_cache import lm
     _, ex, params = lm(*M11)
-    for kw in (dict(spill_bytes_budget=1 << 20), dict(mesh=object()),
-               dict(tracer=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServingEngine(ex, params, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ServingEngine(ex, params, device="cpu", mesh=object())
     legacy = ServingEngine(ex, params, device="cpu", prefill_chunk=None)
     eng = ServingEngine(ex, params, device="cpu", spec_k=2,
                         decode_mode="static")
@@ -393,7 +394,20 @@ def test_features_not_ported_are_refused():
         assert e.prefill_chunk is None
         out = e.run([Request("a", [3, 4, 5, 6], max_new=3)])
         assert out["a"].size == 7 and e.n_prefill_chunks == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.export_prefix([3, 4, 5])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.import_prefix([3, 4, 5], {}, b"")
+    tracer = Tracer()
+    tracer.enabled = True
+    kw = dict(device="cpu", page_size=4, spill_bytes_budget=1 << 20)
+    src = ServingEngine(ex, params, tracer=tracer, **kw)
+    dst = ServingEngine(ex, params, **kw)
+    prompt = [3, 4, 5, 6, 7, 8, 9, 3, 4]
+    want = src.run([Request("a", prompt, max_new=3)])["a"]
+    assert [sp["name"] for sp in tracer.snapshot()
+            if sp["track"] == "req:a"] == ["queued", "prefill", "decode",
+                                           "done"]
+    toks, meta, payload = src.export_prefix(prompt)
+    assert toks.size == 8 and dst.import_prefix(toks, meta, payload) == 2
+    got = dst.run([Request("b", prompt, max_new=3)])["b"]
+    np.testing.assert_array_equal(got, want)
+    assert dst.n_prefix_hits == 1 and dst.kv.n_imported == 2
+    src.set_spill_budget(0)
+    assert src.kv.spill_bytes_budget == 0
