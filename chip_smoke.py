@@ -172,6 +172,41 @@ Phases, in order; any failure raises and the exit code is non-zero:
                lane queued -> prefill -> decode -> done, the Chrome trace
                written and read back, a flight bundle dumped and read
                back;
+  4f. serve-fleet — the RPC front end and the fleet at the same width
+               (FLEET_MODEL, FLEET_ENGINE: 16 slots, pages of 16, context
+               768, chunk 64): four replica subprocesses (python -m
+               paddle_tpu_torch.tools.serve, each printing SERVE_JSON; two
+               role both, one prefill, one decode) start first, on the one
+               card.  (1) a ServingServer in this process over TCP: the 32
+               requests of [serve] through ServingClient, streamed, FLEET_CONC
+               = 8 in flight, at decode_steps 1 and KSTEP, beside the same
+               closed loop on a second engine of the configuration driven
+               directly: the tokens equal request for request, streamed
+               indexes consecutive, bursts <= k (some > 1 at k = KSTEP),
+               stats consistent, every metric family with # HELP and #
+               TYPE, the allocator's memory gauges; K5 once per layer per
+               eager step, launched on the pump thread only, the plain
+               version never; tokens/s, ms/step and first-token p50 / p99
+               both ways; then on one server (max_queue 0, the step clock)
+               a 17th request refused queue_full, a cancel after the third
+               token, a deadline FLEET_DEADLINE steps out, a drain with
+               requests in flight (a late one refused draining, the rest
+               the direct run's tokens); K5's first recorded pump-thread
+               launch held against its plain version (bf16, 2e-2) and
+               timed (the kernels line's record); (2) the prefix-skew
+               workload (every fourth sampled) through FleetRouter(policy=
+               "affinity") over the two role-both replicas: tokens equal
+               the single engine's, hit rate, placements, no shed or
+               retry; (3) bench_serving_disagg's workload (the same
+               prompts, greedy) through a router over the prefill and the
+               decode replica: every prompt prefills, kv_pushes its pages
+               and decodes on the other, pages shipped, no push failure or
+               fallback, tokens equal; ms a pushed page from
+               FLEET_PUSH_PROBE prefill_only requests; (4) a replica
+               SIGKILLed while one request streams and two have streamed
+               nothing: those two finish on the survivor with the single
+               engine's tokens, the streamed one gets the 'already
+               streamed' error; SIGTERM drains each survivor, exit 0;
   5. routes  — float32, 2 layers at full width: the engine reading through
                the kernel against the engine reading through the page-table
                gather (attn_impl='dense'), lm_head rows at the first mixed
@@ -3342,6 +3377,763 @@ def phase_serve_spill(smi: str) -> list:
     c.eng = None
     torch.cuda.empty_cache()
     return [c.record]
+
+
+# [serve-fleet]: the RPC front end and the fleet at [serve]'s width
+FLEET_MODEL = dict(vocab=32000, dim=512, layers=8, heads=8)
+FLEET_DTYPE = "bfloat16"
+FLEET_ENGINE = dict(num_slots=16, page_size=16, max_context=768)
+FLEET_CONC = 8              # requests each client keeps in flight
+FLEET_DEADLINE = 20.0       # steps on the step clock, arm (1)'s deadline
+FLEET_PUSH_PROBE = 8        # prefill_only requests timing a kv_push
+FLEET_KILL_NEW = 256        # tokens of the request streaming at the kill
+REPLICA_BOOT_S = 240.0      # a replica subprocess's SERVE_JSON, at most
+
+
+def fleet_model():
+    from paddle_tpu_torch.graph import GraphExecutor
+    from paddle_tpu_torch.models import transformer_lm_config
+    from paddle_tpu_torch.parameter import init_params
+    model = transformer_lm_config(**FLEET_MODEL)
+    return (GraphExecutor(model, compute_dtype=FLEET_DTYPE),
+            init_params(model, seed=1))
+
+
+def replica_cmd(role: str) -> list:
+    """`python -m paddle_tpu_torch.tools.serve` at the fleet's
+    configuration: the demo LM config at FLEET_MODEL's width in FLEET_DTYPE,
+    weights from seed 1 (Trainer -> init_params, as fleet_model's)."""
+    m = FLEET_MODEL
+    e = FLEET_ENGINE
+    return [sys.executable, "-m", "paddle_tpu_torch.tools.serve",
+            "--config", "demo/model_zoo/transformer_lm.py", "--config-args",
+            f"vocab={m['vocab']},dim={m['dim']},layers={m['layers']},"
+            f"heads={m['heads']},compute_dtype={FLEET_DTYPE}",
+            "--slots", str(e["num_slots"]),
+            "--page-size", str(e["page_size"]),
+            "--max-context", str(e["max_context"]), "--max-queue", "64",
+            "--seed", "1", "--port", "0", "--role", role]
+
+
+class ReplicaProcs:
+    """Replica subprocesses started together; `wait()` reads each one's
+    SERVE_JSON line.  Their stderr goes to temporary files, printed when
+    a replica fails.  `close()` ends every one still running."""
+
+    def __init__(self, roles):
+        import tempfile
+        self.roles = list(roles)
+        self.logs = [tempfile.TemporaryFile(mode="w+") for _ in self.roles]
+        self.procs = [subprocess.Popen(
+            replica_cmd(role), stdout=subprocess.PIPE, stderr=log_f,
+            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+            for role, log_f in zip(self.roles, self.logs)]
+        self.addrs = [None] * len(self.procs)
+        self.t0 = time.perf_counter()
+
+    def wait(self) -> list:
+        import threading
+        lines = [None] * len(self.procs)
+
+        def read(i):
+            lines[i] = self.procs[i].stdout.readline()
+
+        readers = [threading.Thread(target=read, args=(i,), daemon=True)
+                   for i in range(len(self.procs))]
+        for t in readers:
+            t.start()
+        for t in readers:
+            t.join(max(1.0, REPLICA_BOOT_S - (time.perf_counter()
+                                              - self.t0)))
+        for i, line in enumerate(lines):
+            if not line or not line.startswith("SERVE_JSON:"):
+                raise AssertionError(
+                    f"[serve-fleet] replica {i} ({self.roles[i]}) gave no "
+                    f"SERVE_JSON line (exit {self.procs[i].poll()}): "
+                    f"{self.stderr(i)}")
+            a = json.loads(line[len("SERVE_JSON:"):])
+            if a["pid"] != self.procs[i].pid:
+                raise AssertionError(f"[serve-fleet] SERVE_JSON {a}")
+            self.addrs[i] = (a["host"], a["port"])
+        return self.addrs
+
+    def stderr(self, i: int) -> str:
+        self.logs[i].seek(0)
+        return self.logs[i].read()[-2000:]
+
+    def index_of(self, port: int) -> int:
+        return next(i for i, a in enumerate(self.addrs)
+                    if a is not None and a[1] == port)
+
+    def close(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+        for p in self.procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+            if p.stdout is not None:
+                p.stdout.close()
+        for f in self.logs:
+            f.close()
+
+
+def request_kw(r) -> dict:
+    """A Request's generate knobs, as a client sends them."""
+    kw = dict(max_new=r.max_new)
+    if r.temperature > 0.0:
+        kw.update(temperature=r.temperature, top_k=r.top_k, top_p=r.top_p,
+                  seed=r.seed)
+    return kw
+
+
+def closed_loop(host: str, port: int, reqs, conc: int = FLEET_CONC) -> dict:
+    """`reqs` through one ServingClient with `conc` in flight (a new one
+    submitted as one finishes), streamed: {"tokens": {req_id: np.int32
+    prompt + generated}, "reasons", "frames": {req_id: [(index, token,
+    burst)]}, "first": {req_id: s submit -> token 0}, "wall": s,
+    "generated": tokens}."""
+    from paddle_tpu_torch.serving.client import ServingClient
+    todo = list(reqs)
+    live, t_sub = {}, {}
+    out = {"tokens": {}, "reasons": {}, "frames": {}, "first": {}}
+    with ServingClient(host, port, timeout=600) as c:
+        def submit(r):
+            cid = c.submit(r.prompt_ids.tolist(), req_id=f"r{r.req_id}",
+                           **request_kw(r))
+            live[cid] = r.req_id
+            t_sub[r.req_id] = time.perf_counter()
+
+        t0 = time.perf_counter()
+        while todo and len(live) < conc:
+            submit(todo.pop(0))
+        while live:
+            msg = c.recv()
+            rid = live.get(msg.get("id"))
+            if rid is None:
+                raise AssertionError(f"[serve-fleet] a frame for no live "
+                                     f"request: {msg}")
+            if msg["type"] == "token":
+                out["frames"].setdefault(rid, []).append(
+                    (msg["index"], msg["token"], msg.get("burst")))
+                if msg["index"] == 0:
+                    out["first"][rid] = time.perf_counter() - t_sub[rid]
+            elif msg["type"] == "done":
+                out["tokens"][rid] = np.asarray(msg["tokens"], np.int32)
+                out["reasons"][rid] = msg["reason"]
+                del live[msg["id"]]
+                if todo:
+                    submit(todo.pop(0))
+            else:
+                raise AssertionError(f"[serve-fleet] request {rid}: {msg}")
+        out["wall"] = time.perf_counter() - t0
+    out["generated"] = sum(out["tokens"][r.req_id].size - r.prompt_ids.size
+                           for r in reqs)
+    return out
+
+
+def direct_closed_loop(eng, reqs, conc: int = FLEET_CONC) -> dict:
+    """The same closed loop on the engine in-process (no front end):
+    {"tokens", "first", "wall", "generated", "steps"}."""
+    todo = list(reqs)
+    t_sub, first, done = {}, {}, {}
+
+    def add(r):
+        t_sub[r.req_id] = time.perf_counter()
+        eng.add_request(r)
+
+    def on_finish(rid, toks, why):
+        done[rid] = np.asarray(toks, np.int32)
+
+    eng.on_token = lambda rid, tok, i: first.setdefault(
+        rid, time.perf_counter() - t_sub[rid]) if i == 0 else None
+    eng.on_finish = on_finish
+    steps0 = eng.n_decode_steps
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while todo and len(t_sub) - len(done) < conc:
+            add(todo.pop(0))
+        while eng.step():
+            # a finished request's successor joins between steps, as a
+            # client's next submit reaches the server's pump
+            while todo and len(t_sub) - len(done) < conc:
+                add(todo.pop(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        eng.on_token = eng.on_finish = None
+    eng.results.clear()
+    eng.finish_reasons.clear()
+    eng.finish_timing.clear()
+    return {"tokens": done, "first": first, "wall": wall,
+            "steps": eng.n_decode_steps - steps0,
+            "generated": sum(done[r.req_id].size - r.prompt_ids.size
+                             for r in reqs)}
+
+
+def fleet_same(what: str, got: dict, want: dict, prefix_ok=()) -> None:
+    """Every request's tokens equal the direct run's (those in
+    `prefix_ok`, which ended early, a prefix of them)."""
+    if set(got) != set(want):
+        raise AssertionError(f"[serve-fleet] {what}: requests "
+                             f"{sorted(set(got) ^ set(want))[:8]} missing")
+    bad = [i for i in want if not (
+        np.array_equal(got[i], want[i]) if i not in prefix_ok
+        else np.array_equal(got[i], want[i][:got[i].size]))]
+    if bad:
+        raise AssertionError(f"[serve-fleet] {what}: tokens differ from "
+                             f"the direct engine's for requests {bad[:8]}")
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(list(xs)) * 1e3, q))
+
+
+def rate_line(run: dict, steps: Optional[int] = None) -> str:
+    s = (f"{run['generated'] / run['wall']:.1f} tokens/s, first token p50 "
+         f"{pct(run['first'].values(), 50):.1f} / p99 "
+         f"{pct(run['first'].values(), 99):.1f} ms")
+    if steps:
+        s += f", {run['wall'] / steps * 1e3:.2f} ms/step ({steps} steps)"
+    return s
+
+
+def metric_families(text: str) -> dict:
+    """{family: (has # HELP, has # TYPE)} of a Prometheus text."""
+    fams = {}
+    for ln in text.splitlines():
+        if ln.startswith("# HELP ") or ln.startswith("# TYPE "):
+            name = ln.split()[2]
+            h, t = fams.get(name, (False, False))
+            fams[name] = (h or ln.startswith("# HELP"),
+                          t or ln.startswith("# TYPE"))
+    return fams
+
+
+def metric_value(text: str, name: str) -> Optional[float]:
+    for ln in text.splitlines():
+        if ln.startswith(name + " "):
+            return float(ln.split()[1])
+    return None
+
+
+def memory_gauges(text: str) -> dict:
+    """The allocator's gauges of a metrics frame, each required > 0."""
+    mem = {n: metric_value(text, n) for n in (
+        "hbm_bytes_in_use", "hbm_bytes_limit", "hbm_live_arrays",
+        "hbm_kv_pool_bytes")}
+    if not all(v and v > 0 for v in mem.values()):
+        raise AssertionError(f"[serve-fleet] memory gauges {mem}")
+    return mem
+
+
+def window_replays(eng, k: int) -> int:
+    return sum(g.replays for g in eng._windows[k].graphs.values()
+               if g is not None)
+
+
+def fleet_tcp(c) -> None:
+    """[serve-fleet] 1: one ServingServer over TCP in this process, k = 1
+    then KSTEP, each beside the same closed loop on a second engine of the
+    configuration driven directly; K5 on the pump thread; then cancel,
+    deadline, overload and drain."""
+    import threading
+
+    import paddle_tpu_torch.ops.attention as attn_ops
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.client import ServingClient
+    from paddle_tpu_torch.serving.server import ServingServer
+    direct = c.direct = ServingEngine(c.ex, c.params, **FLEET_ENGINE)
+    eng = c.srv_eng = ServingEngine(c.ex, c.params, **FLEET_ENGINE)
+
+    def reqs():
+        return serve_requests(32, c.vocab, seed=1, lo=32, hi=256,
+                              max_new=64, sampled_every=4)
+
+    def warm():
+        # windows with a sampling slot, then all-greedy ones: each
+        # variant's first window runs eagerly, its second is captured
+        return [serve_requests(4, c.vocab, seed=7, lo=8, hi=80, max_new=12,
+                               sampled_every=2),
+                serve_requests(2, c.vocab, seed=8, lo=8, hi=80, max_new=12)]
+
+    layer0 = next(iter(eng.kv.pools))
+    wrapper = pa.paged_attention
+    recorded, threads, keep = [], set(), [False]
+
+    def recording(q, k_pages, v_pages, page_table, lengths, scale=None,
+                  row_slot=None, splits=None):
+        threads.add(threading.current_thread().name)
+        out = wrapper(q, k_pages, v_pages, page_table, lengths, scale,
+                      row_slot, splits)
+        if keep[0] and k_pages is eng.kv.pools[layer0]["k"] and \
+                len(recorded) < 512:
+            recorded.append((q.clone(), k_pages, v_pages, page_table.clone(),
+                             lengths.clone(),
+                             None if row_slot is None else row_slot.clone(),
+                             None if recorded else
+                             (k_pages.clone(), v_pages.clone())))
+        return out
+
+    for k in (1, KSTEP):
+        for e in (direct, eng):
+            e.set_decode_steps(k)
+            e.reset_prefix_cache()
+        for w in warm():
+            direct.run(w)
+        direct.reset_prefix_cache()
+        srv = ServingServer(eng, max_queue=32)
+        host, port = srv.start_background()
+        try:
+            for w in warm():                   # window captures (pump)
+                closed_loop(host, port, w)
+            eng.reset_prefix_cache()           # idle between the loops
+            c.settle()                         # the replicas bound, idle
+            want = direct_closed_loop(direct, reqs())
+            before = engine_counters(eng)
+            reset_counts()
+            threads.clear()
+            keep[0] = k == 1
+            attn_ops.pa.paged_attention = recording
+            try:
+                got = closed_loop(host, port, reqs())
+            finally:
+                attn_ops.pa.paged_attention = wrapper
+            d = counter_moves(eng, before)
+            eager = d["n_decode_steps"] - d["n_scan_flushes"]
+            launches = check_k5_eager(f"[serve-fleet] TCP k = {k}", c.layers,
+                                      eager)
+            if threads != {"serving-engine-pump"}:
+                raise AssertionError(f"[serve-fleet] K5 launched on threads "
+                                     f"{threads}, not the pump alone")
+            with ServingClient(host, port) as cl:
+                stats, text = cl.stats(), cl.metrics()
+        finally:
+            srv.stop_background(drain=True)
+        fleet_same(f"TCP k = {k}", got["tokens"], want["tokens"])
+        if set(got["reasons"].values()) != {"length"}:
+            raise AssertionError(f"[serve-fleet] reasons {got['reasons']}")
+        bursts = [b for fr in got["frames"].values() for _, _, b in fr]
+        for rid, fr in got["frames"].items():
+            if [i for i, _, _ in fr] != list(range(len(fr))) or \
+                    [t for _, t, _ in fr] != \
+                    got["tokens"][rid][-len(fr):].tolist():
+                raise AssertionError(f"[serve-fleet] request {rid}'s "
+                                     f"streamed frames {fr[:6]}...")
+        if not (1 <= min(bursts) and max(bursts) <= k
+                and (max(bursts) > 1) == (k > 1)):
+            raise AssertionError(f"[serve-fleet] bursts {min(bursts)}.."
+                                 f"{max(bursts)} at k = {k}")
+        fams = metric_families(text)
+        if not stats["consistent"] or not all(
+                h and t for h, t in fams.values()):
+            raise AssertionError(f"[serve-fleet] stats consistent "
+                                 f"{stats['consistent']}; families without "
+                                 f"HELP/TYPE: "
+                                 f"{[f for f, v in fams.items() if not all(v)]}")
+        mem = memory_gauges(text)
+        if k > 1 and not window_replays(eng, k):
+            raise AssertionError("[serve-fleet] no window replayed on the "
+                                 "pump thread")
+        log(f"[serve-fleet] (1) TCP k = {k}: 32 requests at concurrency "
+            f"{FLEET_CONC} through ServingServer, tokens equal the direct "
+            f"engine's request for request; "
+            f"{rate_line(got, d['n_decode_steps'])}; direct "
+            f"{rate_line(want, want['steps'])}; bursts {min(bursts)}.."
+            f"{max(bursts)} ({sum(b > 1 for b in bursts)} tokens in bursts "
+            f"> 1); K5 {launches} = {c.layers} x {eager} eager steps, on the "
+            f"pump thread, plain 0; stats consistent, {len(fams)} metric "
+            f"families with HELP and TYPE; allocator "
+            f"{mem['hbm_bytes_in_use'] / 2 ** 20:.1f} MiB in use of "
+            f"{mem['hbm_bytes_limit'] / 2 ** 30:.1f} GiB, pools "
+            f"{mem['hbm_kv_pool_bytes'] / 2 ** 20:.1f} MiB [{c.smi}]")
+        if k == 1:
+            c.want1, c.launches1 = want["tokens"], launches
+    c.recorded = recorded
+    fleet_disturb(c)
+
+
+def fleet_disturb(c) -> None:
+    """Arm (1)'s cancel, deadline, overload and drain on one server (k =
+    1, max_queue 0, the step clock): 16 requests fill the slots, a 17th
+    is refused queue_full; one is cancelled after its third token, one
+    expires FLEET_DEADLINE steps after admission; a drain started with
+    requests in flight refuses a late one (draining) and finishes the
+    rest with the direct run's tokens."""
+    import asyncio
+
+    from paddle_tpu_torch.serving.client import ServingClient
+    from paddle_tpu_torch.serving.server import ServingServer
+    eng = c.srv_eng
+    eng.set_decode_steps(1)
+    eng.reset_prefix_cache()
+    eng.clock = lambda: float(eng.n_decode_steps)
+    reqs = serve_requests(32, c.vocab, seed=1, lo=32, hi=256, max_new=64,
+                          sampled_every=4)
+    srv = ServingServer(eng, max_queue=0)
+    host, port = srv.start_background(start_pump=False)
+    cancel_id, dead_id = "r5", "r6"
+    try:
+        with ServingClient(host, port, timeout=600) as cl:
+            for r in reqs[:17]:
+                cl.submit(r.prompt_ids.tolist(), req_id=f"r{r.req_id}",
+                          timeout_s=FLEET_DEADLINE if f"r{r.req_id}" ==
+                          dead_id else None, **request_kw(r))
+            if not cl.ping():               # every generate answered
+                raise AssertionError("[serve-fleet] no pong")
+            over = [m for m in cl._pending if m["type"] == "overload"]
+            cl._pending = [m for m in cl._pending
+                           if m["type"] != "overload"]
+            if [(m["id"], m["reason"]) for m in over] != \
+                    [("r16", "queue_full")]:
+                raise AssertionError(f"[serve-fleet] overload frames {over}")
+            srv.start_pump()
+            done, streamed = {}, {}
+            drain = None
+            while sum(i != "late" for i in done) < 16 or (
+                    drain is not None and "late" not in done):
+                m = cl.recv()
+                if m["type"] == "token":
+                    streamed[m["id"]] = m["index"]
+                    if m["id"] == cancel_id and m["index"] == 2:
+                        cl.cancel(cancel_id)
+                elif m["type"] == "done":
+                    done[m["id"]] = (np.asarray(m["tokens"], np.int32),
+                                     m["reason"])
+                elif m["type"] == "overload" and m["id"] == "late":
+                    done["late"] = (None, m["reason"])
+                else:
+                    raise AssertionError(f"[serve-fleet] frame {m}")
+                if drain is None and {cancel_id, dead_id} <= set(done):
+                    drain = asyncio.run_coroutine_threadsafe(srv.drain(),
+                                                             srv._loop)
+                    # FIFO on the loop: after drain()'s first step
+                    if not asyncio.run_coroutine_threadsafe(
+                            _draining(srv), srv._loop).result(30):
+                        raise AssertionError("[serve-fleet] not draining")
+                    inflight = srv._inflight
+                    cl.submit(reqs[17].prompt_ids.tolist(), req_id="late",
+                              max_new=4)
+        if drain is None:
+            raise AssertionError("[serve-fleet] the drain never started")
+        drain.result(120)
+        srv._bg_thread.join(60)
+    finally:
+        if srv._loop is not None and srv._loop.is_running():
+            srv.stop_background(drain=False)
+    reasons = {i: why for i, (_, why) in done.items()}
+    if reasons.pop(cancel_id) != "cancelled" or \
+            reasons.pop(dead_id) != "deadline" or \
+            reasons.pop("late") != "draining" or \
+            set(reasons.values()) != {"length"}:
+        raise AssertionError(f"[serve-fleet] reasons {done}")
+    got = {int(i[1:]): t for i, (t, _) in done.items() if t is not None}
+    fleet_same("cancel / deadline / drain", got,
+               {r.req_id: c.want1[r.req_id] for r in reqs[:16]},
+               prefix_ok=(int(cancel_id[1:]), int(dead_id[1:])))
+    if srv._pump_error is not None or srv.pump_alive():
+        raise AssertionError("[serve-fleet] the pump did not stop cleanly")
+    log(f"[serve-fleet] (1) cancel, deadline, overload, drain: r16 "
+        f"refused queue_full at 16 in flight (max_queue 0); {cancel_id} "
+        f"cancelled after token {streamed.get(cancel_id)} with "
+        f"{got[int(cancel_id[1:])].size - reqs[5].prompt_ids.size} tokens, "
+        f"{dead_id} expired {FLEET_DEADLINE:g} steps after admission with "
+        f"{got[int(dead_id[1:])].size - reqs[6].prompt_ids.size}, both a "
+        f"prefix of the direct run's; drain began with {inflight} in "
+        f"flight, refused 'late' (draining), finished the rest with the "
+        f"direct run's tokens, stopped the pump [{c.smi}]")
+
+
+async def _draining(srv) -> bool:
+    return srv._draining
+
+
+def fleet_k5_record(c) -> dict:
+    """K5 at arm (1)'s recorded layer-0 launches (k = 1, pump thread): the
+    first held against its plain version (float32 on the same bf16
+    inputs, the pools as it read them), all timed beside the plain
+    version and the bound."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    if not c.recorded or c.recorded[0][6] is None:
+        raise AssertionError("[serve-fleet] no K5 launch recorded")
+    q, _, _, table, lengths, row_slot, (k0, v0) = c.recorded[0]
+    err = k5_error((q, k0, v0, table, lengths, row_slot),
+                   splits=c.srv_eng.splits)
+    if not err <= K5_ATOL[torch.bfloat16]:
+        raise AssertionError(f"[serve-fleet] K5 against its plain version: "
+                             f"{err}")
+    launches = [r[:6] for r in c.recorded]
+    kern_ms = time_launches(pa.paged_attention, launches)
+    plain_ms = time_launches(pa.paged_attention_plain, launches)
+    bound = [launch_bytes_flops(a, 2) for a in launches]
+    bytes_ms = float(np.mean([b for b, _ in bound])) / HBM_BYTES_PER_S * 1e3
+    flops_ms = float(np.mean([f for _, f in bound])) / \
+        PEAK_FLOPS[torch.bfloat16] * 1e3
+    log(f"[serve-fleet] K5 on the pump thread's first layer-0 launch "
+        f"({q.shape[0]} rows, {c.srv_eng.splits} split(s)) against its "
+        f"plain version in float32: max abs err {err:.3e} (limit "
+        f"{K5_ATOL[torch.bfloat16]:g}); over {len(launches)} recorded "
+        f"launches {kern_ms * 1e3:.2f} us/launch, plain "
+        f"{plain_ms * 1e3:.2f} us, bound "
+        f"{max(bytes_ms, flops_ms) * 1e3:.3f} us [{c.smi}]")
+    del c.recorded
+    return {"name": "paged_attention [serve-fleet]", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas_paged.py:104",
+            "launches": c.launches1, "max_abs_err": err, "ms": kern_ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": None}
+
+
+def replica_stats(addr) -> tuple:
+    from paddle_tpu_torch.serving.client import ServingClient
+    with ServingClient(*addr) as cl:
+        return cl.stats(), cl.metrics()
+
+
+def fleet_router(addrs, **kw):
+    from paddle_tpu_torch.fleet import FleetRouter
+    rt = FleetRouter(port=0, replicas=addrs, poll_interval_s=0.5,
+                     heartbeat_misses=100, **kw)
+    rt.start_background()
+    return rt
+
+
+def replicas_on_card(what: str, addrs) -> str:
+    """Each replica's metrics read the card's allocator (its engine ran
+    there) and counted decode steps."""
+    out = []
+    for a in addrs:
+        _, text = replica_stats(a)
+        used = metric_value(text, "hbm_bytes_in_use")
+        steps = metric_value(text, "serving_decode_steps_total")
+        if not (used and used > 0 and steps and steps > 0):
+            raise AssertionError(f"[serve-fleet] {what}: replica {a}: "
+                                 f"hbm_bytes_in_use {used}, steps {steps}")
+        out.append(f"{used / 2 ** 20:.0f} MiB / {steps:.0f} steps")
+    return ", ".join(out)
+
+
+def fleet_affinity(c) -> None:
+    """[serve-fleet] 2: the prefix-skew workload (every fourth sampled)
+    through FleetRouter(policy="affinity") over two replica subprocesses
+    on the card: tokens equal the single-engine run's; the aggregate
+    prefix hit rate, sheds and retries (0), tokens/s, first token."""
+    addrs = c.addrs[:2]
+    direct = c.direct
+    direct.set_decode_steps(1)
+    direct.reset_prefix_cache()
+    want = direct_closed_loop(direct, prefix_requests(c.vocab))
+    rt = c.rt = fleet_router(addrs, policy="affinity")
+    closed_loop(rt.host, rt.port, serve_requests(
+        4, c.vocab, seed=7, lo=8, hi=80, max_new=12, sampled_every=2))
+    before = [replica_stats(a)[0] for a in addrs]
+    got = closed_loop(rt.host, rt.port, prefix_requests(c.vocab))
+    after = [replica_stats(a)[0] for a in addrs]
+    fleet_same("affinity", got["tokens"], want["tokens"])
+    st = rt._stats_msg()
+    hits = sum(a["prefix_hits"] - b["prefix_hits"]
+               for a, b in zip(after, before))
+    seen = hits + sum(a["prefix_misses"] - b["prefix_misses"]
+                      for a, b in zip(after, before))
+    routed = [r.routed_total for r in rt.table]
+    if st["sheds"] or st["retries"] or min(routed) == 0:
+        raise AssertionError(f"[serve-fleet] affinity: sheds {st['sheds']}, "
+                             f"retries {st['retries']}, routed {routed}")
+    log(f"[serve-fleet] (2) affinity router over 2 replica processes: 64 "
+        f"prefix-skew requests at concurrency {FLEET_CONC}, tokens equal "
+        f"the single engine's; {rate_line(got)}; single engine "
+        f"{rate_line(want, want['steps'])}; prefix hits {hits} of {seen} "
+        f"admissions ({hits / max(seen, 1):.1%}); routed {routed} (with 4 "
+        f"warm-up requests), placements {st['placements']}, sheds "
+        f"{st['sheds']:g}, retries {st['retries']:g}; replicas on the card: "
+        f"{replicas_on_card('affinity', addrs)} [{c.smi}]")
+
+
+def fleet_disagg(c) -> None:
+    """[serve-fleet] 3: bench_serving_disagg's workload (the prefix-skew
+    prompts, greedy) through a router over a prefill-role and a
+    decode-role replica: every prompt prefills on one, kv_pushes its
+    committed pages, decodes on the other; pages shipped, no push failure
+    or fallback, tokens equal the single engine's; then FLEET_PUSH_PROBE
+    prefill_only requests straight to the prefill replica time a push."""
+    from paddle_tpu_torch.serving import Request
+    from paddle_tpu_torch.serving.client import ServingClient
+    addrs = c.addrs[2:4]
+
+    def reqs():
+        return [Request(r.req_id, r.prompt_ids, max_new=r.max_new)
+                for r in prefix_requests(c.vocab)]
+
+    direct = c.direct
+    direct.reset_prefix_cache()
+    want = direct_closed_loop(direct, reqs())
+    rt = fleet_router(addrs)
+    try:
+        closed_loop(rt.host, rt.port, serve_requests(      # both legs warm
+            4, c.vocab, seed=7, lo=16, hi=80, max_new=12))
+        st0 = rt._stats_msg()
+        got = closed_loop(rt.host, rt.port, reqs())
+        st = rt._stats_msg()
+    finally:
+        rt.stop_background(drain=True)
+    fleet_same("disagg", got["tokens"], want["tokens"])
+    n = len(got["tokens"])
+    st = {k: st[k] - st0[k] for k in ("kv_pushes", "kv_pages_shipped",
+                                      "kv_push_failures", "kv_fallbacks")}
+    if not (st["kv_pushes"] == n and st["kv_pages_shipped"] > 0
+            and st["kv_push_failures"] == 0 and st["kv_fallbacks"] == 0):
+        raise AssertionError(f"[serve-fleet] disagg ledger: {st}")
+    push_ms, pages = [], []
+    with ServingClient(*addrs[0]) as cl:
+        for r in reqs()[:FLEET_PUSH_PROBE]:
+            t0 = time.perf_counter()
+            rid = cl.submit(r.prompt_ids.tolist(), max_new=1,
+                            prefill_only=True,
+                            push_to={"host": addrs[1][0],
+                                     "port": addrs[1][1]})
+            m = cl._route(lambda m: m.get("id") == rid)
+            wall = time.perf_counter() - t0
+            if m["type"] != "done" or not m.get("push_ok"):
+                raise AssertionError(f"[serve-fleet] push probe: {m}")
+            push_ms.append(wall * 1e3 - m["timing"]["request_ms"])
+            pages.append(m["pushed_pages"])
+    per_page = sum(push_ms) / sum(pages)
+    log(f"[serve-fleet] (3) disaggregated: {n} requests at concurrency "
+        f"{FLEET_CONC}, each prefilled on the prefill replica and decoded "
+        f"on the decode replica, tokens equal the single engine's; "
+        f"{rate_line(got)}; kv_pushes {st['kv_pushes']:g}, pages shipped "
+        f"{st['kv_pages_shipped']:g}, push failures "
+        f"{st['kv_push_failures']:g}, fallbacks {st['kv_fallbacks']:g}; a "
+        f"push (client wall less the prefill's request_ms) "
+        f"{per_page:.3f} ms a page over {sum(pages)} pages in "
+        f"{len(pages)} prefill_only requests ({c.direct.kv.page_nbytes} B "
+        f"a page); replicas on the card: "
+        f"{replicas_on_card('disagg', addrs)} [{c.smi}]")
+
+
+def fleet_failures(c) -> None:
+    """[serve-fleet] 4: through arm (2)'s router, three requests sharing
+    a prefix (co-located by affinity); after the first streamed a token
+    its replica is SIGKILLed: the two that streamed nothing finish on the
+    survivor with the single engine's tokens, the streamed one gets the
+    'already streamed' error.  SIGTERM on the survivor drains it and it
+    exits 0."""
+    import signal
+
+    from paddle_tpu_torch.serving import Request
+    from paddle_tpu_torch.serving.client import ServerError, ServingClient
+    rt = c.rt
+    base = prefix_requests(c.vocab)[1]
+    prefix = base.prompt_ids[:128]
+    rng = np.random.default_rng(5)
+    reqs = [Request(i, np.concatenate([prefix, rng.integers(
+        2, c.vocab, 24).astype(np.int32)]), max_new=n)
+        for i, n in enumerate((FLEET_KILL_NEW, 64, 32))]
+    c.direct.reset_prefix_cache()
+    want = c.direct.run(reqs)
+    with ServingClient(rt.host, rt.port, timeout=600) as cl:
+        ra = cl.submit(reqs[0].prompt_ids.tolist(), max_new=FLEET_KILL_NEW)
+        m = cl.recv()
+        while m.get("type") != "token":
+            m = cl.recv()
+        cl._pending.append(m)
+        rb = cl.submit(reqs[1].prompt_ids.tolist(), max_new=64, stream=False)
+        rc = cl.submit(reqs[2].prompt_ids.tolist(), max_new=32, stream=False)
+        if not cl.ping():                # both placed before the pong
+            raise AssertionError("[serve-fleet] no pong from the router")
+        victim = next((r for r in rt.table if len(r.pending) == 3), None)
+        if victim is None:
+            raise AssertionError(f"[serve-fleet] kill: not co-located: "
+                                 f"{[len(r.pending) for r in rt.table]}")
+        vi = c.procs.index_of(victim.port)
+        c.procs.procs[vi].send_signal(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        out = cl.collect([rb, rc])
+        retried_s = time.perf_counter() - t_kill
+        try:
+            cl.collect([ra])
+            raise AssertionError("[serve-fleet] the streamed request was "
+                                 "not failed")
+        except ServerError as e:
+            if "already streamed" not in str(e):
+                raise
+            err = str(e)
+        st = cl.stats()
+    for rid, r in ((rb, reqs[1]), (rc, reqs[2])):
+        if out[rid]["reason"] != "length" or not np.array_equal(
+                np.asarray(out[rid]["tokens"], np.int32), want[r.req_id]):
+            raise AssertionError(f"[serve-fleet] retried {rid}: "
+                                 f"{out[rid]['reason']}, tokens differ")
+    if st["retries"] < 2 or st["replicas_registered"] != 1:
+        raise AssertionError(f"[serve-fleet] after the kill: {st}")
+    survivor = rt.table.get(st["replicas"][0]["replica"])
+    si = c.procs.index_of(survivor.port)
+    rt.stop_background(drain=True)
+    c.procs.procs[si].send_signal(signal.SIGTERM)
+    rc_term = c.procs.procs[si].wait(timeout=120)
+    rc_kill = c.procs.procs[vi].wait(timeout=60)
+    if rc_term != 0 or rc_kill != -signal.SIGKILL:
+        raise AssertionError(f"[serve-fleet] SIGTERM exit {rc_term}, "
+                             f"SIGKILL exit {rc_kill}: "
+                             f"{c.procs.stderr(si)}")
+    log(f"[serve-fleet] (4) replica {victim.rid} SIGKILLed mid-stream: the "
+        f"2 requests that had streamed nothing finished on {survivor.rid} "
+        f"with the single engine's tokens {retried_s:.2f} s after the kill "
+        f"(router retries {st['retries']:g}); the streamed one got "
+        f"'{err[:60]}...'; SIGTERM drained {survivor.rid}, exit 0 [{c.smi}]")
+
+
+def phase_serve_fleet(smi: str) -> list:
+    """The RPC front end and the fleet on the card (module docstring,
+    phase 4f); returns K5's record at the server's pump-thread launches."""
+    vocab, layers = FLEET_MODEL["vocab"], FLEET_MODEL["layers"]
+    import signal
+    procs = ReplicaProcs(["both", "both", "prefill", "decode"])
+    try:
+        ex, params = fleet_model()
+        c = types.SimpleNamespace(vocab=vocab, layers=layers, smi=smi,
+                                  ex=ex, params=params, procs=procs,
+                                  addrs=None)
+
+        def settle():
+            # the timed runs start once the replicas are up and idle
+            if c.addrs is None:
+                start = time.perf_counter()
+                c.addrs = procs.wait()
+                log(f"[serve-fleet] 4 replica processes bound "
+                    f"{time.perf_counter() - procs.t0:.1f} s after their "
+                    f"start (waited {time.perf_counter() - start:.1f} s "
+                    f"of it)")
+
+        c.settle = settle
+        start = time.perf_counter()
+        fleet_tcp(c)
+        record = fleet_k5_record(c)
+        log(f"[serve-fleet] (1) fleet_tcp: "
+            f"{time.perf_counter() - start:.1f} s [{smi}]")
+        for n, fn in enumerate((fleet_affinity, fleet_disagg,
+                                fleet_failures), 2):
+            start = time.perf_counter()
+            fn(c)
+            log(f"[serve-fleet] ({n}) {fn.__name__}: "
+                f"{time.perf_counter() - start:.1f} s [{smi}]")
+        for i in (2, 3):
+            procs.procs[i].send_signal(signal.SIGTERM)
+            if procs.procs[i].wait(timeout=120) != 0:
+                raise AssertionError(f"[serve-fleet] replica {i} exit "
+                                     f"{procs.procs[i].returncode}: "
+                                     f"{procs.stderr(i)}")
+    finally:
+        procs.close()
+    c.direct = c.srv_eng = None
+    torch.cuda.empty_cache()
+    return [record]
 
 
 def phase_routes() -> None:
@@ -6746,6 +7538,7 @@ def main(argv=None) -> int:
     phase("serve-spec", phase_serve_spec, smi)
     decode = phase("decode", phase_decode, smi)
     spill = phase("serve-spill", phase_serve_spill, smi)
+    fleet = phase("serve-fleet", phase_serve_fleet, smi)
     phase("routes", phase_routes)
     phase("flash", phase_flash)
     flash = phase("train", phase_train, smi)
@@ -6765,8 +7558,8 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - t0:.1f}s: "
         + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
         + f"; the profiler around its runs {PROFILER_SECONDS[0]:.1f}")
-    print(json.dumps({"kernels": [record] + flash + decode + spill + lstm
-                      + seq2seq + tagging}))
+    print(json.dumps({"kernels": [record] + flash + decode + spill + fleet
+                      + lstm + seq2seq + tagging}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,11 @@ returning `(name, kind, labels|None, value)` samples.  `CATALOG` is the
 reference's name -> help map, whole; a registry built with `strict=True`
 refuses any name outside it.  The serving engine's histograms
 (`step_tokens_hist`, `decode_gap_hist`, `draft_ms_hist`, `spec_k_hist`)
-are standalone `Histogram`s of this module.
+are standalone `Histogram`s of this module; `statset_collector` reads a
+utils/stat.py `StatSet` (the serving front end's latency windows).
 
-Not ported yet (ROADMAP.md, Queue 1): `statset_collector` (with
-utils/stat.py) and `barrier_collector` (with parallel/barrier_stat.py).
+Not ported yet (ROADMAP.md, Queue 1): `barrier_collector` (with
+parallel/barrier_stat.py).
 """
 
 from __future__ import annotations
@@ -532,6 +533,32 @@ class MetricsRegistry:
 
 
 # -- collector adapters ----------------------------------------------------
+
+def statset_collector(statset, metric: str, count_metric: str,
+                      label: str = "stat", qs=(50.0, 90.0, 99.0),
+                      total_metric: Optional[str] = None):
+    """Expose a utils/stat.py StatSet as quantile gauges + sample counts.
+    Pure read-time adapter: the StatSet keeps its owner and its per-Stat
+    lock; quantiles come from its bounded recent-sample windows."""
+
+    def collect():
+        out = []
+        for name in sorted(statset.stats):
+            s = statset.stats.get(name)
+            if s is None:
+                continue
+            for q, v in statset.percentiles(name, qs).items():
+                out.append((metric, "gauge",
+                            {label: name, "quantile": q}, v))
+            out.append((count_metric, "counter", {label: name},
+                        float(s.count)))
+            if total_metric is not None:
+                out.append((total_metric, "counter", {label: name},
+                            float(s.total_s)))
+        return out
+
+    return collect
+
 
 def tracer_collector(tracer):
     """Expose the span tracer's ring accounting: recorded/dropped totals

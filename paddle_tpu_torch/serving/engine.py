@@ -356,6 +356,11 @@ class ServingEngine:
             device=self.device)
         self.n_scan_flushes = 0             # multi-step windows run
         self.n_scan_steps = 0               # decode bodies in them (k each)
+        # tokens banked for one slot of a window arrive in a burst of
+        # cur_burst (1 outside a window): the server's on_token divides an
+        # inter-token gap by it and streams it as a token frame's `burst`
+        self.cur_burst = 1
+        self.tp = 1                         # model-axis shards (no mesh)
         self.n_spec_steps = 0               # verify steps run
         self.n_spec_chains = 0              # chains verified (slot, step)
         self.n_spec_drafted = 0             # draft tokens scored
@@ -1502,8 +1507,12 @@ class ServingEngine:
                 if t == sl.req.eos_id or sl.gen + len(burst) >= \
                         sl.req.max_new:
                     break                # the run mask froze here too
-            for t in burst:
-                self._bank_token(s, t)
+            self.cur_burst = len(burst)
+            try:
+                for t in burst:
+                    self._bank_token(s, t)
+            finally:
+                self.cur_burst = 1
 
     def _run_mixed_step(self, live, runnable, filling) -> None:
         """One mixed prefill/decode step: each running decoding slot's row

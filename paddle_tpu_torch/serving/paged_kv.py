@@ -83,6 +83,8 @@ class PagedKVCache:
         self.page_size = int(page_size)
         self.pages_per_slot = int(pages_per_slot)
         self.num_slots = int(num_slots)
+        # the pools' shards over a model axis: one, as a mesh is refused
+        self.tp_shards = 1
         self.num_pages = int(num_pages) if num_pages else \
             1 + self.num_slots * self.pages_per_slot
         if self.num_pages < 2:
@@ -193,6 +195,11 @@ class PagedKVCache:
         """Device bytes of the K/V page pools."""
         return sum(t.numel() * t.element_size()
                    for p in self.pools.values() for t in p.values())
+
+    @property
+    def pool_bytes_per_shard(self) -> int:
+        """Pool bytes resident on each device of the model axis."""
+        return self.pool_bytes // self.tp_shards
 
     def pages_for(self, n_tokens: int) -> int:
         return -(-int(n_tokens) // self.page_size)

@@ -156,6 +156,17 @@ def latest_pass(save_dir: str) -> int:
     return max(ids, default=-1)
 
 
+def latest_checkpoint(save_dir: str) -> Optional[str]:
+    """Path of the newest committed pass dir under `save_dir` (falling
+    back to `pass-init`), or None; `.tmp` stragglers of a crashed save
+    never match (tools/serve.py --checkpoint uses it)."""
+    lp = latest_pass(save_dir)
+    if lp >= 0:
+        return pass_dir(save_dir, lp)
+    init = os.path.join(save_dir, "pass-init")
+    return init if os.path.isdir(init) else None
+
+
 def load_checkpoint(path: str) -> dict[str, Any]:
     """Load a pass directory, its model.npz, or a save_dir (its newest
     committed pass, else pass-init).  Returns {'params', 'opt', 'net'} as

@@ -1,7 +1,9 @@
 """PyTorch port on the card: the CUDA paged-attention, flash-attention,
 fused-LSTM, fused-GRU and additive-attention kernels against their plain
 versions, the engine on CUDA against the engine on the CPU (its host
-spill tier and page import included), and training
+spill tier and page import included, and behind the RPC server: its pump
+thread, window graphs beside the history sampler, kv_push between two
+servers), and training
 steps, the beam searches and lm_generate on CUDA against the same on the
 CPU.
 
@@ -1243,3 +1245,111 @@ def test_whole_prompt_engine_on_cuda_matches_cpu(cuda):
         assert fa.counts.plain == pa.counts.plain == 0
     assert eng.n_prefix_hits == cpu.n_prefix_hits > 0
     eng.kv.check_reclaimed()
+
+
+# -- the RPC front end on the card -------------------------------------------
+
+def _lm_server(dev, decode_steps: int = 1, **kw):
+    """A port ServingServer over a float32 engine on `dev` (the same seeded
+    weights on every device)."""
+    from paddle_tpu_torch.serving.server import ServingServer
+    model = transformer_lm_config(vocab=97, dim=64, layers=2, heads=4)
+    ex = GraphExecutor(model)
+    params = init_params(model, seed=0, device="cpu")
+    eng = ServingEngine(ex, params, num_slots=4, page_size=8,
+                        max_context=64, decode_steps=decode_steps,
+                        device=dev)
+    return ServingServer(eng, max_queue=16, **kw)
+
+
+def _streamed(srv, reqs) -> dict:
+    """Serve `reqs` [(prompt, max_new)] through a client: {id: (tokens,
+    reason, streamed tokens)}."""
+    from paddle_tpu_torch.serving.client import ServingClient
+    host, port = srv.start_background()
+    try:
+        with ServingClient(host, port) as c:
+            ids = [c.submit(p, max_new=n) for p, n in reqs]
+            out = c.collect(ids)
+        return {i: (out[i]["tokens"], out[i]["reason"], out[i]["stream"])
+                for i in ids}
+    finally:
+        srv.stop_background(drain=True)
+
+
+def _server_reqs():
+    rng = np.random.default_rng(6)
+    return [(rng.integers(2, 97, int(rng.integers(3, 30))).tolist(),
+             int(rng.integers(4, 14))) for _ in range(10)]
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_server_on_cuda_streams_the_cpu_servers_tokens(cuda, k):
+    """The same requests through a server whose engine runs on the card
+    (its pump thread launching K5, at k = 4 capturing and replaying
+    window graphs) and through one on the CPU: the same streamed and
+    final tokens; K5 counted on the pump thread, the plain version
+    never."""
+    want = _streamed(_lm_server("cpu", k), _server_reqs())
+    reset_counts()
+    srv = _lm_server(cuda, k)
+    got = _streamed(srv, _server_reqs())
+    assert got == want
+    assert pa.counts.kernel > 0 and pa.counts.plain == 0
+    if k > 1:
+        assert sum(g.replays for g in srv.engine._windows[k].graphs.values()
+                   if g is not None) > 0
+
+
+def test_windows_capture_on_the_pump_while_the_sampler_scrapes(cuda):
+    """Window graphs captured and replayed on the pump thread while the
+    history sampler walks the metrics registry every 5 ms (the allocator's
+    statistics and mem_get_info on its own thread, thread-local capture
+    mode): the captures hold, the pools keep their addresses, the sampler
+    records the card's memory gauges without an error, and the tokens
+    equal the k = 1 server's."""
+    want = _streamed(_lm_server(cuda, 1), _server_reqs())
+    srv = _lm_server(cuda, 4, history_resolution_s=0.005,
+                     history_retention_s=60.0, slo_specs=())
+    ptrs = pool_ptrs(srv.engine)
+    got = _streamed(srv, _server_reqs())
+    assert got == want
+    assert pool_ptrs(srv.engine) == ptrs
+    graphs = srv.engine._windows[4].graphs
+    assert any(g is not None and g.replays > 0 for g in graphs.values())
+    assert srv.history_sampler.errors == 0, srv.history_sampler.last_error
+    assert srv.history.samples_taken > 0
+    snap = srv.history.snapshot()["series"]
+    assert snap["hbm_bytes_in_use"]["points"][-1][1] > 0
+    assert "hbm_bytes_limit" in srv.metrics.render()
+
+
+def test_kv_push_between_two_servers_on_the_card(cuda):
+    """A prefill_only request on one server ships its prompt's committed
+    pages over kv_push to a second server on the card, which mounts them
+    between steps on its pump thread; the second server's admission of
+    the prompt is a prefix hit and decodes the cold run's tokens."""
+    from paddle_tpu_torch.serving.client import ServingClient
+    prompt = np.random.default_rng(8).integers(2, 97, 27).tolist()
+    cold = _streamed(_lm_server(cuda), [(prompt, 9)])
+    src, dst = _lm_server(cuda, role="prefill"), _lm_server(cuda,
+                                                            role="decode")
+    sh, sp = src.start_background()
+    dh, dp = dst.start_background()
+    try:
+        with ServingClient(sh, sp) as c:
+            rid = c.submit(prompt, max_new=9, prefill_only=True,
+                           push_to={"host": dh, "port": dp})
+            while True:
+                msg = c.recv()
+                if msg.get("id") == rid and msg["type"] == "done":
+                    break
+            assert msg["push_ok"] and msg["pushed_pages"] == 3
+        with ServingClient(dh, dp) as c:
+            toks, reason = c.generate(prompt, max_new=9)
+        assert (toks, reason) == next(iter(cold.values()))[:2]
+        assert dst.engine.n_kv_mounts == 1 and dst.engine.n_prefix_hits == 1
+        assert dst.engine.kv.n_imported == src.engine.kv.n_exported == 3
+    finally:
+        src.stop_background(drain=True)
+        dst.stop_background(drain=True)

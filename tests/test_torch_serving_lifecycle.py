@@ -373,13 +373,16 @@ def test_every_paged_attention_call_carries_the_engines_split_count(
 
 
 def test_features_not_ported_are_refused():
-    """A mesh raises NotImplementedError naming ROADMAP.md.  The spill
-    tier, a tracer and page export / import serve (tests/
-    test_torch_kv_spill.py, test_torch_kv_xfer.py, test_torch_obs.py), as
-    do speculative decode and decode_mode="static"
-    (tests/test_torch_spec_decode.py) and the whole-prompt prefill, at
-    construction and through set_chunking
-    (tests/test_torch_legacy_prefill.py)."""
+    """A mesh raises NotImplementedError naming ROADMAP.md, so an engine
+    has one model-axis shard (`tp` 1, the pools' bytes per shard all of
+    them), and the serving tool's --mesh exits the same way
+    (tests/test_torch_server.py).  The spill tier, a tracer and page
+    export / import serve (tests/test_torch_kv_spill.py,
+    test_torch_kv_xfer.py, test_torch_obs.py), as do speculative decode
+    and decode_mode="static" (tests/test_torch_spec_decode.py), the
+    whole-prompt prefill, at construction and through set_chunking
+    (tests/test_torch_legacy_prefill.py), and the RPC front end and the
+    fleet (tests/test_torch_server.py, test_torch_fleet.py)."""
     from paddle_tpu_torch.obs import Tracer
     from paddle_tpu_torch.serving import Request, ServingEngine
     from test_torch_prefix_cache import lm
@@ -387,6 +390,8 @@ def test_features_not_ported_are_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ServingEngine(ex, params, device="cpu", mesh=object())
     legacy = ServingEngine(ex, params, device="cpu", prefill_chunk=None)
+    assert legacy.tp == legacy.kv.tp_shards == 1
+    assert legacy.kv.pool_bytes_per_shard == legacy.kv.pool_bytes > 0
     eng = ServingEngine(ex, params, device="cpu", spec_k=2,
                         decode_mode="static")
     eng.set_chunking(None)
