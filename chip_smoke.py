@@ -32,7 +32,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                identical launches bit-identical, a decode launch replayed
                from a CUDA graph equal to eager bit for bit;
   4. serve   — the serving path: the transformer LM at full width (vocab
-               32000, dim 512, 8 layers, 8 heads, bfloat16, random weights
+               32000, dim 512, SERVE_LAYERS = 2 layers (the demo
+               config's default; 8 until the time limit forced the cut),
+               8 heads, bfloat16, random weights
                from seed 1) serving 32 requests through ServingEngine; the
                kernel must launch once per attention layer per step and the
                plain version never; then a torch.profiler pass over 8 of
@@ -90,10 +92,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
                and both on an engine with the defaulted budget (80 rows
                off, 144 on); (2) the target drafting for itself over 64
                tokens (ModelDrafter.from_target), on the first
-               SPEC_MODEL_REQUESTS = 16 requests; (3) dynamic depth; (4)
+               SPEC_MODEL_REQUESTS = 8 requests; (3) dynamic depth; (4)
                the target drafting at dynamic depth with decode_steps=KSTEP
                under decode_mode "auto" (windows where no slot drafts) and
-               "static" (no window), on 16 requests;
+               "static" (no window), on 8 requests;
                (5) every fourth request sampled ([serve-prefix]'s knobs),
                spec off and on; (6) spec on over PREFIX_PAGES - 1 = 128
                real pages (preemptions, check_reclaimed); (7) a
@@ -103,11 +105,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
                tokens = accepted + chains), K5 launches once per layer per
                eager step, verify steps included, the plain version never;
                each arm logs steps (verify, mixed, windows), tokens/s, the
-               accept rate, draft ms a pass and a profiled run of 8 of its
-               requests (4 in (2) and (4): SPEC_MODEL_PROFILED; none in
-               (3) and (6), whose steps are (1)'s shapes; device ms/step,
-               busy share, kernels and host launch calls a step, K5 on the
-               card as the route says);
+               accept rate, draft ms a pass, and (1)'s two arms and (4)'s
+               "auto" (its windows held by the profiler) a profiled run of
+               8 of their requests (2 in (4): SPEC_MODEL_PROFILED; device
+               ms/step, busy share, kernels and host launch calls a step,
+               K5 on the card as the route says; the other arms are eager,
+               held by the wrappers, and not profiled, for the time
+               limit);
   4d. decode — the dense decode path at the same width (bfloat16 unless
                said, random weights from seed 1), at tools/bench_lm.py's
                decode defaults (batch 32, 64 new tokens; one warm call,
@@ -278,6 +282,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
                1e-5 relative, every gradient within 1e-4 of its max; then
                those kernels at [2, 2048, 8, 64] fp32 causal against their
                plain versions and timed, as in phase 7;
+  8b. train-jobs — the training features of the reference's trainer:
+               (a) gradient accumulation on the LM at full width, N = 4
+               micro-batches of [2, 2048] after a warm-up window, in
+               float32 and bf16: the mean gradient the window's update
+               consumes (`ParameterUpdater.window_mean`) against one
+               step's gradient on the four concatenated (fp32 within 1e-4
+               of each parameter's largest; bf16 within 2^-6, as each
+               micro-gradient is rounded to bf16 before the float32 sum),
+               K4's three kernels of the dtype 8 a micro-step each, one
+               update a window; then the kernels at [2, 2048, 8, 64]
+               against their plain versions and timed, as in phase 7;
+               N = 3 at k = 4 against k = 1 over two passes of 12 bf16
+               micro-steps, bit for bit (losses, statistics, parameters,
+               slots, counters, the window's sums), ms per micro-step
+               beside the plain step's; (b) demo/sentiment/
+               trainer_config.py with auc (weighted), precision_recall,
+               pnpair (weighted), an auc-validation layer and a gradient
+               printer appended, 8 steps of [128, 100] (K3 3 + 3 a step):
+               the results equal the CPU evaluators' on the outputs the
+               card's steps handed the host, k = 4 equals k = 1 bit for
+               bit, the AUC evaluator's device time; K3 at [128, 100, 128]
+               against its plain version and timed; (c) the CLI in
+               subprocesses: --job=checkgrad on the sentiment config (K3)
+               and on the LM (vocab 32000, dim 512, 2 layers, fp32, K4's
+               float32 kernels), exit 0, the wrappers counting the
+               launches; --detect_nan from a checkpoint with NaN in the
+               embedding, exit 1 naming the embedding layer; two passes at
+               k = 4 with --show_parameter_stats_period=2 and --save_dir
+               (the stats logged; metrics.jsonl's registry snapshot with
+               trainer.train_step and trainer.fused_step among its compile
+               sites and the device-memory gauges); --job=time with
+               --profile_dir (samples/s; lstm_fwd_kernel in the trace);
   9. lstm    — the two fused-LSTM kernels (forward; backward) against their
                plain version in float32: forward/reverse x with/without
                peepholes x ragged (a length-0 row, a full row) / full
@@ -389,8 +425,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                version on those inputs with its phase's limit (K3, K1 1e-5
                of max; K2 2e-5; K4 bf16 2^-7|ref| + 1e-3, gradients 1e-2
                of max); then each one pass (and the test pass of its test
-               source) at --steps_per_dispatch=1 and at KSTEP, each run
-               under torch.profiler: the card launched each kernel as the
+               source) at --steps_per_dispatch=1 and at KSTEP (the KSTEP
+               run under torch.profiler; the k = 1 run timed alone): the
+               card launched each kernel as the
                pass's batches say (held by the wrappers at k = 1, by the
                profiler's kernel events at KSTEP), no plain version; the
                two runs' pass statistics and checkpoints (parameters,
@@ -407,14 +444,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
                (batch 128) and demo/model_zoo/resnet.py at its defaults
                (ResNet-50, 224 x 224, 1000 classes, batch 64, discexp),
                each on its provider's synthetic data, TF32 off: one pass
-               at --steps_per_dispatch=1 and at KSTEP under the profiler,
-               no hand-written kernel and no plain version; the two runs'
+               at --steps_per_dispatch=1 and at KSTEP (the KSTEP run under
+               the profiler), no hand-written kernel and no plain version;
+               the two runs'
                statistics and checkpoints bit-identical, batch norm's
                moving mean, variance and count included, each count the
                pass's steps; --job=test --init_model_path of the k = 1
                checkpoint equal to an in-process load (parameters and
                moving statistics the saved arrays) + test(); then steady
-               passes over the feeder's batches at k = 1 and KSTEP:
+               passes over the first STEADY_BATCHES = 16 of the feeder's
+               batches at k = 1 and KSTEP:
                wall and device ms/step, busy share, samples/s, kernels
                and host launch calls a step, the top device operations,
                peak memory;
@@ -433,7 +472,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
                its top device operations), then --job=test of the k = 1
                checkpoint on the averaged parameters equal to an
                in-process load + test() (every config with a test
-               source); then K3 at SRL's [150, 32, 32] against its plain
+               source), then steady passes at k = 1 and KSTEP over the
+               first STEADY_BATCHES of the feeder's batches; then K3 at SRL's [150, 32, 32] against its plain
                version and timed beside its bound, the plain version and a
                cuDNN LSTM; the table gradient's repeats (F.embedding
                against ops/table.py lookup_rows, which must repeat bit for
@@ -992,6 +1032,14 @@ def k5_serve_timings(parts: dict, smi: str, splits: int) -> dict:
     return out
 
 
+# depth of the serving phases' LM ([serve] through [serve-fleet] and
+# [decode]): the demo config's own default (demo/model_zoo/
+# transformer_lm.py, `layers` 2); its documented serving command runs 8,
+# which no longer fit the script's time limit (the serving path is
+# host-bound, so its time follows the layers a step runs)
+SERVE_LAYERS = 2
+
+
 def phase_serve(smi: str, kernel_err: float) -> dict:
     import paddle_tpu_torch.ops.attention as attn_ops
     from paddle_tpu_torch.graph import GraphExecutor
@@ -1000,7 +1048,7 @@ def phase_serve(smi: str, kernel_err: float) -> dict:
     from paddle_tpu_torch.parameter import init_params
     from paddle_tpu_torch.serving import ServingEngine
 
-    vocab, layers = 32000, 8
+    vocab, layers = 32000, SERVE_LAYERS
     model = transformer_lm_config(vocab=vocab, dim=512, layers=layers,
                                   heads=8)
     ex = GraphExecutor(model, compute_dtype="bfloat16")
@@ -1205,6 +1253,37 @@ def profiled(run):
     return out, wall_ms, kernels, calls - sum(PROFILE_PADS)
 
 
+def timed_run(run):
+    """run() on the host's clock, the card synchronized before and after:
+    (what it returned, wall ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def cli_run(run, k: int):
+    """A CLI call at --steps_per_dispatch=k: under the profiler at k > 1
+    (a replay's launches are read from its kernel events), else timed
+    alone (the wrappers hold an eager run, and profiling a whole eager
+    pass costs more than the call; the steady passes read the device at
+    k = 1).  Returns (exit code, wall ms, the kernel events or None)."""
+    if k == 1:
+        rc, wall = timed_run(run)
+        return rc, wall, None
+    rc, wall, kernels, _ = profiled(run)
+    return rc, wall, kernels
+
+
+def busy_text(kernels, wall: float) -> tuple:
+    """(device busy ms or None, its log text) of a cli_run."""
+    if kernels is None:
+        return None, "device time not profiled (k = 1)"
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    return busy, f"device busy {busy:.1f} ms = {busy / wall:.1%}"
+
+
 # each hand-written kernel's symbol (paddle_tpu_torch/csrc/*.cu) and the
 # launch counter of its wrapper (module of paddle_tpu_torch.ops, attribute
 # of its `counts`); the wrappers of the recurrent kernels also launch
@@ -1266,12 +1345,16 @@ def check_launches(what: str, kernels, want: dict, replayed: bool,
     set to 0 before the run; no plain version may have run.  An eager run
     (`replayed` False) is held by the wrappers' counts, which move where a
     kernel launches; the profiler's kernel events are logged beside them,
-    as they can list one launch fewer than were made (PERF.md §7).  A run
+    as they can list one launch fewer than were made (PERF.md §7), or,
+    `kernels` None, the run was not profiled.  A run
     with graph replays is held by the profiler's kernel events, the record
     of what a replay launched, and the wrappers must have counted
     `wrappers` (unless None): the launches made outside a replay, eagerly
     or into a capture.  Returns a line for the log."""
-    on_card = device_launches(kernels, want)
+    if replayed and kernels is None:
+        raise ValueError(f"{what}: a run with replays is held by the "
+                         f"profiler's kernel events")
+    on_card = None if kernels is None else device_launches(kernels, want)
     counted = wrapper_counts(want)
     plain = plain_calls()
     held = on_card if replayed else counted
@@ -1285,9 +1368,11 @@ def check_launches(what: str, kernels, want: dict, replayed: bool,
     return (f"launches {({s: n for s, n in want.items() if n})} as the "
             f"path says, held by "
             f"{'the profiler' if replayed else 'the wrappers'}; of "
-            f"{sum(want.values())} the profiler listed "
-            f"{sum(on_card.values())}, the wrappers counted "
-            f"{sum(counted.values())}; plain versions 0")
+            f"{sum(want.values())} "
+            + ("(not profiled)" if on_card is None else
+               f"the profiler listed {sum(on_card.values())},")
+            + f" the wrappers counted {sum(counted.values())}; plain "
+            f"versions 0")
 
 
 def kstep_serving(engines: dict, reqs_fn, want: dict, layers: int,
@@ -1296,7 +1381,8 @@ def kstep_serving(engines: dict, reqs_fn, want: dict, layers: int,
     with decode_steps=KSTEP (its windows CUDA graphs), KSTEP_ROUNDS
     rounds, the order swapped each round: each run's tokens equal `want`
     (the k = 1 run's) and no plain version runs; tokens/s, ms/step and
-    windows; then a profiled run over 8 requests: device ms/step, busy
+    windows; in the last round a profiled run over 8 requests each:
+    device ms/step, busy
     share, kernels and host launch calls per step, and the
     paged-attention kernel launched on the card once per layer per
     forward (decode and mixed steps, window bodies), the wrapper counting
@@ -1330,6 +1416,13 @@ def kstep_serving(engines: dict, reqs_fn, want: dict, layers: int,
             if any(plain_calls().values()):
                 raise AssertionError(f"[serve] decode_steps={k}: plain "
                                      f"calls {plain_calls()}")
+            if r < KSTEP_ROUNDS - 1:
+                log(f"[serve] decode_steps={k} round {r + 1}: "
+                    f"{len(results)} requests, tokens as at k=1; {steps} "
+                    f"steps ({flushes} windows of {k}, {bodies} bodies), "
+                    f"{tokens} tokens in {wall:.3f}s = {tokens / wall:.1f} "
+                    f"tokens/s, {wall / steps * 1e3:.2f} ms/step [{smi}]")
+                continue
             n0 = counters(eng)
             reset_counts()
             out, pwall, kernels, calls = profiled(
@@ -1424,15 +1517,20 @@ def pass_with_losses(tr, batches, k: int):
 
 def training_state_differs(a, b) -> list:
     """The names of the parts of two trainers' state that are not
-    bit-identical: parameters, optimizer slots, counters, the dropout
-    generator, the model averages and their count, the layer state (batch
-    norm's moving mean, variance and count)."""
+    bit-identical: parameters, optimizer slots, counters, the gradient
+    accumulation window's sums, the dropout generator, the model averages
+    and their count, the layer state (batch norm's moving mean, variance
+    and count)."""
     bad = [n for n, p in a.params.items() if not torch.equal(p, b.params[n])]
     bad += [f"{n}.{k}" for n, sl in a.opt_state["slots"].items()
             for k, v in sl.items()
             if not torch.equal(v, b.opt_state["slots"][n][k])]
-    bad += [c for c in ("num_samples", "num_updates", "pass_id")
-            if a.opt_state[c] != b.opt_state[c]]
+    bad += [c for c in ("num_samples", "num_updates", "pass_id",
+                        "grad_accum_count", "grad_accum_samples")
+            if a.opt_state.get(c) != b.opt_state.get(c)]
+    acc_a, acc_b = (t.opt_state.get("grad_accum", {}) for t in (a, b))
+    bad += [f"grad_accum.{n}" for n, v in acc_a.items()
+            if n not in acc_b or not torch.equal(v, acc_b[n])]
     if not torch.equal(a.dropout_rng.get_state(), b.dropout_rng.get_state()):
         bad.append("dropout_rng")
     avg_a, avg_b = a.opt_state.get("average"), b.opt_state.get("average")
@@ -2011,7 +2109,7 @@ def phase_serve_prefix(smi: str) -> None:
     from paddle_tpu_torch.parameter import init_params
     from paddle_tpu_torch.serving import ServingEngine
 
-    vocab, layers = 32000, 8
+    vocab, layers = 32000, SERVE_LAYERS
     model = transformer_lm_config(vocab=vocab, dim=512, layers=layers,
                                   heads=8)
     ex = GraphExecutor(model, compute_dtype="bfloat16")
@@ -2043,10 +2141,11 @@ SPEC_WORKLOAD = dict(n=64, prompt_lo=32, prompt_hi=256, max_new=64)
 SPEC_K = 4
 SPEC_BUDGET = 64 + 16 * (SPEC_K + 1)
 # requests of the arms where the target drafts for itself (its k draft
-# forwards a pass make them the phase's slowest), and of their profiled
-# passes (~3,600 kernels a step for the profiler to sum)
-SPEC_MODEL_REQUESTS = 16
-SPEC_MODEL_PROFILED = 4
+# forwards a pass make them the phase's slowest), and of (4) "auto"'s
+# profiled pass (~3,600 kernels a step at 8 layers for the profiler to
+# sum); 8 and 2 since [train-jobs] joined the script (16 and 4 before)
+SPEC_MODEL_REQUESTS = 8
+SPEC_MODEL_PROFILED = 2
 SPEC_COUNTERS = ("n_spec_steps", "n_spec_chains", "n_spec_drafted",
                  "n_spec_accepted", "n_spec_tokens", "n_draft_steps")
 
@@ -2304,7 +2403,7 @@ def phase_serve_spec(smi: str) -> None:
     from paddle_tpu_torch.serving import (ModelDrafter, NgramDrafter,
                                           ServingEngine)
 
-    vocab, layers = 32000, 8
+    vocab, layers = 32000, SERVE_LAYERS
     model = transformer_lm_config(vocab=vocab, dim=512, layers=layers,
                                   heads=8)
     ex = GraphExecutor(model, compute_dtype="bfloat16")
@@ -2345,7 +2444,7 @@ def phase_serve_spec(smi: str) -> None:
     eng.set_speculation(SPEC_K, model_drafter)
     spec_arm(c, eng, f"(2) spec_k={SPEC_K}, the target drafting over 64 "
              f"tokens, {SPEC_MODEL_REQUESTS} requests", c.want,
-             n=SPEC_MODEL_REQUESTS, profiled_n=SPEC_MODEL_PROFILED)
+             n=SPEC_MODEL_REQUESTS, profiled_n=0)
     eng.set_speculation(SPEC_K, ngram, dynamic=True)
     spec_arm(c, eng, f"(3) spec_k={SPEC_K}, n-gram, dynamic depth", c.want,
              profiled_n=0)
@@ -2362,7 +2461,8 @@ def phase_serve_spec(smi: str) -> None:
                         f"dynamic depth, decode_steps={KSTEP}, decode_mode "
                         f"{mode}, {SPEC_MODEL_REQUESTS} requests", c.want,
                         n=SPEC_MODEL_REQUESTS,
-                        profiled_n=SPEC_MODEL_PROFILED)
+                        profiled_n=SPEC_MODEL_PROFILED if mode == "auto"
+                        else 0)
         if (d["n_scan_flushes"] > 0) != (mode == "auto"):
             raise AssertionError(f"[serve-spec] decode_mode {mode}: "
                                  f"{d['n_scan_flushes']} windows")
@@ -2370,10 +2470,10 @@ def phase_serve_spec(smi: str) -> None:
     eng.set_decode_mode("auto")
     eng.set_speculation(0, ngram, dynamic=False)
     want_s, _ = spec_arm(c, eng, "(5) every fourth sampled, spec off", None,
-                         sampled=4)
+                         sampled=4, profiled_n=0)
     eng.set_speculation(SPEC_K)
     spec_arm(c, eng, f"(5) every fourth sampled, spec_k={SPEC_K}", want_s,
-             sampled=4)
+             sampled=4, profiled_n=0)
     over = engine(num_pages=PREFIX_PAGES, spec_k=SPEC_K)
     _, d = spec_arm(c, over, f"(6) spec_k={SPEC_K} on {PREFIX_PAGES - 1} "
                     f"real pages", c.want, profiled_n=0)
@@ -2389,7 +2489,7 @@ def phase_serve_spec(smi: str) -> None:
 
 # tools/bench_lm.py's decode defaults: batch 32, 64 new tokens; the
 # contexts of its sweep (prompt = context - 64); reps after one warm call
-DECODE_MODEL = dict(vocab=32000, dim=512, layers=8, heads=8)
+DECODE_MODEL = dict(vocab=32000, dim=512, layers=SERVE_LAYERS, heads=8)
 DECODE_B, DECODE_NEW = 32, 64
 DECODE_CONTEXTS = (512, 1024, 4096)
 DECODE_REFORWARD = (512, 1024)      # bench_lm skips re-forward above 2048
@@ -3356,7 +3456,7 @@ def phase_serve_spill(smi: str) -> list:
     from paddle_tpu_torch.parameter import init_params
     from paddle_tpu_torch.serving import ServingEngine
 
-    vocab, layers = 32000, 8
+    vocab, layers = 32000, SERVE_LAYERS
     model = transformer_lm_config(vocab=vocab, dim=512, layers=layers,
                                   heads=8)
     ex = GraphExecutor(model, compute_dtype="bfloat16")
@@ -3380,7 +3480,7 @@ def phase_serve_spill(smi: str) -> list:
 
 
 # [serve-fleet]: the RPC front end and the fleet at [serve]'s width
-FLEET_MODEL = dict(vocab=32000, dim=512, layers=8, heads=8)
+FLEET_MODEL = dict(vocab=32000, dim=512, layers=SERVE_LAYERS, heads=8)
 FLEET_DTYPE = "bfloat16"
 FLEET_ENGINE = dict(num_slots=16, page_size=16, max_context=768)
 FLEET_CONC = 8              # requests each client keeps in flight
@@ -4740,6 +4840,513 @@ def phase_train_routes(smi: str) -> list:
                 "flash_bwd_dkv": ca[5]}
     return flash_records(launches, 2, 2048, torch.float32, smi,
                          "[train-routes]")
+
+
+# -- the training features of slice 20: accumulation, evaluators, jobs --------
+
+ACCUM_N = 4                    # (a)'s window: four [2, 2048] micro-batches
+ACCUM_LIMIT = {"": 1e-4, "bfloat16": 2.0 ** -6}
+ACCUM_KSTEP_N = 3              # windows straddling the k = 4 groups
+SENT_EVAL_STEPS = 8
+SENT_EVAL_CONFIG = "demo/sentiment/trainer_config.py"
+# the sentiment net of [sentiment] with the new evaluators appended to its
+# config's text: the net's output bound to `output`, then a label, a weight
+# and a query id, the cost, and AUC (weighted), precision/recall, pnpair
+# (weighted), an auc-validation layer and a gradient printer
+SENT_EVAL_APPEND = """
+label = data_layer("label", 2)
+weight = data_layer("weight", 1)
+qid = data_layer("qid", 16)
+outputs(classification_cost(input=output, label=label))
+auc_evaluator(input=output, label=label, weight=weight, name="auc")
+precision_recall_evaluator(input=output, label=label, name="pr")
+pnpair_evaluator(input=output, label=label, info=qid, weight=weight,
+                 name="pnpair")
+auc_validation(input=output, label=label, name="val_auc")
+gradient_printer_evaluator(input=output, name="grad")
+"""
+# a CLI run in a subprocess: its flags as argv, then one line of the
+# wrappers' launch counts on stdout
+CLI_DRIVER = """
+import json, sys
+from paddle_tpu_torch.trainer_main import main
+from paddle_tpu_torch.ops import flash_attention as fa, lstm_fused as lf
+rc = main(sys.argv[1:])
+print("COUNTS " + json.dumps({
+    "lstm_fwd": lf.counts.fwd, "lstm_bwd": lf.counts.bwd,
+    "lstm_plain": lf.counts.plain, "flash_fwd": fa.counts.fwd,
+    "flash_bwd_dq": fa.counts.bwd_dq, "flash_bwd_dkv": fa.counts.bwd_dkv,
+    "flash_tc": fa.counts.fwd_tc + fa.counts.bwd_dq_tc + fa.counts.bwd_dkv_tc,
+    "flash_plain": fa.counts.plain}), flush=True)
+sys.exit(rc)
+"""
+LM_CHECKGRAD_ARGS = ("vocab=32000,dim=512,layers=2,heads=8,batch_size=2,"
+                     "block_k_min=16")
+
+
+def accum_window(dtype: str, smi: str) -> tuple:
+    """(a) N = 4 micro-batches of [2, 2048] at full width in `dtype` ('' =
+    the config's float32), after a warm-up window: the mean gradient the
+    second window's update consumes against one step's gradient on its
+    four concatenated (at the parameters the warm-up left), within
+    ACCUM_LIMIT of each parameter's largest; K4's three kernels 8 per
+    micro-step each, counted by the wrappers, nothing else of flash
+    attention; one update, after the fourth.  Returns ({kernel: launches}
+    of the timed window, its ms per micro-step)."""
+    from paddle_tpu_torch.models import transformer_lm_trainer_config
+    from paddle_tpu_torch.trainer import Trainer
+    layers, B, T = 8, 2, 2048
+    warm, cat = lm_batches(2, ACCUM_N * B, T, 32000, seed=11)
+
+    def split(batch):
+        return [{k: a.replace(ids=a.ids[i * B:(i + 1) * B],
+                              lengths=a.lengths[i * B:(i + 1) * B])
+                 for k, a in batch.items()} for i in range(ACCUM_N)]
+    micro = split(cat)
+    cfg = transformer_lm_trainer_config(vocab=32000, dim=512, layers=layers,
+                                        heads=8, batch_size=B,
+                                        compute_dtype=dtype)
+    cfg.opt_config.num_batches_per_send_parameter = ACCUM_N
+    tr = Trainer(cfg, seed=1)
+    for b in split(warm):
+        tr.train_one_batch(b)
+    start = {n: p.clone() for n, p in tr.params.items()}
+    consumed = {}
+    window_mean = tr.updater.window_mean
+
+    def keep(summed, n):
+        consumed["mean"] = window_mean(summed, n)
+        return consumed["mean"]
+    tr.updater.window_mean = keep
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = []
+    for b in micro:
+        c0 = flash_counts()
+        tr.train_one_batch(b)
+        steps.append(tuple(x - y for x, y in zip(flash_counts(), c0)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / ACCUM_N
+    route = (layers,) * 3 + (0,) * 4 if dtype else (0,) * 3 + (layers,) * 3 \
+        + (0,)
+    counts = dict(zip(FLASH_COUNTS, map(sum, zip(*steps))))
+    moved = [n for n, p in tr.params.items() if not torch.equal(p, start[n])]
+    cfg1 = transformer_lm_trainer_config(vocab=32000, dim=512, layers=layers,
+                                         heads=8, batch_size=ACCUM_N * B,
+                                         compute_dtype=dtype)
+    ref = Trainer(cfg1, params=start)
+    _, grads, _ = ref.compute_gradients(ref.prepare_batch(cat))
+    worst, worst_name = 0.0, ""
+    for n, g in grads.items():
+        e = float((consumed["mean"][n] - g).abs().max()) / max(
+            float(g.abs().max()), 1e-30)
+        if e > worst:
+            worst, worst_name = e, n
+    what = dtype or "float32"
+    log(f"[train-jobs] (a) {what}: N={ACCUM_N} micro-batches of [{B}, {T}] "
+        f"at full width, after a warm-up window {ms:.2f} ms per micro-step "
+        f"(wall, eager); the window's mean "
+        f"gradient against one step on the [{ACCUM_N * B}, {T}] "
+        f"concatenation: worst {worst:.2e} of a parameter's largest "
+        f"({worst_name}; limit {ACCUM_LIMIT[dtype]:.2e}); flash launches "
+        f"per micro-step {dict(zip(FLASH_COUNTS, steps[0]))}; updates "
+        f"{tr.opt_state['num_updates']} (one a window), parameters moved by "
+        f"the second {len(moved)} of "
+        f"{len(start)} [{smi}]")
+    if any(s != route for s in steps):
+        raise AssertionError(f"(a) {what}: flash launches {steps}, want "
+                             f"{route} a micro-step")
+    if not (worst <= ACCUM_LIMIT[dtype] and set(consumed["mean"]) >= set(
+            grads) and tr.opt_state["num_updates"] == 2 and moved):
+        raise AssertionError(f"(a) {what}: the accumulated update is not "
+                             f"the concatenated batch's")
+    del tr, ref, grads, consumed, start
+    torch.cuda.empty_cache()
+    suffix = "_tc" if dtype else ""
+    return {f"flash_{k}{suffix}": counts[k + suffix]
+            for k in ("fwd", "bwd_dq", "bwd_dkv")}, ms
+
+
+def accum_kstep(smi: str) -> dict:
+    """(a) N = 3 at k = 4 against k = 1 over 12 bf16 micro-batches of
+    [2, 2048] (windows straddle the groups), then a second pass of 12 each:
+    losses, statistics, parameters, slots, counters, the window's sums bit
+    for bit; ms per micro-step of the second pass at k = 1 and 4 and of
+    the plain (N = 1) step."""
+    from paddle_tpu_torch.models import transformer_lm_trainer_config
+    from paddle_tpu_torch.trainer import Trainer
+
+    def make(n):
+        cfg = transformer_lm_trainer_config(vocab=32000, dim=512, layers=8,
+                                            heads=8, batch_size=2,
+                                            compute_dtype="bfloat16")
+        cfg.opt_config.num_batches_per_send_parameter = n
+        return Trainer(cfg, seed=1)
+    batches = lm_batches(24, 2, 2048, 32000, seed=12)
+    t1, tk, plain = make(ACCUM_KSTEP_N), make(ACCUM_KSTEP_N), make(1)
+    ms, same = {}, True
+    for half in (batches[:12], batches[12:]):
+        got = {}
+        for name, tr, k in (("k=1", t1, 1), (f"k={KSTEP}", tk, KSTEP),
+                            ("plain", plain, 1)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = pass_with_losses(tr, half, k)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3 / len(half)
+        (s1, l1), (sk, lk) = got["k=1"], got[f"k={KSTEP}"]
+        differ = training_state_differs(t1, tk)
+        same &= s1 == sk and torch.equal(l1, lk) and not differ
+    log(f"[train-jobs] (a) N={ACCUM_KSTEP_N}, bf16 [2, 2048]: k={KSTEP} "
+        f"against k=1 over two passes of 12 micro-steps: "
+        f"{'bit-identical' if same else 'DIFFER: ' + str(differ[:5])} "
+        f"(losses, statistics, parameters, slots, counters, window sums; "
+        f"{tk.n_fused_dispatches} group dispatches, graphs by group size "
+        f"{graph_replays(tk)}); the second pass {ms['k=1']:.2f} ms per "
+        f"micro-step at k=1, {ms[f'k={KSTEP}']:.2f} at k={KSTEP}, the "
+        f"plain step (N=1) {ms['plain']:.2f} [{smi}]")
+    if not same or not any(graph_replays(tk).values()):
+        raise AssertionError(f"(a) accumulation at k={KSTEP} is not "
+                             f"bit-identical to k=1")
+    del t1, tk, plain
+    torch.cuda.empty_cache()
+    return ms
+
+
+def sentiment_eval_config(root: str):
+    """demo/sentiment/trainer_config.py with SENT_EVAL_APPEND appended and
+    the net's output bound to `output` (parsed with is_predict=1, the net
+    without its own head, and dict_dim=30000 as [sentiment]): returns its
+    path."""
+    with open(SENT_EVAL_CONFIG) as f:
+        text = f.read()
+    call = "    stacked_lstm_net(dict_dim,"
+    if text.count(call) != 1:
+        raise AssertionError("the sentiment config's text changed")
+    text = text.replace(call, "    output = stacked_lstm_net(dict_dim,")
+    text = text.replace('os.path.dirname(os.path.abspath(__file__))',
+                        repr(os.path.abspath("demo/sentiment")))
+    path = os.path.join(root, "sentiment_eval.py")
+    with open(path, "w") as f:
+        f.write(text + SENT_EVAL_APPEND)
+    return path
+
+
+def sentiment_eval_batches(n: int, seed: int) -> list:
+    """[sentiment]'s [128, 100] batches with a weight in [0.5, 2) and a
+    query id of 16 per row."""
+    from paddle_tpu_torch.parameter import Argument
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in sentiment_batches(n, 128, 100, 30000, seed=seed):
+        B = b["word"].ids.shape[0]
+        b["weight"] = Argument(value=rng.uniform(0.5, 2.0, (B, 1))
+                               .astype(np.float32))
+        b["qid"] = Argument(ids=rng.integers(0, 16, B).astype(np.int32))
+        out.append(b)
+    return out
+
+
+def sentiment_evaluators(smi: str, root: str) -> tuple:
+    """(b) The sentiment net at [128, 100] (K3) with the new evaluators:
+    the pass's results on the card equal the CPU evaluators' on the same
+    fetched outputs (the card's outputs each step, read back), and k = 4
+    equals k = 1 bit for bit (results, parameters, slots); the AUC
+    evaluator's device time per step.  Returns ({kernel: launches} of the
+    k = 1 pass, the AUC's ms per step)."""
+    from paddle_tpu_torch.config.parser import parse_config
+    from paddle_tpu_torch.parameter import Argument
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.trainer.evaluators import (EvaluatorSet,
+                                                     evaluator_registry)
+    cfg = parse_config(sentiment_eval_config(root),
+                       "dict_dim=30000,is_predict=1")
+    batches = sentiment_eval_batches(SENT_EVAL_STEPS, seed=21)
+    t1, tk = Trainer(cfg, seed=1), Trainer(cfg, seed=1)
+    fetched = []
+    update = t1.evaluators.host_update
+
+    def keep(state, outputs):
+        fetched.append({n: Argument(value=None if a.value is None
+                                    else a.value.cpu(),
+                                    ids=None if a.ids is None
+                                    else a.ids.cpu())
+                        for n, a in outputs.items()})
+        return update(state, outputs)
+    t1.evaluators.host_update = keep
+    reset_counts()
+    s1, l1 = pass_with_losses(t1, batches, 1)
+    torch.cuda.synchronize()
+    launches = {"lstm_fwd": op_counts("lstm_fused").fwd,
+                "lstm_bwd": op_counts("lstm_fused").bwd}
+    plain = plain_calls()
+    sk, lk = pass_with_losses(tk, batches, KSTEP)
+    differ = training_state_differs(t1, tk)
+    cpu = EvaluatorSet(cfg.model_config)
+    acc, host = {}, cpu.new_host_state()
+    for outputs in fetched:
+        acc = cpu.accumulate(acc, cpu.batch_partials(outputs, {}))
+        cpu.host_update(host, outputs)
+    want = cpu.finalize(acc)
+    want.update(cpu.finalize_host(host))
+    got = {k: v for k, v in s1.items() if k in want}
+    results = sorted(k for k in want if k != "classification_error")
+    log(f"[train-jobs] (b) sentiment [128, 100] with auc (weighted), "
+        f"precision_recall, pnpair (weighted), auc-validation and a "
+        f"gradient printer, {SENT_EVAL_STEPS} steps: on the card "
+        + ", ".join(f"{k}={s1[k]:.6f}" for k in results)
+        + f"; the CPU evaluators on the fetched outputs "
+        f"{'equal' if got == want else 'DIFFER: ' + str(want)}; k={KSTEP} "
+        f"against k=1: statistics {'equal' if sk == s1 else 'DIFFER'}, "
+        f"losses {'bit-identical' if torch.equal(l1, lk) else 'DIFFER'}, "
+        f"state {'DIFFER: ' + str(differ[:4]) if differ else 'bit-identical'}"
+        f"; lstm launches {launches}, plain calls {plain}")
+    if not (got == want and sk == s1 and torch.equal(l1, lk) and not differ
+            and len(want) >= 10 and not any(plain.values())
+            and launches["lstm_fwd"] == 3 * SENT_EVAL_STEPS
+            and launches["lstm_bwd"] == 3 * SENT_EVAL_STEPS):
+        raise AssertionError("(b) the evaluators on the card disagree with "
+                             "the CPU's or k=4 with k=1")
+    auc_cfg = next(c for c in t1.evaluators.configs if c.name == "auc")
+    outputs = {n: Argument(value=None if a.value is None else a.value.cuda(),
+                           ids=None if a.ids is None else a.ids.cuda())
+               for n, a in fetched[0].items()}
+    auc_ms = time_call(lambda: evaluator_registry["auc"][0](
+        auc_cfg, outputs, {}), 50)
+    log(f"[train-jobs] (b) the AUC evaluator's histograms at [128, 2] with "
+        f"weights: {auc_ms * 1e3:.1f} us per step on the card [{smi}]")
+    del t1, tk
+    torch.cuda.empty_cache()
+    return launches, auc_ms
+
+
+def cli_procs(runs: dict, root: str) -> dict:
+    """Each run ({tag: argv}) of the port's CLI in a subprocess of its
+    own, started together; waits for all: {tag: (exit code, stdout,
+    stderr, seconds, the wrappers' counts)}."""
+    procs = {}
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    for tag, argv in runs.items():
+        out = open(os.path.join(root, f"{tag}.out"), "w+")
+        err = open(os.path.join(root, f"{tag}.err"), "w+")
+        p = subprocess.Popen([sys.executable, "-c", CLI_DRIVER, *argv],
+                             stdout=out, stderr=err, env=env)
+        procs[tag] = (p, out, err, time.perf_counter())
+    res = {}
+    try:
+        for tag, (p, out, err, t0) in procs.items():
+            rc = p.wait(timeout=600)
+            dt = time.perf_counter() - t0
+            out.seek(0)
+            err.seek(0)
+            stdout, stderr = out.read(), err.read()
+            counts = [json.loads(ln[7:]) for ln in stdout.splitlines()
+                      if ln.startswith("COUNTS ")]
+            res[tag] = (rc, stdout, stderr, dt, counts[0] if counts else {})
+    finally:
+        for p, out, err, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+            err.close()
+    return res
+
+
+def cli_expect(tag: str, res: tuple, rc: int, text: str) -> str:
+    """The run's exit code is rc and its log holds `text`; returns the
+    first log line holding it."""
+    code, _, err, _, _ = res
+    lines = [ln for ln in err.splitlines() if text in ln]
+    if code != rc or not lines:
+        found = "found" if lines else "not in the log"
+        raise AssertionError(f"[train-jobs] (c) {tag}: exit {code} (want "
+                             f"{rc}), {text!r} {found}:\n{err[-3000:]}")
+    return lines[0]
+
+
+def poisoned_sentiment(root: str) -> tuple:
+    """demo/sentiment/trainer_config.py's starting parameters (seed 1) with
+    NaN in the first column of the word embedding, saved: (the pass
+    directory, the embedding layer's name)."""
+    from paddle_tpu_torch.config.parser import parse_config
+    from paddle_tpu_torch.trainer import Trainer
+    tr = Trainer(parse_config(SENT_EVAL_CONFIG, ""), seed=1)
+    layer = next(l for l in tr.model.layers if l.inputs
+                 and l.inputs[0].input_parameter_name)
+    name = layer.inputs[0].input_parameter_name
+    tr.params[name][:, 0] = float("nan")
+    path = tr.save(os.path.join(root, "poisoned"))
+    del tr
+    return path, layer.name
+
+
+def cli_jobs(smi: str, root: str) -> dict:
+    """(c) The CLI in subprocesses: --job=checkgrad on the sentiment config
+    (K3) and on the LM at full width, 2 layers, fp32 (K4's float32
+    kernels), both exit 0 and their wrappers count those launches;
+    --detect_nan from a checkpoint whose embedding holds NaN: exit 1 and
+    the embedding layer named; two train passes at k = 4 with
+    --show_parameter_stats_period=2 and --save_dir: the stats logged,
+    metrics.jsonl with the registry snapshot, trainer.train_step and
+    trainer.fused_step among its compile sites, the device-memory gauges;
+    then alone --job=time with --profile_dir: samples/s, and the trace
+    names lstm_fwd_kernel.  Returns the figures PERF.md reads."""
+    poisoned, emb = poisoned_sentiment(root)
+    sent = f"--config={SENT_EVAL_CONFIG}"
+    save = os.path.join(root, "save")
+    runs = cli_procs({
+        "checkgrad-sentiment": [sent, "--job=checkgrad"],
+        "checkgrad-lm": ["--config=demo/model_zoo/transformer_lm.py",
+                         f"--config_args={LM_CHECKGRAD_ARGS}",
+                         "--job=checkgrad"],
+        "detect_nan": [sent, "--detect_nan", f"--init_model_path={poisoned}",
+                       "--num_passes=1"],
+        "train": [sent, "--num_passes=2", f"--save_dir={save}",
+                  f"--steps_per_dispatch={KSTEP}",
+                  "--show_parameter_stats_period=2"]}, root)
+    out = {}
+    for tag in ("checkgrad-sentiment", "checkgrad-lm"):
+        line = cli_expect(tag, runs[tag], 0, "checkgrad: ")
+        counts = runs[tag][4]
+        worst = float(line.split("max_rel_err=")[1])
+        out[tag] = (worst, runs[tag][3])
+        log(f"[train-jobs] (c) --job={tag}: exit 0 in {runs[tag][3]:.1f} s; "
+            f"{line.split('] ')[-1]}; wrapper counts {counts} [{smi}]")
+        kern = (("lstm_fwd", "lstm_bwd") if tag.endswith("sentiment")
+                else ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        if not (all(counts.get(k) for k in kern) and not counts.get(
+                "lstm_plain") and not counts.get("flash_plain")
+                and not counts.get("flash_tc")):
+            raise AssertionError(f"(c) {tag} did not run through its "
+                                 f"kernels: {counts}")
+    line = cli_expect("detect_nan", runs["detect_nan"], 1,
+                      f"first non-finite output at layer {emb!r}")
+    log(f"[train-jobs] (c) --detect_nan from a checkpoint with NaN in the "
+        f"embedding: exit 1, {line.split('] ')[-1][:160]}")
+    stats = [ln for ln in runs["train"][2].splitlines()
+             if "param " in ln and "mean_abs=" in ln]
+    cli_expect("train", runs["train"], 0, "pass 1 done")
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        rec = [json.loads(ln) for ln in f][-1]
+    m = rec.get("metrics", {})
+    sites = sorted({k.split('"')[1] for k in m
+                    if k.startswith("jit_compiles_total{")})
+    log(f"[train-jobs] (c) train at k={KSTEP} with "
+        f"--show_parameter_stats_period=2: {len(stats)} parameter stats "
+        f"lines; metrics.jsonl: {len(m)} samples, compile sites {sites}, "
+        f"hbm_live_array_bytes {m.get('hbm_live_array_bytes')}")
+    if not (stats and {"trainer.train_step", "trainer.fused_step"} <= set(
+            sites) and m.get("trainer_pass_id") == 2.0
+            and "hbm_live_array_bytes" in m):
+        raise AssertionError(f"(c) the train run's stats or metrics.jsonl "
+                             f"fell short: {sorted(m)[:20]}")
+    prof = os.path.join(root, "prof")
+    timed = cli_procs({"time": [sent, "--job=time",
+                                f"--profile_dir={prof}"]}, root)["time"]
+    line = cli_expect("time", timed, 0, "benchmark: ")
+    with open(os.path.join(prof, "trace.json")) as f:
+        trace = f.read()
+    named = bool(re.search(r"(?<!\w)lstm_fwd_kernel(?!\w)", trace))
+    out["time"] = float(line.split("benchmark: ")[1].split()[0])
+    log(f"[train-jobs] (c) --job=time --profile_dir: exit 0, "
+        f"{line.split('] ')[-1]} (under the profiler); the trace "
+        f"({len(trace) / 1e6:.1f} MB) {'names' if named else 'LACKS'} "
+        f"lstm_fwd_kernel [{smi}]")
+    if not named:
+        raise AssertionError("(c) the profiler trace lacks lstm_fwd_kernel")
+    return out
+
+
+def k3_records(launches: dict, smi: str, tag: str) -> list:
+    """The two LSTM kernels at the sentiment net's shape ([128, 100, 128],
+    relu cell, peepholes) against their plain version, then timed beside
+    their bound, the plain version and a cuDNN LSTM of the same sizes (as
+    lstm_records, without its plans and phase split)."""
+    from paddle_tpu_torch.ops import lstm_fused as lf
+    B, T, D = 128, 100, 128
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    names = ("relu", "sigmoid", "tanh")
+    acts = dict(active_type="relu", gate_active_type="sigmoid",
+                state_active_type="tanh")
+    inputs, cot = lstm_inputs(g, B, T, D, True, False)
+    inputs = move_off_relu_kink(inputs, False, **acts)
+    errs = lstm_compare(inputs, cot, False, **acts)
+    if not max(r for _, r in errs.values()) <= LSTM_TOL:
+        raise AssertionError(f"{tag}: lstm kernels disagree: {errs}")
+    err = {"lstm_fwd": max(errs[n][0] for n in LSTM_NAMES[:3]),
+           "lstm_bwd": max(errs[n][0] for n in LSTM_NAMES[3:])}
+    x4, lens, w, peeps, h0, c0 = inputs
+    hs, cs, gates = lf.lstm_fwd_kernel(x4, lens, w, peeps, h0, c0, names,
+                                       False, save_gates=True)
+    ms = {"lstm_fwd": time_call(lambda: lf.lstm_fwd_kernel(
+              x4, lens, w, peeps, h0, c0, names, False, save_gates=True), 20),
+          "lstm_bwd": time_call(lambda: lf.lstm_bwd_kernel(
+              lens, w, peeps, h0, c0, hs, cs, gates, *cot, names, False), 20)}
+    leaves = [t.clone().requires_grad_(True) for t in (x4, w, peeps, h0, c0)]
+
+    def plain_fwd():
+        return lf.lstm_fused_plain(leaves[0], lens, *leaves[1:], **acts)
+    plain = {"lstm_fwd": time_call(plain_fwd, 3)}
+    y = plain_fwd()
+    loss = sum((o * c).sum() for o, c in zip(y, cot))
+    plain["lstm_bwd"] = time_call(lambda: torch.autograd.grad(
+        loss, leaves, retain_graph=True), 3)
+    cudnn = torch.nn.LSTM(4 * D, D, batch_first=True).cuda()
+    xin = x4.clone().requires_grad_(True)
+    with torch.no_grad():
+        lib = {"lstm_fwd": time_call(lambda: cudnn(xin), 10)}
+    yc, _ = cudnn(xin)
+    lib["lstm_bwd"] = time_call(lambda: torch.autograd.grad(
+        yc, [xin, *cudnn.parameters()], cot[0], retain_graph=True), 10)
+    work = lstm_work(float(lens.sum()), B, T, D)
+    records = []
+    for name, src_line in (("lstm_fwd", 66), ("lstm_bwd", 99)):
+        nbytes, flops = work[name]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        log(f"{tag} {name} at [{B}, {T}, {D}]: {ms[name] * 1e3:.1f} "
+            f"us/launch, bound {bound_ms * 1e3:.1f} us, plain "
+            f"{plain[name] * 1e3:.1f} us, cuDNN LSTM {lib[name] * 1e3:.1f} "
+            f"us; error {err[name]:.2e}; launches {launches[name]} [{smi}]")
+        records.append({
+            "name": f"{name} [{B}, {T}, {D}] train-jobs", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/lstm.cu",
+            "replaces": f"paddle_tpu/ops/pallas_rnn.py:{src_line}",
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": ms[name], "plain_ms": plain[name], "bound_ms": bound_ms,
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "library_ms": lib[name]})
+    return records
+
+
+def phase_train_jobs(smi: str) -> list:
+    """The training features: (a) gradient accumulation on the LM at full
+    width in float32 and bf16 (K4) and at k = 4; (b) the sentiment net
+    (K3) with the new evaluators; (c) the CLI's jobs and flags in
+    subprocesses.  Returns the K4 records at (a)'s shape (both dtypes,
+    with (a)'s launches) and the K3 records with (b)'s."""
+    import tempfile
+    records = []
+    for dtype in ("", "bfloat16"):
+        launches, _ = accum_window(dtype, smi)
+        recs = flash_records(launches, 2, 2048, torch.bfloat16 if dtype
+                             else torch.float32, smi, "[train-jobs]")
+        for r in recs:
+            if not r["name"].endswith("]"):
+                r["name"] += " [2, 2048, 8, 64]"
+            r["name"] += f" accumulated, N={ACCUM_N}"
+        records += recs
+    accum_kstep(smi)
+    with tempfile.TemporaryDirectory() as root:
+        launches, _ = sentiment_evaluators(smi, root)
+        records += k3_records(launches, smi, "[train-jobs]")
+        torch.cuda.empty_cache()
+        cli_jobs(smi, root)
+    return records
 
 
 # -- the fused LSTM (K3) and the sentiment path --------------------------------
@@ -6376,12 +6983,19 @@ def cli_kernel_checks(tag: str, cfg, train_b: list, test_b: list,
     return len(calls)
 
 
+def pass_statistics(row: dict) -> dict:
+    """A metrics.jsonl row without its times and the registry snapshot (the
+    host's phases, compile events and memory: not training results)."""
+    return {n: v for n, v in row.items()
+            if n not in ("ts", "seconds", "samples_per_sec", "metrics")}
+
+
 def cli_pair(tag: str, path: str, args: str, train_route, test_route,
              out: str, smi: str = "", extra: tuple = ()) -> dict:
     """`python -m paddle_tpu_torch train --config=path --config_args=args
     --num_passes=1` (and the flags `extra`) in this process at
-    --steps_per_dispatch=1 and KSTEP,
-    each under torch.profiler, the counts set to 0 before it: exit 0, the
+    --steps_per_dispatch=1 and KSTEP (cli_run: KSTEP under torch.profiler,
+    k = 1 timed alone), the counts set to 0 before each: exit 0, the
     kernels launched as the pass's training batches (`train_route`) and
     test batches (`test_route`) say, held by the wrappers at k = 1 and by
     the profiler at KSTEP, no plain version; the two runs' pass
@@ -6421,14 +7035,15 @@ def cli_pair(tag: str, path: str, args: str, train_route, test_route,
                         *extra])
 
         reset_counts()
-        rc, wall, kernels, _ = profiled(train)
-        busy = sum(dev_us(e) for e in kernels) / 1e3
+        rc, wall, kernels = cli_run(train, k)
+        busy, busy_txt = busy_text(kernels, wall)
         if rc != 0:
             raise AssertionError(f"[cli] {tag} k={k}: exit code {rc}")
         line = check_launches(f"[cli] {tag} k={k}", kernels, want, k > 1)
         with open(os.path.join(save, "metrics.jsonl")) as f:
             row = json.loads(f.readline())
-        runs[k] = dict(row=row, save=save, wall_ms=wall, busy=busy / wall,
+        runs[k] = dict(row=row, save=save, wall_ms=wall,
+                       busy=None if busy is None else busy / wall,
                        counted=wrapper_counts(want))
         log(f"[cli] {tag} k={k}: {row['batches']} batches, "
             f"{row['samples']} samples, cost {row['cost']:.5g}; "
@@ -6436,11 +7051,8 @@ def cli_pair(tag: str, path: str, args: str, train_route, test_route,
             f"provider's load, the first step of each shape and the "
             f"captures included); the whole call (parse, init, pass, test "
             f"pass of {len(test_b)} batches, checkpoint) {wall / 1e3:.2f} "
-            f"s, device busy {busy:.1f} ms = {busy / wall:.1%}; {line} "
-            f"[{smi}]")
-    stats = [{n: v for n, v in runs[k]["row"].items()
-              if n not in ("ts", "seconds", "samples_per_sec")}
-             for k in (1, KSTEP)]
+            f"s, {busy_txt}; {line} [{smi}]")
+    stats = [pass_statistics(runs[k]["row"]) for k in (1, KSTEP)]
     differ = checkpoint_differs(
         os.path.join(runs[1]["save"], "pass-00000"),
         os.path.join(runs[KSTEP]["save"], "pass-00000"))
@@ -6563,6 +7175,10 @@ IMAGE_RUNS = (
 )
 # no hand-written kernel lies on the image path: each must launch 0 times
 NO_KERNELS = {sym: 0 for sym in KERNEL_COUNTERS}
+# batches of the [image] and [tagging] steady passes at most (the first of
+# the feeder's): enough for every group of KSTEP to be a replay, and few
+# enough that the profiler's passes stay short
+STEADY_BATCHES = 16
 
 
 def image_batches(n: int, B: int, C: int, size: int, seed: int,
@@ -6595,8 +7211,9 @@ def top_ops(kernels, n: int = 5) -> str:
 
 def image_steady(tag: str, cfg, save: str, batches: list, smi: str) -> dict:
     """The path past its first passes, per k in (1, KSTEP): a Trainer here
-    on the checkpoint the CLI's k = 1 run saved, passes over the feeder's
-    batches (assembled beforehand, so the provider is not timed) until
+    on the checkpoint the CLI's k = 1 run saved, passes over `batches`
+    (the feeder's first STEADY_BATCHES, assembled beforehand, so the
+    provider is not timed) until
     every group is a replay, then one under the profiler: wall and device
     ms/step, busy share, samples/s, the top device operations, and the
     peak memory of the trainer's passes (torch.cuda.max_memory_allocated
@@ -6654,8 +7271,8 @@ def image_steady(tag: str, cfg, save: str, batches: list, smi: str) -> dict:
 
 def image_pair(tag: str, path: str, args: str, out: str, smi: str) -> dict:
     """`python -m paddle_tpu_torch train --config=path --config_args=args
-    --num_passes=1` in this process at --steps_per_dispatch=1 and KSTEP,
-    each under torch.profiler with the counts set to 0: exit 0, no
+    --num_passes=1` in this process at --steps_per_dispatch=1 and KSTEP
+    (cli_run), the counts set to 0 before each: exit 0, no
     hand-written kernel and no plain version; the two runs' pass
     statistics and checkpoints (parameters, momentum slots, every batch
     norm's moving mean, variance and count, dropout generator)
@@ -6688,27 +7305,25 @@ def image_pair(tag: str, path: str, args: str, out: str, smi: str) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        rc, wall, kernels, _ = profiled(train)
+        rc, wall, kernels = cli_run(train, k)
         if rc != 0:
             raise AssertionError(f"[image] {tag} k={k}: exit code {rc}")
         line = check_launches(f"[image] {tag} k={k}", kernels, NO_KERNELS,
                               k > 1, NO_KERNELS)
-        busy = sum(dev_us(e) for e in kernels) / 1e3
+        busy, busy_txt = busy_text(kernels, wall)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         with open(os.path.join(save, "metrics.jsonl")) as f:
             row = json.loads(f.readline())
-        runs[k] = dict(row=row, save=save, wall_ms=wall, busy=busy / wall,
-                       peak=peak)
+        runs[k] = dict(row=row, save=save, wall_ms=wall,
+                       busy=None if busy is None else busy / wall, peak=peak)
         log(f"[image] {tag} k={k}: {row['batches']} batches, "
             f"{row['samples']} samples, cost {row['cost']:.5g}, "
             f"classification_error {row.get('classification_error', 0):.4f}"
             f"; {row['samples_per_sec']:.1f} samples/s over the pass (the "
             f"provider, the first step and the captures included); the "
-            f"whole call {wall / 1e3:.2f} s, device busy {busy:.1f} ms = "
-            f"{busy / wall:.1%}, peak memory {peak:.2f} GiB; {line} [{smi}]")
-    stats = [{n: v for n, v in runs[k]["row"].items()
-              if n not in ("ts", "seconds", "samples_per_sec")}
-             for k in (1, KSTEP)]
+            f"whole call {wall / 1e3:.2f} s, {busy_txt}, peak memory "
+            f"{peak:.2f} GiB; {line} [{smi}]")
+    stats = [pass_statistics(runs[k]["row"]) for k in (1, KSTEP)]
     differ = checkpoint_differs(
         os.path.join(runs[1]["save"], "pass-00000"),
         os.path.join(runs[KSTEP]["save"], "pass-00000"))
@@ -6729,7 +7344,8 @@ def image_pair(tag: str, path: str, args: str, out: str, smi: str) -> dict:
                              f"counts {sorted(counts)} are not the pass's "
                              f"{len(train_b)} steps")
     cli_test_round_trip(tag, path, args, runs[1]["save"], cfg)
-    steady_b = train_b if len(train_b) >= 8 else train_b * 2
+    steady_b = (train_b if len(train_b) >= 8 else train_b * 2)[
+        :STEADY_BATCHES]
     steady = image_steady(tag, cfg, runs[1]["save"], steady_b, smi)
     return dict(runs=runs, steady=steady, host_ms=host_ms,
                 seconds=time.perf_counter() - start)
@@ -7009,7 +7625,7 @@ def phase_tagging(smi: str) -> list:
                 log(f"[tagging] {tag} test pass on the {which}parameters: "
                     f"cost {got['cost']:.5g} {evals}")
             batches = list(make_feeder(res["cfg"], res["cfg"].data_config,
-                                       True).batches())
+                                       True).batches())[:STEADY_BATCHES]
             steady = tagging_steady(tag, res["cfg"], r1["save"], batches,
                                     train_route, smi)
             if tag == "srl":
@@ -7544,6 +8160,7 @@ def main(argv=None) -> int:
     flash = phase("train", phase_train, smi)
     flash += phase("train-fp32", phase_train_fp32, smi)
     flash += phase("train-routes", phase_train_routes, smi)
+    flash += phase("train-jobs", phase_train_jobs, smi)
     phase("lstm", phase_lstm)
     lstm = phase("sentiment", phase_sentiment, smi)
     phase("sentiment-routes", phase_sentiment_routes)

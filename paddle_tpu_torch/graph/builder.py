@@ -100,6 +100,17 @@ class _Link:
         return _arg(self.seq, lengths)
 
 
+def _probed(out: Argument, probes: dict, name: str) -> Argument:
+    """A layer's output with its probe added to the value (a zero tensor of
+    the value's shape made for a probe given as None)."""
+    if out.value is None:
+        raise ValueError(f"gradient_printer on {name!r}: the layer's output "
+                         f"has no dense value to probe (ids-only output)")
+    if probes[name] is None:
+        probes[name] = torch.zeros_like(out.value, requires_grad=True)
+    return out.replace(value=out.value + probes[name])
+
+
 class GraphExecutor:
     """Builds and runs the layer graph described by a ModelConfig.
 
@@ -189,16 +200,20 @@ class GraphExecutor:
         feed = {name: cast(arg) for name, arg in feed.items()}
         return params, feed
 
-    def run_layers(self, ctx: ForwardContext, skip_sub=None) -> None:
+    def run_layers(self, ctx: ForwardContext, skip_sub=None,
+                   probes: Optional[dict] = None) -> None:
         """The root walk: every layer whose inputs are there, every group
         whose in-links and static links are (`skip_sub` and generation-only
-        groups excepted; generate() runs those)."""
+        groups excepted; generate() runs those).  A layer named in `probes`
+        has its probe added to its output value (`forward`)."""
         for kind, item in self._plan:
             if kind == "layer":
                 if all(inp.input_layer_name in ctx.outputs
                        for inp in item.inputs):
-                    ctx.outputs[item.name] = get_layer_fn(item.type)(ctx,
-                                                                     item)
+                    out = get_layer_fn(item.type)(ctx, item)
+                    if probes is not None and item.name in probes:
+                        out = _probed(out, probes, item.name)
+                    ctx.outputs[item.name] = out
             elif item is not skip_sub and item.in_links and all(
                     n in ctx.outputs
                     for n in item.in_links + item.static_links):
@@ -208,36 +223,48 @@ class GraphExecutor:
                 feed: dict[str, Argument],
                 state: Optional[dict[str, Any]] = None,
                 mode: str = TEST, rng: Optional[torch.Generator] = None,
-                dropout_masks: Optional[dict[str, torch.Tensor]] = None):
+                dropout_masks: Optional[dict[str, torch.Tensor]] = None,
+                probes: Optional[dict] = None,
+                differentiable: bool = False):
         """Run the graph.  Returns (layer outputs, per-sample costs by cost
         layer, new state).  Layers and groups whose inputs were not fed
         (the training head, for a feed without labels) are skipped.  TEST
-        runs without autograd; TRAIN records the graph for
+        runs without autograd unless `differentiable` (the gradient
+        check's TEST loss); TRAIN records the graph for
         `loss(...).backward()`.  A TRAIN forward of a model with dropout
         draws its masks from `rng`, except for the layers whose keep-mask
-        `dropout_masks` supplies."""
+        `dropout_masks` supplies.
+
+        `probes` maps root layer names to zero tensors added to those
+        layers' output values: the gradient of the loss with respect to a
+        probe is the layer's output gradient (what the gradient_printer
+        evaluator prints; the reference reads Layer::getOutputGrad()).  A
+        name mapped to None gets a zero tensor of its output's shape made
+        here, requiring grad, and stored into the dict."""
         if mode not in (TRAIN, TEST):
             raise ValueError(f"mode {mode!r}: expected {TRAIN!r} or {TEST!r}"
                              f" (generation: graph/generator.py)")
-        with torch.set_grad_enabled(mode == TRAIN and
+        with torch.set_grad_enabled((mode == TRAIN or differentiable) and
                                     torch.is_grad_enabled()):
             params, feed = self.prepare(params, feed)
             ctx = ForwardContext(model=self.model, params=params, mode=mode,
                                  state_in=state or {}, rng=rng,
                                  dropout_masks=dropout_masks or {})
             ctx.outputs.update(feed)
-            self.run_layers(ctx)
+            self.run_layers(ctx, probes=probes)
         return ctx.outputs, ctx.costs, ctx.state_out
 
     def loss(self, params: dict[str, torch.Tensor],
              feed: dict[str, Argument],
              state: Optional[dict[str, Any]] = None, mode: str = TRAIN,
              rng: Optional[torch.Generator] = None,
-             dropout_masks: Optional[dict[str, torch.Tensor]] = None):
+             dropout_masks: Optional[dict[str, torch.Tensor]] = None,
+             probes: Optional[dict] = None, differentiable: bool = False):
         """The sum over cost layers of each cost's batch mean, in at least
         float32, and the forward's (outputs, costs, state)."""
         outputs, costs, new_state = self.forward(params, feed, state, mode,
-                                                 rng, dropout_masks)
+                                                 rng, dropout_masks, probes,
+                                                 differentiable)
         if not costs:
             raise ValueError("model has no cost layers (or their inputs "
                              "were not fed)")

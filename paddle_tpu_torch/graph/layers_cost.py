@@ -6,9 +6,10 @@ batch means into the scalar that autograd differentiates.  Every cost type
 of the JAX module is here: multi-class cross-entropy (plain and
 self-normalized), soft-binary and multi-binary-label cross-entropy, the
 square error, the pairwise rank cost, the two-class huber cost, the sum
-cost and the LambdaRank surrogate.  The validation layers
-(`auc-validation`, `pnpair-validation`) are queued in ROADMAP.md with
-their evaluators; `crf` is in layers_seq.py.
+cost and the LambdaRank surrogate; `crf` is in layers_seq.py.  The
+validation layers (`auc-validation`, `pnpair-validation`) pass their score
+input through without a gradient; the evaluator each hosts is made from
+the layer's config by trainer/evaluators.py.
 """
 
 from __future__ import annotations
@@ -151,3 +152,19 @@ def lambda_cost(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     better = (rdiff > 0).to(s.dtype)
     pair_cost = F.softplus(-sdiff) * better * torch.abs(rdiff) * pair_valid
     return _record(ctx, cfg, torch.sum(pair_cost, dim=(1, 2)))
+
+
+@register_layer("auc-validation", "pnpair-validation")
+def validation_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """Evaluation inside the graph during training (ref:
+    ValidationLayer.cpp AucValidation / PnpairValidation, whose backward is
+    a no-op): the score input passed through, detached.  EvaluatorSet
+    makes the 'last-column-auc' or 'pnpair' evaluator it hosts from the
+    layer's inputs."""
+    out = ctx.get_input(cfg, 0)
+
+    def stop(t):
+        return None if t is None else t.detach()
+    return out.replace(value=stop(out.value), ids=stop(out.ids),
+                       lengths=stop(out.lengths),
+                       sub_lengths=stop(out.sub_lengths))

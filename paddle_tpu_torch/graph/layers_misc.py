@@ -12,12 +12,14 @@ from paddle_tpu_torch.graph.common import finish_layer
 from paddle_tpu_torch.graph.context import ForwardContext
 from paddle_tpu_torch.graph.registry import register_layer
 from paddle_tpu_torch.parameter.argument import Argument
+from paddle_tpu_torch.utils.dtypes import promote_compute
 
 
 @register_layer("layer_norm")
 def layer_norm_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     """Last-dim layer normalization with learned [1, D] scale and bias.
-    Statistics in float32 with the population variance and
+    Statistics in float32 (float64 input, the gradient check's float64
+    pass on the CPU, in float64) with the population variance and
     rsqrt(var + 1e-6) — not F.layer_norm's default 1e-5 — and the result
     cast back to the input dtype.
 
@@ -29,14 +31,14 @@ def layer_norm_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     to bfloat16 results 1 ulp apart now and then, and a served token
     could follow the schedule."""
     x = ctx.get_input(cfg, 0)
-    v32 = x.value.float()
+    v32 = promote_compute(x.value)
     normed = F.layer_norm(v32, v32.shape[-1:], eps=1e-6)
     scale = ctx.param_of(cfg, 0)
     if scale is not None:
-        normed = normed * scale.float().reshape(-1)
+        normed = normed * scale.to(v32.dtype).reshape(-1)
     b = ctx.bias_of(cfg)
     if b is not None:
-        normed = normed + b.float().reshape(-1)
+        normed = normed + b.to(v32.dtype).reshape(-1)
     return finish_layer(ctx, cfg, normed.to(x.value.dtype), like=x)
 
 

@@ -21,8 +21,8 @@ LayerFn = Callable[..., "Argument"]  # noqa: F821
 layer_registry: dict[str, LayerFn] = {}
 
 # the JAX package's cost and validation layer types; the port implements
-# the costs of layers_cost.py and crf (layers_seq.py); ctc, nce, hsigmoid
-# and the validation layers are queued in ROADMAP.md
+# the costs and the validation layers of layers_cost.py and crf
+# (layers_seq.py); ctc, nce and hsigmoid are queued in ROADMAP.md
 cost_layer_types = frozenset({
     "multi-class-cross-entropy", "multi_class_cross_entropy_with_selfnorm",
     "soft_binary_class_cross_entropy", "multi_binary_label_cross_entropy",

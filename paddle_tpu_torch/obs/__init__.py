@@ -7,7 +7,8 @@ modules, with the reference's names:
     bundles (`get_flight_recorder()`, off by default);
   * `obs.metrics` — counters, gauges and histograms, the Prometheus
     render, the metric-name `CATALOG`, `statset_collector` (a
-    utils/stat.py StatSet as quantile gauges);
+    utils/stat.py StatSet as quantile gauges), `barrier_collector` (the
+    trainer's parallel/barrier_stat.py windows);
   * `obs.compile_watch` — per-signature compile events and the storm
     detector (`get_compile_watch()`, always on);
   * `obs.hbm` — device-memory gauges from the CUDA caching allocator
@@ -15,8 +16,6 @@ modules, with the reference's names:
   * `obs.timeseries` — the health plane's downsampled ring per metric
     series (`MetricHistory`), its sampler thread and the `history` RPC;
   * `obs.slo` — SLO specs and multi-window burn-rate alerting over it.
-
-Not ported yet (ROADMAP.md, Queue 1): `barrier_collector`.
 """
 
 from paddle_tpu_torch.obs.compile_watch import (CompileWatch,  # noqa: F401
@@ -29,6 +28,7 @@ from paddle_tpu_torch.obs.flight import (FlightRecorder,  # noqa: F401
 from paddle_tpu_torch.obs.hbm import hbm_collector, hbm_snapshot  # noqa: F401
 from paddle_tpu_torch.obs.metrics import (CATALOG, Counter,  # noqa: F401
                                           Gauge, Histogram, MetricsRegistry,
+                                          barrier_collector,
                                           statset_collector,
                                           tracer_collector)
 from paddle_tpu_torch.obs.slo import (SloEvaluator, SloSpec,  # noqa: F401
@@ -49,7 +49,8 @@ from paddle_tpu_torch.obs.trace import (Tracer, flush_trace_file,  # noqa: F401
 __all__ = ["Tracer", "get_tracer", "spans_to_chrome", "merge_chrome",
            "flush_trace_file", "trace_reply", "new_trace_id", "new_span_id",
            "process_info", "MetricsRegistry", "Counter", "Gauge",
-           "Histogram", "CATALOG", "statset_collector", "tracer_collector",
+           "Histogram", "CATALOG", "barrier_collector", "statset_collector",
+           "tracer_collector",
            "CompileWatch", "get_compile_watch", "compile_collector",
            "signature_of", "FlightRecorder", "get_flight_recorder",
            "flight_collector", "load_bundle", "hbm_collector",

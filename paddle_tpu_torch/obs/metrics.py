@@ -12,10 +12,9 @@ reference's name -> help map, whole; a registry built with `strict=True`
 refuses any name outside it.  The serving engine's histograms
 (`step_tokens_hist`, `decode_gap_hist`, `draft_ms_hist`, `spec_k_hist`)
 are standalone `Histogram`s of this module; `statset_collector` reads a
-utils/stat.py `StatSet` (the serving front end's latency windows).
-
-Not ported yet (ROADMAP.md, Queue 1): `barrier_collector` (with
-parallel/barrier_stat.py).
+utils/stat.py `StatSet` (the serving front end's latency windows and
+the trainer's host phases); `barrier_collector` reads the trainer's
+parallel/barrier_stat.py `BarrierTimer`.
 """
 
 from __future__ import annotations
@@ -555,6 +554,21 @@ def statset_collector(statset, metric: str, count_metric: str,
             if total_metric is not None:
                 out.append((total_metric, "counter", {label: name},
                             float(s.total_s)))
+        return out
+
+    return collect
+
+
+def barrier_collector(bt, metric: str = "trainer_barrier_seconds"):
+    """Expose a BarrierTimer's rolling windows (dispatch/sync/h2d/scan)
+    as quantile gauges, in seconds."""
+
+    def collect():
+        out = []
+        for window, pct in bt.local_summary().items():     # values in ms
+            for q, v in pct.items():
+                out.append((metric, "gauge",
+                            {"window": window, "quantile": q}, v / 1e3))
         return out
 
     return collect

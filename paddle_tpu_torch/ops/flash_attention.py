@@ -36,6 +36,7 @@ from typing import Optional, Union
 import torch
 
 from paddle_tpu_torch.ops import cuda_build
+from paddle_tpu_torch.utils.dtypes import promote_compute
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128      # head dims the kernels take (instances for 64, 128)
@@ -135,19 +136,20 @@ def _score_mask(kv_mask, Tq: int, causal: bool, q_offset: int, k_offset: int,
 
 
 def _expand(x: torch.Tensor, H: int) -> torch.Tensor:
-    """[B, Tk, H_kv, D] -> [B, H, Tk, D] float32, each kv head repeated over
-    its query-head group."""
-    x = x.float().permute(0, 2, 1, 3)
+    """[B, Tk, H_kv, D] -> [B, H, Tk, D] in at least float32, each kv head
+    repeated over its query-head group."""
+    x = promote_compute(x).permute(0, 2, 1, 3)
     rep = H // x.shape[1]
     return x.repeat_interleave(rep, dim=1) if rep > 1 else x
 
 
 def _plain_probs(q, k, kv_mask, causal, scale, q_offset, k_offset, window,
                  lse=None):
-    """Masked scores [B, H, Tq, Tk] in float32, the mask, and p: the softmax
-    (forward) or exp(s - lse) recomputed from a given lse (backward)."""
+    """Masked scores [B, H, Tq, Tk] in at least float32, the mask, and p:
+    the softmax (forward) or exp(s - lse) recomputed from a given lse
+    (backward)."""
     H = q.shape[2]
-    qh = q.float().permute(0, 2, 1, 3)
+    qh = promote_compute(q).permute(0, 2, 1, 3)
     s = torch.matmul(qh, _expand(k, H).transpose(-1, -2)) * scale
     mask = _score_mask(kv_mask, q.shape[1], causal, q_offset, k_offset,
                        window)
@@ -165,7 +167,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k_offset: int = 0, window: Optional[int] = None):
     """The forward kernel's function in plain PyTorch: (o [B, Tq, H, D] in
     q's dtype, lse [B, H, Tq] float32), scores and softmax in float32; rows
-    without a valid key give o = 0, lse = -inf."""
+    without a valid key give o = 0, lse = -inf.  Float64 inputs (the
+    gradient check's float64 pass on the CPU) stay float64 throughout."""
     counts.plain += 1
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -205,12 +208,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     delta = backward_delta(o, do, dlse)
     _, _, p = _plain_probs(q, k, kv_mask, causal, scale, q_offset, k_offset,
                            window, lse=lse)
-    doh = do.float().permute(0, 2, 1, 3)                       # [B, H, Tq, D]
+    doh = promote_compute(do).permute(0, 2, 1, 3)              # [B, H, Tq, D]
     dv = torch.matmul(p.transpose(-1, -2), doh)                # [B, H, Tk, D]
     dp = torch.matmul(doh, _expand(v, H).transpose(-1, -2))
     ds = p * (dp - delta[..., None]) * scale
     dq = torch.matmul(ds, _expand(k, H))
-    dk = torch.matmul(ds.transpose(-1, -2), q.float().permute(0, 2, 1, 3))
+    dk = torch.matmul(ds.transpose(-1, -2),
+                      promote_compute(q).permute(0, 2, 1, 3))
 
     def to_kv(g, like):                        # sum the group, [B, Tk, Hkv, D]
         g = g.reshape(B, h_kv, H // h_kv, *g.shape[2:]).sum(dim=2)
@@ -222,9 +226,10 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 def backward_delta(o, do, dlse) -> torch.Tensor:
     """delta = rowsum(do * o) - dlse as [B, H, Tq] float32, non-finite
     entries set to 0 (pallas_attention._bwd_call)."""
-    delta = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1)
+    delta = (promote_compute(do) * promote_compute(o)).sum(
+        dim=-1).permute(0, 2, 1)
     if dlse is not None:
-        delta = delta - dlse.float()
+        delta = delta - promote_compute(dlse)
     return torch.where(torch.isfinite(delta), delta,
                        torch.zeros((), device=delta.device)).contiguous()
 

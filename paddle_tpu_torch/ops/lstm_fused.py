@@ -45,6 +45,7 @@ import torch
 from paddle_tpu_torch.ops import cuda_build
 from paddle_tpu_torch.ops.activations import (ACT_GRAD_FROM_OUTPUT,
                                               activation_registry)
+from paddle_tpu_torch.utils.dtypes import promote_compute
 
 # activation name -> the kernels' code (csrc/lstm.cu act_fwd / act_grad)
 ACT_CODES = {"sigmoid": 0, "tanh": 1, "relu": 2, "linear": 3, "": 3}
@@ -407,13 +408,14 @@ def lstm_fused_plain(x4: torch.Tensor, lengths: torch.Tensor,
                      c0: torch.Tensor, *, active_type: str = "tanh",
                      gate_active_type: str = "sigmoid",
                      state_active_type: str = "tanh", reverse: bool = False):
-    """The kernels' function in plain PyTorch, float32, differentiable by
-    autograd: (hs [B, T, D], h_last, c_last)."""
+    """The kernels' function in plain PyTorch, float32 (float64 inputs, the
+    gradient check's float64 pass on the CPU, stay float64),
+    differentiable by autograd: (hs [B, T, D], h_last, c_last)."""
     counts.plain += 1
     _check(x4, lengths, w, peeps, h0, c0)
     acts = _act_names(active_type, gate_active_type, state_active_type)
-    hs, cs = _plain_steps(x4.float(), lengths, w.float(), peeps.float(),
-                          h0.float(), c0.float(), acts, reverse)
+    hs, cs = _plain_steps(*map(promote_compute, (x4, lengths, w, peeps, h0,
+                                                 c0)), acts, reverse)
     tl = _last(reverse, x4.shape[1])
     return hs, hs[:, tl], cs[:, tl]
 

@@ -94,20 +94,28 @@ def opt_state_from_jax(np_opt_state: Mapping[str, Any],
     """Carry a JAX `ParameterUpdater` state (`Trainer.opt_state` with its
     leaves converted by np.asarray) into the port's form: the per-parameter
     slots as tensors (Adam's m/v, momentum, ...), `num_samples`,
-    `num_updates`, `pass_id` as Python ints, and under model averaging
-    the `average` tensors and the int32 `average_count`."""
+    `num_updates`, `pass_id` as Python ints, under model averaging the
+    `average` tensors and the int32 `average_count`, under gradient
+    accumulation the window's `grad_accum` sums (float32) with its
+    `grad_accum_count` and `grad_accum_samples` as Python ints, and the
+    pruning `masks`."""
     dev = resolve_device(device)
-    slots = {name: {k: torch.from_numpy(np.array(v, dtype=np.float32)
-                                        ).to(dev)
-                    for k, v in per.items()}
+
+    def tensors(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+        return {name: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+                for name, v in tree.items()}
+    slots = {name: tensors(per)
              for name, per in np_opt_state["slots"].items()}
     out: dict[str, Any] = {"slots": slots}
-    for k in ("num_samples", "num_updates", "pass_id"):
-        out[k] = int(np.asarray(np_opt_state[k]))
+    for k in ("num_samples", "num_updates", "pass_id", "grad_accum_count",
+              "grad_accum_samples"):
+        if k in np_opt_state:
+            out[k] = int(np.asarray(np_opt_state[k]))
+    for k in ("grad_accum", "masks"):
+        if k in np_opt_state:
+            out[k] = tensors(np_opt_state[k])
     if "average" in np_opt_state:
-        out["average"] = {name: torch.from_numpy(np.array(
-            v, dtype=np.float32)).to(dev)
-            for name, v in np_opt_state["average"].items()}
+        out["average"] = tensors(np_opt_state["average"])
         out["average_count"] = torch.tensor(
             int(np.asarray(np_opt_state["average_count"])),
             dtype=torch.int32, device=dev)

@@ -6,12 +6,14 @@ A pass directory `pass-%05d` (or `pass-init` before the first pass
 completed) holds `model.npz` and `trainer_config.json`.  The npz keys are
 the nested state trees flattened with `|` and sorted dict keys:
 `params|<name>`, `opt|slots|<name>|<slot>`, `opt|num_samples`,
-`opt|num_updates`, `opt|pass_id` (0-d int32, as JAX writes them),
-`net|...`, `rng` when one was loaded from a JAX checkpoint, and
-`dropout_rng` (the state bytes of the port's dropout generator, which the
-JAX loader ignores as the port ignores the meaning of `rng`).  The write
-is staged under `<dir>.tmp` and committed with one rename; an existing pass
-is moved aside first and dropped only after the commit.
+`opt|num_updates`, `opt|pass_id` (0-d int32, as JAX writes them), under
+gradient accumulation `opt|grad_accum|<name>`, `opt|grad_accum_count` and
+`opt|grad_accum_samples`, under pruning `opt|masks|<name>`, `net|...`,
+`rng` when one was loaded from a JAX checkpoint, and `dropout_rng` (the
+state bytes of the port's dropout generator, which the JAX loader ignores
+as the port ignores the meaning of `rng`).  The write is staged under
+`<dir>.tmp` and committed with one rename; an existing pass is moved aside
+first and dropped only after the commit.
 """
 
 from __future__ import annotations

@@ -85,10 +85,44 @@ group's first step eagerly whenever the state's layout differs from the
 one the signature's steps leave (`_settled`), and captures only steps
 that keep the layout.
 
+Gradient accumulation and pruning hooks live in the updater
+(optim/updater.py): an accumulated step is one captured step like any
+other, its accumulate-or-apply branch decided on the device.  A
+`gradient_printer` evaluator probes its layers (`GraphExecutor.forward`'s
+`probes`): the zero tensors are made inside the step (in a captured step
+the graph's own buffers), and their gradients reach the host evaluators
+as `__grad__<layer>` outputs, queued like the others.
+
+Under --detect_nan (`FLAGS.detect_nan`) each step's loss is read and
+checked at once, a fused pass falls back to one step per dispatch, and a
+non-finite loss raises FloatingPointError naming the first layer whose
+output is not finite (`diagnose_nonfinite`: the forward re-run with the
+post-update parameters, as the reference reports it).  The reference also
+sets `jax_debug_nans`, which re-runs the failing primitive; the port has
+no counterpart of that and does not imitate it with a global anomaly
+mode: the per-batch check and the layer report are the whole of it.  The
+bulk check of the default reports the layer of the last buffered batch.
+
+`check_gradient` is `--job=checkgrad` (central differences against the
+analytic gradient, the noise-aware relative error, a float64
+re-adjudication with kink detection on the CPU only), `benchmark` is
+`--job=time`, `param_stats` / `log_param_stats` serve
+--show_parameter_stats_period.
+
+Observability, as the reference's trainer: the compile watch records the
+sites `trainer.train_step` (an eager step's first run per batch
+signature), `trainer.fused_step` (each captured group; on the CPU each
+group's first run per signature and size) and `trainer.eval_step`; the
+tracer gets a `train_pass` span per pass and an `eval` span per `test()`;
+the `BarrierTimer` (parallel/barrier_stat.py) times dispatches, loss
+reads, staging and replays; `metrics` (a strict MetricsRegistry) holds the
+progress gauges and counters and the collectors of the host phases
+(`utils/stat.py global_stat`), the barrier windows, the tracer, the
+compile watch and the device memory, and `append_metrics` writes its
+snapshot with each pass's row of `metrics.jsonl`.
+
 Not ported yet, and refused (ROADMAP.md): the binary-shard data source
-(`ptsh`), meshes, pipeline stages, the parameter server, gradient probes
-and the evaluators other than classification_error, sum, column_sum and
-chunk.
+(`ptsh`), meshes, pipeline stages and the parameter server.
 """
 
 from __future__ import annotations
@@ -96,6 +130,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import importlib
+import itertools
 import json
 import os
 import time
@@ -111,13 +146,20 @@ from paddle_tpu_torch.data.provider import MultiProviderWrapper
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.graph.builder import GraphExecutor
 from paddle_tpu_torch.graph.context import TEST, TRAIN
+from paddle_tpu_torch.obs import (MetricsRegistry, barrier_collector,
+                                  compile_collector, get_compile_watch,
+                                  get_tracer, hbm_collector, signature_of,
+                                  statset_collector, tracer_collector)
 from paddle_tpu_torch.optim.updater import ParameterUpdater
+from paddle_tpu_torch.parallel.barrier_stat import BarrierTimer
 from paddle_tpu_torch.parameter.argument import Argument
 from paddle_tpu_torch.parameter.init import init_params
 from paddle_tpu_torch.trainer import checkpoint as ckpt
 from paddle_tpu_torch.trainer.evaluators import EvaluatorSet
 from paddle_tpu_torch.utils.cuda_graphs import StepGraph, new_pool
+from paddle_tpu_torch.utils.flags import FLAGS
 from paddle_tpu_torch.utils.logger import get_logger
+from paddle_tpu_torch.utils.stat import global_stat
 
 Batch = dict[str, Argument]
 log = get_logger("trainer")
@@ -236,14 +278,17 @@ class Trainer:
             self.model, compute_dtype=compute_dtype or self.opt.compute_dtype)
         self.updater = ParameterUpdater(self.model, self.opt)
         self.evaluators = EvaluatorSet(self.model)
+        self._probes = self._probe_names()
         if params is None:
             params = init_params(self.model, seed=seed, device=self.device)
         missing = sorted({p.name for p in self.model.parameters} - set(params))
         if missing:
             raise KeyError(f"params lack {missing}")
-        # own copies: the updates write into them in place
-        self.params = {n: params[n].to(self.device, copy=True)
-                       for n in (p.name for p in self.model.parameters)}
+        # own copies: the updates write into them in place; pruning masks
+        # bind to the starting values (ref: StaticPruningHook::init)
+        self.params = self.updater.apply_init_hooks(
+            {n: params[n].to(self.device, copy=True)
+             for n in (p.name for p in self.model.parameters)})
         self.opt_state = self.updater.init_state(self.params)
         self.net_state: dict[str, Any] = {}
         # a JAX PRNG key carried through a loaded checkpoint, unused here:
@@ -264,6 +309,12 @@ class Trainer:
         # losses are drained
         self._host_buf: list[dict] = []
         self._drained_cost = 0.0
+        # the last batch whose loss was buffered (the bulk check's report)
+        self._last_batch: Optional[Batch] = None
+        # the keys of the steps already run once (an eager step's batch
+        # signature; on the CPU a fused group's signature and size): their
+        # later runs are timed, their first is a compile event
+        self._seen: set = set()
         # the fused dispatch: by signature, the layout of the layer state
         # its eager step left (a step starting from that layout keeps it),
         # and the captured steps by (signature, group size) (the card only)
@@ -276,6 +327,47 @@ class Trainer:
         # copies of the next group (the card only)
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        self._tracer = get_tracer()
+        self.barrier_stat = BarrierTimer(tracer=self._tracer)
+        self.metrics = self._new_metrics()
+
+    def _new_metrics(self) -> MetricsRegistry:
+        """The registry of the reference's trainer: progress gauges and
+        counters, and collectors over the host phases, the barrier
+        windows, the tracer's ring, the compile watch and device memory."""
+        m = MetricsRegistry(strict=True)
+        self._m_pass = m.gauge("trainer_pass_id")
+        self._m_cost = m.gauge("trainer_cost")
+        self._m_sps = m.gauge("trainer_samples_per_sec")
+        self._m_batches = m.counter("trainer_batches_total")
+        self._m_samples = m.counter("trainer_samples_total")
+        m.register_collector(statset_collector(
+            global_stat, "trainer_host_phase_seconds",
+            "trainer_host_phase_count", label="phase",
+            total_metric="trainer_host_phase_seconds_total"))
+        m.register_collector(barrier_collector(self.barrier_stat))
+        m.register_collector(tracer_collector(self._tracer))
+        m.register_collector(compile_collector())
+        m.register_collector(hbm_collector(params_fn=lambda: self.params))
+        return m
+
+    def _probe_names(self) -> list[str]:
+        """The layers whose output gradients a gradient_printer prints
+        (ref: GradientPrinter reads getOutputGrad()).  Probes go on root
+        layers only: a layer inside a recurrent group is refused, as a
+        zero there would pass for a gradient."""
+        ex = self.executor
+        for n in self.evaluators.probe_layer_names:
+            if n in ex._sub_of:
+                raise NotImplementedError(
+                    f"gradient_printer on {n!r}: the layer runs inside "
+                    f"recurrent group {ex._sub_of[n].name!r}, where output-"
+                    f"grad probes are not injected — probe a layer outside "
+                    f"the group (e.g. the group's consumer)")
+            if n not in ex.layer_map or ex.layer_map[n].type == "data":
+                raise ValueError(
+                    f"gradient_printer on {n!r}: not a computed layer")
+        return self.evaluators.probe_layer_names
 
     # -- one step -------------------------------------------------------
     def prepare_batch(self, batch: Batch, pinned: bool = False) -> Batch:
@@ -344,12 +436,24 @@ class Trainer:
         leaves = {n: (p.detach() if n in self._static
                       else p.detach().requires_grad_(True))
                   for n, p in self.params.items()}
+        probes = dict.fromkeys(self._probes) if self._probes else None
         loss, (outputs, _, new_net) = self.executor.loss(
             leaves, batch, self.net_state, TRAIN, self.dropout_rng,
-            dropout_masks)
+            dropout_masks, probes)
         names = [n for n in leaves if n not in self._static]
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names],
-                                    allow_unused=True)
+        wrt = [leaves[n] for n in names]
+        if probes:
+            unrun = [n for n, t in probes.items() if t is None]
+            if unrun:
+                raise ValueError(f"gradient_printer on {unrun}: the "
+                                 f"layers did not run in this step")
+            wrt += list(probes.values())
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        if probes:
+            outputs = dict(outputs)
+            for n, g in zip(probes, grads[len(names):]):
+                outputs["__grad__" + n] = Argument(
+                    value=torch.zeros_like(probes[n]) if g is None else g)
         grads = {n: g for n, g in zip(names, grads) if g is not None}
         self._keep_net_state(new_net)
         return loss.detach(), grads, outputs
@@ -405,24 +509,48 @@ class Trainer:
             cudnn.deterministic, cudnn.benchmark = saved
 
     def _commit(self, loss: torch.Tensor, partials: dict, host_out: dict,
-                batch_size: int) -> None:
+                batch: Batch) -> None:
         """The host's part of a step: the counters, the evaluator sums (in
         arrival order), the loss into the bulk check, the host evaluators'
-        inputs into their queue (read in bulk with the losses)."""
-        self.opt_state = self.updater.advance(self.opt_state, batch_size)
+        inputs into their queue (read in bulk with the losses).  Under
+        --detect_nan the loss is read and checked here, and the queue
+        drained."""
+        self.opt_state = self.updater.advance(self.opt_state,
+                                              _batch_size(batch))
         self._acc = self.evaluators.accumulate(self._acc, partials)
-        self._loss_buf.append(loss)
         if host_out:
             self._host_buf.append(host_out)
+        if FLAGS.detect_nan:
+            loss_f = float(loss)
+            if not np.isfinite(loss_f):
+                raise FloatingPointError(
+                    f"non-finite loss {loss_f}; "
+                    f"{self.diagnose_nonfinite(batch)}")
+            self._drained_cost += loss_f + self._drain_losses()
+            return
+        self._last_batch = batch
+        self._loss_buf.append(loss)
         if len(self._loss_buf) >= max(int(self.nonfinite_check_period), 1):
             self._drained_cost += self._drain_losses()
 
-    def _run_step(self, batch: Batch, dropout_masks: Optional[dict] = None
-                  ) -> torch.Tensor:
+    def _eager(self, batch: Batch, dropout_masks: Optional[dict] = None
+               ) -> torch.Tensor:
         self.updater.load_counters(self.opt_state, self.device)
         loss, partials, host_out = self._step(batch, dropout_masks)
-        self._commit(loss, partials, host_out, _batch_size(batch))
+        self._commit(loss, partials, host_out, batch)
         return loss
+
+    def _run_step(self, batch: Batch, dropout_masks: Optional[dict] = None
+                  ) -> torch.Tensor:
+        """One eager step, watched as `trainer.train_step` (a signature's
+        first run is its compile event; the later ones are timed
+        dispatches)."""
+        sig = self._batch_signature(batch, dropout_masks)
+        timer = (self.barrier_stat.time_dispatch() if sig in self._seen
+                 else contextlib.nullcontext())
+        self._seen.add(sig)
+        with get_compile_watch().observe("trainer.train_step", sig), timer:
+            return self._eager(batch, dropout_masks)
 
     def train_one_batch(self, batch: Batch,
                         dropout_masks: Optional[dict] = None
@@ -441,14 +569,18 @@ class Trainer:
         self._host_buf.clear()
         if not self._loss_buf:
             return 0.0
-        losses = torch.stack(self._loss_buf).float().cpu().numpy()
+        with self.barrier_stat.time_sync():
+            losses = torch.stack(self._loss_buf).float().cpu().numpy()
         n = len(self._loss_buf)
         self._loss_buf.clear()
         if not np.isfinite(losses).all():
             bad = int(np.flatnonzero(~np.isfinite(losses))[0])
+            diag = (self.diagnose_nonfinite(self._last_batch)
+                    if self._last_batch is not None else "")
             raise FloatingPointError(
                 f"non-finite loss {losses[bad]} ({n - bad - 1} batches "
-                f"before the last dispatched)")
+                f"before the last dispatched; run with --detect_nan for "
+                f"exact per-batch localisation); {diag}")
         return float(losses.sum())
 
     # -- data -----------------------------------------------------------
@@ -481,6 +613,12 @@ class Trainer:
         k = 1 if steps_per_dispatch is None else int(steps_per_dispatch)
         if k < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
+        if k > 1 and FLAGS.detect_nan:
+            # a fused group would apply its other updates before the check
+            log.warning("--detect_nan forces steps_per_dispatch=1 "
+                        "(per-batch nonfinite localisation)")
+            k = 1
+        stats_period = int(FLAGS.show_parameter_stats_period)
         t0 = time.time()
         self._acc = {}
         self._host_acc = self.evaluators.new_host_state()
@@ -493,23 +631,31 @@ class Trainer:
         n_batches = n_samples = 0
         if k == 1:
             for batch in batches:
-                self.train_one_batch(batch, _next_masks(masks))
+                with global_stat.time("trainOneBatch"):
+                    self.train_one_batch(batch, _next_masks(masks))
                 n_batches += 1
                 n_samples += _batch_size(batch)
                 if log_period and n_batches % log_period == 0:
                     self._log_progress(n_batches)
+                if stats_period and n_batches % stats_period == 0:
+                    self.log_param_stats()
         else:
             staged = DeviceDoubleBuffer(self._host_groups(batches, masks, k),
                                         self._stage_group)
             try:
                 for group, ready in staged:
-                    self._dispatch_fused(self._received(group, ready), group)
+                    with global_stat.time("trainKSteps"):
+                        self._dispatch_fused(self._received(group, ready),
+                                             group)
                     j = len(group)
                     n_batches += j
                     n_samples += sum(_batch_size(b) for b, _ in group)
                     if log_period and (n_batches // log_period
                                        != (n_batches - j) // log_period):
                         self._log_progress(n_batches)
+                    if stats_period and (n_batches // stats_period
+                                         != (n_batches - j) // stats_period):
+                        self.log_param_stats()
             finally:
                 staged.close()
         self._drained_cost += self._drain_losses()
@@ -521,7 +667,18 @@ class Trainer:
                      batches=n_batches, samples=n_samples, seconds=dt,
                      samples_per_sec=n_samples / dt if dt > 0 else 0.0)
         log.info("pass %d done: %s", self.pass_id, _fmt(stats))
+        if self._tracer.enabled:
+            self._tracer.add("train_pass", time.perf_counter() - dt, dt,
+                             track="trainer",
+                             attrs={"pass": self.pass_id,
+                                    "batches": n_batches})
         self.pass_id += 1
+        self._m_pass.set(self.pass_id)             # = passes completed
+        self._m_cost.set(stats["cost"])
+        self._m_sps.set(stats["samples_per_sec"])
+        if n_batches:
+            self._m_batches.inc(n_batches)
+            self._m_samples.inc(n_samples)
         return stats
 
     def _log_progress(self, n_batches: int) -> None:
@@ -556,8 +713,8 @@ class Trainer:
     def append_metrics(self, save_dir: str,
                        extra: Optional[dict] = None) -> str:
         """Append one record to `<save_dir>/metrics.jsonl`: {ts, pass_id,
-        the scalar pass statistics}, as the JAX package's trainer writes
-        it (without its metrics-registry snapshot, not ported)."""
+        the scalar pass statistics, metrics: the registry's snapshot}, as
+        the JAX package's trainer writes it."""
         os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, "metrics.jsonl")
         rec = {"ts": datetime.datetime.now(datetime.timezone.utc)
@@ -565,6 +722,7 @@ class Trainer:
         for k, v in (extra or {}).items():
             if isinstance(v, (int, float)) and not isinstance(v, bool):
                 rec[k] = v
+        rec["metrics"] = self.metrics.snapshot()
         with open(path, "a") as f:
             f.write(json.dumps(rec) + "\n")
         return path
@@ -612,12 +770,13 @@ class Trainer:
                     None if m is None else {
                         n: _as_tensor(v, self.device, pinned)
                         for n, v in m.items()})
-        if self._copy_stream is None:
-            return [place(b, m, False) for b, m in group], None
-        with torch.cuda.stream(self._copy_stream):
-            staged = [place(b, m, True) for b, m in group]
-            ready = torch.cuda.Event()
-            ready.record(self._copy_stream)
+        with self.barrier_stat.time_h2d():
+            if self._copy_stream is None:
+                return [place(b, m, False) for b, m in group], None
+            with torch.cuda.stream(self._copy_stream):
+                staged = [place(b, m, True) for b, m in group]
+                ready = torch.cuda.Event()
+                ready.record(self._copy_stream)
         return staged, ready
 
     def _received(self, group: list, ready) -> tuple:
@@ -634,32 +793,41 @@ class Trainer:
                     t.record_stream(stream)
         return self._batch_signature(*group[0])
 
-    def _dispatch_fused(self, sig: tuple, group: list) -> None:
+    def _dispatch_fused(self, sig: tuple, group: list) -> torch.Tensor:
         """One group: on the CPU the step once per batch, uncaptured; on the
         card one replay of the graph of len(group) steps of the signature,
         after an eager first step when the signature was never seen or the
         layer state's layout is not the one its steps leave (the first
         step grows the state, or a batch of another size left state of its
-        size)."""
+        size).  Returns the group's losses (on the device)."""
         self.n_fused_dispatches += 1
+        cw = get_compile_watch()
         if self.device.type != "cuda":
-            for batch, masks in group:
-                self._run_step(batch, masks)
-            return
+            key = (sig, len(group))
+            timer = (self.barrier_stat.time_scan() if key in self._seen
+                     else contextlib.nullcontext())
+            self._seen.add(key)
+            with cw.observe("trainer.fused_step", *key), timer:
+                return torch.stack([self._eager(b, m) for b, m in group])
+        settle = []
         if self._settled.get(sig) != _layout(self.net_state):
-            self._run_step(*group[0])
+            settle = [self._run_step(*group[0])]
             self._settled[sig] = _layout(self.net_state)
             self.n_settle_steps += 1
             group = group[1:]
             if not group:
-                return
+                return torch.stack(settle)
         self.updater.load_counters(self.opt_state, self.device)
         key = (sig, len(group))
         steps = self._graphs.get(key)
         if steps is None or not steps.holds(self):
+            t0 = time.perf_counter()
             steps = self._graphs[key] = _CapturedSteps(self, group)
+            cw.record("trainer.fused_step", signature_of(key, {}),
+                      time.perf_counter() - t0, t0=t0)
         steps.load(group)
-        steps.graph.replay()
+        with self.barrier_stat.time_scan():
+            steps.graph.replay()
         # read before any other replay (the graphs share one memory pool)
         # or the next load (the feeds the host evaluators read): each
         # step's own outputs, copied on the device
@@ -667,8 +835,8 @@ class Trainer:
         for i, (batch, _) in enumerate(group):
             host_out = {n: _cloned(a)
                         for n, a in steps.host_outs[i].items()}
-            self._commit(losses[i], steps.partials[i], host_out,
-                         _batch_size(batch))
+            self._commit(losses[i], steps.partials[i], host_out, batch)
+        return torch.cat([torch.stack(settle), losses]) if settle else losses
 
     @torch.no_grad()
     def test(self, batches: Optional[Iterable[Batch]] = None
@@ -692,22 +860,268 @@ class Trainer:
         acc: dict = {}
         host_acc = self.evaluators.new_host_state()
         total, n = 0.0, 0
-        for batch in batches:
-            batch = self.prepare_batch(batch)
-            with self._cudnn():
-                loss, (outputs, _, _) = self.executor.loss(
-                    params, batch, self.net_state, TEST)
-            bsz = _batch_size(batch)
-            total += float(loss) * bsz
-            n += bsz
-            acc = self.evaluators.accumulate(
-                acc, self.evaluators.batch_partials(outputs, batch))
-            self.evaluators.host_update(
-                host_acc, self.evaluators.host_outputs(outputs))
+        cw = get_compile_watch()
+        with self._tracer.span("eval", track="trainer"):
+            for batch in batches:
+                batch = self.prepare_batch(batch)
+                with self._cudnn(), cw.observe("trainer.eval_step",
+                                               self._batch_signature(batch)):
+                    loss, (outputs, _, _) = self.executor.loss(
+                        params, batch, self.net_state, TEST)
+                bsz = _batch_size(batch)
+                total += float(loss) * bsz
+                n += bsz
+                acc = self.evaluators.accumulate(
+                    acc, self.evaluators.batch_partials(outputs, batch))
+                self.evaluators.host_update(
+                    host_acc, self.evaluators.host_outputs(outputs))
         stats = self.evaluators.finalize(acc)
         stats.update(self.evaluators.finalize_host(host_acc))
         stats["cost"] = total / max(n, 1)
         return stats
+
+    # -- diagnostics ----------------------------------------------------
+    def param_stats(self) -> dict[str, dict]:
+        """Each parameter's shape, mean and max |value| (ref:
+        TrainerInternal.cpp showParameterStats), from a host copy."""
+        out = {}
+        for name, v in self.params.items():
+            a = np.abs(_host(v))
+            out[name] = {"shape": tuple(v.shape), "mean_abs": float(a.mean()),
+                         "max_abs": float(a.max())}
+        return out
+
+    def log_param_stats(self) -> None:
+        for name, st in self.param_stats().items():
+            log.info("param %s shape=%s mean_abs=%.3e max_abs=%.3e",
+                     name, st["shape"], st["mean_abs"], st["max_abs"])
+
+    @torch.no_grad()
+    def diagnose_nonfinite(self, batch: Batch) -> str:
+        """The first layer, in config order, whose output is not finite:
+        the TRAIN forward re-run on `batch` with the post-update
+        parameters (dropout from a generator of its own, the trainer's
+        stream untouched), in the reference's words (its gLayerStackTrace
+        analog)."""
+        batch = self.prepare_batch(batch)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        with self._cudnn():
+            outputs, costs, _ = self.executor.forward(
+                self.params, batch, self.net_state, TRAIN, gen)
+        for layer in self.model.layers:
+            arg = outputs.get(layer.name)
+            if arg is None or arg.value is None:
+                continue
+            a = arg.value
+            if not bool(torch.isfinite(a).all()):
+                return (f"first non-finite output at layer {layer.name!r} "
+                        f"(type={layer.type}): "
+                        f"nan={int(torch.isnan(a).sum())} "
+                        f"inf={int(torch.isinf(a).sum())} of {a.numel()} "
+                        f"(forward re-run with post-update parameters)")
+        for cname, c in costs.items():
+            if not bool(torch.isfinite(c).all()):
+                return (f"non-finite cost {cname!r} with finite layer "
+                        f"outputs (forward re-run with post-update "
+                        f"parameters)")
+        return ("forward with post-update parameters is finite — the "
+                "non-finite value arose in the gradient/optimizer update of "
+                "the failing step")
+
+    def check_gradient(self, batch: Batch, epsilon: float = 1e-3,
+                       max_entries: int = 4,
+                       refine_threshold: float = 0.02) -> dict[str, float]:
+        """`--job=checkgrad` (ref: Trainer::checkGradient): central
+        differences of the TEST loss against its analytic gradient at
+        `max_entries` sampled entries of every trainable parameter; returns
+        each parameter's worst relative error.  Mixed precision is off
+        for the check (a difference of 1e-3 is below bfloat16's
+        resolution), so on the card the float32 kernels run.  On the CPU
+        the parameters the float32 screen flags above `refine_threshold`
+        are checked again in float64, with kink detection; on the card
+        the float32 screen is the whole verdict (float64 would leave the
+        kernels for their plain versions)."""
+        batch = self.prepare_batch(batch)
+        errors = self._checkgrad_pass(batch, epsilon, max_entries, f64=False)
+        if self.device.type == "cpu":
+            flagged = [n for n, e in errors.items() if e > refine_threshold]
+            if flagged:
+                log.info("checkgrad: re-adjudicating %d flagged parameters "
+                         "in float64: %s", len(flagged), flagged)
+                errors.update(self._checkgrad_pass(
+                    batch, epsilon, max_entries, f64=True, names=flagged,
+                    detect_kinks=True))
+        return errors
+
+    def _checkgrad_pass(self, batch: Batch, epsilon: float,
+                        max_entries: int, f64: bool, names=None,
+                        detect_kinks: bool = False) -> dict[str, float]:
+        saved = self.executor.compute_dtype
+        self.executor.compute_dtype = ""
+        try:
+            if f64:
+                params = {k: _f64(v) for k, v in self.params.items()}
+                batch = {n: a.replace(value=_f64(a.value),
+                                      sparse_vals=_f64(a.sparse_vals))
+                         for n, a in batch.items()}
+                state = _map_tree(_f64, self.net_state)
+            else:
+                params, state = self.params, self.net_state
+
+            def loss_fn(p):
+                with self._cudnn():
+                    return float(self.executor.loss(p, batch, state,
+                                                    TEST)[0])
+
+            leaves = {n: (p.detach() if n in self._static
+                          else p.detach().requires_grad_(True))
+                      for n, p in params.items()}
+            trained = [n for n in leaves if n not in self._static]
+            with self._cudnn():
+                loss = self.executor.loss(leaves, batch, state, TEST,
+                                          differentiable=True)[0]
+            got = torch.autograd.grad(loss, [leaves[n] for n in trained],
+                                      allow_unused=True)
+            grads = {n: torch.zeros_like(leaves[n]) if g is None else g
+                     for n, g in zip(trained, got)}
+            return self._check_gradient_inner(loss_fn, grads, epsilon,
+                                              max_entries, params, names,
+                                              detect_kinks)
+        finally:
+            self.executor.compute_dtype = saved
+
+    def _check_gradient_inner(self, loss_fn, grads: dict, epsilon: float,
+                              max_entries: int, params: dict, names=None,
+                              detect_kinks: bool = False) -> dict[str, float]:
+        """The reference's comparison: the same entries sampled (one numpy
+        generator seeded 0, drawn for every parameter in order), the
+        noise-aware denominator max(|numeric|, |analytic|, 100 x the loss's
+        rounding noise / 2h, 1e-8), and under `detect_kinks` an entry whose
+        one-sided differences disagree retried at h / 100, then skipped."""
+        errors: dict[str, float] = {}
+        nrng = np.random.default_rng(0)
+        L0 = loss_fn(params) if detect_kinks else 0.0
+        for name, w in params.items():
+            if name in self._static:
+                continue
+            size = w.numel()
+            if names is not None and name not in names:
+                # the same draws whether or not the parameter is checked
+                nrng.choice(max(size, 1), size=min(max_entries, size),
+                            replace=False)
+                continue
+            flat = _host(w).reshape(-1)
+            gflat = _host(grads[name]).reshape(-1)
+            idxs = nrng.choice(flat.size, size=min(max_entries, flat.size),
+                               replace=False)
+            worst = 0.0
+            n_validated = n_kink = 0
+            for i in idxs:
+                eps_i = epsilon
+
+                def fd_sides(h):
+                    out = []
+                    for sign in (+1, -1):
+                        pert = flat.copy()
+                        pert[i] += sign * h
+                        p2 = dict(params)
+                        p2[name] = torch.from_numpy(
+                            pert.reshape(tuple(w.shape))).to(
+                            device=w.device, dtype=w.dtype)
+                        out.append(loss_fn(p2))
+                    return out
+
+                def kinked(sd, h):
+                    fwd, bwd = (sd[0] - L0) / h, (L0 - sd[1]) / h
+                    return abs(fwd - bwd) > 0.1 * max(
+                        abs(fwd), abs(bwd), 1e-12), fwd, bwd
+
+                sides = fd_sides(eps_i)
+                if detect_kinks:
+                    bad, fwd, bwd = kinked(sides, eps_i)
+                    if bad:
+                        eps_i = epsilon / 100.0
+                        sides = fd_sides(eps_i)
+                        bad, fwd, bwd = kinked(sides, eps_i)
+                    if bad:
+                        n_kink += 1
+                        log.info("checkgrad %s[%d]: straddles a non-smooth "
+                                 "point even at h=%.1e (one-sided fwd %.3e "
+                                 "vs bwd %.3e) — entry skipped", name, i,
+                                 eps_i, fwd, bwd)
+                        continue
+                numeric = (sides[0] - sides[1]) / (2 * eps_i)
+                n_validated += 1
+                # below the loss's own rounding noise a central difference
+                # carries no signal: the denominator is clamped there
+                noise = (abs(sides[0]) + abs(sides[1])) * \
+                    float(np.finfo(flat.dtype).eps) / (2 * eps_i)
+                denom = max(abs(numeric), abs(gflat[i]), 100.0 * noise,
+                            1e-8)
+                worst = max(worst, abs(numeric - gflat[i]) / denom)
+            if detect_kinks and n_validated == 0 and n_kink > 0:
+                # nothing adjudicated: the screen's flagged error stands
+                log.warning("checkgrad %s: 0 of %d sampled entries "
+                            "validated (all straddle non-smooth points) — "
+                            "inconclusive; the fp32 screen's flagged error "
+                            "stands for this parameter", name, n_kink)
+                continue
+            errors[name] = worst
+            log.info("checkgrad %s: max_rel_err=%.3e", name, worst)
+        return errors
+
+    def benchmark(self, batches: Iterable[Batch], warmup: int = 3,
+                  iters: int = 30, scan: bool = False) -> dict:
+        """`--job=time` (ref: TrainerBenchmark.cpp): `warmup` steps, then
+        `iters` timed ones.  By default each timed batch is moved to the
+        device and its step dispatched with no host wait, and the host
+        waits once, on the losses, at the end.  `scan=True` stages the
+        timed batches on the device first and runs them as one fused
+        group (on the card one replay of a CUDA graph of the `iters`
+        steps, captured by an untimed run of the same group), the
+        production path of `train_one_pass(steps_per_dispatch=k)`.  Every
+        timed loss is checked finite after the final wait."""
+        batch_list = list(itertools.islice(iter(batches), warmup + iters))
+        for b in batch_list[:warmup]:
+            self._run_step(self.prepare_batch(b))
+        timed = batch_list[warmup:]
+        if not timed:
+            raise ValueError("benchmark needs at least one timed batch")
+        n_samples = sum(_batch_size(b) for b in timed)
+        if scan:
+            group = [(self.prepare_batch(b), None) for b in timed]
+            sig = self._batch_signature(*group[0])
+            if any(self._batch_signature(*g) != sig for g in group):
+                raise ValueError("benchmark(scan=True) runs one group: its "
+                                 "batches need one signature")
+            if self._settled.get(sig) != _layout(self.net_state):
+                self._run_step(*group[0])
+                self._settled[sig] = _layout(self.net_state)
+            self._dispatch_fused(sig, group)
+            self._sync()
+            t0 = time.time()
+            losses = self._dispatch_fused(sig, group)
+        else:
+            self._sync()
+            t0 = time.time()
+            losses = torch.stack([self._run_step(self.prepare_batch(b))
+                                  for b in timed])
+        lo = losses.float().cpu().numpy()
+        dt = time.time() - t0
+        self._loss_buf.clear()
+        self._host_buf.clear()
+        if not np.isfinite(lo).all():
+            raise FloatingPointError(
+                f"non-finite loss at bench step "
+                f"{int(np.flatnonzero(~np.isfinite(lo))[0])}")
+        return {"seconds": dt, "samples": n_samples,
+                "samples_per_sec": n_samples / dt if dt else 0.0,
+                "batches": len(timed)}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- checkpoints ----------------------------------------------------
     def save(self, save_dir: str, keep_last: int = 0) -> str:
@@ -730,6 +1144,9 @@ class Trainer:
                 raise KeyError(f"checkpoint missing parameter {name!r}")
             self.params[name] = torch.as_tensor(
                 loaded[name], device=self.device).to(self.params[name].dtype)
+        # the pruning masks again, from the loaded values (the reference
+        # reloads its mask file with --init_model_path too)
+        self.params = self.updater.apply_init_hooks(self.params)
         if data.get("opt"):
             self.opt_state = _merge_state(
                 self.updater.init_state(self.params), data["opt"],
@@ -849,14 +1266,17 @@ def _next_masks(masks) -> Optional[dict]:
 
 
 def _state_tensors(trainer: Trainer) -> list:
-    """The parameters, optimizer slots, updater counters, averages and
-    layer state of a trainer, in a fixed order."""
+    """The parameters, optimizer slots, updater counters, averages,
+    accumulated gradients, pruning masks and layer state of a trainer, in a
+    fixed order."""
     opt = trainer.opt_state
     slots = opt["slots"]
     return ([trainer.updater._counters] + list(trainer.params.values())
             + [v for n in slots for v in slots[n].values()]
             + _leaves(opt.get("average", {}))
             + ([opt["average_count"]] if "average_count" in opt else [])
+            + _leaves(opt.get("grad_accum", {}))
+            + _leaves(opt.get("masks", {}))
             + _leaves(trainer.net_state))
 
 
@@ -893,6 +1313,25 @@ def _tensor_tree(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _tensor_tree(v, device) for k, v in tree.items()}
     return torch.as_tensor(np.array(tree), device=device)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a host array (bfloat16 as float32)."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _f64(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A floating tensor in float64 (others as they are)."""
+    if t is None or not t.is_floating_point():
+        return t
+    return t.detach().double()
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _spec(t) -> Optional[tuple]:

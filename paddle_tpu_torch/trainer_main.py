@@ -2,15 +2,24 @@
 the port's copy of paddle_tpu/trainer_main.py.
 
 (ref: paddle/trainer/TrainerMain.cpp:36-110: flag parsing, config load, job
-dispatch.)  Jobs `train` and `test` run on the CUDA card; `--use_gpu=false`
-asks for the CPU, and with `--use_gpu=true` and no CUDA the run fails
-instead of moving to the CPU.  Exit codes as in the JAX package's CLI: 2
-for a config that fails to parse, for `--job=test` on a config without a
-test source, and for a usage error.  What the port has not ported yet is
-refused with exit 2 and a message naming ROADMAP.md: `--job=time` and
-`--job=checkgrad`, and the flags of `utils.flags.NOT_PORTED` set away from
-their defaults (meshes and the multi-host bootstrap, --detect_nan,
---profile_dir, ...).  Arguments the flags do not know are refused too.
+dispatch.)  The four jobs of the reference's `paddle_trainer` run on the
+CUDA card: `train`, `test`, `checkgrad` (Trainer.check_gradient on the
+first batch of the training source; exit 1 when a parameter's error
+exceeds --checkgrad_bar) and `time` (Trainer.benchmark: samples/s).
+`--use_gpu=false` asks for the CPU, and with `--use_gpu=true` and no CUDA
+the run fails instead of moving to the CPU.  `--detect_nan` checks every
+batch's loss and names the first non-finite layer (exit 1 on a non-finite
+loss); `--profile_dir=DIR` runs the job under `torch.profiler` (the CPU
+and, on the card, CUDA activities) and writes `DIR/trace.json`, a Chrome
+trace, when the job ends, also when it fails; `--show_parameter_stats_period
+=N` logs each parameter's mean and max |value| every N batches.  Exit
+codes as in the JAX package's CLI: 2 for a config that fails to parse,
+for `--job=test` on a config without a test source, for
+`--job=checkgrad` on a source that gives no batch, and for a usage error.
+The flags of `utils.flags.NOT_PORTED` (meshes and the multi-host
+bootstrap, the sparse-distribution check) are refused with exit 2 and a
+message naming ROADMAP.md when set away from their defaults.  Arguments
+the flags do not know are refused too.
 
 Every flag is reset to its default before a run and put back after it, so
 a caller may run `main` several times in one process.
@@ -18,7 +27,11 @@ a caller may run `main` several times in one process.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
+
+import torch
 
 from paddle_tpu_torch.config.parser import parse_config
 from paddle_tpu_torch.trainer.trainer import Trainer
@@ -28,10 +41,11 @@ from paddle_tpu_torch.utils.flags import NOT_PORTED
 log = get_logger("main")
 
 USAGE = ("usage: python -m paddle_tpu_torch train --config=<config.py> "
-         "[--job=train|test] [--num_passes=N] [--save_dir=DIR] "
-         "[--config_args=k=v,...] [--init_model_path=DIR] "
+         "[--job=train|test|checkgrad|time] [--num_passes=N] "
+         "[--save_dir=DIR] [--config_args=k=v,...] [--init_model_path=DIR] "
          "[--steps_per_dispatch=K] [--compute_dtype=bfloat16] "
-         "[--use_gpu=false] [--seed=N] [--log_period=N]")
+         "[--use_gpu=false] [--seed=N] [--log_period=N] [--detect_nan] "
+         "[--profile_dir=DIR] [--show_parameter_stats_period=N]")
 
 
 def main(argv=None) -> int:
@@ -58,11 +72,7 @@ def _run(argv) -> int:
                   ", ".join(f"--{n}" for n in refused))
         return 2
     job = FLAGS.job
-    if job in ("time", "checkgrad"):
-        log.error("--job=%s is not ported to paddle_tpu_torch yet "
-                  "(ROADMAP.md)", job)
-        return 2
-    if job not in ("train", "test"):
+    if job not in ("train", "test", "checkgrad", "time"):
         log.error("unknown --job=%s", job)
         return 2
 
@@ -92,15 +102,68 @@ def _run(argv) -> int:
         trainer.load(FLAGS.init_model_path)
         log.info("loaded initial model from %s", FLAGS.init_model_path)
 
+    with _profiled(FLAGS.profile_dir, trainer.device):
+        try:
+            return _job(trainer, job)
+        except FloatingPointError as e:
+            log.error("%s", e)
+            return 1
+
+
+def _job(trainer: Trainer, job: str) -> int:
     if job == "train":
         trainer.train(num_passes=FLAGS.num_passes,
                       log_period=FLAGS.log_period,
                       save_dir=FLAGS.save_dir or None,
                       steps_per_dispatch=FLAGS.steps_per_dispatch)
-    else:
+    elif job == "test":
         stats = trainer.test()
         log.info("test result: %s", stats)
+    elif job == "time":
+        stats = trainer.benchmark(trainer.train_batches())
+        log.info("benchmark: %.1f samples/sec (%d samples in %.2fs)",
+                 stats["samples_per_sec"], stats["samples"],
+                 stats["seconds"])
+    else:
+        batch = next(iter(trainer.train_batches()), None)
+        if batch is None:
+            log.error("checkgrad: data source produced no batches")
+            return 2
+        errors = trainer.check_gradient(
+            batch, refine_threshold=FLAGS.checkgrad_bar)
+        worst = max(errors.values(), default=0.0)
+        log.info("checkgrad: %d parameters, worst max_rel_err=%.3e",
+                 len(errors), worst)
+        if worst > FLAGS.checkgrad_bar:
+            log.error("gradient check FAILED")
+            return 1
     return 0
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: str, device: torch.device):
+    """`torch.profiler` around the job when `profile_dir` is set (CUDA
+    activities on the card), its Chrome trace written to
+    `profile_dir/trace.json` when the job ends, also when it fails."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    try:
+        yield
+    finally:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        prof.__exit__(None, None, None)
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        log.info("profiler trace written to %s", path)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ running the steps eagerly.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Iterable, Optional
 
 import torch
@@ -49,10 +50,19 @@ class StepGraph:
         capture's rules ("thread_local"): the trainer's staging thread
         pins host memory and copies the next group on a side stream
         meanwhile, which under the default, process-wide mode would
-        invalidate the capture."""
-        with torch.cuda.graph(self.graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
-            return steps()
+        invalidate the capture.  The cyclic garbage collector is off
+        while it captures: a collection there can free an older graph
+        left in a reference cycle, and destroying a graph on the
+        capturing thread invalidates the capture."""
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
+                return steps()
+        finally:
+            if collecting:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()

@@ -173,8 +173,7 @@ define_flag("coordinator_address", "", "cluster coordinator host:port")
 define_flag("num_processes", 0, "number of cluster processes")
 define_flag("process_id", 0, "this process's id in the cluster")
 
-# flags whose feature the port has not ported yet (ROADMAP.md): the CLI
-# refuses a run that sets one away from its default
+# flags whose feature the port has not ported yet (ROADMAP.md, Queue 1
+# item 9): the CLI refuses a run that sets one away from its default
 NOT_PORTED = ("mesh_shape", "coordinator_address", "num_processes",
-              "process_id", "detect_nan", "profile_dir",
-              "check_sparse_distribution", "show_parameter_stats_period")
+              "process_id", "check_sparse_distribution")

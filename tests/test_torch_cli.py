@@ -8,7 +8,8 @@ test statistics and the final parameters agree, and the port's run at
 --steps_per_dispatch=4 equals its run at 1 bit for bit.  A checkpoint the
 CLI saved, loaded by `--job=test --init_model_path`, gives exactly the
 statistics of an in-process load.  Exit codes and refusals as documented
-in paddle_tpu_torch/trainer_main.py."""
+in paddle_tpu_torch/trainer_main.py (the jobs `time` and `checkgrad` and
+the flags --detect_nan and --profile_dir: tests/test_torch_trainer_jobs.py)."""
 
 import contextlib
 import json
@@ -253,19 +254,15 @@ def test_prev_batch_state_run_equals_the_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["train", LM, "--job=test", "--use_gpu=false"], "no test data"),
-    (["train", LM, "--job=time"], "--job=time is not ported"),
-    (["train", LM, "--job=checkgrad"], "--job=checkgrad is not ported"),
     (["train", LM, "--job=bogus"], "unknown --job"),
     (["train", LM, "--mesh_shape=data:2"], "--mesh_shape: not ported"),
     (["train", LM, "--coordinator_address=h:1", "--num_processes=2"],
      "--coordinator_address, --num_processes: not ported"),
-    (["train", LM, "--detect_nan"], "--detect_nan: not ported"),
-    (["train", LM, "--profile_dir=/tmp/x"], "--profile_dir: not ported"),
     (["train", LM, "--use_tpu"], "unknown argument"),
     (["train", "--config=demo/no_such_config.py"], "failed to parse"),
     (["train", LM, "--config_args=heads=5"], "failed to parse"),
-], ids=["test-without-source", "time", "checkgrad", "bogus-job", "mesh",
-        "cluster", "detect_nan", "profile_dir", "unknown-flag", "missing-config", "bad-config"])
+], ids=["test-without-source", "bogus-job", "mesh", "cluster",
+        "unknown-flag", "missing-config", "bad-config"])
 def test_cli_refusals_exit_2(argv, match):
     before = FLAGS.as_dict()
     rc, text = _rc(argv)

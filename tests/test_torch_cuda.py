@@ -1353,3 +1353,100 @@ def test_kv_push_between_two_servers_on_the_card(cuda):
     finally:
         src.stop_background(drain=True)
         dst.stop_background(drain=True)
+
+
+def test_auc_histogram_with_weights_repeats_and_equals_the_cpu(cuda):
+    """The weighted AUC evaluator's histograms on the card: two runs bit
+    for bit, and equal to the CPU's on the same scores (float64 sums of
+    float32 weights, exact in any order)."""
+    from paddle_tpu_torch.config.schema import EvaluatorConfig
+    from paddle_tpu_torch.trainer.evaluators import evaluator_registry
+    g = torch.Generator().manual_seed(5)
+    p = torch.softmax(torch.randn(4096, 2, generator=g), dim=-1)
+    lbl = torch.randint(0, 2, (4096,), generator=g)
+    w = torch.rand(4096, 1, generator=g) * 3
+    cfg = EvaluatorConfig(name="a", type="last-column-auc",
+                          input_layer_names=["o", "l", "w"])
+    batch = evaluator_registry["last-column-auc"][0]
+
+    def run(device):
+        outs = {"o": Argument(value=p.to(device)),
+                "l": Argument(ids=lbl.to(device)),
+                "w": Argument(value=w.to(device))}
+        return {k: v.cpu() for k, v in batch(cfg, outs, {}).items()}
+    a, b, want = run("cuda"), run("cuda"), run("cpu")
+    for k in ("pos", "neg"):
+        assert torch.equal(a[k], b[k]) and torch.equal(a[k], want[k]), k
+
+
+def test_accumulation_k4_equals_k1_on_a_small_lm(cuda):
+    """N = 3 at k = 4 (windows straddling the captured groups) against
+    k = 1 over 12 steps of a 2-layer LM through the fp32 flash kernels:
+    bit for bit, the window's sums included; one update per 3 steps."""
+    cfg = transformer_lm_trainer_config(vocab=61, dim=64, layers=2, heads=2,
+                                        batch_size=2, block_k_min=16)
+    cfg.opt_config.num_batches_per_send_parameter = 3
+    batches = lm_batches(12, 2, 64, 61, seed=4)
+    t1, tk = Trainer(cfg, seed=1), Trainer(cfg, seed=1)
+    s1, l1 = pass_with_losses(t1, batches, 1)
+    sk, lk = pass_with_losses(tk, batches, 4)
+    assert s1 == sk and torch.equal(l1, lk)
+    assert training_state_differs(t1, tk) == []
+    assert any(graph_replays(tk).values())
+    assert t1.opt_state["num_updates"] == 4
+
+
+@pytest.mark.parametrize("net", ["sentiment", "lm"])
+def test_check_gradient_passes_through_k3_and_k4_fp32(cuda, net):
+    """check_gradient on the card: the fp32 screen alone (no float64 pass),
+    through K3 (a small sentiment net) or K4's float32 kernels (an LM on
+    the flash route), every error under the CLI's bar, and no plain
+    version called."""
+    if net == "sentiment":
+        cfg = stacked_lstm_net_config(50, batch_size=4, hid_dim=128)
+        batch = sentiment_batches(1, 4, 20, 50, seed=2)[0]
+        kernels = (lf.counts, ("fwd", "bwd"))
+    else:
+        cfg = transformer_lm_trainer_config(vocab=61, dim=64, layers=1,
+                                            heads=2, batch_size=2,
+                                            block_k_min=16)
+        batch = lm_batches(1, 2, 64, 61, seed=3)[0]
+        kernels = (fa.counts, ("fwd", "bwd_dq", "bwd_dkv"))
+    tr = Trainer(cfg, seed=1)
+    reset_counts()
+    errors = tr.check_gradient(batch, max_entries=3)
+    counts, names = kernels
+    assert all(getattr(counts, n) > 0 for n in names)
+    assert counts.plain == 0
+    assert errors and max(errors.values()) < 0.02, errors
+
+
+def test_capture_survives_graphs_freed_by_the_collector(cuda):
+    """Graphs left in reference cycles, and a collector that runs at every
+    allocation: a later capture does not free them inside itself
+    (destroying a graph on the capturing thread invalidates the capture),
+    and its replay gives the captured results."""
+    import gc
+
+    from paddle_tpu_torch.utils.cuda_graphs import StepGraph
+    x = torch.ones(4, device="cuda")
+    thresholds = gc.get_threshold()
+    try:
+        for _ in range(4):
+            old = StepGraph()
+            old.capture(lambda: x * 2)
+            old.cycle = old             # freed only by the collector
+            del old
+        gc.set_threshold(1, 1, 1)
+        g = StepGraph()
+        out = g.capture(lambda: [x + i for i in range(64)])
+        gc.set_threshold(*thresholds)
+        x.fill_(2.0)
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, torch.full_like(x, 2.0 + i))
+                   for i, o in enumerate(out))
+        assert gc.isenabled()
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.collect()

@@ -152,12 +152,52 @@ def test_parameter_updater_matches_jax(rule):
     assert tu.finish_pass(ts)["pass_id"] == 1
 
 
-def test_unported_updater_options_raise():
-    _, tm = _models()
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        ParameterUpdater(tm, OptimizationConfig(
-            num_batches_per_send_parameter=4))
-    tm.parameters[0].update_hooks = [{"type": "pruning",
-                                      "sparsity_ratio": 0.5}]
-    with pytest.raises(NotImplementedError, match="hooks"):
-        ParameterUpdater(tm, OptimizationConfig())
+@pytest.mark.parametrize("options", ["accumulation", "pruning"])
+def test_accumulation_and_pruning_updaters_match_jax(options, tmp_path):
+    """Gradient accumulation (a window of 2, micro-batches of 8 and 4) and
+    pruning hooks (by ratio and from a mask file) build and step like the
+    JAX updater: four steps, each parameter within the Adam-step tolerance,
+    the window's state and the masks carried by opt_state_from_jax."""
+    jm, tm = _models()
+    kw = dict(learning_method="adam", learning_rate=0.02,
+              gradient_clipping_threshold=0.3)
+    if options == "accumulation":
+        kw["num_batches_per_send_parameter"] = 2
+    else:
+        mask = (np.arange(10) % 3 != 0).astype(np.float32).reshape(5, 2)
+        np.save(tmp_path / "mask.npy", mask)
+        for m in (jm, tm):
+            m.parameters[0].update_hooks = [{"type": "pruning",
+                                             "sparsity_ratio": 0.5}]
+            m.parameters[2].update_hooks = [
+                {"type": "pruning", "mask_filename": str(tmp_path /
+                                                         "mask.npy")}]
+    ju, tu = JUpdater(jm, JOpt(**kw)), ParameterUpdater(
+        tm, OptimizationConfig(**kw))
+    rng = np.random.default_rng(2)
+    params = {p.name: rng.normal(size=p.dims).astype(np.float32)
+              for p in tm.parameters}
+    jp = ju.apply_init_hooks({k: jnp.asarray(v) for k, v in params.items()})
+    tp = tu.apply_init_hooks({k: _t(v) for k, v in params.items()})
+    js, ts = ju.init_state(jp), tu.init_state(tp)
+    for step in range(4):
+        bs = 8 if step % 2 == 0 else 4
+        grads = {k: (rng.normal(size=v.shape) * 0.5).astype(np.float32)
+                 for k, v in params.items() if k != "s"}
+        jp, js = ju.step(jp, {k: jnp.asarray(v) for k, v in grads.items()},
+                         js, bs)
+        tp, ts = tu.step(tp, {k: _t(v) for k, v in grads.items()}, ts, bs)
+        for k in params:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                       **TOL, err_msg=f"{k} step {step}")
+    carried = opt_state_from_jax(jax.tree.map(np.asarray, js), device="cpu")
+    for k in ("num_samples", "num_updates", "grad_accum_count",
+              "grad_accum_samples"):
+        assert carried.get(k) == ts.get(k), k
+    if options == "accumulation":
+        assert ts["num_updates"] == 2 and ts["num_samples"] == 24
+        assert set(carried["grad_accum"]) == set(ts["grad_accum"])
+    else:
+        for k, m in ts["masks"].items():
+            assert torch.equal(m, carried["masks"][k]), k
+            assert torch.equal(tp[k] * (1 - m), torch.zeros_like(tp[k])), k

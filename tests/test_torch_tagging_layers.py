@@ -704,9 +704,15 @@ def test_chunk_evaluator_counts_equal_jax(scheme, excluded):
 
 
 def test_unported_evaluators_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every evaluator type of the JAX package is ported: only a type
+    neither package knows raises."""
+    from paddle_tpu.trainer import evaluators as jev
+    assert set(jev.evaluator_registry) <= set(tev.evaluator_registry)
+    assert set(jev.host_evaluator_registry) <= set(
+        tev.host_evaluator_registry)
+    with pytest.raises(ValueError, match="unknown evaluator types"):
         tev.EvaluatorSet(schema.ModelConfig(evaluators=[
-            schema.EvaluatorConfig(name="a", type="precision_recall",
+            schema.EvaluatorConfig(name="a", type="no_such_evaluator",
                                    input_layer_names=["x", "y"])]))
 
 
