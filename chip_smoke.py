@@ -507,6 +507,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
                --job=test of its checkpoint, and two passes ending in a
                batch of 100 rows at k = 1 and 4, bit-identical after each
                (the carried state included).
+ 20. rng     — the port's threefry (utils/prng.py): Random123's known
+               answers on the card; 64 keys' bits, split, fold_in,
+               uniform and bernoulli at [8, 32000] on the card bit for bit
+               the CPU's, normal and gumbel within 2e-5 / 2e-6; 16 sampled
+               requests at DECODE_MODEL's width giving the same tokens at
+               k = 1, in windows of KSTEP and with speculation on (K5 once
+               per layer per step at k = 1), and the kernels and µs a
+               window's in-graph noise adds; the sentiment net trained
+               with dropout, k = KSTEP graph groups bit-identical to k = 1
+               and one step's keep-masks equal to the CPU's draws;
+ 21. zoo     — the 25 layer types ported last in five models (ZOO_SIZES:
+               nce and hsigmoid over a 30000-word dictionary at batch 32,
+               the combination layers, ctc over 200-256 frames, moe at
+               width 512 over 4096 tokens, mdlstm over a 28x28 grid):
+               GraphExecutor.loss and its backward on the card against
+               the CPU, float32, within 1e-4, ids exact.
 The last three lines of the output are a JSON object with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.  Exits non-zero without a result when CUDA
@@ -1518,9 +1534,9 @@ def pass_with_losses(tr, batches, k: int):
 def training_state_differs(a, b) -> list:
     """The names of the parts of two trainers' state that are not
     bit-identical: parameters, optimizer slots, counters, the gradient
-    accumulation window's sums, the dropout generator, the model averages
-    and their count, the layer state (batch norm's moving mean, variance
-    and count)."""
+    accumulation window's sums, the threefry key, the model averages and
+    their count, the layer state (batch norm's moving mean, variance and
+    count)."""
     bad = [n for n, p in a.params.items() if not torch.equal(p, b.params[n])]
     bad += [f"{n}.{k}" for n, sl in a.opt_state["slots"].items()
             for k, v in sl.items()
@@ -1531,8 +1547,8 @@ def training_state_differs(a, b) -> list:
     acc_a, acc_b = (t.opt_state.get("grad_accum", {}) for t in (a, b))
     bad += [f"grad_accum.{n}" for n, v in acc_a.items()
             if n not in acc_b or not torch.equal(v, acc_b[n])]
-    if not torch.equal(a.dropout_rng.get_state(), b.dropout_rng.get_state()):
-        bad.append("dropout_rng")
+    if not torch.equal(a.rng, b.rng):
+        bad.append("rng")
     avg_a, avg_b = a.opt_state.get("average"), b.opt_state.get("average")
     if (avg_a is None) != (avg_b is None):
         bad.append("average")
@@ -3581,11 +3597,14 @@ class ReplicaProcs:
 
 
 def request_kw(r) -> dict:
-    """A Request's generate knobs, as a client sends them."""
+    """A Request's generate knobs, as a client sends them (the wire's seed
+    is the key's low word: PRNGKey(seed) = [0, seed mod 2**32])."""
     kw = dict(max_new=r.max_new)
     if r.temperature > 0.0:
+        if int(r.rng[0]) != 0:
+            raise ValueError(f"request {r.req_id}: a key no seed spells")
         kw.update(temperature=r.temperature, top_k=r.top_k, top_p=r.top_p,
-                  seed=r.seed)
+                  seed=int(r.rng[1]))
     return kw
 
 
@@ -5646,10 +5665,9 @@ def phase_sentiment(smi: str) -> list:
                     for k, v in sl.items())
         same &= all(fresh.opt_state[k] == tr.opt_state[k]
                     for k in ("num_samples", "num_updates", "pass_id"))
-        same &= torch.equal(fresh.dropout_rng.get_state(),
-                            tr.dropout_rng.get_state())
+        same &= torch.equal(fresh.rng, tr.rng)
         log(f"[sentiment] checkpoint save -> fresh Trainer.load: "
-            f"parameters, Adam slots, counters and the dropout generator "
+            f"parameters, Adam slots, counters and the threefry key "
             f"{'identical' if same else 'DIFFER'}")
         del fresh
     if not same:
@@ -6805,11 +6823,11 @@ CLI_RUNS = (
 
 def checkpoint_differs(a: str, b: str) -> list:
     """The arrays of two checkpoints (parameters, optimizer state, layer
-    state, dropout generator) that are not bit-identical, by name."""
+    state, the threefry key) that are not bit-identical, by name."""
     from paddle_tpu_torch.trainer import checkpoint as ckpt
     da, db = ckpt.load_checkpoint(a), ckpt.load_checkpoint(b)
     bad = []
-    for part in ("params", "opt", "net", "dropout_rng"):
+    for part in ("params", "opt", "net", "rng"):
         fa = ckpt._flatten(da.get(part), part)
         fb = ckpt._flatten(db.get(part), part)
         bad += sorted(fa.keys() ^ fb.keys())
@@ -8127,6 +8145,565 @@ def phase_nested(smi: str) -> None:
             torch.cuda.empty_cache()
 
 
+# -- the port's threefry (utils/prng.py) and the layer zoo of slice 21 ----
+
+# Random123's threefry2x32-20 known answers: (key, counter, result)
+THREEFRY_KAT = (((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+                 (0x1CB996FC, 0xBB002BE7)),
+                ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                 (0xC4923A9C, 0x483DF7A0)))
+RNG_KEYS, RNG_SHAPE = 64, (8, 32000)
+# the float draws that go through torch.erfinv / torch.log, card against
+# CPU, absolute
+RNG_TOL = {"normal": 2e-5, "gumbel": 2e-6}
+RNG_REQUESTS = 16
+
+
+def rng_draws(keys: torch.Tensor) -> dict:
+    """Every draw of the port's threefry from `keys` [N, 2] at RNG_SHAPE,
+    on the keys' device."""
+    from paddle_tpu_torch.utils import prng
+    data = torch.arange(int(np.prod(RNG_SHAPE)), device=keys.device) \
+        .reshape(RNG_SHAPE)
+    return {"bits": prng.bits(keys, RNG_SHAPE),
+            "split": prng.split(keys, RNG_SHAPE),
+            "fold_in": prng.fold_in(keys[:, None, None], data),
+            "uniform": prng.uniform(keys, RNG_SHAPE),
+            "uniform [-0.3, 0.45)": prng.uniform(keys, RNG_SHAPE,
+                                                 minval=-0.3, maxval=0.45),
+            "bernoulli": prng.bernoulli(keys, 0.7, RNG_SHAPE),
+            "normal": prng.normal(keys, RNG_SHAPE),
+            "gumbel": prng.gumbel(keys, RNG_SHAPE)}
+
+
+def rng_streams(smi: str) -> None:
+    """The known answers on the card, and RNG_KEYS keys' draws at
+    RNG_SHAPE on the card against the port on the CPU: the integer
+    streams, uniform and bernoulli bit for bit, normal and gumbel within
+    RNG_TOL (their count of differing values logged)."""
+    from paddle_tpu_torch.utils import prng
+    for key, count, want in THREEFRY_KAT:
+        got = prng.threefry2x32(*(torch.tensor(v, device="cuda")
+                                  for v in key + count))
+        got = tuple(int(g) for g in got)
+        if got != want:
+            raise AssertionError(f"[rng] threefry2x32{key}{count} = "
+                                 f"{got}, want {want}")
+    log(f"[rng] the {len(THREEFRY_KAT)} Random123 known answers hold on "
+        f"the card")
+    keys = prng.split(prng.PRNGKey(2026), RNG_KEYS)
+    t0 = time.perf_counter()
+    card = rng_draws(keys.cuda())
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = rng_draws(keys)
+    t_host = time.perf_counter() - t0
+    bad = []
+    for name, want in host.items():
+        got = card[name].cpu()
+        if name in RNG_TOL:
+            err = float((got - want).abs().max())
+            n = int((got != want).sum())
+            log(f"[rng] {name}: {n} of {want.numel()} values differ from "
+                f"the CPU's, max abs {err:.3g} (tol {RNG_TOL[name]:g})")
+            if not err <= RNG_TOL[name]:
+                bad.append(name)
+        elif not torch.equal(got, want):
+            bad.append(name)
+    log(f"[rng] {RNG_KEYS} keys at {list(RNG_SHAPE)}: bits, split, "
+        f"fold_in, uniform (two ranges) and bernoulli "
+        f"{'bit-identical to the CPU' if not bad else 'DIFFER: ' + str(bad)}"
+        f"; all draws {t_card * 1e3:.1f} ms on the card (first call), "
+        f"{t_host:.1f} s on the CPU [{smi}]")
+    if bad:
+        raise AssertionError(f"[rng] the card's draws differ from the "
+                             f"CPU's: {bad}")
+
+
+def rng_requests(vocab: int):
+    """RNG_REQUESTS sampled requests: prompts of 16-200 tokens, max_new
+    16-64, temperature 0.6-1.4, top_k among 0, 20 and 200, top_p among 0,
+    0.8 and 0.95, a seed each; eos off."""
+    from paddle_tpu_torch.serving import Request
+    rng = np.random.default_rng(21)
+    return [Request(i, rng.integers(2, vocab, int(rng.integers(16, 201))),
+                    max_new=int(rng.integers(16, 65)),
+                    temperature=float(rng.uniform(0.6, 1.4)),
+                    top_k=(0, 20, 200)[i % 3],
+                    top_p=(0.0, 0.8, 0.95)[(i // 3) % 3], seed=500 + i)
+            for i in range(RNG_REQUESTS)]
+
+
+def noise_cost(eng, k: int, smi: str) -> None:
+    """What the in-graph noise adds to a window of k bodies: the draw of
+    one window ([S, k, V] Gumbel rows from the staged keys and generation
+    counts, as `_Window.body` draws them) captured alone into a CUDA
+    graph, its kernels counted by the profiler and its replay timed with
+    events."""
+    from paddle_tpu_torch.serving.sampler import slot_noise
+    from paddle_tpu_torch.utils import prng
+    S = len(eng.slots)
+    gen = torch.arange(S, dtype=torch.int64, device="cuda")
+    max_new = torch.full((S,), 64, dtype=torch.int64, device="cuda")
+
+    def draws():
+        g = gen[:, None] + torch.arange(k, device="cuda")
+        return slot_noise(prng.fold_in(eng._d_keys[:, None], torch.minimum(
+            g, max_new[:, None] - 1)), eng.vocab)
+
+    draws()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = draws()
+    _, _, kernels, _ = profiled(draws)
+    launches = sum(e.count for e in kernels)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    reps = 50
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    us = e0.elapsed_time(e1) * 1e3 / reps
+    log(f"[rng] the noise of a window of {k} bodies (S {S}, vocab "
+        f"{eng.vocab}): {launches} kernels, {us:.1f} us replayed as a "
+        f"graph ({us / k:.1f} us a body) [{smi}]")
+    del graph, out
+
+
+def rng_serving(smi: str) -> None:
+    """RNG_REQUESTS sampled requests at DECODE_MODEL's width on three
+    engines: k = 1 (eager steps, the noise drawn from the staged keys),
+    decode_steps = KSTEP (windows as CUDA graphs drawing inside the graph)
+    and speculative decode (SPEC_K n-gram drafts, chain position i with
+    generation gen + i's key): the same tokens; K5 launched once per layer
+    per step at k = 1, the plain version never."""
+    from paddle_tpu_torch.graph import GraphExecutor
+    from paddle_tpu_torch.models import transformer_lm_config
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.parameter import init_params
+    from paddle_tpu_torch.serving import ServingEngine
+
+    c = DECODE_MODEL
+    model = transformer_lm_config(**c)
+    ex = GraphExecutor(model, compute_dtype="bfloat16")
+    params = init_params(model, seed=1)
+    kw = dict(num_slots=16, page_size=16, max_context=768,
+              prefix_cache=False)
+    results, figures = {}, {}
+    for what, extra in (("k=1", {}), (f"k={KSTEP}",
+                                       dict(decode_steps=KSTEP)),
+                        ("spec", dict(spec_k=SPEC_K))):
+        eng = ServingEngine(ex, params, **kw, **extra)
+        eng.run(rng_requests(c["vocab"])[:2])          # warm-up
+        pa.counts.reset()
+        steps0 = eng.n_decode_steps
+        res, wall = timed_run(lambda: eng.run(rng_requests(c["vocab"])))
+        steps = eng.n_decode_steps - steps0
+        results[what] = res
+        figures[what] = (steps, wall, pa.counts.kernel, pa.counts.plain)
+        if pa.counts.plain:
+            raise AssertionError(f"[rng] {what}: {pa.counts.plain} plain "
+                                 f"paged-attention calls")
+        if what == "k=1" and pa.counts.kernel != c["layers"] * steps:
+            raise AssertionError(f"[rng] k=1: {pa.counts.kernel} K5 "
+                                 f"launches for {steps} steps")
+        if what == f"k={KSTEP}":
+            noise_cost(eng, KSTEP, smi)
+        del eng
+    want = results["k=1"]
+    same = {what: sorted(r) == sorted(want) and all(
+        np.array_equal(r[i], want[i]) for i in want)
+        for what, r in results.items()}
+    log(f"[rng] {RNG_REQUESTS} sampled requests (mixed temperature, top_k, "
+        f"top_p) at vocab {c['vocab']}, dim {c['dim']}, {c['layers']} "
+        f"layers: " + "; ".join(
+            f"{w} {s} steps {wall:.0f} ms, K5 launches {n}"
+            for w, (s, wall, n, _) in figures.items())
+        + f"; tokens at k={KSTEP} and with spec "
+        f"{'equal k=1' if all(same.values()) else 'DIFFER: ' + str(same)}"
+        f" [{smi}]")
+    if not all(same.values()):
+        raise AssertionError("[rng] sampled tokens depend on the decode "
+                             "path")
+
+
+def rng_dropout(smi: str) -> None:
+    """The sentiment net trained with dropout (vocab 30000, batch 32, 50
+    steps a row): k = KSTEP groups (CUDA graphs reading each step's key
+    from the staged buffer) against the k = 1 loop, bit for bit over 12
+    batches; one TRAIN step's keep-masks on the card against the port's
+    CPU draws from the same keys, bit for bit."""
+    from paddle_tpu_torch.models import stacked_lstm_net_config
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.utils import prng
+
+    vocab, B, T = 30000, 32, 50
+    cfg = stacked_lstm_net_config(vocab, batch_size=B)
+    batches = sentiment_batches(12, B, T, vocab, seed=3, ragged=True)
+    t1, tk = Trainer(cfg, seed=5), Trainer(cfg, seed=5)
+    s1, l1 = pass_with_losses(t1, batches, 1)
+    sk, lk = pass_with_losses(tk, batches, KSTEP)
+    differ = training_state_differs(t1, tk)
+    same = s1 == sk and torch.equal(l1, lk) and not differ
+    log(f"[rng] sentiment with dropout, 12 batches [{B}, {T}]: k={KSTEP} "
+        f"({graph_replays(tk)} graph replays by group size) against k=1: "
+        f"losses, parameters, slots, counters and key "
+        f"{'bit-identical' if same else 'DIFFER: ' + str(differ[:5])}")
+    if not same or not any(graph_replays(tk).values()):
+        raise AssertionError("[rng] the k-step groups' dropout is not the "
+                             "k = 1 loop's")
+    drawn = []
+    real = prng.bernoulli
+
+    def recording(key, p, shape=None, device=None):
+        mask = real(key, p, shape, device)
+        drawn.append((key.clone(), p, shape, mask))
+        return mask
+
+    prng.bernoulli = recording
+    try:
+        t1.compute_gradients(t1.prepare_batch(batches[0]))
+    finally:
+        prng.bernoulli = real
+    torch.cuda.synchronize()
+    equal = [m.is_cuda and torch.equal(m.cpu(), real(key.cpu(), p, shape))
+             for key, p, shape, m in drawn]
+    log(f"[rng] one TRAIN step's {len(drawn)} keep-masks ("
+        + ", ".join(str(list(m.shape)) for *_, m in drawn)
+        + f") {'equal' if all(equal) else 'DIFFER from'} the port's CPU "
+        f"draws from the same keys [{smi}]")
+    if not drawn or not all(equal):
+        raise AssertionError("[rng] dropout masks on the card differ from "
+                             "the CPU's")
+    del t1, tk
+    torch.cuda.empty_cache()
+
+
+def phase_rng(smi: str) -> None:
+    start = time.perf_counter()
+    rng_streams(smi)
+    rng_serving(smi)
+    rng_dropout(smi)
+    log(f"[rng] {time.perf_counter() - start:.1f}s")
+
+
+# [zoo]: the 25 layer types ported last, in five models built with the
+# port's DSL, each at the size its users train it on the card and at a
+# small size the CPU tests (tests/test_torch_layers_zoo.py) hold against
+# the JAX package: text — nce and hsigmoid over the sentiment demo's
+# 30000-word dictionary (Zipf negatives and labels), eos_id; misc — the 16
+# combination layers, concat2, sampling_id choosing multiplex's input;
+# ctc — an acoustic model's softmax over 29 characters (28 and the blank)
+# at 200-256 frames; moe — DECODE_MODEL's width over 4096 valid tokens of
+# 8 experts; mdlstm — a 28x28 image grid (MNIST's).
+ZOO_SIZES = {
+    "text": (dict(vocab=30000, B=32, T=50, emb=128, hidden=256, neg=10),
+             dict(vocab=40, B=4, T=5, emb=8, hidden=6, neg=3)),
+    "misc": (dict(B=32, F=256, H=64, S=64), dict(B=4, F=12, H=8, S=6)),
+    "ctc": (dict(B=16, T=(200, 256), feat=40, hidden=128, C=29,
+                 L=(40, 60)),
+            dict(B=3, T=(6, 9), feat=5, hidden=6, C=5, L=(1, 3))),
+    "moe": (dict(B=16, T=(240, 272), D=512, E=8, H=2048),
+            dict(B=3, T=(3, 5), D=8, E=3, H=6)),
+    "mdlstm": (dict(B=32, grid=(28, 28), D=32),
+               dict(B=3, grid=(2, 3), D=4)),
+}
+ZOO_KEY = 17                # the TRAIN forward's key (sampling_id, nce)
+ZOO_TYPES = ("concat2", "scaling", "slope_intercept", "interpolation",
+             "power", "convex_comb", "linear_comb", "cos_vm", "out_prod",
+             "tensor", "multiplex", "trans", "resize", "featmap_expand",
+             "prelu", "conv_shift", "print", "selective_fc", "moe",
+             "mdlstmemory", "sampling_id", "eos_id", "ctc", "nce",
+             "hsigmoid")
+
+
+def _zoo_raw(type_: str, inputs: list, size: int, bias: bool = False):
+    """A layer the DSL has no helper for (concat2, prelu; linear_comb,
+    whose helper writes convex_comb), as the reference's config parser
+    writes it: inputs [(LayerOutput, parameter
+    dims or None, projection type or None)]."""
+    from paddle_tpu_torch.config.schema import (LayerConfig, LayerInput,
+                                                ProjectionConfig)
+    from paddle_tpu_torch.dsl.base import LayerOutput, current_context
+    from paddle_tpu_torch.dsl.layers import _bias_name, _make_param
+    ctx = current_context()
+    name = ctx.unique_name(type_)
+    cfg = LayerConfig(name=name, type=type_, size=size)
+    for i, (inp, dims, proj) in enumerate(inputs):
+        li = LayerInput(input_layer_name=inp.name)
+        if dims:
+            li.input_parameter_name = _make_param(name, i, dims, None)
+        if proj:
+            li.proj = ProjectionConfig(type=proj, input_size=inp.size,
+                                       output_size=dims[-1])
+        cfg.inputs.append(li)
+    if bias:
+        cfg.bias_parameter_name = _bias_name(name, True, [1, size])
+    ctx.add_layer(cfg)
+    return LayerOutput(name, type_, size, parents=[i[0] for i in inputs])
+
+
+def _zipf(n: int) -> np.ndarray:
+    p = 1.0 / np.arange(1, n + 1)
+    return p / p.sum()
+
+
+def _zoo_text(s: dict) -> None:
+    import paddle_tpu_torch.dsl as D
+    word = D.data_layer("word", s["vocab"])
+    nxt = D.data_layer("next", s["vocab"])
+    D.eos_layer(word, eos_id=1)
+    emb = D.embedding_layer(word, s["emb"])
+    h = D.fc_layer(D.pooling_layer(emb, D.AvgPooling()), s["hidden"],
+                   act=D.TanhActivation())
+    D.nce_layer(h, nxt, num_classes=s["vocab"], num_neg_samples=s["neg"],
+                neg_distribution=_zipf(s["vocab"]).tolist())
+    D.hsigmoid(h, nxt, num_classes=s["vocab"])
+
+
+def _zoo_misc(s: dict) -> None:
+    import paddle_tpu_torch.dsl as D
+    H = s["H"]
+    x = D.data_layer("x", s["F"])
+    sel = D.data_layer("sel", s["S"])
+    label = D.data_layer("label", 10)
+
+    def fc(size, act):
+        return D.fc_layer(x, size, act=act)
+
+    a, b = fc(H, D.TanhActivation()), fc(H, D.TanhActivation())
+    c2 = _zoo_raw("concat2", [(x, [s["F"], H], "fc"), (b, None, None)],
+                  2 * H, bias=True)
+    w1 = fc(1, D.SigmoidActivation())
+    si = D.slope_intercept_layer(D.scaling_layer(w1, c2), slope=2.5,
+                                 intercept=-0.75)
+    ip = D.interpolation_layer(w1, a, b)
+    pw = D.power_layer(w1, fc(H, D.SigmoidActivation()))
+    cc = D.convex_comb_layer(fc(4, D.SoftmaxActivation()), c2, H // 2)
+    lc = _zoo_raw("linear_comb", [(fc(4, D.LinearActivation()), None, None),
+                                  (si, None, None)], H // 2)
+    cv = D.cos_sim_vecmat(a, fc(4 * H, D.LinearActivation()), 4, scale=2.0)
+    op = D.out_prod_layer(fc(8, D.TanhActivation()), cc)
+    tn = D.tensor_layer(a, b, 16)
+    sid = D.sampling_id_layer(fc(3, D.SoftmaxActivation()))
+    mx = D.multiplex_layer(sid, [a, b, ip])
+    tt = D.trans_layer(D.trans_layer(mx))
+    rr = D.resize_layer(D.resize_layer(c2, H), 2 * H)
+    fe = D.repeat_layer(ip, 3)
+    pr = _zoo_raw("prelu", [(si, [1, 8], None)], 2 * H)
+    cs = D.conv_shift_layer(a, fc(5, D.SoftmaxActivation()))
+    pt = D.print_layer(w1)
+    sf = D.selective_fc_layer(a, sel, s["S"], act=D.SoftmaxActivation())
+    parts = [pw, cc, lc, cv, op, tn, tt, rr, fe, pr, cs, pt, sf]
+    prob = D.fc_layer(D.concat_layer(parts), 10,
+                      act=D.SoftmaxActivation())
+    D.classification_cost(prob, label)
+
+
+def _zoo_ctc(s: dict) -> None:
+    import paddle_tpu_torch.dsl as D
+    frames = D.data_layer("frames", s["feat"])
+    chars = D.data_layer("chars", s["C"])
+    h = D.fc_layer(frames, s["hidden"], act=D.TanhActivation())
+    prob = D.fc_layer(h, s["C"], act=D.SoftmaxActivation())
+    D.ctc_layer(prob, chars, size=s["C"], norm_by_times=True)
+
+
+def _zoo_moe(s: dict) -> None:
+    import paddle_tpu_torch.dsl as D
+    x = D.data_layer("x", s["D"])
+    y = D.moe_layer(x, num_experts=s["E"], expert_hidden=s["H"], top_k=2,
+                    capacity_factor=1.25, aux_weight=0.01)
+    prob = D.fc_layer(D.pooling_layer(y, D.AvgPooling()), 10,
+                      act=D.SoftmaxActivation())
+    D.classification_cost(prob, D.data_layer("label", 10))
+
+
+def _zoo_mdlstm(s: dict) -> None:
+    import paddle_tpu_torch.dsl as D
+    height, width = s["grid"]
+    pix = D.data_layer("pixels", 1)
+    g = D.fc_layer(pix, 5 * s["D"], act=D.LinearActivation())
+    h = D.mdlstm_layer(g, height, width, directions=(True, False))
+    prob = D.fc_layer(D.pooling_layer(h, D.MaxPooling()), 10,
+                      act=D.SoftmaxActivation())
+    D.classification_cost(prob, D.data_layer("label", 10))
+
+
+def _zoo_lengths(rng, B: int, span: tuple) -> np.ndarray:
+    return rng.integers(span[0], span[1] + 1, B).astype(np.int32)
+
+
+def zoo_feed(name: str, s: dict, seed: int = 0) -> dict:
+    """A batch for zoo model `name` at sizes s: {data layer: ("value" |
+    "ids", array, lengths or None)}."""
+    rng = np.random.default_rng(seed)
+    B = s["B"]
+    if name == "text":
+        lens = _zoo_lengths(rng, B, (s["T"] // 2, s["T"]))
+        p = _zipf(s["vocab"])
+        return {"word": ("ids", rng.choice(s["vocab"], (B, s["T"]), p=p)
+                         .astype(np.int32), lens),
+                "next": ("ids", rng.choice(s["vocab"], B, p=p)
+                         .astype(np.int32), None)}
+    if name == "misc":
+        return {"x": ("value", rng.normal(size=(B, s["F"]))
+                      .astype(np.float32), None),
+                "sel": ("value", (rng.uniform(size=(B, s["S"])) < 0.5)
+                        .astype(np.float32), None),
+                "label": ("ids", rng.integers(0, 10, B).astype(np.int32),
+                          None)}
+    if name == "ctc":
+        T, L = s["T"], s["L"]
+        lens = _zoo_lengths(rng, B, L)
+        return {"frames": ("value", rng.normal(size=(B, T[1], s["feat"]))
+                           .astype(np.float32), _zoo_lengths(rng, B, T)),
+                "chars": ("ids", rng.integers(0, s["C"] - 1, (B, L[1]))
+                          .astype(np.int32), lens)}
+    if name == "moe":
+        T = s["T"]
+        lens = np.where(np.arange(B) < B // 2, T[1], T[0]).astype(np.int32)
+        return {"x": ("value", rng.normal(size=(B, T[1], s["D"]))
+                      .astype(np.float32), lens),
+                "label": ("ids", rng.integers(0, 10, B).astype(np.int32),
+                          None)}
+    if name == "mdlstm":
+        cells = s["grid"][0] * s["grid"][1]
+        return {"pixels": ("value", rng.uniform(size=(B, cells, 1))
+                           .astype(np.float32),
+                           np.full(B, cells, np.int32)),
+                "label": ("ids", rng.integers(0, 10, B).astype(np.int32),
+                          None)}
+    raise KeyError(name)
+
+
+def zoo_model(name: str, small: bool = False):
+    """(TrainerConfig, feed) of zoo model `name`, at its card size or its
+    small one."""
+    from paddle_tpu_torch.config.parser import parse_config_callable
+    s = ZOO_SIZES[name][1 if small else 0]
+    build = {"text": _zoo_text, "misc": _zoo_misc, "ctc": _zoo_ctc,
+             "moe": _zoo_moe, "mdlstm": _zoo_mdlstm}[name]
+    return parse_config_callable(build, s), zoo_feed(name, s)
+
+
+def zoo_graph_run(model, params: dict, feed: dict, device: str):
+    """GraphExecutor.loss in TRAIN mode (key PRNGKey(ZOO_KEY)) and its
+    backward on `device`, float32: (loss, {layer: Argument}, {cost:
+    per-sample cost}, {parameter: gradient}, print-layer lines)."""
+    import io
+
+    from paddle_tpu_torch.graph import GraphExecutor
+    from paddle_tpu_torch.parameter import Argument
+    from paddle_tpu_torch.utils import prng
+    p = {n: torch.tensor(np.asarray(a), device=device, requires_grad=True)
+         for n, a in params.items()}
+    f = {}
+    for n, (kind, a, lens) in feed.items():
+        t = torch.tensor(a, device=device)
+        lengths = None if lens is None else torch.tensor(lens, device=device)
+        f[n] = Argument(value=t, lengths=lengths) if kind == "value" else \
+            Argument(ids=t.long(), lengths=lengths)
+    out = io.StringIO()
+    with torch.enable_grad(), contextlib.redirect_stdout(out):
+        loss, (outs, costs, _) = GraphExecutor(model).loss(
+            p, f, rng=prng.PRNGKey(ZOO_KEY, device=device))
+        loss.backward()
+    printed = [ln for ln in out.getvalue().splitlines()
+               if ln.startswith("print layer")]
+    return loss, outs, costs, {n: t.grad for n, t in p.items()}, printed
+
+
+def _zoo_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (1 + |want|): within 1e-4 is within 1e-4
+    absolute and relative."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float(((got - want).abs() / (1.0 + want.abs())).max()) \
+        if want.numel() else 0.0
+
+
+def zoo_compare(got: tuple, want: tuple) -> tuple[dict, list]:
+    """Two zoo_graph_run results: ({what: max err}, [what differs]) over
+    the loss, every layer's values (ids exactly), every cost and every
+    gradient, within 1e-4."""
+    errs, bad = {"loss": _zoo_err(got[0], want[0])}, []
+    for n, w in want[1].items():
+        g = got[1][n]
+        if (w.ids is None) != (g.ids is None) or (
+                w.ids is not None and not torch.equal(g.ids.cpu(),
+                                                      w.ids.cpu())):
+            bad.append(f"{n} ids")
+        if w.value is not None:
+            errs[n] = _zoo_err(g.value, w.value)
+    for n, w in want[2].items():
+        errs[f"cost {n}"] = _zoo_err(got[2][n], w)
+    for n, w in want[3].items():
+        g = got[3][n]
+        if (w is None) != (g is None):
+            bad.append(f"d/d{n}")
+        elif w is not None:
+            errs[f"d/d{n}"] = _zoo_err(g, w)
+    if sorted(got[2]) != sorted(want[2]) or len(got[4]) != len(want[4]):
+        bad.append("costs or print lines")
+    bad += [n for n, e in errs.items() if not e <= 1e-4]
+    return errs, bad
+
+
+def phase_zoo(smi: str) -> None:
+    """Each ZOO_SIZES model at its card size: GraphExecutor.loss (TRAIN)
+    and its backward on the card against the port on the CPU, float32
+    with TF32 off, the same parameters (init_params, seed 1) and batch:
+    the loss, every layer's values, every cost and every gradient within
+    1e-4, ids exact (sampling_id and nce draw from the same key on
+    both)."""
+    from paddle_tpu_torch.parameter import init_params
+    start = time.perf_counter()
+    types_seen, bad = set(), {}
+    for name in ZOO_SIZES:
+        t0 = time.perf_counter()
+        cfg, feed = zoo_model(name)
+        model = cfg.model_config
+        types_seen |= {lc.type for lc in model.layers}
+        params = {n: v.numpy() for n, v in
+                  init_params(model, seed=1, device="cpu").items()}
+        want = zoo_graph_run(model, params, feed, "cpu")
+        t_cpu = time.perf_counter() - t0
+        zoo_graph_run(model, params, feed, "cuda")           # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = zoo_graph_run(model, params, feed, "cuda")
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        errs, bad[name] = zoo_compare(got, want)
+        worst = max(errs, key=errs.get)
+        n_params = sum(a.size for a in params.values())
+        log(f"[zoo] {name}: {len(model.layers)} layers, {n_params:,} "
+            f"parameters, batch " + ", ".join(
+                f"{n} {list(a.shape)}" for n, (_, a, _) in feed.items())
+            + f": loss {float(want[0].detach()):.6g}, {len(errs)} values "
+            f"and gradients, worst {worst} {errs[worst]:.2e} (|err| / "
+            f"(1 + |CPU|)); card {t_card * 1e3:.1f} ms (second call), CPU "
+            f"{t_cpu:.1f} s; print layer lines {len(got[4])}"
+            + (f"; FAIL: {bad[name]}" if bad[name] else "") + f" [{smi}]")
+    missing = sorted(set(ZOO_TYPES) - types_seen)
+    failed = {n: b for n, b in bad.items() if b}
+    log(f"[zoo] the {len(ZOO_TYPES)} layer types ported last, in "
+        f"{len(ZOO_SIZES)} models, forward and backward on the card "
+        + ("within 1e-4 of the CPU, ids exact" if not failed else
+           f"DIFFER: {failed}")
+        + (f"; not held: {missing}" if missing else "")
+        + f" ({time.perf_counter() - start:.1f}s)")
+    if missing or failed:
+        raise AssertionError(f"[zoo] failed: {failed}, not held: {missing}")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -8172,6 +8749,8 @@ def main(argv=None) -> int:
     phase("image", phase_image, smi)
     tagging = phase("tagging", phase_tagging, smi)
     phase("nested", phase_nested, smi)
+    phase("rng", phase_rng, smi)
+    phase("zoo", phase_zoo, smi)
     log(f"[done] {time.perf_counter() - t0:.1f}s: "
         + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
         + f"; the profiler around its runs {PROFILER_SECONDS[0]:.1f}")

@@ -16,6 +16,8 @@ CUDA graphs, and (slice 11) the user's own surface: the config DSL
 (dsl/), its parser (config/parser.py), the data provider and feeder
 (data/) and the CLI, `python -m paddle_tpu_torch train --config=...`
 (trainer_main.py); the model builders of models/ parse the demo configs.
+Its random draws are the JAX package's: utils/prng.py is jax.random's
+threefry2x32 in torch.
 """
 
 __version__ = "0.1.0"

@@ -764,8 +764,12 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_kernel(
     float dh = in_batch ? g_hl[(size_t)(b0 + r) * D + unit] : 0.f;
     float dc = in_batch ? g_cl[(size_t)(b0 + r) * D + unit] : 0.f;
     float dht = 0.f, dp0 = 0.f, dp1 = 0.f, dp2 = 0.f;
-    const float p_i = peeps[unit], p_f = peeps[D + unit];
-    const float p_o = peeps[2 * D + unit];
+    // a thread without an item reads no peephole: its unit would lie
+    // beyond D (beyond the tensor: an illegal address where the
+    // allocation ends a mapped range)
+    const float p_i = mine ? peeps[unit] : 0.f;
+    const float p_f = mine ? peeps[D + unit] : 0.f;
+    const float p_o = mine ? peeps[2 * D + unit] : 0.f;
     if (threadIdx.x == 0) {
         mbar_init(&p_bar[0]);
         mbar_init(&p_bar[1]);

@@ -38,7 +38,7 @@ import torch
 # importing the layer modules registers their layer types
 from paddle_tpu_torch.graph import (layers_attn, layers_conv,  # noqa: F401
                                     layers_core, layers_cost, layers_misc,
-                                    layers_seq)
+                                    layers_moe, layers_seq)
 from paddle_tpu_torch.config.schema import (LayerConfig, ModelConfig,
                                             SubModelConfig)
 from paddle_tpu_torch.graph.context import TEST, TRAIN, ForwardContext
@@ -222,7 +222,7 @@ class GraphExecutor:
     def forward(self, params: dict[str, torch.Tensor],
                 feed: dict[str, Argument],
                 state: Optional[dict[str, Any]] = None,
-                mode: str = TEST, rng: Optional[torch.Generator] = None,
+                mode: str = TEST, rng: Optional[torch.Tensor] = None,
                 dropout_masks: Optional[dict[str, torch.Tensor]] = None,
                 probes: Optional[dict] = None,
                 differentiable: bool = False):
@@ -232,8 +232,8 @@ class GraphExecutor:
         runs without autograd unless `differentiable` (the gradient
         check's TEST loss); TRAIN records the graph for
         `loss(...).backward()`.  A TRAIN forward of a model with dropout
-        draws its masks from `rng`, except for the layers whose keep-mask
-        `dropout_masks` supplies.
+        draws its masks from the threefry key `rng` (utils/prng.py), except
+        for the layers whose keep-mask `dropout_masks` supplies.
 
         `probes` maps root layer names to zero tensors added to those
         layers' output values: the gradient of the loss with respect to a
@@ -257,7 +257,7 @@ class GraphExecutor:
     def loss(self, params: dict[str, torch.Tensor],
              feed: dict[str, Argument],
              state: Optional[dict[str, Any]] = None, mode: str = TRAIN,
-             rng: Optional[torch.Generator] = None,
+             rng: Optional[torch.Tensor] = None,
              dropout_masks: Optional[dict[str, torch.Tensor]] = None,
              probes: Optional[dict] = None, differentiable: bool = False):
         """The sum over cost layers of each cost's batch mean, in at least
@@ -431,7 +431,7 @@ class GraphExecutor:
         stacked: dict[str, list] = {name: [] for name in emit_names}
         out_is_seq: dict[str, bool] = {}
         for t in range(N):
-            sub = ctx.sub_context()
+            sub = ctx.sub_context(t)
             for outer, inner in in_link_alias.items():
                 sub.outputs[inner] = links[outer].step(t)
             for outer, inner in static_alias.items():
@@ -467,7 +467,8 @@ class GraphExecutor:
             return
         # the deferred suffix, once over the stacked sequences (in loop
         # order, so that a reversed group publishes it like the others)
-        dctx = ctx.sub_context()
+        gid = [g.name for g in self.model.sub_models].index(sm.name)
+        dctx = ctx.sub_context(2 ** 31 - 1 - gid)
         for outer, inner in in_link_alias.items():
             dctx.outputs[inner] = links[outer].whole(lengths)
         for name in spec["emit"]:

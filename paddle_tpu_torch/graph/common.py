@@ -10,6 +10,7 @@ from paddle_tpu_torch.config.schema import LayerConfig
 from paddle_tpu_torch.graph.context import ForwardContext
 from paddle_tpu_torch.ops.activations import activation
 from paddle_tpu_torch.parameter.argument import Argument
+from paddle_tpu_torch.utils import prng
 
 
 def apply_dropout(ctx: ForwardContext, cfg: LayerConfig,
@@ -17,7 +18,8 @@ def apply_dropout(ctx: ForwardContext, cfg: LayerConfig,
     """Classic (non-inverted) dropout, as the JAX package's: multiply by a
     Bernoulli(1 - drop_rate) keep-mask at train time and by (1 - drop_rate)
     at test time.  The mask is `ctx.dropout_masks[cfg.name]` when the
-    caller supplied one, else a draw from the context's generator."""
+    caller supplied one, else bernoulli(next_rng(), 1 - drop_rate) as the
+    JAX layer draws it."""
     p = cfg.drop_rate
     if p <= 0.0:
         return x
@@ -25,8 +27,8 @@ def apply_dropout(ctx: ForwardContext, cfg: LayerConfig,
         return x * (1.0 - p)
     keep = ctx.dropout_masks.get(cfg.name)
     if keep is None:
-        keep = torch.rand(x.shape, generator=ctx.next_rng(),
-                          device=x.device) < (1.0 - p)
+        keep = prng.bernoulli(ctx.next_rng(), 1.0 - p, x.shape,
+                              device=x.device)
     elif keep.shape != x.shape:
         raise ValueError(f"layer {cfg.name!r}: dropout mask "
                          f"{tuple(keep.shape)} for an output "

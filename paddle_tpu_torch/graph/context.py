@@ -5,11 +5,11 @@ TEST, or GEN for the beam search's steps), the parameter map,
 already-computed layer outputs, the incoming/outgoing layer state (the
 serving engine's paged KV pools, the batch-norm moving statistics), the
 per-sample cost vectors the cost layers record by layer name, and the
-random stream of stochastic layers (training-time dropout): a
-`torch.Generator` on the tensors' device that its owner (the Trainer) seeds.
-Its draws are not those of `jax.random`, so `dropout_masks` lets a caller
-supply a layer's keep-mask instead of drawing it (the tests feed the masks
-JAX drew).
+threefry key of stochastic layers (training-time dropout, sampling_id):
+`next_rng` folds a per-context draw counter into it, as the JAX context
+does, so a layer draws the same bits as its JAX counterpart
+(utils/prng.py).  `dropout_masks` lets a caller supply a layer's keep-mask
+instead of drawing it.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 
 from paddle_tpu_torch.config.schema import LayerConfig, ModelConfig
 from paddle_tpu_torch.parameter.argument import Argument, image_layout
+from paddle_tpu_torch.utils import prng
 
 TRAIN = "train"
 TEST = "test"
@@ -39,30 +40,46 @@ class ForwardContext:
     state_out: dict[str, Any] = field(default_factory=dict)
     # accumulated per-sample costs from cost layers: name -> [B]
     costs: dict[str, torch.Tensor] = field(default_factory=dict)
-    # the random stream of stochastic layers, and keep-masks by layer name
-    # that replace a draw from it
-    rng: Optional[torch.Generator] = None
+    # the threefry key [2] of stochastic layers (a host key folds on the
+    # host, a device key on the device; draws run on their tensors'
+    # device), and keep-masks by layer name that replace a draw from it
+    rng: Optional[torch.Tensor] = None
     dropout_masks: dict[str, torch.Tensor] = field(default_factory=dict)
+    _rng_counter: int = 0
+    # a fold of `rng` not yet applied: made at the first draw, so a
+    # recurrent step that draws nothing costs no hash
+    _rng_fold: Optional[int] = None
 
     @property
     def is_training(self) -> bool:
         return self.mode == TRAIN
 
-    def sub_context(self) -> "ForwardContext":
+    def sub_context(self, fold: Optional[int] = None) -> "ForwardContext":
         """A fresh context for one step of a recurrent group (or its deferred
-        suffix): the same model, parameters, mode, random stream and
-        supplied masks, its own outputs; its costs and state stay its own."""
+        suffix, or a beam-search step): the same model, parameters, mode and
+        supplied masks, the key folded with `fold` (the same key without
+        one, as the JAX generator's steps get it), its draws counted from
+        0, its own outputs; its costs and state stay its own."""
         return ForwardContext(model=self.model, params=self.params,
-                              mode=self.mode, rng=self.rng,
-                              dropout_masks=self.dropout_masks)
+                              mode=self.mode, rng=self._key(),
+                              dropout_masks=self.dropout_masks,
+                              _rng_fold=fold)
 
-    def next_rng(self) -> torch.Generator:
-        """The generator the next stochastic draw comes from (each draw
-        advances it, as the JAX side folds a counter into its key)."""
-        if self.rng is None:
+    def _key(self) -> Optional[torch.Tensor]:
+        """`rng` with its pending fold applied."""
+        if self._rng_fold is not None and self.rng is not None:
+            self.rng = prng.fold_in(self.rng, self._rng_fold)
+        self._rng_fold = None
+        return self.rng
+
+    def next_rng(self) -> torch.Tensor:
+        """The key of the next stochastic draw: fold_in(rng, n) for the
+        context's n-th draw, n from 1."""
+        if self._key() is None:
             raise ValueError("forward() needs an rng for stochastic layers "
                              "(training-time dropout)")
-        return self.rng
+        self._rng_counter += 1
+        return prng.fold_in(self.rng, self._rng_counter)
 
     def get_input(self, cfg: LayerConfig, i: int) -> Argument:
         """Input i in the reference's flat row layout (an image output is

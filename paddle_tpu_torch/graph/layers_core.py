@@ -1,6 +1,6 @@
 """Core layers: data, fc, mixed (the table, full-matrix, transposed
 full-matrix, identity, dot-mul, scaling, context and conv projections, the
-conv and dot-mul operators), addto, concat — the counterparts of
+conv and dot-mul operators), addto, concat, concat2 — the counterparts of
 paddle_tpu/graph/layers_core.py.
 
 An input of sparse rows (`Argument.sparse_dim`: [..., K] column ids and
@@ -162,4 +162,19 @@ def concat_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
     """Feature-dim concatenation of the inputs."""
     inputs = ctx.get_inputs(cfg)
     acc = torch.cat([a.value for a in inputs], dim=-1)
+    return finish_layer(ctx, cfg, acc, like=inputs[0])
+
+
+@register_layer("concat2")
+def concat2_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """Feature-dim concatenation of the inputs, each through its projection
+    where it has one, plus the bias (ref: ConcatenateLayer2)."""
+    inputs = ctx.get_inputs(cfg)
+    parts = [_apply_projection(cfg, inp.proj, arg, ctx.param_of(cfg, i))
+             if inp.proj else arg.value
+             for i, (inp, arg) in enumerate(zip(cfg.inputs, inputs))]
+    acc = torch.cat(parts, dim=-1)
+    b = ctx.bias_of(cfg)
+    if b is not None:
+        acc = acc + b
     return finish_layer(ctx, cfg, acc, like=inputs[0])

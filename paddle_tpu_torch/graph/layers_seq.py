@@ -2,8 +2,9 @@
 paddle_tpu/graph/layers_seq.py for `lstmemory`, `gated_recurrent`,
 `gru_step`, `lstm_step`, `recurrent` (the vanilla RNN), the pooling layers
 over time (`max`, `average`, `seqlastins`, on flat and nested inputs),
-`expand`, `subseq`, `seqconcat`, `seqreshape`, `maxid`, and the
-linear-chain CRF's `crf` (a cost) and `crf_decoding`, on the padded
+`expand`, `subseq`, `seqconcat`, `seqreshape`, `maxid`, `sampling_id`,
+`eos_id`, the 2-D `mdlstmemory`, the linear-chain CRF's `crf` (a cost) and
+`crf_decoding`, and the costs `ctc`, `nce` and `hsigmoid`, on the padded
 [B, T, D] + lengths representation (nested: [B, S, T, D] + lengths +
 sub_lengths).
 
@@ -11,8 +12,7 @@ Under --prev_batch_state a forward recurrent layer (`lstmemory`,
 `gated_recurrent`, `recurrent`) boots from the previous batch's final
 state, which it finds in the layer state (`ctx.state_in`, keys
 `<layer>:h` and `<layer>:c`) and hands on in `ctx.state_out`: the
-reference's truncated-BPTT continuation.  The other layers of the JAX
-module are queued in ROADMAP.md.
+reference's truncated-BPTT continuation.
 """
 
 from __future__ import annotations
@@ -27,10 +27,14 @@ from paddle_tpu_torch.graph.common import finish_layer
 from paddle_tpu_torch.graph.context import ForwardContext
 from paddle_tpu_torch.graph.registry import register_layer
 from paddle_tpu_torch.ops import crf as crfops
+from paddle_tpu_torch.ops import ctc as ctcops
+from paddle_tpu_torch.ops import mdlstm as mdlstmops
+from paddle_tpu_torch.ops import sampling as samplingops
 from paddle_tpu_torch.ops import rnn as rnnops
 from paddle_tpu_torch.ops import sequence as seqops
 from paddle_tpu_torch.ops.activations import activation_registry
 from paddle_tpu_torch.parameter.argument import Argument
+from paddle_tpu_torch.utils import prng
 from paddle_tpu_torch.utils.flags import FLAGS
 
 
@@ -319,3 +323,94 @@ def crf_decoding_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
         err = (path != lbl.ids).long() * x.mask(torch.long)
         return Argument(ids=err, lengths=x.lengths)
     return Argument(ids=path, lengths=x.lengths)
+
+
+@register_layer("mdlstmemory")
+def mdlstm_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """The 2-D multi-dimensional LSTM over a static [height, width] grid of
+    a pre-projected [B, H*W, 5D] input (ops/mdlstm.py), the walk's
+    direction per dimension from attrs['directions'], finished without an
+    activation."""
+    x = ctx.get_input(cfg, 0)
+    b = ctx.bias_of(cfg)
+    if b is None:
+        raise ValueError(f"mdlstmemory {cfg.name!r} needs its bias / "
+                         f"peephole parameter")
+    directions = tuple(cfg.attrs.get("directions", (True, True)))
+    if len(directions) != 2:
+        raise ValueError(f"mdlstmemory {cfg.name!r}: 2-D grids only, got "
+                         f"directions {directions}")
+    out = mdlstmops.mdlstm_2d(
+        x.value, ctx.param_of(cfg, 0), b, height=cfg.attrs["height"],
+        width=cfg.attrs["width"], directions=directions, lengths=x.lengths,
+        active_type=cfg.active_type or "tanh",
+        gate_active_type=cfg.attrs.get("active_gate_type", "sigmoid"),
+        state_active_type=cfg.attrs.get("active_state_type", "tanh"))
+    out_cfg = dataclasses.replace(cfg, active_type="")
+    return finish_layer(ctx, out_cfg, out, like=x, lengths=x.lengths)
+
+
+@register_layer("sampling_id")
+def sampling_id_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """An id drawn from each row's distribution: categorical(next_rng(),
+    log(max(p, 1e-10))), the JAX layer's draw."""
+    x = ctx.get_input(cfg, 0)
+    logits = torch.log(torch.clamp(x.value, min=1e-10))
+    return Argument(ids=prng.categorical(ctx.next_rng(), logits, axis=-1),
+                    lengths=x.lengths)
+
+
+@register_layer("eos_id")
+def eos_id_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """1 where the input id is attrs['eos_id'], else 0."""
+    x = ctx.get_input(cfg, 0)
+    return Argument(ids=(x.ids == cfg.attrs.get("eos_id", 0)).long(),
+                    lengths=x.lengths)
+
+
+@register_layer("ctc")
+def ctc_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """The CTC cost of the label ids under the [B, T, C] probabilities
+    (ops/ctc.py), recorded times `coeff`."""
+    x, lbl = ctx.get_input(cfg, 0), ctx.get_input(cfg, 1)
+    cost = ctcops.ctc_loss(x.value, x.lengths, lbl.ids, lbl.lengths,
+                           blank=cfg.blank, norm_by_times=cfg.norm_by_times)
+    ctx.costs[cfg.name] = cfg.coeff * cost
+    return Argument(value=cost[:, None])
+
+
+@register_layer("nce")
+def nce_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """The noise-contrastive estimation cost (ops/sampling.py): the feature
+    inputs (those with parameters), then the label, then an optional
+    per-row weight; `num_neg_samples` negatives per row drawn from
+    `neg_sampling_dist` (uniform when unset) with the next key."""
+    inputs = ctx.get_inputs(cfg)
+    n_feat = sum(1 for li in cfg.inputs if li.input_parameter_name)
+    dist = None
+    if cfg.neg_sampling_dist:
+        dist = torch.tensor(cfg.neg_sampling_dist, dtype=torch.float32,
+                            device=inputs[0].value.device)
+    cost = samplingops.nce_cost(
+        ctx.next_rng(), [inputs[i].value for i in range(n_feat)],
+        inputs[n_feat].ids, [ctx.param_of(cfg, i) for i in range(n_feat)],
+        ctx.bias_of(cfg), num_classes=cfg.num_classes,
+        num_neg=cfg.num_neg_samples, dist=dist)
+    if len(inputs) > n_feat + 1:
+        cost = cost * inputs[n_feat + 1].data.reshape(cost.shape)
+    ctx.costs[cfg.name] = cfg.coeff * cost
+    return Argument(value=cost[:, None])
+
+
+@register_layer("hsigmoid")
+def hsigmoid_layer(ctx: ForwardContext, cfg: LayerConfig) -> Argument:
+    """The hierarchical sigmoid cost over a complete binary tree
+    (ops/sampling.py); the label is the last input."""
+    inputs = ctx.get_inputs(cfg)
+    feats = inputs[:-1]
+    cost = samplingops.hsigmoid_cost(
+        [f.value for f in feats], inputs[-1].ids,
+        [ctx.param_of(cfg, i) for i in range(len(feats))],
+        ctx.bias_of(cfg), cfg.num_classes)
+    ctx.costs[cfg.name] = cfg.coeff * cost
+    return Argument(value=cost[:, None])

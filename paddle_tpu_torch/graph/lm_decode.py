@@ -19,10 +19,10 @@ Both loops run eagerly on the device of the parameters' copy (the card
 unless `device="cpu"`); an `early_exit_chunk` makes the host check
 between chunks of steps whether every row has stopped.  Sampling keeps
 serving/sampler.py's rules (the engine's sampler is the one
-implementation): step i's randomness is [B, V] Gumbel noise from the
-`noise` hook — JAX's `jax.random.gumbel(keys[i], (B, V))` for keys =
-split(rng, max_new) in the tests — by default drawn from a torch
-Generator seeded from (seed, i).  `build_draft_roll` is the greedy draft
+implementation): step i's randomness is the [B, V] Gumbel noise
+gumbel(keys[i], (B, V)) for keys = split(rng, max_new), the draw of the
+JAX package's `jax.random.categorical(keys[i], scaled)` (utils/prng.py),
+unless a `noise` hook gives it.  `build_draft_roll` is the greedy draft
 rollout of a batched speculative drafter (serving/drafter.py
 `ModelDrafter`).
 """
@@ -40,31 +40,10 @@ from paddle_tpu_torch.graph.registry import (cost_layer_types,
 from paddle_tpu_torch.obs.compile_watch import get_compile_watch
 from paddle_tpu_torch.parameter.argument import Argument
 from paddle_tpu_torch.parameter.init import torch_dtype
+from paddle_tpu_torch.utils import prng
 
 # noise(i) -> [B, V] float32 Gumbel noise of decode step i
 StepNoise = Callable[[int], torch.Tensor]
-
-
-def _mix_seed(seed: int, i: int) -> int:
-    """A 64-bit generator seed from (seed, draw index), every bit depending
-    on both (the CPU generator reads only the low 32 bits)."""
-    mask = (1 << 64) - 1
-    x = (int(seed) * 0x9E3779B97F4A7C15 + (int(i) + 1) * 0xBF58476D1CE4E5B9) \
-        & mask
-    x ^= x >> 31
-    x = (x * 0x94D049BB133111EB) & mask
-    return x ^ (x >> 29)
-
-
-def gumbel_noise(seed: int, i: int, shape, device) -> torch.Tensor:
-    """Gumbel noise -log(-log(u)), u uniform in [tiny, 1) as
-    jax.random.gumbel draws it, from a torch.Generator on `device` (Philox
-    on CUDA) seeded from (seed, i)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(_mix_seed(seed, i))
-    u = torch.rand(shape, generator=gen, device=device)
-    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32)
-                                             .tiny)))
 
 
 def nucleus_filter(scaled: torch.Tensor, top_p) -> torch.Tensor:
@@ -194,7 +173,7 @@ def lm_generate(executor, params: dict, prompt_ids, prompt_lengths=None,
                 max_new: int = 32, *, input_name: Optional[str] = None,
                 logits_name: Optional[str] = None, temperature: float = 0.0,
                 top_k: int = 0, top_p: float = 0.0, eos_id: int = -1,
-                seed: int = 0, noise: Optional[StepNoise] = None,
+                rng=None, seed: int = 0, noise: Optional[StepNoise] = None,
                 use_cache: bool = False, early_exit_chunk: int = 0,
                 device: DeviceLike = None):
     """Returns (tokens [B, P + max_new] int32, lengths [B] int32): the
@@ -202,7 +181,9 @@ def lm_generate(executor, params: dict, prompt_ids, prompt_lengths=None,
     all P) plus up to max_new sampled tokens per row; a row stops growing
     at eos_id or at the buffer's end.  temperature 0 is greedy argmax;
     top_k / top_p (which need temperature > 0) cut the support.  Step i
-    samples with noise(i) [B, V] (default: `gumbel_noise(seed, i, ...)`).
+    samples with noise(i) [B, V], by default gumbel(split(rng,
+    max_new)[i], (B, V)) with the key `rng` (default PRNGKey(seed), seed
+    0).
     `use_cache` decodes against the per-layer KV caches (module
     docstring); `early_exit_chunk` > 0 checks between chunks of that many
     steps whether every row has stopped.  Runs on `device` (the card
@@ -226,8 +207,11 @@ def lm_generate(executor, params: dict, prompt_ids, prompt_lengths=None,
         return buf.to(torch.int32), lengths
     vocab = int(executor.model.layer(logits_name).size)
     if noise is None:
+        keys = prng.split(prng.PRNGKey(seed) if rng is None else rng,
+                          max_new).to(dev)
+
         def noise(i):
-            return gumbel_noise(seed, i, (B, vocab), dev)
+            return prng.gumbel(keys[i], (B, vocab))
     is_probs = _is_probs(executor.model, logits_name)
     rows = torch.arange(B, device=dev)
 

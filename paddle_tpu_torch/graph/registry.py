@@ -1,15 +1,11 @@
 """Layer registry: LayerConfig.type string -> implementation function.
 
 A layer implementation is a function (ctx, cfg) -> Argument on tensors,
-as in paddle_tpu/graph/registry.py.  The port implements the layers the
-transformer LM, the sentiment LSTM nets, the attention seq2seq, the image
-classifiers (small_vgg on CIFAR-10 and MNIST, ResNet), the SRL and
-sequence-tagging nets (the vanilla RNN, the CRF and its decoder) and the
-recommendation, introduction and quick_start configs run: layers_core,
-layers_misc, layers_seq, layers_attn, layers_cost and layers_conv (every
-image layer type and every cost type of the JAX package).  All the JAX
-package's cost and validation types are known by name so that the serving
-engine can tell the model's output layer from its training head.
+as in paddle_tpu/graph/registry.py.  The port registers every layer type
+of the JAX package's registry (layers_core, layers_misc, layers_seq,
+layers_attn, layers_cost, layers_conv and layers_moe), under the same
+names.  The cost and validation types are listed by name so that the
+serving engine can tell the model's output layer from its training head.
 """
 
 from __future__ import annotations
@@ -20,9 +16,7 @@ LayerFn = Callable[..., "Argument"]  # noqa: F821
 
 layer_registry: dict[str, LayerFn] = {}
 
-# the JAX package's cost and validation layer types; the port implements
-# the costs and the validation layers of layers_cost.py and crf
-# (layers_seq.py); ctc, nce and hsigmoid are queued in ROADMAP.md
+# the JAX package's cost and validation layer types
 cost_layer_types = frozenset({
     "multi-class-cross-entropy", "multi_class_cross_entropy_with_selfnorm",
     "soft_binary_class_cross_entropy", "multi_binary_label_cross_entropy",
@@ -46,6 +40,5 @@ def get_layer_fn(type_name: str) -> LayerFn:
         return layer_registry[type_name]
     except KeyError:
         raise NotImplementedError(
-            f"layer type {type_name!r} is not ported yet (ROADMAP.md, "
-            f"PyTorch/CUDA port queue); ported: "
+            f"unknown layer type {type_name!r}; known: "
             f"{sorted(layer_registry)}") from None

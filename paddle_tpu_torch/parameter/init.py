@@ -3,10 +3,11 @@
 `init_params` follows the JAX package's rules (paddle_tpu/parameter/
 init.py): normal(mean, std) by default, std = 1/sqrt(fan_in) for "smart"
 parameters, uniform(mean - std, mean + std) and zeros where configured.
-The draws come from a `torch.Generator`, so they differ from JAX's; to
-run the same weights on both sides, carry them with `params_from_jax`, and
-an optimizer state (Adam or momentum slots and the update counters) with
-`opt_state_from_jax`.
+Parameter i draws from fold_in(key, i) with the port's threefry
+(utils/prng.py), so uniform parameters equal the JAX package's bit for bit
+and normal ones within the last bits of erfinv.  `params_from_jax`
+carries JAX parameters across by name, and `opt_state_from_jax` an
+optimizer state (Adam or momentum slots and the update counters).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from paddle_tpu_torch.config.schema import ModelConfig, ParameterConfig
 from paddle_tpu_torch.device import DeviceLike, resolve_device
+from paddle_tpu_torch.utils import prng
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -41,29 +43,36 @@ def default_std(cfg: ParameterConfig) -> float:
     return cfg.initial_std
 
 
-def init_parameter(cfg: ParameterConfig, gen: torch.Generator,
-                   device: torch.device) -> torch.Tensor:
+def init_parameter(cfg: ParameterConfig, key: torch.Tensor) -> torch.Tensor:
+    """One parameter drawn from `key` on the key's device (JAX's
+    `init_parameter`)."""
     shape = tuple(cfg.dims) if cfg.dims else (cfg.size,)
     dtype = torch_dtype(cfg.dtype)
     strategy = "normal" if cfg.initial_smart else cfg.initial_strategy
     if strategy == "zero":
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=key.device)
     std = default_std(cfg)
     if strategy == "uniform":
-        u = torch.rand(shape, generator=gen, device=device)
-        return (cfg.initial_mean - std + 2.0 * std * u).to(dtype)
-    z = torch.randn(shape, generator=gen, device=device)
-    return (cfg.initial_mean + std * z).to(dtype)
+        return prng.uniform(key, shape, dtype, cfg.initial_mean - std,
+                            cfg.initial_mean + std)
+    z = prng.normal(key, shape, dtype)
+    return torch.tensor(std, dtype=dtype, device=z.device) * z \
+        + cfg.initial_mean
 
 
 def init_params(model: ModelConfig, seed: int = 0,
-                device: DeviceLike = None) -> dict[str, torch.Tensor]:
-    """Fresh parameters for every ParameterConfig of `model`, drawn in
-    config order from one generator on the target device seeded by `seed`."""
+                device: DeviceLike = None,
+                rng: Optional[torch.Tensor] = None
+                ) -> dict[str, torch.Tensor]:
+    """Fresh parameters for every ParameterConfig of `model` on the target
+    device: parameter i from fold_in(rng, i), rng = PRNGKey(seed) unless
+    given (the JAX executor's `init_params`)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
-    return {pc.name: init_parameter(pc, gen, dev) for pc in model.parameters}
+    key = prng.PRNGKey(seed) if rng is None else prng.as_key(rng)
+    keys = prng.split(key, len(model.parameters)).to(dev) \
+        if model.parameters else None
+    return {pc.name: init_parameter(pc, keys[i])
+            for i, pc in enumerate(model.parameters)}
 
 
 def params_from_jax(np_params: Mapping[str, np.ndarray],

@@ -4,7 +4,6 @@ from paddle_tpu_torch.serving.drafter import (  # noqa: F401
     clamp_proposal,
 )
 from paddle_tpu_torch.serving.engine import (  # noqa: F401
-    PhiloxNoise,
     Request,
     ServingEngine,
 )

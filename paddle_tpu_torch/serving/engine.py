@@ -45,7 +45,7 @@ page frees.  When no decoding slot can run, the youngest slot is
 PREEMPTED: it donates its committed pages, releases the rest and goes
 back to the queue front; its replay prefix-hits its own donation and
 draws the same noise (token g of a request always samples with the noise
-of (request, g)), so preemption never shows in the tokens.  Preemption
+of its key g), so preemption never shows in the tokens.  Preemption
 happens only between steps, so also only at a window boundary.
 
 Requests end by eos ("stop"), max_new ("length"), `cancel` ("cancelled")
@@ -56,13 +56,17 @@ or their `deadline` on the engine's `clock` ("deadline"); `results` and
 mid-chunk requests) and resume it on a fresh engine of the same
 configuration bit for bit.
 
-Randomness: token g of a request samples with Gumbel noise drawn by the
-engine's `noise` source for (request, g) — by default from a torch
-Generator on the engine's device (Philox on CUDA) seeded from
-(request.seed, g).  Like the JAX engine's per-request key schedule (key g
-samples token g), the draw does not depend on the step or slot a token
-lands in; the draws themselves differ from JAX's threefry keys.  Greedy
-requests use no noise.
+Randomness: token g of a request samples with the Gumbel noise
+gumbel(key_g, (V,)) of its key g = split(request.rng, max_new)[g] (g
+clipped to max_new - 1), as the JAX engine samples it (utils/prng.py,
+threefry), so a sampled request gets the JAX package's tokens.  Each
+slot's request key is staged into a fixed [S, 2] device buffer at
+admission; every step, window body and verify step derives key g and its
+noise row on the device from that buffer and the generation count, so a
+captured window draws inside its graph.  The draw does not depend on the
+step or slot a token lands in.  Greedy requests use no noise.  A `noise`
+hook (noise(request, g, vocab, device) -> [vocab]) replaces the draw, for
+tests that feed other noise.
 
 Multi-step decode (`decode_steps=k > 1`, the reference's scanned step):
 a step with every live slot decoding and none filling runs a WINDOW of k
@@ -73,9 +77,9 @@ the host reads the [k, S] token block once and banks each slot's column up
 to its own end.  Every running slot first gets pages for its whole
 window; a mixed step, or a window whose pages cannot be grown, runs the
 k = 1 step.  On the card the window is a CUDA graph captured once per (k,
-all-greedy or sampling) after the variant's first window ran eagerly; the
-noise for tokens gen .. gen + k - 1 of each sampling slot is drawn by
-`noise` into a fixed [k, S, V] buffer before the replay, the same noise
+all-greedy or sampling) after the variant's first window ran eagerly; a
+sampling window draws the noise of its k bodies in one draw inside the
+graph, from the staged keys and the generation counts, the same noise
 k = 1 draws.  Tokens are identical to k = 1.
 
 Speculative decode (`spec_k > 0`, the reference's verify step): between
@@ -136,8 +140,7 @@ from paddle_tpu_torch.data.feeder import _bucket_len
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.graph.context import TEST
 from paddle_tpu_torch.graph.lm_decode import (_is_probs, _resolve_io_names,
-                                              gumbel_noise, init_kv_caches,
-                                              pick_next)
+                                              init_kv_caches, pick_next)
 from paddle_tpu_torch.obs.compile_watch import (get_compile_watch,
                                                 signature_of)
 from paddle_tpu_torch.obs.flight import get_flight_recorder
@@ -149,11 +152,13 @@ from paddle_tpu_torch.serving.drafter import NgramDrafter
 from paddle_tpu_torch.serving.paged_kv import PagedKVCache
 from paddle_tpu_torch.serving.prefix_tree import PrefixTree
 from paddle_tpu_torch.serving.sampler import (pick_next_chain,
-                                              pick_next_per_slot)
+                                              pick_next_per_slot,
+                                              slot_noise)
+from paddle_tpu_torch.utils import prng
 from paddle_tpu_torch.utils.cuda_graphs import StepGraph, new_pool
 
 # noise(request, g, vocab, device) -> [vocab] float32 Gumbel noise for
-# the request's token g
+# the request's token g: a test hook in place of the key's draw
 NoiseFn = Callable[["Request", int, int, torch.device], torch.Tensor]
 
 # engine counters a checkpoint carries
@@ -179,16 +184,18 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 class Request:
-    """One generation request: prompt, length, sampling knobs, the seed of
-    its noise (the JAX engine's `rng` key), an optional `deadline` on the
-    engine's clock and an inbound trace context (`{"trace_id", "parent"}`,
-    carried as attrs of the request's spans)."""
+    """One generation request: prompt, length, sampling knobs, the
+    threefry key `rng` of its noise (a [2] key, as the JAX engine's; `seed`
+    spells PRNGKey(seed); neither means PRNGKey(0)), an optional
+    `deadline` on the engine's clock and an inbound trace context
+    (`{"trace_id", "parent"}`, carried as attrs of the request's spans)."""
 
     def __init__(self, req_id, prompt_ids, max_new: int = 32,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 0.0, eos_id: int = -1, seed: int = 0,
+                 top_p: float = 0.0, eos_id: int = -1, rng=None,
                  deadline: Optional[float] = None,
-                 trace: Optional[dict] = None):
+                 trace: Optional[dict] = None,
+                 seed: Optional[int] = None):
         self.req_id = req_id
         self.trace = dict(trace) if trace else None
         self.prompt_ids = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -197,7 +204,10 @@ class Request:
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         self.eos_id = int(eos_id)
-        self.seed = int(seed)
+        if rng is not None:
+            self.rng = prng.as_key(rng, device="cpu")
+        else:
+            self.rng = prng.PRNGKey(0 if seed is None else seed)
         self.deadline = None if deadline is None else float(deadline)
         # the tokens it had emitted when it was last preempted: the replay
         # re-emits them, and a cancel or deadline before it catches up
@@ -216,7 +226,8 @@ class Request:
         return {"req_id": self.req_id, "prompt_ids": self.prompt_ids.copy(),
                 "max_new": self.max_new, "temperature": self.temperature,
                 "top_k": self.top_k, "top_p": self.top_p,
-                "eos_id": self.eos_id, "seed": self.seed,
+                "eos_id": self.eos_id,
+                "rng": self.rng.numpy().astype(np.uint32),
                 "deadline": self.deadline, "trace": self.trace,
                 "preempted_gen": (None if self._preempted_gen is None
                                   else list(self._preempted_gen))}
@@ -225,21 +236,12 @@ class Request:
     def from_snapshot(cls, d: dict) -> "Request":
         r = cls(d["req_id"], d["prompt_ids"], max_new=d["max_new"],
                 temperature=d["temperature"], top_k=d["top_k"],
-                top_p=d["top_p"], eos_id=d["eos_id"], seed=d["seed"],
-                deadline=d["deadline"], trace=d.get("trace"))
+                top_p=d["top_p"], eos_id=d["eos_id"], rng=d.get("rng"),
+                seed=d.get("seed"), deadline=d["deadline"],
+                trace=d.get("trace"))
         r._preempted_gen = (None if d["preempted_gen"] is None
                             else list(d["preempted_gen"]))
         return r
-
-
-class PhiloxNoise:
-    """The default noise source: Gumbel noise for token g of a request,
-    drawn from a torch.Generator on the device (Philox on CUDA) seeded
-    from (request.seed, g) (graph/lm_decode.py `gumbel_noise`)."""
-
-    def __call__(self, req: Request, g: int, vocab: int,
-                 device: torch.device) -> torch.Tensor:
-        return gumbel_noise(req.seed, g, (vocab,), device)
 
 
 class _Slot:
@@ -303,7 +305,7 @@ class ServingEngine:
                                spill_bytes_budget=spill_bytes_budget)
         self.prefix: Optional[PrefixTree] = None
         self.set_prefix_cache(prefix_cache)
-        self.noise: NoiseFn = noise if noise is not None else PhiloxNoise()
+        self.noise: Optional[NoiseFn] = noise
         self.queue: deque[Request] = deque()
         self.slots: list[Optional[_Slot]] = [None] * num_slots
         # finished-but-uncollected outputs and why each ended ("stop",
@@ -354,6 +356,12 @@ class ServingEngine:
         self._d_table = torch.zeros(
             (num_slots + 1, self.kv.pages_per_slot), dtype=torch.int32,
             device=self.device)
+        # each slot's request key, staged at admission (a captured window
+        # reads it), and the eager steps' noise draws by chain length K
+        # (`_draw_noise`: the generations' buffer, the graph, its output)
+        self._d_keys = torch.zeros((num_slots, 2), dtype=torch.int64,
+                                   device=self.device)
+        self._noise_draws: dict[int, tuple] = {}
         self.n_scan_flushes = 0             # multi-step windows run
         self.n_scan_steps = 0               # decode bodies in them (k each)
         # tokens banked for one slot of a window arrive in a burst of
@@ -954,8 +962,8 @@ class ServingEngine:
         for s, d in enumerate(snap["slots"]):
             if d is None:
                 continue
-            sl = self.slots[s] = _Slot(Request.from_snapshot(d["req"]),
-                                       d["admit_seq"], d["pos"])
+            sl = self._occupy(s, _Slot(Request.from_snapshot(d["req"]),
+                                       d["admit_seq"], d["pos"]))
             sl.gen, sl.last_tok = d["gen"], d["last_tok"]
             sl.generated = list(d["generated"])
             sl.replay_until = d["replay_until"]
@@ -1170,7 +1178,7 @@ class ServingEngine:
         p = req.prompt_ids.size
         self._count_prefix(req, C, n_pp, p)
         self._admit_seq += 1
-        self.slots[s] = _Slot(req, self._admit_seq, pos=C)
+        self._occupy(s, _Slot(req, self._admit_seq, pos=C))
         self._tr_begin(req.req_id, "prefill",
                        chunk=int(self.prefill_chunk), prompt_len=p,
                        prefix_tokens=C)
@@ -1201,13 +1209,18 @@ class ServingEngine:
             self._tr_begin(req.req_id, "prefill", bucket=Lb)
             last, kv_new = self._prefill_prompt(req.prompt_ids, Lb)
         noise = None
-        if req.temperature > 0.0:
+        if req.temperature > 0.0 and self.noise is not None:
             noise = self.noise(req, 0, self.vocab, self.device)[None]
+        elif req.temperature > 0.0:
+            # generation 0 of the slot's key, staged here ahead of _occupy
+            self._d_keys[s].copy_(req.rng)
+            noise = self._draw_noise(
+                np.zeros((len(self.slots), 1), np.int64))[s]
         tok0 = int(pick_next(last, noise, req.temperature, req.top_k,
                              req.top_p, is_probs=self._probs)[0])
         self._pack(s, kv_new, C, p)
         self._admit_seq += 1
-        self.slots[s] = _Slot(req, self._admit_seq, pos=p)
+        self._occupy(s, _Slot(req, self._admit_seq, pos=p))
         self.flight.record("admit", req=str(req.req_id), slot=s,
                            bucket=Lb, prompt_len=p,
                            pages=int(self.kv.pages_for(p)))
@@ -1344,20 +1357,63 @@ class ServingEngine:
         all-zero row padding rows address — copied into its one buffer
         only when a host table write moved kv.version."""
         if self.kv.version != self._table_version:
-            self._d_table[:-1].copy_(torch.from_numpy(self.kv.table))
+            self._d_table[:-1].copy_(self._host(self.kv.table),
+                                     non_blocking=True)
             self._table_version = self.kv.version
         return self._d_table
 
+    def _host(self, a) -> torch.Tensor:
+        """A host array (or CPU tensor) as the source of a copy to the
+        engine's device that does not wait for the stream: on the card a
+        pinned copy of it (the caching host allocator keeps the block until
+        the transfer has run, and the transfer is ordered on the stream
+        like the kernels), elsewhere the array itself."""
+        t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        return t.pin_memory() if self.device.type == "cuda" else t
+
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        return self._host(a).to(self.device, non_blocking=True)
+
+    def _draw_noise(self, gens: np.ndarray) -> torch.Tensor:
+        """[S, K] generation counts -> the [S, K, V] Gumbel noise of each
+        slot's key of those generations, drawn on the device from the
+        staged keys.  On the card one replay of a graph per K (the draw is
+        ~280 small kernels, which eager launches would pay on the host every
+        sampling step); the result is the graph's and is overwritten by its
+        next replay."""
+        if self.device.type != "cuda":
+            return slot_noise(prng.fold_in(self._d_keys[:, None],
+                                           self._to_device(gens)), self.vocab)
+        K = gens.shape[1]
+        draw = self._noise_draws.get(K)
+        if draw is None:
+            buf = torch.zeros(gens.shape, dtype=torch.int64,
+                              device=self.device)
+            graph = StepGraph(new_pool(self.device))
+            out = graph.capture(lambda: slot_noise(
+                prng.fold_in(self._d_keys[:, None], buf), self.vocab))
+            draw = self._noise_draws[K] = (buf, graph, out)
+        buf, graph, out = draw
+        buf.copy_(self._host(gens), non_blocking=True)
+        graph.replay()
+        return out
+
+    def _occupy(self, s: int, slot: _Slot) -> _Slot:
+        """Slot `s` takes `slot`; its request key goes into the device key
+        buffer."""
+        self.slots[s] = slot
+        self._d_keys[s].copy_(slot.req.rng)
+        return slot
 
     def _sample(self, scores: torch.Tensor, emitting: list[int],
                 depth: Optional[dict] = None) -> np.ndarray:
         """Sample each slot's chain of scores [S, K, V] -> [S, K] tokens;
         only the emitting slots' knobs (and noise) are used, the other rows
         are discarded.  Chain position i of a sampling slot samples with
-        the noise of its generation gen + i, drawn for i up to
-        `depth[s]` (0 without it); later positions are never read."""
+        the noise of its generation gen + i (clipped to max_new - 1, as the
+        JAX verify step clips it), drawn on the device from the staged
+        keys; a `noise` hook's rows are filled for i up to `depth[s]` (0
+        without it), later positions are never read."""
         S, K, V = scores.shape
         temp = np.zeros(S, np.float32)
         top_k = np.zeros(S, np.int64)
@@ -1368,7 +1424,7 @@ class ServingEngine:
             temp[s], top_k[s], top_p[s] = req.temperature, req.top_k, \
                 req.top_p
         sampling = [s for s in emitting if temp[s] > 0.0]
-        if sampling:
+        if sampling and self.noise is not None:
             noise = torch.zeros((S, K, V), dtype=torch.float32,
                                 device=self.device)
             for s in sampling:
@@ -1376,6 +1432,13 @@ class ServingEngine:
                 for i in range((depth or {}).get(s, 0) + 1):
                     noise[s, i] = self.noise(sl.req, sl.gen + i, V,
                                              self.device)
+        elif sampling:
+            gens = np.zeros((S, K), np.int64)
+            for s in sampling:
+                sl = self.slots[s]
+                gens[s] = np.minimum(sl.gen + np.arange(K),
+                                     sl.req.max_new - 1)
+            noise = self._draw_noise(gens)
         nxt = pick_next_chain(scores, noise, self._to_device(temp),
                               self._to_device(top_k), self._to_device(top_p),
                               is_probs=self._probs,
@@ -1462,13 +1525,14 @@ class ServingEngine:
                 if req.temperature > 0.0:
                     sampling.append(s)
         self._sync_table()
-        win.ints.copy_(torch.from_numpy(ints))
-        win.floats.copy_(torch.from_numpy(floats))
-        for s in sampling:
-            sl = self.slots[s]
-            for i in range(min(k, sl.req.max_new - sl.gen)):
-                win.noise[i, s] = self.noise(sl.req, sl.gen + i, self.vocab,
-                                             self.device)
+        win.ints.copy_(self._host(ints), non_blocking=True)
+        win.floats.copy_(self._host(floats), non_blocking=True)
+        if self.noise is not None:
+            for s in sampling:
+                sl = self.slots[s]
+                for i in range(min(k, sl.req.max_new - sl.gen)):
+                    win.noise[i, s] = self.noise(sl.req, sl.gen + i,
+                                                 self.vocab, self.device)
         sampled = bool(sampling)
         cw = get_compile_watch()
         sig = (k, win.ints, self.splits)
@@ -1919,8 +1983,11 @@ class _Window:
     """The device state of one engine's windows of k bodies, and their
     graphs: per-slot integers (last token, position, generation count,
     run mask, eos id, max_new, top_k) and floats (temperature, top_p)
-    staged by the host at a window's start, the noise of the sampling
-    slots' k tokens, and the [k, S] token block the window writes."""
+    staged by the host at a window's start, and the [k, S] token block the
+    window writes.  A sampling window draws its k bodies' noise from the
+    engine's key buffer and the generation counts at its start; only a
+    `noise` hook's rows come through the [k, S, V] `noise` buffer, filled
+    by the host."""
 
     def __init__(self, eng: ServingEngine, k: int):
         S, dev = len(eng.slots), eng.device
@@ -1930,8 +1997,8 @@ class _Window:
         self.graphs: dict[bool, Optional[StepGraph]] = {}
         self.ints = torch.zeros((7, S), dtype=torch.int64, device=dev)
         self.floats = torch.zeros((2, S), dtype=torch.float32, device=dev)
-        self.noise = torch.zeros((k, S, eng.vocab), dtype=torch.float32,
-                                 device=dev)
+        self.noise = None if eng.noise is None else torch.zeros(
+            (k, S, eng.vocab), dtype=torch.float32, device=dev)
         self.block = torch.zeros((k, S), dtype=torch.int32, device=dev)
         self.ones = torch.ones(S, dtype=torch.int32, device=dev)
 
@@ -1948,6 +2015,14 @@ class _Window:
         tok, pos, gen, run, eos, max_new, top_k = self.ints
         temp, top_p = self.floats
         table = eng._d_table[:S]
+        noise = self.noise
+        if sampling and noise is None:
+            # every body's noise in one draw: a running slot's generation
+            # at body i is gen + i (the others' rows are discarded)
+            g = gen[:, None] + torch.arange(self.k, device=gen.device)
+            noise = slot_noise(prng.fold_in(
+                eng._d_keys[:, None], torch.minimum(g, max_new[:, None] - 1)),
+                eng.vocab).transpose(0, 1)
         for i in range(self.k):
             state = {name: {"k_pages": p["k"], "v_pages": p["v"],
                             "page_table": table, "pos": pos,
@@ -1959,7 +2034,7 @@ class _Window:
                                                  TEST)
             nxt = pick_next_per_slot(
                 outputs[eng.logits_name].value[:, 0, :],
-                self.noise[i] if sampling else None, temp, top_k, top_p,
+                noise[i] if sampling else None, temp, top_k, top_p,
                 is_probs=eng._probs, any_sampling=sampling)
             self.block[i].copy_(nxt)
             nxt = nxt.to(torch.int64)

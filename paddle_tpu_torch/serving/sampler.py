@@ -4,8 +4,9 @@ paddle_tpu/serving/sampler.py.
 Knobs ride [S] tensors; each sampling slot's randomness arrives as a row
 of Gumbel noise, so row s returns argmax(filtered_scores[s] / temp +
 noise[s]) — what `jax.random.categorical(key, scores[None])` computes
-with the noise gumbel(key, (1, V)).  Fed the same noise, the two
-samplers pick the same tokens; the tie order of the filters is kept:
+with the noise gumbel(key, (1, V)), which `slot_noise` draws for [S] keys
+at once.  Fed the same noise, the two samplers pick the same tokens; the
+tie order of the filters is kept:
   * top-k ranks by value descending, ties by index ascending (lax.top_k);
   * the nucleus cut orders by a stable ascending sort flipped, so ties
     come out index-descending (argsort(...)[:, ::-1];
@@ -20,6 +21,14 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.graph.lm_decode import nucleus_filter
+from paddle_tpu_torch.utils import prng
+
+
+def slot_noise(keys: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[..., 2] per-slot keys -> [..., vocab] float32 Gumbel noise, row s
+    gumbel(keys[s], (vocab,)): bit for bit the JAX sampler's per-slot draw
+    gumbel(keys[s], (1, vocab))[0] (bits count over the flat index)."""
+    return prng.gumbel(keys, (vocab,))
 
 
 def greedy_next(last: torch.Tensor) -> torch.Tensor:

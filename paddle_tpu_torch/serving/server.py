@@ -1383,7 +1383,8 @@ class ServingServer:
                        top_k=int(msg.get("top_k", 0)),
                        top_p=float(msg.get("top_p", 0.0)),
                        eos_id=int(msg.get("eos_id", -1)),
-                       seed=int(msg.get("seed") or 0), deadline=deadline,
+                       seed=(None if msg.get("seed") is None
+                             else int(msg["seed"])), deadline=deadline,
                        trace=trace)
 
     def _handle_stats(self, conn: _Conn, msg: dict) -> None:

@@ -9,9 +9,9 @@ the nested state trees flattened with `|` and sorted dict keys:
 `opt|num_updates`, `opt|pass_id` (0-d int32, as JAX writes them), under
 gradient accumulation `opt|grad_accum|<name>`, `opt|grad_accum_count` and
 `opt|grad_accum_samples`, under pruning `opt|masks|<name>`, `net|...`,
-`rng` when one was loaded from a JAX checkpoint, and `dropout_rng` (the
-state bytes of the port's dropout generator, which the JAX loader ignores
-as the port ignores the meaning of `rng`).  The write is staged under
+and `rng`, the trainer's threefry key (uint32 [2], as JAX writes it).  An
+older port checkpoint's `dropout_rng` (a torch generator's state) is
+loaded but read by nothing.  The write is staged under
 `<dir>.tmp` and committed with one rename; an existing pass is moved aside
 first and dropped only after the commit.
 """
@@ -92,8 +92,7 @@ def save_checkpoint(save_dir: str, pass_id: int, params: dict,
                     opt_state: Optional[dict] = None,
                     net_state: Optional[dict] = None,
                     config_json: Optional[str] = None, keep_last: int = 0,
-                    rng: Optional[np.ndarray] = None,
-                    dropout_rng: Optional[torch.Tensor] = None) -> str:
+                    rng: Optional[np.ndarray] = None) -> str:
     """Write pass-%05d/{model.npz, trainer_config.json} atomically; returns
     the pass directory."""
     d = pass_dir(save_dir, pass_id)
@@ -108,8 +107,6 @@ def save_checkpoint(save_dir: str, pass_id: int, params: dict,
         flat.update(_flatten(net_state, "net"))
     if rng is not None:
         flat["rng"] = np.asarray(rng)
-    if dropout_rng is not None:
-        flat["dropout_rng"] = _to_numpy(dropout_rng)
     tmp_npz = os.path.join(tmp_d, "model.npz.part")
     with open(tmp_npz, "wb") as f:
         np.savez(f, **flat)

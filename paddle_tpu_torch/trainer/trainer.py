@@ -15,7 +15,7 @@ batches of one signature (`_batch_signature`) go in groups of at most k,
 flushed early when the signature changes, so updates apply in arrival
 order.  On the card a group of j steps is one replay of a CUDA graph of j
 steps of that signature (`utils/cuda_graphs.py`; one memory pool for all of
-a trainer's graphs, the dropout generator registered with each): the
+a trainer's graphs; the steps' keys staged into a buffer of each): the
 group's batches are copied into the graph's input tensors and the graph
 runs the j steps, as the reference runs a group in one k-step `lax.scan`.
 So n same-signature batches take ceil(n/k) replays, and a signature has a
@@ -25,7 +25,7 @@ runs the step eagerly and is kept, as the k = 1 loop runs it (the
 reference's settling dispatch; a warm-up before capture would apply extra
 updates), and the rest of its group replays.  On the CPU the same step
 runs uncaptured, batch by batch.  Losses, parameters, optimizer state,
-evaluator sums, the dropout generator and the layer state end where k = 1
+evaluator sums, the trainer's key and the layer state end where k = 1
 leaves them, bit for bit.
 
 Layer state (`net_state`: the batch-norm moving mean, variance and count,
@@ -156,6 +156,7 @@ from paddle_tpu_torch.parameter.argument import Argument
 from paddle_tpu_torch.parameter.init import init_params
 from paddle_tpu_torch.trainer import checkpoint as ckpt
 from paddle_tpu_torch.trainer.evaluators import EvaluatorSet
+from paddle_tpu_torch.utils import prng
 from paddle_tpu_torch.utils.cuda_graphs import StepGraph, new_pool
 from paddle_tpu_torch.utils.flags import FLAGS
 from paddle_tpu_torch.utils.logger import get_logger
@@ -291,13 +292,12 @@ class Trainer:
              for n in (p.name for p in self.model.parameters)})
         self.opt_state = self.updater.init_state(self.params)
         self.net_state: dict[str, Any] = {}
-        # a JAX PRNG key carried through a loaded checkpoint, unused here:
-        # the port's own random stream (training-time dropout) is this
-        # generator, saved with a checkpoint and restored on the same kind
-        # of device
-        self.rng: Optional[np.ndarray] = None
-        self.dropout_rng = torch.Generator(device=self.device)
-        self.dropout_rng.manual_seed(int(seed))
+        # the threefry key (a CPU tensor, utils/prng.py), split once per
+        # training step, test() and timed step where the JAX trainer
+        # splits its own; an eager step's key stays on the host, a
+        # captured group's keys are staged into a device buffer
+        self.rng = prng.PRNGKey(seed)
+        self._last_rng: Optional[torch.Tensor] = None
         self.pass_id = 0
         self._static = self.executor.static_param_names
         self._data_layers = {l.name: l for l in self.model.layers
@@ -427,19 +427,31 @@ class Trainer:
             raise ValueError(f"feeds disagree on batch size: {sorted(sizes)}")
         return out
 
+    def _next_key(self) -> torch.Tensor:
+        """A training step's key: `self.rng` split in two, the second half
+        the step's (the JAX trainer's `self.rng, key = split(self.rng)`)."""
+        self.rng, key = prng.split(self.rng)
+        return key
+
     def compute_gradients(self, batch: Batch,
-                          dropout_masks: Optional[dict] = None):
+                          dropout_masks: Optional[dict] = None,
+                          rng: Optional[torch.Tensor] = None):
         """The TRAIN loss of a prepared batch and d loss / d param for every
-        trainable parameter: (loss, grads, outputs).  Dropout masks come
-        from the trainer's generator unless `dropout_masks` gives a layer's
-        keep-mask."""
+        trainable parameter: (loss, grads, outputs).  Dropout masks are
+        drawn from the key `rng` (default: the trainer's next step key)
+        unless `dropout_masks` gives a layer's keep-mask."""
+        if rng is None:
+            rng = self._next_key()
+        # a host key stays on the host: its folds per layer run there, and
+        # each draw moves its layer key to the device (a captured step's
+        # keys are already there)
+        self._last_rng = rng
         leaves = {n: (p.detach() if n in self._static
                       else p.detach().requires_grad_(True))
                   for n, p in self.params.items()}
         probes = dict.fromkeys(self._probes) if self._probes else None
         loss, (outputs, _, new_net) = self.executor.loss(
-            leaves, batch, self.net_state, TRAIN, self.dropout_rng,
-            dropout_masks, probes)
+            leaves, batch, self.net_state, TRAIN, rng, dropout_masks, probes)
         names = [n for n in leaves if n not in self._static]
         wrt = [leaves[n] for n in names]
         if probes:
@@ -476,7 +488,8 @@ class Trainer:
                     f"it")
             self.net_state[name] = _own_copy(tree)
 
-    def _step(self, batch: Batch, dropout_masks: Optional[dict] = None):
+    def _step(self, batch: Batch, dropout_masks: Optional[dict],
+              rng: torch.Tensor):
         """The training step on a prepared batch, on the device and with no
         host read: forward, gradients, the in-place update (the updater's
         device counters advance, the averages follow), the evaluators'
@@ -484,8 +497,8 @@ class Trainer:
         evaluators read).  `train_one_batch` runs it eagerly; the fused
         dispatch captures it."""
         with self._cudnn():
-            loss, grads, outputs = self.compute_gradients(batch,
-                                                          dropout_masks)
+            loss, grads, outputs = self.compute_gradients(
+                batch, dropout_masks, rng)
             self.updater.apply(self.params, grads, self.opt_state,
                                _batch_size(batch))
             with torch.no_grad():
@@ -533,24 +546,25 @@ class Trainer:
         if len(self._loss_buf) >= max(int(self.nonfinite_check_period), 1):
             self._drained_cost += self._drain_losses()
 
-    def _eager(self, batch: Batch, dropout_masks: Optional[dict] = None
-               ) -> torch.Tensor:
+    def _eager(self, batch: Batch, dropout_masks: Optional[dict] = None,
+               rng: Optional[torch.Tensor] = None) -> torch.Tensor:
         self.updater.load_counters(self.opt_state, self.device)
-        loss, partials, host_out = self._step(batch, dropout_masks)
+        loss, partials, host_out = self._step(
+            batch, dropout_masks, self._next_key() if rng is None else rng)
         self._commit(loss, partials, host_out, batch)
         return loss
 
-    def _run_step(self, batch: Batch, dropout_masks: Optional[dict] = None
-                  ) -> torch.Tensor:
-        """One eager step, watched as `trainer.train_step` (a signature's
-        first run is its compile event; the later ones are timed
-        dispatches)."""
+    def _run_step(self, batch: Batch, dropout_masks: Optional[dict] = None,
+                  rng: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One eager step with the key `rng` (default: the next step key),
+        watched as `trainer.train_step` (a signature's first run is its
+        compile event; the later ones are timed dispatches)."""
         sig = self._batch_signature(batch, dropout_masks)
         timer = (self.barrier_stat.time_dispatch() if sig in self._seen
                  else contextlib.nullcontext())
         self._seen.add(sig)
         with get_compile_watch().observe("trainer.train_step", sig), timer:
-            return self._eager(batch, dropout_masks)
+            return self._eager(batch, dropout_masks, rng)
 
     def train_one_batch(self, batch: Batch,
                         dropout_masks: Optional[dict] = None
@@ -608,7 +622,7 @@ class Trainer:
         seconds, samples_per_sec).  `steps_per_dispatch=k > 1` runs the
         fused dispatch (module docstring), with results identical to
         k = 1.  `dropout_masks` gives each batch's keep-masks by layer (one
-        dict per batch) in place of draws from `dropout_rng`.  Every
+        dict per batch) in place of draws from the step keys.  Every
         `log_period` batches the cost so far is logged."""
         k = 1 if steps_per_dispatch is None else int(steps_per_dispatch)
         if k < 1:
@@ -649,7 +663,7 @@ class Trainer:
                                              group)
                     j = len(group)
                     n_batches += j
-                    n_samples += sum(_batch_size(b) for b, _ in group)
+                    n_samples += sum(_batch_size(g[0]) for g in group)
                     if log_period and (n_batches // log_period
                                        != (n_batches - j) // log_period):
                         self._log_progress(n_batches)
@@ -744,9 +758,11 @@ class Trainer:
         return feeds, masks
 
     def _host_groups(self, batches: Iterable[Batch], masks, k: int):
-        """[(batch, masks), ...] groups of at most k consecutive batches of
-        one signature (of the feeds and masks as given, before they are
-        moved to the device), in arrival order."""
+        """[(batch, masks, key), ...] groups of at most k consecutive
+        batches of one signature (of the feeds and masks as given, before
+        they are moved to the device), in arrival order, each batch's step
+        key split from `self.rng` as it arrives (as the JAX fused pass
+        pre-splits them)."""
         pending: list = []
         sig = None
         for batch in batches:
@@ -756,7 +772,7 @@ class Trainer:
                 yield pending
                 pending = []
             sig = s
-            pending.append((batch, m))
+            pending.append((batch, m, self._next_key()))
         if pending:
             yield pending
 
@@ -765,16 +781,16 @@ class Trainer:
         checked and moved to the device, ([(prepared batch, masks), ...],
         the event recorded after its copies on the side stream, or None
         off the card)."""
-        def place(batch, m, pinned):
+        def place(batch, m, key, pinned):
             return (self.prepare_batch(batch, pinned),
                     None if m is None else {
                         n: _as_tensor(v, self.device, pinned)
-                        for n, v in m.items()})
+                        for n, v in m.items()}, key)
         with self.barrier_stat.time_h2d():
             if self._copy_stream is None:
-                return [place(b, m, False) for b, m in group], None
+                return [place(*g, False) for g in group], None
             with torch.cuda.stream(self._copy_stream):
-                staged = [place(b, m, True) for b, m in group]
+                staged = [place(*g, True) for g in group]
                 ready = torch.cuda.Event()
                 ready.record(self._copy_stream)
         return staged, ready
@@ -788,10 +804,10 @@ class Trainer:
         if ready is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ready)
-            for batch, m in group:
+            for batch, m, _ in group:
                 for t in _tensors(batch, m):
                     t.record_stream(stream)
-        return self._batch_signature(*group[0])
+        return self._batch_signature(*group[0][:2])
 
     def _dispatch_fused(self, sig: tuple, group: list) -> torch.Tensor:
         """One group: on the CPU the step once per batch, uncaptured; on the
@@ -808,7 +824,7 @@ class Trainer:
                      else contextlib.nullcontext())
             self._seen.add(key)
             with cw.observe("trainer.fused_step", *key), timer:
-                return torch.stack([self._eager(b, m) for b, m in group])
+                return torch.stack([self._eager(*g) for g in group])
         settle = []
         if self._settled.get(sig) != _layout(self.net_state):
             settle = [self._run_step(*group[0])]
@@ -832,7 +848,7 @@ class Trainer:
         # or the next load (the feeds the host evaluators read): each
         # step's own outputs, copied on the device
         losses = steps.losses.clone()
-        for i, (batch, _) in enumerate(group):
+        for i, (batch, _, _) in enumerate(group):
             host_out = {n: _cloned(a)
                         for n, a in steps.host_outs[i].items()}
             self._commit(losses[i], steps.partials[i], host_out, batch)
@@ -857,6 +873,8 @@ class Trainer:
             batches = self._feeder(self.config.test_data_config,
                                    False).batches()
         params = self.updater.averaged_params(self.params, self.opt_state)
+        # one split a call, as the JAX trainer's test() takes one
+        self.rng, key = prng.split(self.rng)
         acc: dict = {}
         host_acc = self.evaluators.new_host_state()
         total, n = 0.0, 0
@@ -867,7 +885,7 @@ class Trainer:
                 with self._cudnn(), cw.observe("trainer.eval_step",
                                                self._batch_signature(batch)):
                     loss, (outputs, _, _) = self.executor.loss(
-                        params, batch, self.net_state, TEST)
+                        params, batch, self.net_state, TEST, key)
                 bsz = _batch_size(batch)
                 total += float(loss) * bsz
                 n += bsz
@@ -900,15 +918,14 @@ class Trainer:
     def diagnose_nonfinite(self, batch: Batch) -> str:
         """The first layer, in config order, whose output is not finite:
         the TRAIN forward re-run on `batch` with the post-update
-        parameters (dropout from a generator of its own, the trainer's
-        stream untouched), in the reference's words (its gLayerStackTrace
-        analog)."""
+        parameters and the last step's key (PRNGKey(0) before any step),
+        in the reference's words (its gLayerStackTrace analog)."""
         batch = self.prepare_batch(batch)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(0)
+        key = self._last_rng if self._last_rng is not None \
+            else prng.PRNGKey(0)
         with self._cudnn():
             outputs, costs, _ = self.executor.forward(
-                self.params, batch, self.net_state, TRAIN, gen)
+                self.params, batch, self.net_state, TRAIN, key)
         for layer in self.model.layers:
             arg = outputs.get(layer.name)
             if arg is None or arg.value is None:
@@ -959,6 +976,7 @@ class Trainer:
                         detect_kinks: bool = False) -> dict[str, float]:
         saved = self.executor.compute_dtype
         self.executor.compute_dtype = ""
+        key = prng.PRNGKey(7)
         try:
             if f64:
                 params = {k: _f64(v) for k, v in self.params.items()}
@@ -972,14 +990,14 @@ class Trainer:
             def loss_fn(p):
                 with self._cudnn():
                     return float(self.executor.loss(p, batch, state,
-                                                    TEST)[0])
+                                                    TEST, key)[0])
 
             leaves = {n: (p.detach() if n in self._static
                           else p.detach().requires_grad_(True))
                       for n, p in params.items()}
             trained = [n for n in leaves if n not in self._static]
             with self._cudnn():
-                loss = self.executor.loss(leaves, batch, state, TEST,
+                loss = self.executor.loss(leaves, batch, state, TEST, key,
                                           differentiable=True)[0]
             got = torch.autograd.grad(loss, [leaves[n] for n in trained],
                                       allow_unused=True)
@@ -1090,9 +1108,10 @@ class Trainer:
             raise ValueError("benchmark needs at least one timed batch")
         n_samples = sum(_batch_size(b) for b in timed)
         if scan:
-            group = [(self.prepare_batch(b), None) for b in timed]
-            sig = self._batch_signature(*group[0])
-            if any(self._batch_signature(*g) != sig for g in group):
+            group = [(self.prepare_batch(b), None, self._next_key())
+                     for b in timed]
+            sig = self._batch_signature(group[0][0])
+            if any(self._batch_signature(g[0]) != sig for g in group):
                 raise ValueError("benchmark(scan=True) runs one group: its "
                                  "batches need one signature")
             if self._settled.get(sig) != _layout(self.net_state):
@@ -1130,8 +1149,7 @@ class Trainer:
         return ckpt.save_checkpoint(
             save_dir, self.pass_id - 1, self.params, self.opt_state,
             self.net_state, config_json=self.config.to_json(),
-            keep_last=keep_last, rng=self.rng,
-            dropout_rng=self.dropout_rng.get_state())
+            keep_last=keep_last, rng=self.rng.numpy().astype(np.uint32))
 
     def load(self, path: str) -> None:
         """Load parameters, optimizer state, layer state and pass numbering
@@ -1154,13 +1172,10 @@ class Trainer:
         if data.get("net"):
             self.net_state = _tensor_tree(data["net"], self.device)
         if data.get("rng") is not None:
-            self.rng = data["rng"]
-        state = data.get("dropout_rng")
-        if state is not None and (
-                state.size == self.dropout_rng.get_state().numel()):
-            # a generator's state is its device kind's own: a checkpoint
-            # from the other kind keeps this trainer's seeded stream
-            self.dropout_rng.set_state(torch.from_numpy(state.copy()))
+            # the key stream continues where the saving run left it (an
+            # older port checkpoint's `dropout_rng` generator state is
+            # not read)
+            self.rng = prng.as_key(data["rng"], device="cpu")
         if "pass_id" in data:
             self.pass_id = data["pass_id"] + 1
 
@@ -1194,11 +1209,13 @@ class _CapturedSteps:
                                       sub_lengths=own(a.sub_lengths),
                                       sparse_vals=own(a.sparse_vals),
                                       sparse_dim=a.sparse_dim)
-                       for name, a in batch.items()} for batch, _ in group]
+                       for name, a in batch.items()} for batch, _, _ in group]
         self.masks = [None if m is None else {n: v.clone()
                                               for n, v in m.items()}
-                      for _, m in group]
-        self.graph = StepGraph(trainer._pool, [trainer.dropout_rng])
+                      for _, m, _ in group]
+        # the steps' keys, staged by load() before every replay
+        self.keys = torch.stack([k for _, _, k in group]).to(trainer.device)
+        self.graph = StepGraph(trainer._pool)
         # the trainer's tensors the graph reads and writes in place: kept
         # alive here (a graph writing a freed tensor corrupts whatever the
         # allocator puts there next), and a trainer that replaced one
@@ -1206,8 +1223,8 @@ class _CapturedSteps:
         self.state = _state_tensors(trainer)
 
         def steps():
-            out = [trainer._step(f, m) for f, m in zip(self.feeds,
-                                                      self.masks)]
+            out = [trainer._step(f, m, k) for f, m, k in
+                   zip(self.feeds, self.masks, self.keys)]
             return (torch.stack([o[0] for o in out]), [o[1] for o in out],
                     [o[2] for o in out])
 
@@ -1221,8 +1238,9 @@ class _CapturedSteps:
             a is b for a, b in zip(now, self.state))
 
     def load(self, group: list) -> None:
-        for feed, step_masks, (batch, masks) in zip(self.feeds, self.masks,
-                                                    group):
+        self.keys.copy_(torch.stack([k for _, _, k in group]))
+        for feed, step_masks, (batch, masks, _) in zip(self.feeds,
+                                                       self.masks, group):
             for name, a in batch.items():
                 mine = feed[name]
                 for dst, src in ((mine.value, a.value), (mine.ids, a.ids),

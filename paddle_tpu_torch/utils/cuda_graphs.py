@@ -21,7 +21,7 @@ running the steps eagerly.
 from __future__ import annotations
 
 import gc
-from typing import Callable, Iterable, Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -30,16 +30,12 @@ class StepGraph:
     """One captured run of steps.  `pool` is a
     `torch.cuda.graph_pool_handle()` the graphs of one owner share (safe
     while they all replay on one stream and the owner has read a replay's
-    outputs before the next replay); `generators` are the CUDA generators
-    the steps draw from besides the default one (registered, so that every
-    replay advances each of them as the eager steps would)."""
+    outputs before the next replay).  Random draws inside the steps come
+    from threefry keys in tensors the owner stages (utils/prng.py), never
+    from a torch generator."""
 
-    def __init__(self, pool=None,
-                 generators: Iterable[torch.Generator] = ()):
+    def __init__(self, pool=None):
         self.graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            if gen.device.type == "cuda":
-                self.graph.register_generator_state(gen)
         self.pool = pool
         self.replays = 0
 

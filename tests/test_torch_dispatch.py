@@ -126,7 +126,7 @@ def _state(tr):
              for n, sl in tr.opt_state["slots"].items()},
             {k: tr.opt_state[k] for k in ("num_samples", "num_updates",
                                           "pass_id")},
-            tr.dropout_rng.get_state().clone())
+            tr.rng.clone())
 
 
 def _assert_same_state(a, b):

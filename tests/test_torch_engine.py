@@ -142,9 +142,9 @@ def test_engine_eos_and_token_budget_match_jax():
 
 
 def test_default_noise_is_per_request_and_deterministic():
-    """The default Philox-style noise depends on (seed, token index) only:
-    the same sampled request gives the same tokens alone or beside
-    others, and another seed gives other tokens."""
+    """The default noise (the request key's threefry draws) depends on
+    (key, token index) only: the same sampled request gives the same
+    tokens alone or beside others, and another seed gives other tokens."""
     _, ex, params = _model("")
     p = _prompts((7,), 61, seed=4)[0]
     kw = dict(max_new=12, temperature=1.5)

@@ -266,8 +266,7 @@ def test_k4_over_the_feeder_equals_k1_bit_for_bit(path, args, n, one_thread):
     bad = [n for n in a if not torch.equal(a[n], b[n])]
     assert not bad, bad[:5]
     assert one.opt_state["num_updates"] == four.opt_state["num_updates"]
-    assert torch.equal(one.dropout_rng.get_state(),
-                       four.dropout_rng.get_state())
+    assert torch.equal(one.rng, four.rng)
     assert n // 4 <= four.n_fused_dispatches < n
     if cfg.test_data_config is not None:
         assert one.test() == four.test()

@@ -19,6 +19,7 @@ from paddle_tpu_torch.models import transformer_lm_config
 from paddle_tpu_torch.ops import attention as tattn
 from paddle_tpu_torch.ops.activations import activation
 from paddle_tpu_torch.parameter import Argument, params_from_jax
+from paddle_tpu_torch.utils import prng
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -385,7 +386,7 @@ def _dropout_ctx(mode, seed=None, masks=None, shape=(64, 64)):
     ctx = ForwardContext(model=None, params={}, mode=mode,
                          dropout_masks=masks or {})
     if seed is not None:
-        ctx.rng = torch.Generator().manual_seed(seed)
+        ctx.rng = prng.PRNGKey(seed)
     ctx.outputs["x"] = Argument(value=torch.ones(shape))
     return ctx
 
@@ -409,8 +410,9 @@ def test_dropout_test_mode_scales_by_the_keep_rate():
 @pytest.mark.parametrize("p", [0.5, 0.2], ids=["p0.5", "p0.2"])
 def test_dropout_train_mask_statistics_and_seed(p):
     """TRAIN multiplies by a 0/1 keep-mask (no rescaling) whose keep rate
-    is within 3 sigma of 1 - p; the same generator seed gives the same
-    mask, another seed another; successive layers draw different masks."""
+    is within 3 sigma of 1 - p; the same key gives the same mask, another
+    key another; successive layers draw different masks; the mask is the
+    JAX layer's draw bernoulli(fold_in(key, 1), 1 - p), bit for bit."""
     from paddle_tpu_torch.graph.registry import get_layer_fn
     addto = get_layer_fn("addto")
     a = addto(_dropout_ctx("train", seed=5), _dropout_layer(p)).value
@@ -425,6 +427,9 @@ def test_dropout_train_mask_statistics_and_seed(p):
     first = addto(ctx, _dropout_layer(p)).value
     second = addto(ctx, _dropout_layer(p)).value
     assert torch.equal(first, a) and not torch.equal(second, first)
+    want = jax.random.bernoulli(jax.random.fold_in(jax.random.PRNGKey(5), 1),
+                                1.0 - p, (64, 64))
+    assert np.array_equal(a.numpy() == 1.0, np.asarray(want))
 
 
 def test_dropout_mask_injection_and_its_errors():

@@ -8,6 +8,8 @@ Small size: vocabulary 50, hid_dim 32 (lstm hidden 8) for the stacked net
 lengths.  On CPU tensors the port's lstmemory runs the kernels' plain
 version; the JAX side runs its lax.scan route."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,7 @@ from paddle_tpu_torch.ops import lstm_fused as lf
 from paddle_tpu_torch.parameter import (Argument, opt_state_from_jax,
                                         params_from_jax)
 from paddle_tpu_torch.trainer import Trainer
+from paddle_tpu_torch.utils import prng
 
 CONFIG = "demo/sentiment/trainer_config.py"
 VOCAB, HID, BATCH, T = 50, 32, 4, 9
@@ -229,8 +232,10 @@ def test_trainer_test_matches_jax():
 def test_checkpoints_load_on_both_sides(tmp_path):
     """A JAX save() of the stacked net loads in the port (parameters, Adam
     slots, counters; the [D, 4D] recurrent weights and [1, 7D] biases by
-    name) and the reverse; the port's dropout generator rides in the
-    checkpoint and a fresh port Trainer resumes its stream."""
+    name) and the reverse; the trainer's threefry key rides in the
+    checkpoint both ways and a fresh port Trainer resumes its stream; a
+    port checkpoint of the older layout, with a `dropout_rng` generator
+    state beside the key, still loads and the field is not read."""
     args, build = NETS["stacked"]
     jtr = JTrainer(parse_config(CONFIG, args), seed=3)
     b1, b2 = _batches(2, seed=8)
@@ -259,28 +264,37 @@ def test_checkpoints_load_on_both_sides(tmp_path):
 
     fresh = Trainer(build(), device="cpu", seed=99)
     fresh.load(tdir)
-    assert torch.equal(fresh.dropout_rng.get_state(),
-                       ttr.dropout_rng.get_state())
+    assert torch.equal(fresh.rng, ttr.rng)
+    npz = os.path.join(tdir, "model.npz")
+    with np.load(npz) as z:
+        flat = {k: z[k] for k in z.files}
+    flat["dropout_rng"] = torch.Generator().manual_seed(5).get_state() \
+        .numpy()
+    np.savez(npz, **flat)
+    old = Trainer(build(), device="cpu", seed=98)
+    old.load(tdir)
+    assert torch.equal(old.rng, ttr.rng)
     a = ttr.train_one_batch(_tbatch(b1))
     b = fresh.train_one_batch(_tbatch(b1))
     assert float(a) == float(b)          # same parameters, same masks
 
 
 def test_dropout_stream_follows_the_trainer_seed():
-    """The same seed gives the same training losses (same masks), another
-    seed other masks; test() draws nothing."""
+    """The same key gives the same training losses (same masks), another
+    key other masks; test() splits the key once, as the JAX trainer does,
+    and its TEST forward draws no mask."""
     _, build = NETS["stacked"]
     b = _batches(1, seed=10)[0]
 
     def losses(seed):
         tr = Trainer(build(), device="cpu", seed=1)
-        tr.dropout_rng.manual_seed(seed)
+        tr.rng = prng.PRNGKey(seed)
         for name, p in tr.params.items():       # wake the zero lstm edges
             if not p.any():
                 tr.params[name] = torch.full_like(p, 0.05)
-        state = tr.dropout_rng.get_state()
+        key = tr.rng.clone()
         tr.test([_tbatch(b)])
-        assert torch.equal(tr.dropout_rng.get_state(), state)
+        assert torch.equal(tr.rng, prng.split(key)[0])
         return [float(tr.train_one_batch(_tbatch(b))) for _ in range(2)]
 
     assert losses(5) == losses(5)

@@ -231,7 +231,8 @@ def test_checkpoints_load_on_both_sides(tmp_path):
 
 def test_port_checkpoint_round_trip_is_exact(tmp_path):
     """save() -> a fresh Trainer's load() gives identical parameters,
-    slots and counters; a model never given a JAX rng writes none."""
+    slots, counters and threefry key, which is written as the JAX trainer
+    writes it (uint32 [2])."""
     ttr = Trainer(_port_cfg(), device="cpu", seed=4)
     ttr.train_one_pass([_tbatch(b) for b in _batches(2, seed=1)])
     d = ttr.save(str(tmp_path))
@@ -246,8 +247,10 @@ def test_port_checkpoint_round_trip_is_exact(tmp_path):
                                             "pass_id")} == \
         {k: ttr.opt_state[k] for k in ("num_samples", "num_updates",
                                        "pass_id")}
+    assert torch.equal(fresh.rng, ttr.rng)
     with np.load(f"{d}/model.npz") as z:
-        assert "rng" not in z.files
+        assert z["rng"].dtype == np.uint32
+        assert np.array_equal(z["rng"], ttr.rng.numpy())
         assert z["opt|num_updates"].dtype == np.int32
 
 
